@@ -7,11 +7,17 @@ Phases:
   1. device: card name, power limit (nvidia-smi) and the TF32 flags set here;
   2. build: nvcc builds every kernel from usdm_tpu_torch/csrc/;
   3. kernels: each hand-written kernel against its plain PyTorch version on
-     the card, at the shapes the main path gives it, with the stated bound,
+     the card, at the shapes the main paths give it, with the stated bound,
      plus CUDA-event times of both;
   4. slice: a full-width random UsdmPipeline (Mistral-7B bf16, XLS-R 1B,
      Voicebox, BigVGAN) runs two greedy respond() turns with stage budgets
-     pinned at 48/32/256 tokens; every kernel must have launched.
+     pinned at 48/32/256 tokens; every kernel of that path must have launched;
+  5. train: one CFM train step of a small Voicebox on the card against the
+     CPU, then the trainer CLI (usdm_tpu_torch.cli.train_voicebox) runs ~10
+     full-width steps (VoiceboxConfig(), batch 8 of 16 s crops, bf16 over f32
+     masters, per-layer remat) on synthetic noise clips; every kernel of that
+     path must have launched, and 5 steps on one fixed batch must lower the
+     loss.
 
 Prints one JSON line of kernel results, then, as the last line,
 {"ok": true, "device": {...}}.  Exits non-zero without that line when CUDA
@@ -43,6 +49,18 @@ KERNELS = {
     "fused_activation1d": {
         "source": "usdm_tpu_torch/csrc/fused_act.cu",
         "replaces": "usdm_tpu/ops/fused_act.py:68",
+    },
+    "add_mask_ln": {
+        "source": "usdm_tpu_torch/csrc/fused_ln.cu",
+        "replaces": "usdm_tpu/ops/fused_ln.py:44",
+    },
+    "flash_attention_bwd_dq": {
+        "source": "usdm_tpu_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "usdm_tpu/ops/flash_attention.py:287",
+    },
+    "flash_attention_bwd_dkv": {
+        "source": "usdm_tpu_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "usdm_tpu/ops/flash_attention.py:367",
     },
 }
 
@@ -228,15 +246,140 @@ def kernel_checks(dev) -> dict:
     return results
 
 
+def train_kernel_checks(dev) -> dict:
+    """K5 and K4 against their plain versions at the training path's shapes."""
+    import torch
+
+    from usdm_tpu_torch.ops import flash_attention as FL
+    from usdm_tpu_torch.ops import fused_ln as LN
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    results = {}
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
+
+    # K5 (a): the Voicebox training shape, B 8 of T+1 = 1379, 16 heads d 64,
+    # ALiBi, non-causal, rows ragged.  Both backward versions take the same
+    # saved forward (K2's output and log-sum-exp), which is first held
+    # against K2's plain version at this shape.
+    log("K5 flash_attention_bwd_dq / flash_attention_bwd_dkv vs flash_attention_bwd_reference "
+        "(dq, dk, dv; bf16 bound 2^-7 * max|want| + 1e-4 per output: both compute in f32 "
+        "and round only the outputs; f32 bound 1e-4), on the forward of K2, held against "
+        "flash_attention_reference first (output: same bounds; log-sum-exp 1e-4)")
+    b, t1, h, d = 8, 1379, 16, 64
+    pos = torch.arange(t1, device=dev)[None].expand(b, t1)
+    lens = torch.tensor([1379, 900, 1379, 1200, 640, 1379, 1000, 1301], device=dev)
+    seg = torch.where(pos < lens[:, None], 0, -1)
+    errs = {"dq": [], "dkv": [], "fwd": []}
+    timing = {}
+
+    def bwd_case(case, q, k, v, do, segs, poss, causal, window, alibi, dtype):
+        o, lse = FL.flash_attention(q, k, v, segs, segs, poss, poss, causal, window,
+                                    alibi=alibi, return_lse=True)
+        want_o, want_lse = FL.flash_attention_reference(q, k, v, segs, segs, poss, poss, causal,
+                                                        window, None, alibi)
+        errs["fwd"].append(check("K2", f"{case} o", o, want_o,
+                                 bf16_bound(want_o) if dtype == torch.bfloat16 else 1e-4))
+        check("K2 lse", case, lse, want_lse, 1e-4)
+        del want_o, want_lse
+        want = FL.flash_attention_bwd_reference(q, k, v, o, lse, do, segs, segs, poss, poss,
+                                                causal, window, None, alibi)
+        got = FL.flash_attention_bwd(q, k, v, o, lse, do, segs, segs, poss, poss, causal,
+                                     window, None, alibi)
+        out = []
+        for name, gg, ww in zip(("dq", "dk", "dv"), got, want):
+            bound = bf16_bound(ww) if dtype == torch.bfloat16 else 1e-4
+            out.append(check("K5", f"{case} {name}", gg, ww, bound))
+        errs["dq"].append(out[0])
+        errs["dkv"].append(max(out[1:]))
+        return o, lse, want
+
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, do = (randn(b, t1, h, d, dtype=dtype) for _ in range(4))
+        o, lse, want = bwd_case(f"(a) voicebox {str(dtype)[6:]} B=8 T=1379 ALiBi", q, k, v, do,
+                                seg, pos, False, None, True, dtype)
+        if dtype != torch.bfloat16:
+            continue
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        args = (q, k, v, do, lse, delta, seg, seg, pos, pos, False, None, None, True)
+        timing["a"] = (cuda_ms(lambda: FL.flash_attention_bwd_dq(*args)),
+                       cuda_ms(lambda: FL.flash_attention_bwd_dkv(*args)),
+                       cuda_ms(lambda: FL.flash_attention_bwd_reference(
+                           q, k, v, o, lse, do, seg, seg, pos, pos, False, None, None, True)),
+                       cuda_ms(lambda: FL.flash_attention(q, k, v, seg, seg, pos, pos, False,
+                                                          None, alibi=True)),
+                       cuda_ms(lambda: FL.flash_attention_reference(q, k, v, seg, seg, pos, pos,
+                                                                    False, None, None, True)))
+        # (c) the kernels run with ALiBi off (forward and backward) must miss
+        # the bound that the ALiBi gradient meets
+        o2, lse2 = FL.flash_attention(q, k, v, seg, seg, pos, pos, False, None, alibi=False,
+                                      return_lse=True)
+        wrong = FL.flash_attention_bwd(q, k, v, o2, lse2, do, seg, seg, pos, pos, False, None,
+                                       None, False)
+        for name, gg, ww in zip(("dq", "dk", "dv"), wrong, want):
+            err, bound = max_err(gg, ww), bf16_bound(ww)
+            log(f"  K5 [(c) ALiBi off against ALiBi on, {name}] max_abs_err={err:.3e}, must "
+                f"exceed {bound:.3e} by a wide factor: {err / bound:.1f}x")
+            if err <= 4 * bound:
+                raise AssertionError(f"the K5 bound cannot tell ALiBi off from on ({name})")
+        del q, k, v, do, o, o2, lse, lse2, want, wrong
+    # (b) an LM training shape: GQA 32/8, d 128, T 2048, causal, window 4096,
+    # three packed segments, bf16
+    t_lm = 2048
+    bounds = torch.tensor([700, 1500], device=dev)
+    ar = torch.arange(t_lm, device=dev)
+    seg_lm = torch.bucketize(ar, bounds, right=True)
+    pos_lm = (ar - torch.cat([torch.zeros(1, device=dev, dtype=torch.long), bounds])[seg_lm])
+    seg_lm, pos_lm = seg_lm[None].expand(2, t_lm), pos_lm[None].expand(2, t_lm)
+    q, do = randn(2, t_lm, 32, 128, dtype=torch.bfloat16), randn(2, t_lm, 32, 128,
+                                                                 dtype=torch.bfloat16)
+    k, v = randn(2, t_lm, 8, 128, dtype=torch.bfloat16), randn(2, t_lm, 8, 128,
+                                                               dtype=torch.bfloat16)
+    bwd_case("(b) LM bf16 GQA 32/8 d=128 T=2048 causal window 4096 3 segments", q, k, v, do,
+             seg_lm, pos_lm, True, 4096, False, torch.bfloat16)
+    km_dq, km_dkv, pm, fk, fp = timing["a"]
+    log(f"  K5 time (a) bf16: dq kernel {km_dq:.4f} ms, dkv kernel {km_dkv:.4f} ms, plain "
+        f"backward (dq, dk, dv together) {pm:.4f} ms; K2 forward at the same shape: kernel "
+        f"{fk:.4f} ms, plain {fp:.4f} ms")
+    results["flash_attention_bwd_dq"] = {"max_abs_err": max(errs["dq"]), "ms": km_dq,
+                                         "plain_ms": pm}
+    results["flash_attention_bwd_dkv"] = {"max_abs_err": max(errs["dkv"]), "ms": km_dkv,
+                                          "plain_ms": pm}
+    results["flash_attention_train_err"] = max(errs["fwd"])  # K2 at the training shapes
+    del q, k, v, do
+
+    # K4: the estimator's residual + mask + LN at [8, 1379, 1024], ragged rows
+    log("K4 add_mask_ln vs add_mask_ln_reference (bf16 bound 2^-6 * max|want|: two roundings "
+        "before the output, a flip of the first can carry; f32 bound 1e-5)")
+    errs, timing = [], None
+    ln_lens = lens  # valid rows incl. the time token
+    for dtype in (torch.bfloat16, torch.float32):
+        x, r = randn(8, t1, 1024, dtype=dtype), randn(8, t1, 1024, dtype=dtype)
+        w = (randn(1024) * 0.1 + 1.0).to(dtype)
+        bb = (randn(1024) * 0.1).to(dtype)
+        for post in (False, True):
+            got = LN.add_mask_ln(x, r, ln_lens, w, bb, post)
+            want = LN.add_mask_ln_reference(x, r, ln_lens, w, bb, post)
+            bound = 2.0**-6 * want.float().abs().max().item() if dtype == torch.bfloat16 else 1e-5
+            errs.append(check("K4", f"[8, 1379, 1024] {str(dtype)[6:]} post_mask={post}", got,
+                              want, bound))
+        if dtype == torch.bfloat16:
+            timing = (cuda_ms(lambda: LN.add_mask_ln(x, r, ln_lens, w, bb, True)),
+                      cuda_ms(lambda: LN.add_mask_ln_reference(x, r, ln_lens, w, bb, True)))
+    log(f"  K4 time [8, 1379, 1024] bf16 post_mask: kernel {timing[0]:.4f} ms, plain "
+        f"{timing[1]:.4f} ms")
+    results["add_mask_ln"] = {"max_abs_err": max(errs), "ms": timing[0], "plain_ms": timing[1]}
+    return results
+
+
 # --------------------------------------------------------------- phase 4
 def _to(tree, dev):
     import torch
 
-    if isinstance(tree, dict):
-        return {k: _to(v, dev) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_to(v, dev) for v in tree]
-    return tree.to(dev) if isinstance(tree, torch.Tensor) else tree
+    from usdm_tpu_torch.core.tree import tree_map
+
+    return tree_map(lambda a: a.to(dev) if isinstance(a, torch.Tensor) else a, tree)
 
 
 def small_turn_check(dev, wav_in: str) -> None:
@@ -328,6 +471,7 @@ def slice_run(dev, profile: bool, tmp: str, out_dir: str) -> dict:
     from usdm_tpu_torch.audio.wav import write_wav
     from usdm_tpu_torch.ops.flash_attention import flash_attention
     from usdm_tpu_torch.ops.fused_act import fused_activation1d
+    from usdm_tpu_torch.ops.fused_ln import add_mask_ln
     from usdm_tpu_torch.ops.paged_attention import paged_decode_attention
     from usdm_tpu_torch.pipeline import UsdmPipeline
 
@@ -350,7 +494,7 @@ def slice_run(dev, profile: bool, tmp: str, out_dir: str) -> dict:
                 prof = torch.profiler.profile(activities=[
                     torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA])
                 prof.__enter__()
-            for fn in counters:
+            for fn in (*counters, add_mask_ln):
                 fn.launches = 0
             torch.cuda.reset_peak_memory_stats()
             wav_out = os.path.join(tmp, f"agent{turn}.wav")
@@ -380,6 +524,8 @@ def slice_run(dev, profile: bool, tmp: str, out_dir: str) -> dict:
             log(f"turn {turn}: " + json.dumps(info))
             if not all(counts.values()):
                 raise AssertionError(f"a kernel of the main path never launched: {counts}")
+            if add_mask_ln.launches:  # B * (T + 1) = 2 * 449 is under its gate
+                raise AssertionError("the fused LayerNorm kernel ran in respond()")
             if len(audio) == 0 or not np.isfinite(audio).all():
                 raise AssertionError("respond() produced empty or non-finite audio")
             if len(audio) != len(res.agent_units) * 441 // 256 * 256:
@@ -395,19 +541,222 @@ def slice_run(dev, profile: bool, tmp: str, out_dir: str) -> dict:
     return {"turns": turns}
 
 
-def _write_profile(prof, out_dir: str) -> None:
+# --------------------------------------------------------------- phase 5
+def _train_counters():
+    from usdm_tpu_torch.ops import flash_attention as FL
+    from usdm_tpu_torch.ops import fused_ln as LN
+
+    return {"flash_attention": FL.flash_attention, "add_mask_ln": LN.add_mask_ln,
+            "flash_attention_bwd_dq": FL.flash_attention_bwd_dq,
+            "flash_attention_bwd_dkv": FL.flash_attention_bwd_dkv}
+
+
+class _RecordGrads:
+    """The train step's optimizer, keeping a copy of the gradients it is
+    handed, before the clip and the Adam step."""
+
+    def __init__(self, opt):
+        self.opt, self.grads = opt, None
+
+    def update(self, adam):
+        self.grads = [p.grad.detach().clone() for group in adam.param_groups
+                      for p in group["params"]]
+        return self.opt.update(adam)
+
+
+def small_train_check(dev) -> None:
+    """One f32 train step of a small Voicebox (H 128, 4 heads of d 32, T+1 =
+    400, B 8: the flash and fused-LN gates open on the card, the plain paths
+    run on the CPU) from the same init, batch, t and z on both sides: the
+    loss, then each parameter's gradient before the optimizer, then the
+    updated parameters."""
+    import torch
+
+    from usdm_tpu_torch.core.config import CfmTrainConfig, VoiceboxConfig
+    from usdm_tpu_torch.core.tree import tree_leaves, tree_map
+    from usdm_tpu_torch.train import cfm as C
+
+    cfg = VoiceboxConfig.tiny().replace(n_tokens=32, n_feats=80, hidden_size=128,
+                                        intermediate_size=256)
+    tc = CfmTrainConfig()
+    cpu, opt = C.init_state(cfg, tc, "cpu", torch.Generator().manual_seed(0))
+    params = tree_map(lambda a: a.detach().clone().to(dev).requires_grad_(), cpu.params)
+    card = C.CfmTrainState(params, opt.init(params), 0)
+    rng = np.random.default_rng(0)
+    b, t = 8, 399
+    mask = np.zeros((b, 1, t), np.float32)
+    mask[1, 0, 40:200] = 1.0
+    batch = {"x": rng.integers(0, cfg.n_tokens + 1, (b, t)), "mask": mask,
+             "y": rng.standard_normal((b, cfg.n_feats, t)).astype(np.float32),
+             "y_lengths": np.asarray([399, 300, 399, 250, 399, 399, 120, 399])}
+    tz = (rng.uniform(size=b).astype(np.float32),
+          rng.standard_normal((b, cfg.n_feats, t)).astype(np.float32))
+    counters = _train_counters()
+    out = {}
+    for name, state, where in (("card", card, dev), ("cpu", cpu, "cpu")):
+        for fn in counters.values():
+            fn.launches = 0
+        rec = _RecordGrads(opt)
+        step = C.make_train_step(cfg, tc, rec, compute_dtype="float32")
+        tb = {k: torch.from_numpy(np.asarray(v)).to(where) for k, v in batch.items()}
+        m = step(state, tb, t=torch.from_numpy(tz[0]).to(where), z=torch.from_numpy(tz[1]).to(where))
+        out[name] = ({k: float(v) for k, v in m.items()}, [g.cpu() for g in rec.grads],
+                     {k: fn.launches for k, fn in counters.items()})
+    (mc, g_card, counts), (mp, g_cpu, _) = out["card"], out["cpu"]
+    loss_rel = abs(mc["loss"] - mp["loss"]) / abs(mp["loss"])
+    # each leaf's gradient: within 1e-4 of each value plus 1e-4 of the leaf's
+    # largest, plus 1e-6 of the largest in the tree for leaves that are zero
+    # in exact arithmetic and hold rounding noise (the key bias: softmax
+    # ignores a per-row constant) -- the bound of the CPU parity tests
+    floor = 1e-6 * max(w.abs().max().item() for w in g_cpu)
+    ratios = [((g - w).abs() / (1e-4 * w.abs() + 1e-4 * w.abs().max() + floor)).max().item()
+              for g, w in zip(g_card, g_cpu)]
+    worst = int(np.argmax(ratios))
+    # one Adam step moves each weight by at most ~lr whatever its gradient;
+    # a noise gradient that flips sign moves it by 2 lr, so this bound checks
+    # only that the card took one step of the CPU's size: the gradients'
+    # magnitudes are checked above
+    pbound = 2 * tc.learning_rate + 1e-6
+    perr = max((a.detach().cpu() - bb.detach()).abs().max().item()
+               for a, bb in zip(tree_leaves(card.params), tree_leaves(cpu.params)))
+    log(f"small train step, card vs CPU (f32): loss {mc['loss']:.6f} vs {mp['loss']:.6f} "
+        f"(rel {loss_rel:.2e}, bound 1e-4); gradients of {len(g_cpu)} leaves before the "
+        f"optimizer, largest error/bound {ratios[worst]:.3f} (leaf {worst}, must be <= 1); "
+        f"updated params max_abs_err={perr:.3e} (bound {pbound:.2e}), launches {counts}")
+    if loss_rel > 1e-4 or ratios[worst] > 1 or perr > pbound:
+        raise AssertionError("the small train step differs on the card")
+    if not all(counts.values()):
+        raise AssertionError(f"a kernel did not run in the small train step: {counts}")
+
+
+def _write_train_data(tmp: str, n_items: int = 16, seed: int = 0) -> str:
+    """Noise clips of 8-20 s at 22.05 kHz (some shorter than the 16 s crop)
+    and a filelist of random units and durations covering each."""
+    from usdm_tpu_torch.audio.wav import write_wav
+
+    rng = np.random.default_rng(seed)
+    lines = []
+    for i in range(n_items):
+        n = int(22050 * rng.uniform(8.0, 20.0))
+        path = os.path.join(tmp, f"clip{i}.wav")
+        write_wav(path, (rng.standard_normal(n) * 0.1).astype(np.float32), 22050)
+        n_units = -(-n // 441)
+        durs = rng.integers(1, 4, n_units)
+        durs = durs[: int(np.searchsorted(np.cumsum(durs), n_units)) + 1]
+        units = rng.integers(0, 10000, len(durs))
+        lines.append(f"{path}|{' '.join(map(str, units))}|{' '.join(map(str, durs))}")
+    filelist = os.path.join(tmp, "train.txt")
+    with open(filelist, "w") as f:
+        f.write("\n".join(lines))
+    return filelist
+
+
+def train_run(dev, profile: bool, tmp: str, out_dir: str) -> dict:
+    import gc
+
+    import torch
+
+    from usdm_tpu_torch.cli import train_voicebox
+    from usdm_tpu_torch.core import checkpoint as CK
+    from usdm_tpu_torch.core.config import CfmTrainConfig, MelConfig, VoiceboxConfig
+    from usdm_tpu_torch.core.tree import tree_leaves
+    from usdm_tpu_torch.data.unit_mel import UnitMelCollate, UnitMelDataset
+    from usdm_tpu_torch.train import cfm as C
+
+    small_train_check(dev)
+    filelist = _write_train_data(tmp)
+    out = os.path.join(tmp, "train_out")
+    n_steps, seed = 10, 37
+    counters = _train_counters()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    train_voicebox.main(["--train_filelist", filelist, "--output_dir", out, "--max_steps",
+                         str(n_steps), "--synthesize_every", "0", "--save_every", "1000",
+                         "--seed", str(seed), "--device", str(dev)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        steps = [r for r in map(json.loads, f) if "train/loss" in r]
+    cfg, tc, mel_cfg = VoiceboxConfig(), CfmTrainConfig(), MelConfig()
+    frames = tc.batch_size * (tc.out_size_seconds * mel_cfg.sampling_rate // mel_cfg.hop_size)
+    step_s = [r["train/step_s"] for r in steps]
+    # the first two steps warm up; the last step's result is read right after
+    # the one before it, with no step dispatched between, so its step_s shows
+    # only how far the device trailed the host, not a step's time
+    med = statistics.median(step_s[2:-1])
+    info = {"steps": len(steps), "wall_s": wall, "step_s": step_s, "median_step_s": med,
+            "frames_per_s": frames / med, "loss": [r["train/loss"] for r in steps],
+            "grad_norm": [r["train/grad_norm"] for r in steps],
+            "max_memory_allocated_gib": peak, "launches": counts}
+    log("full-width CFM training (VoiceboxConfig(), batch 8 x 16 s crops, bf16 over f32, "
+        "remat): " + json.dumps(info))
+    if len(steps) != n_steps or not np.isfinite(info["loss"]).all():
+        raise AssertionError(f"the trainer ran {len(steps)} steps, losses {info['loss']}")
+    if not all(counts.values()):
+        raise AssertionError(f"a kernel of the training path never launched: {counts}")
+
+    # the checkpoint moved away from the init; 5 steps on one fixed batch with
+    # fixed t and z lower the loss
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    state, opt = C.init_state(cfg, tc, dev, gen)
+    init = [a.detach().clone() for a in tree_leaves(state.params)]
+    restored = CK.restore_train_state(os.path.join(out, "checkpoints"), state).step
+    moved = max((a.detach() - b).abs().max().item()
+                for a, b in zip(tree_leaves(state.params), init))
+    del init
+    ds = UnitMelDataset(filelist, mel_cfg, n_tokens=cfg.n_tokens)
+    batch = UnitMelCollate(tc, mel_cfg, cfg.n_tokens)([ds[i] for i in range(8)],
+                                                      np.random.default_rng(0))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    g2 = torch.Generator(device=dev).manual_seed(1)
+    t = torch.rand(8, generator=g2, device=dev)
+    z = torch.randn(batch["y"].shape, generator=g2, device=dev)
+    step = C.make_train_step(cfg, tc, opt)
+    losses = []
+    for i in range(5):
+        prof = None
+        if profile and i == 3:
+            prof = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA])
+            prof.__enter__()
+        t0 = time.perf_counter()
+        losses.append(float(step(state, batch, t=t, z=z)["loss"]))
+        if prof is not None:
+            torch.cuda.synchronize()
+            prof.__exit__(None, None, None)
+            log(f"profiled train step: {time.perf_counter() - t0:.3f} s")
+            _write_profile(prof, out_dir, "train_profile.txt")
+    log(f"checkpoint step {restored}: params moved from the init by up to {moved:.3e}; "
+        f"5 steps on one fixed batch with fixed t, z: losses {losses}")
+    if not moved > 0 or not losses[-1] < losses[0]:
+        raise AssertionError("the params did not move or the loss did not fall")
+    del state, opt, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    if "jax" in sys.modules:
+        raise AssertionError("jax was imported")
+    return info
+
+
+def _write_profile(prof, out_dir: str, name: str = "respond_profile.txt") -> None:
     table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
-    path = os.path.join(out_dir, "respond_profile.txt")
+    path = os.path.join(out_dir, name)
     with open(path, "w") as f:
         f.write(table)
-    log(f"profiled turn: kernel table in {path}")
+    log(f"profile: kernel table in {path}")
     log("\n".join(table.splitlines()[:25]))
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="run a third full-width turn under torch.profiler")
+                    help="run a third full-width turn and one train step under torch.profiler")
     ap.add_argument("--out-dir", default="chip_smoke_out",
                     help="where the nvcc log and the profile table are written")
     args = ap.parse_args()
@@ -441,8 +790,13 @@ def main() -> int:
             log(f"  ptxas: {line.strip()}")
 
     kres = kernel_checks(dev)
+    kres.update(train_kernel_checks(dev))
+    k2 = kres["flash_attention"]
+    k2["max_abs_err"] = max(k2["max_abs_err"], kres.pop("flash_attention_train_err"))
     with tempfile.TemporaryDirectory() as tmp:
         launches = slice_run(dev, args.profile, tmp, args.out_dir)["turns"][1]["launches"]
+        train_launches = train_run(dev, args.profile, tmp, args.out_dir)["launches"]
+    launches.update({k: v for k, v in train_launches.items() if k not in launches})
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", **KERNELS[k], "launches": launches[k],
          "max_abs_err": kres[k]["max_abs_err"], "ms": kres[k]["ms"],

@@ -1,4 +1,4 @@
-"""K1-K3 CUDA kernels against their plain PyTorch versions, on the card.
+"""K1-K5 CUDA kernels against their plain PyTorch versions, on the card.
 
 Marked `cuda`: each test skips without a CUDA device (a CUDA kernel has no
 CPU mode).  Imports no JAX, so it runs where the port runs; there, skip
@@ -11,6 +11,7 @@ import torch
 
 from usdm_tpu_torch.ops import flash_attention as FL
 from usdm_tpu_torch.ops import fused_act as FA
+from usdm_tpu_torch.ops import fused_ln as LN
 from usdm_tpu_torch.ops import paged_attention as PA
 
 
@@ -91,3 +92,107 @@ def test_fused_act_kernel_matches_plain(cuda, tlen):
     got = FA.fused_activation1d(x, alpha, beta, True)
     want = FA.activation1d_reference(x, alpha, beta, True)
     assert (got - want).abs().max().item() <= 1e-4  # f32 both sides
+
+
+def _bwd_case(cuda, case, dtype, t_len):
+    """Inputs of a K5 case: (a) the Voicebox training shape (16 heads, d 64,
+    non-causal ALiBi, second row ragged); (b) an LM training shape (GQA 32/8,
+    d 128, causal, window, three packed segments); (d) d 80, f32."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    b = 2
+    h, hkv, d = {"a": (16, 16, 64), "b": (32, 8, 128), "d": (16, 16, 80)}[case]
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=cuda).to(dtype)
+
+    q, k, v, do = rnd(b, t_len, h, d), rnd(b, t_len, hkv, d), rnd(b, t_len, hkv, d), rnd(b, t_len, h, d)
+    pos = torch.arange(t_len, device=cuda)[None].expand(b, t_len)
+    if case == "b":
+        bounds = torch.tensor([0, t_len // 3, 2 * t_len // 3, t_len], device=cuda)
+        seg = (torch.bucketize(pos, bounds[1:-1], right=True)).contiguous()
+        pos = (pos - bounds[seg]).contiguous()
+        flags = dict(causal=True, sliding_window=t_len // 4, alibi=False)
+    else:
+        seg = torch.where(pos < torch.tensor([[t_len], [2 * t_len // 3]], device=cuda), 0, -1)
+        flags = dict(causal=False, sliding_window=None, alibi=case == "a")
+    return q, k, v, do, seg, pos, flags
+
+
+def _bwd_pair(q, k, v, do, seg, pos, flags, kernel_flags=None):
+    o, lse = FL.flash_attention_reference(q, k, v, seg, seg, pos, pos, **flags)
+    want = FL.flash_attention_bwd_reference(q, k, v, o, lse, do, seg, seg, pos, pos,
+                                            flags["causal"], flags["sliding_window"], None,
+                                            flags["alibi"])
+    kf = kernel_flags or flags
+    if kernel_flags is not None:  # the kernel's own forward under its flags
+        o, lse = FL.flash_attention(q, k, v, seg, seg, pos, pos, return_lse=True, **kf)
+    got = FL.flash_attention_bwd(q, k, v, o, lse, do, seg, seg, pos, pos, kf["causal"],
+                                 kf["sliding_window"], None, kf["alibi"])
+    return got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,dtype", [("a", torch.bfloat16), ("a", torch.float32),
+                                        ("b", torch.bfloat16), ("d", torch.float32)])
+def test_flash_bwd_kernels_match_plain(cuda, case, dtype):
+    """dq, dk, dv of the K5 kernels against the plain backward on the same
+    saved forward, after K2's forward, which K5 consumes in training, against
+    its plain version.  bf16: one bf16 ulp of each output's largest value
+    (both sides compute in f32 and round only the outputs); f32: 1e-4; the
+    log-sum-exp (f32 both sides) within 1e-4."""
+    q, k, v, do, seg, pos, flags = _bwd_case(cuda, case, dtype, 300)
+    o, lse = FL.flash_attention(q, k, v, seg, seg, pos, pos, return_lse=True, **flags)
+    want_o, want_lse = FL.flash_attention_reference(q, k, v, seg, seg, pos, pos, **flags)
+    bound = _bf16_bound(want_o) if dtype == torch.bfloat16 else 1e-4
+    assert (o.float() - want_o.float()).abs().max().item() <= bound
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+    got, want = _bwd_pair(q, k, v, do, seg, pos, flags)
+    for gg, ww in zip(got, want):
+        assert gg.dtype == dtype
+        bound = _bf16_bound(ww) if dtype == torch.bfloat16 else 1e-4
+        assert (gg.float() - ww.float()).abs().max().item() <= bound
+
+
+@pytest.mark.cuda
+def test_flash_bwd_bound_rejects_missing_alibi(cuda):
+    """The kernels run (forward and backward) with ALiBi off must fail the
+    bound that the ALiBi gradient meets."""
+    q, k, v, do, seg, pos, flags = _bwd_case(cuda, "a", torch.bfloat16, 300)
+    got, want = _bwd_pair(q, k, v, do, seg, pos, flags, {**flags, "alibi": False})
+    assert all((gg.float() - ww.float()).abs().max().item() > 4 * _bf16_bound(ww)
+               for gg, ww in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t_len", [1, 7, 1379])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("post_mask", [False, True])
+def test_fused_ln_kernel_matches_plain(cuda, t_len, dtype, post_mask):
+    """K4 at three row counts with ragged lengths, H 1024.  f32: 1e-5; bf16:
+    two bf16 ulps of the largest output (the kernel rounds the normalized
+    row, the product with w and the sum with b as the plain version does, and
+    a flip of the first rounding can carry into the second)."""
+    g = torch.Generator(device=cuda).manual_seed(t_len)
+    x = torch.randn(3, t_len, 1024, generator=g, device=cuda).to(dtype)
+    r = torch.randn(3, t_len, 1024, generator=g, device=cuda).to(dtype)
+    w = (torch.randn(1024, generator=g, device=cuda) * 0.1 + 1.0).to(dtype)
+    b = (torch.randn(1024, generator=g, device=cuda) * 0.1).to(dtype)
+    lengths = torch.tensor([t_len, max(t_len // 2, 1), 0], device=cuda)
+    got = LN.add_mask_ln(x, r, lengths, w, b, post_mask)
+    want = LN.add_mask_ln_reference(x, r, lengths, w, b, post_mask)
+    bound = 2.0**-6 * want.float().abs().max().item() if dtype == torch.bfloat16 else 1e-5
+    assert (got.float() - want.float()).abs().max().item() <= bound
+
+
+@pytest.mark.cuda
+def test_fused_ln_takes_channel_first_rows(cuda):
+    """The estimator's first layer passes x as a transposed [B, H, T] view
+    (the positional conv's layout); the result must not depend on it."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(2, 256, 150, generator=g, device=cuda).transpose(1, 2)
+    r = torch.randn(2, 150, 256, generator=g, device=cuda)
+    w, b = torch.ones(256, device=cuda), torch.zeros(256, device=cuda)
+    lengths = torch.tensor([150, 77], device=cuda)
+    got = LN.add_mask_ln(x, r, lengths, w, b, True)
+    want = LN.add_mask_ln_reference(x, r, lengths, w, b, True)
+    assert (got - want).abs().max().item() <= 1e-5  # f32 both sides

@@ -1,0 +1,199 @@
+"""K4 and K5 of usdm_tpu_torch against usdm_tpu, on the CPU.
+
+On the CPU the port's wrappers run their plain PyTorch versions; these tests
+hold them to the JAX goldens and to the Pallas kernels in interpret mode (as
+tests/test_flash_attention.py and tests/test_fused_ln.py run them), forward
+and backward.  tests/test_torch_cuda.py holds the CUDA kernels to the same
+plain versions on the card.  Inputs come from numpy generators; JAX runs
+under `highest` matmul precision; tolerances are stated at each assert.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+import usdm_tpu.ops.flash_attention as JFL
+import usdm_tpu.ops.fused_ln as JLN
+from usdm_tpu_torch.ops import flash_attention as FL
+from usdm_tpu_torch.ops import fused_ln as LN
+
+TOL = dict(rtol=2e-5, atol=2e-5)  # f32 on both sides, different summation order
+
+
+@pytest.fixture(autouse=True)
+def interpret_highest(monkeypatch):
+    orig = pl.pallas_call
+    monkeypatch.setattr(pl, "pallas_call", functools.partial(orig, interpret=True))
+    with jax.default_matmul_precision("highest"):
+        yield
+
+
+def t(x):
+    return torch.from_numpy(np.array(x))
+
+
+# ----------------------------------------------------------------- K5
+def _case(rng, case):
+    """[B, T, H, d] inputs, masks and flags of the two backward cases:
+    GQA 4/2, causal, window 40, three packed segments; or 4 heads, non-causal
+    ALiBi (the Voicebox shape), second row padded from 101 on."""
+    b, tlen, d = 2, 192, 32
+    h, hkv = (4, 2) if case == "gqa_causal_window_packed" else (4, 4)
+    q = rng.standard_normal((b, tlen, h, d)).astype(np.float32)
+    k = rng.standard_normal((b, tlen, hkv, d)).astype(np.float32)
+    v = rng.standard_normal((b, tlen, hkv, d)).astype(np.float32)
+    do = rng.standard_normal((b, tlen, h, d)).astype(np.float32)
+    if case == "gqa_causal_window_packed":
+        seg = np.repeat(np.asarray([0, 1, 2]), tlen // 3)[None].repeat(b, 0).astype(np.int32)
+        pos = np.tile(np.arange(tlen // 3), 3)[None].repeat(b, 0).astype(np.int32)
+        flags = dict(causal=True, sliding_window=40, alibi=False)
+    else:
+        pos = np.broadcast_to(np.arange(tlen, dtype=np.int32), (b, tlen)).copy()
+        seg = np.where(pos < np.asarray([[tlen], [101]]), 0, -1).astype(np.int32)
+        flags = dict(causal=False, sliding_window=None, alibi=True)
+    return q, k, v, do, seg, pos, flags
+
+
+CASES = ["gqa_causal_window_packed", "alibi_noncausal_padding"]
+
+
+def _jax_res(q, k, v, seg, pos, flags):
+    """usdm_tpu's forward residuals ([B, H, T, d] layout) from the Pallas
+    forward in interpret mode."""
+    qt, kt, vt = (jnp.asarray(np.swapaxes(x, 1, 2)) for x in (q, k, v))
+    o, lse8 = JFL._fwd_call(qt, kt, vt, jnp.asarray(pos), jnp.asarray(pos), jnp.asarray(seg),
+                            jnp.asarray(seg), q.shape[-1] ** -0.5, flags["causal"],
+                            flags["sliding_window"], flags["alibi"], 64, 64)
+    return (qt, kt, vt, o, lse8[..., 0], jnp.asarray(pos), jnp.asarray(pos), jnp.asarray(seg),
+            jnp.asarray(seg))
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_flash_bwd_plain_matches_jax(rng, case):
+    """The plain backward against `_bwd_reference` and the Pallas dq/dkv
+    kernels (`_bwd_pallas`) on the same residuals."""
+    q, k, v, do, seg, pos, flags = _case(rng, case)
+    res = _jax_res(q, k, v, seg, pos, flags)
+    o = np.swapaxes(np.asarray(res[3]), 1, 2)
+    lse = np.asarray(res[4])
+    got = FL.flash_attention_bwd(t(q), t(k), t(v), t(o), t(lse), t(do), t(seg), t(seg), t(pos),
+                                 t(pos), flags["causal"], flags["sliding_window"], None,
+                                 flags["alibi"])
+    kw = dict(scale=q.shape[-1] ** -0.5, causal=flags["causal"], window=flags["sliding_window"],
+              alibi=flags["alibi"])
+    g_out = jnp.asarray(np.swapaxes(do, 1, 2))
+    ref = JFL._bwd_reference(res, g_out, block_k=64, **kw)
+    kern = JFL._bwd_pallas(res, g_out, block_q=64, block_k=64, **kw)
+    for g, r, kk in zip(got, ref, kern):
+        np.testing.assert_allclose(g.numpy(), np.swapaxes(np.asarray(r), 1, 2), **TOL)
+        np.testing.assert_allclose(g.numpy(), np.swapaxes(np.asarray(kk), 1, 2), **TOL)
+    padded = seg < 0  # rows with no valid key get zero gradient
+    assert not np.any(got[0].numpy()[padded])
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_flash_function_grads_match_jax(rng, case):
+    """Gradients through the port's autograd Function (plain forward and
+    plain backward on the CPU) against jax.grad of usdm_tpu's flash_attention
+    (Pallas forward and backward, interpret mode) and against torch.autograd
+    of the plain forward."""
+    q, k, v, do, seg, pos, flags = _case(rng, case)
+    valid = (seg >= 0)[:, :, None, None]
+    w = np.where(valid, do, 0.0).astype(np.float32)  # padded rows carry no loss
+
+    def jloss(q, k, v):
+        o = JFL.flash_attention(q, k, v, jnp.asarray(seg), jnp.asarray(seg), jnp.asarray(pos),
+                                jnp.asarray(pos), block_q=64, block_k=64, **flags)
+        return jnp.sum(o * w)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    ins = [t(x).requires_grad_() for x in (q, k, v)]
+    o = FL.flash_attention(*ins, t(seg), t(seg), t(pos), t(pos), **flags)
+    got = torch.autograd.grad((o * t(w)).sum(), ins)
+    ins2 = [t(x).requires_grad_() for x in (q, k, v)]
+    o2, _ = FL.flash_attention_reference(*ins2, t(seg), t(seg), t(pos), t(pos), **flags)
+    auto = torch.autograd.grad((o2 * t(w)).sum(), ins2)
+    for g, jw, a in zip(got, want, auto):
+        np.testing.assert_allclose(g.numpy(), np.asarray(jw), **TOL)
+        np.testing.assert_allclose(g.numpy(), a.numpy(), **TOL)
+
+
+def test_flash_function_no_grad_matches_forward(rng):
+    """Under no_grad (the respond() path) the Function returns the plain
+    forward's output and log-sum-exp unchanged."""
+    q, k, v, _, seg, pos, flags = _case(rng, "alibi_noncausal_padding")
+    args = [t(x) for x in (q, k, v, seg, seg, pos, pos)]
+    with torch.no_grad():
+        o, lse = FL.flash_attention(*args, return_lse=True, **flags)
+    want, want_lse = FL.flash_attention_reference(*args, **flags)
+    assert torch.equal(o, want) and torch.equal(lse, want_lse)
+
+
+def test_flash_bwd_launchers_refuse_cpu_tensors(rng):
+    q, k, v, do, seg, pos, flags = _case(rng, "alibi_noncausal_padding")
+    lse = torch.zeros(2, 4, 192)
+    args = [t(x) for x in (q, k, v, do)] + [lse, lse] + [t(x) for x in (seg, seg, pos, pos)]
+    for fn in (FL.flash_attention_bwd_dq, FL.flash_attention_bwd_dkv):
+        with pytest.raises(ValueError):
+            fn(*args)
+
+
+# ----------------------------------------------------------------- K4
+def _ln_inputs(rng, b, tlen, h):
+    x = rng.standard_normal((b, tlen, h)).astype(np.float32)
+    r = rng.standard_normal((b, tlen, h)).astype(np.float32)
+    w = (rng.standard_normal(h) * 0.1 + 1.0).astype(np.float32)
+    bb = (rng.standard_normal(h) * 0.1).astype(np.float32)
+    lengths = np.asarray([tlen, max(1, tlen // 2 - 3), 1][:b], np.int32)
+    return x, r, lengths, w, bb
+
+
+@pytest.mark.parametrize("post_mask", [False, True])
+def test_fused_ln_plain_matches_jax(rng, post_mask):
+    """f32: against `_xla_ref` and the Pallas kernel in interpret mode with a
+    ragged last block (T = 100, blk_t = 32)."""
+    x, r, lengths, w, b = _ln_inputs(rng, 3, 100, 128)
+    got = LN.add_mask_ln(t(x), t(r), t(lengths), t(w), t(b), post_mask).numpy()
+    jargs = [jnp.asarray(a) for a in (x, r, lengths, w, b)]
+    ref = JLN._xla_ref(*jargs, post_mask, 1e-5)
+    kern = JLN._pallas_impl(*jargs, post_mask, 1e-5, blk_t=32)
+    np.testing.assert_allclose(got, np.asarray(ref), rtol=1e-5, atol=1e-5)  # f32 LN outputs O(1)
+    np.testing.assert_allclose(got, np.asarray(kern), rtol=1e-5, atol=1e-5)
+
+
+def test_fused_ln_plain_bf16_matches_jax(rng):
+    """bf16: both sides round x + r, the normalized row, the product with w
+    and the sum with b to bf16; a flip of one rounding moves an output by at
+    most two bf16 ulps of the largest output (2^-6 * max|want|)."""
+    x, r, lengths, w, b = _ln_inputs(rng, 3, 100, 256)
+    tb = [t(a).to(torch.bfloat16) for a in (x, r)]
+    wb = [t(a).to(torch.bfloat16) for a in (w, b)]
+    got = LN.add_mask_ln(tb[0], tb[1], t(lengths), wb[0], wb[1], True).float().numpy()
+    jb = [jnp.asarray(a, jnp.bfloat16) for a in (x, r)]
+    jw = [jnp.asarray(a, jnp.bfloat16) for a in (w, b)]
+    want = np.asarray(JLN._xla_ref(jb[0], jb[1], jnp.asarray(lengths), jw[0], jw[1], True, 1e-5),
+                      np.float32)
+    assert np.abs(got - want).max() <= 2.0**-6 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("post_mask", [False, True])
+def test_fused_ln_grads_match_jax(rng, post_mask):
+    """The Function's backward (plain recompute) against the JAX custom_vjp
+    (also a recompute through `_xla_ref`); lengths get no gradient."""
+    x, r, lengths, w, b = _ln_inputs(rng, 3, 40, 128)
+    g = rng.standard_normal(x.shape).astype(np.float32)
+
+    def jloss(x, r, w, b):
+        return jnp.sum(JLN.add_mask_ln(x, r, jnp.asarray(lengths), w, b, post_mask) * g)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2, 3))(*(jnp.asarray(a) for a in (x, r, w, b)))
+    ins = [t(a).requires_grad_() for a in (x, r, w, b)]
+    out = LN.add_mask_ln(ins[0], ins[1], t(lengths), ins[2], ins[3], post_mask)
+    got = torch.autograd.grad((out * t(g)).sum(), ins)
+    for gg, jw in zip(got, want):
+        np.testing.assert_allclose(gg.numpy(), np.asarray(jw), rtol=1e-4, atol=1e-4)  # f32 sums

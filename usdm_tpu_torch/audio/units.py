@@ -27,12 +27,16 @@ def parse_units(text: str) -> List[int]:
 
 def rowwise_mode(rows: np.ndarray) -> np.ndarray:
     """Mode of each row of an int array [N, W] -> [N]; ties resolve to the
-    smallest value (as usdm_tpu.audio.units.rowwise_mode)."""
-    out = np.empty(len(rows), np.int32)
-    for i, row in enumerate(np.asarray(rows)):
-        vals, counts = np.unique(row, return_counts=True)  # ascending values
-        out[i] = vals[np.argmax(counts)]  # first maximal count = smallest value
-    return out
+    smallest value (as usdm_tpu.audio.units.rowwise_mode).  Each sorted row's
+    runs are measured at their last element; the first maximal run is the
+    smallest of the most frequent values."""
+    s = np.sort(np.asarray(rows), axis=-1)
+    n, w = s.shape
+    idx = np.broadcast_to(np.arange(w), (n, w))
+    starts = np.concatenate([np.ones((n, 1), bool), s[:, 1:] != s[:, :-1]], axis=1)
+    run_start = np.maximum.accumulate(np.where(starts, idx, 0), axis=1)
+    best = np.argmax(idx - run_start, axis=1)  # end of the first longest run
+    return s[np.arange(n), best].astype(np.int32)
 
 
 def expand_and_pool(units: np.ndarray, sample_rate: int = 22050, token_sr: int = 50,
@@ -41,5 +45,18 @@ def expand_and_pool(units: np.ndarray, sample_rate: int = 22050, token_sr: int =
     new_length_in_samples)."""
     units = np.asarray(units, dtype=np.int32)
     expanded = np.repeat(units, sample_rate // token_sr)
+    new_length = len(expanded) // hop * hop
+    return rowwise_mode(expanded[:new_length].reshape(-1, hop)), new_length
+
+
+def expand_durations_and_pool(units: Sequence[int], durations: Sequence[int],
+                              sample_rate: int = 22050, token_sr: int = 50,
+                              hop: int = 256) -> Tuple[np.ndarray, int]:
+    """Duration-weighted variant for the training dataset: unit u with
+    duration d occupies d * round(sr / token_sr) samples -> (pooled_units
+    [n_frames], new_length_in_samples)."""
+    reps = int(round(sample_rate / token_sr))
+    durations = np.asarray(durations, dtype=np.int64) * reps
+    expanded = np.repeat(np.asarray(units, dtype=np.int32), durations)
     new_length = len(expanded) // hop * hop
     return rowwise_mode(expanded[:new_length].reshape(-1, hop)), new_length

@@ -6,6 +6,7 @@ usdm_tpu/core/config.py, which imports only the standard library.
 
 from usdm_tpu.core.config import (  # noqa: F401
     BigVGANConfig,
+    CfmTrainConfig,
     EngineConfig,
     MelConfig,
     MistralConfig,

@@ -1,33 +1,41 @@
 """token-Voicebox: conditional-flow-matching mel generator in PyTorch.
 
-Port of usdm_tpu/models/voicebox.py (inference side): the non-causal
-transformer estimator (unit embedding + noisy mel + cond mel -> projection;
-sinusoidal flow time prepended as a pseudo-token; grouped-conv positional
-embeddings; symmetric ALiBi with column 0 exempt; post-LN layers with UNet
-skips) and Heun/Euler ODE sampling with classifier-free guidance by batch
-doubling.  Parameters: a dict of tensors, positional convs in PyTorch's
+Port of usdm_tpu/models/voicebox.py: the non-causal transformer estimator
+(unit embedding + noisy mel + cond mel -> projection; sinusoidal flow time
+prepended as a pseudo-token; grouped-conv positional embeddings; symmetric
+ALiBi with column 0 exempt; post-LN layers with UNet skips), the OT-CFM
+training loss, and Heun/Euler ODE sampling with classifier-free guidance by
+batch doubling.  Parameters: a dict of tensors, positional convs in PyTorch's
 [Cout, Cin/g, K] layout, one dict per layer, one skip combiner per up layer.
 
-The attention takes the flash kernel (K2, ALiBi in-kernel) on CUDA when
+The estimator computes in the dtype of `params["proj_in_w"]` and casts every
+floating parameter and input to it, as usdm_tpu does, so a trainer may cast
+only the large weights (bf16 compute over f32 masters).  The attention takes
+the flash kernels (K2 forward, K5 backward; ALiBi in-kernel) on CUDA when
 T + 1 >= 128 and the head count is a power of 2, as usdm_tpu does on a TPU;
-otherwise the plain path with the bias materialized.  The fused LayerNorm
-kernel of usdm_tpu (fused_ln) stays on its plain path: its gate is never met
-at respond()'s shapes.
+otherwise the plain path with the bias materialized.  The residual + mask +
+LayerNorm steps take the fused kernel (K4) on CUDA when H % 128 == 0 and
+B * (T + 1) >= 3072, usdm_tpu's gate: training batches pass it, respond()'s
+batch of 2 does not.
 """
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from usdm_tpu_torch.core.config import VoiceboxConfig
+from usdm_tpu_torch.core.tree import tree_map
 from usdm_tpu_torch.models.xlsr import layer_norm
 from usdm_tpu_torch.ops.attention import plain_attention
 from usdm_tpu_torch.ops.flash_attention import flash_attention
+from usdm_tpu_torch.ops.fused_ln import add_mask_ln
 
 Params = Dict[str, Any]
 
@@ -107,10 +115,16 @@ def _attention(lp: Params, x: torch.Tensor, n_heads: int, bias=None, flash_ctx=N
     return out.reshape(b, t, hdim) @ lp["wo"] + lp["bo"]
 
 
-def _encoder_layer(cfg, lp, x, y_mask, bias, flash_ctx):
-    """residual attn -> mask -> LN -> +FFN -> mask -> LN -> mask."""
+def _encoder_layer(cfg, lp, x, y_mask, bias, flash_ctx, ln_lengths=None):
+    """residual attn -> mask -> LN -> +FFN -> mask -> LN -> mask; with
+    `ln_lengths` each residual + mask + LN runs as one fused pass (K4)."""
     x = x * y_mask
-    h = (x + _attention(lp, x, cfg.num_heads, bias, flash_ctx)) * y_mask
+    attn = _attention(lp, x, cfg.num_heads, bias, flash_ctx)
+    if ln_lengths is not None:
+        h = add_mask_ln(x, attn, ln_lengths, lp["ln1_w"], lp["ln1_b"])
+        ff = F.gelu(h @ lp["ffn_w1"] + lp["ffn_b1"]) @ lp["ffn_w2"] + lp["ffn_b2"]
+        return add_mask_ln(h, ff, ln_lengths, lp["ln2_w"], lp["ln2_b"], post_mask=True)
+    h = (x + attn) * y_mask
     h = layer_norm(h, lp["ln1_w"], lp["ln1_b"])
     ff = F.gelu(h @ lp["ffn_w1"] + lp["ffn_b1"]) @ lp["ffn_w2"] + lp["ffn_b2"]
     h = layer_norm((h + ff) * y_mask, lp["ln2_w"], lp["ln2_b"])
@@ -126,18 +140,27 @@ def _conv_pos_embed(w, b, x, y_mask, groups, width):
 
 def estimator(params: Params, cfg: VoiceboxConfig, x_units: torch.Tensor, y: torch.Tensor,
               cond: torch.Tensor, t: torch.Tensor, lengths: torch.Tensor,
-              attn_impl: str = "auto") -> torch.Tensor:
+              remat: bool = False, attn_impl: str = "auto",
+              fused_ln: str = "auto") -> torch.Tensor:
     """Vector field u(x, y, cond, t): units [B, T], y/cond [B, n_feats, T],
-    t/lengths [B] -> [B, n_feats, T]."""
+    t/lengths [B] -> [B, n_feats, T] in the params' compute dtype.
+
+    remat: recompute each layer in the backward pass (training at 16 s crops
+    needs it).  attn_impl: auto | flash | plain.  fused_ln: auto | fused |
+    plain."""
     b, T = x_units.shape
     H = cfg.hidden_size
     dev = y.device
+    cdt = params["proj_in_w"].dtype  # compute dtype follows the params
+    params = tree_map(lambda a: a.to(cdt) if a.is_floating_point() else a, params)
     emb = params["embed"][x_units] * math.sqrt(cfg.embedding_dim)
-    feats = torch.cat([emb, y.transpose(1, 2).float(), cond.transpose(1, 2).float()], dim=-1)
+    feats = torch.cat([emb, y.transpose(1, 2).to(cdt), cond.transpose(1, 2).to(cdt)], dim=-1)
     h = feats @ params["proj_in_w"] + params["proj_in_b"]
-    h = torch.cat([sinusoidal_time_emb(t.reshape(b), H)[:, None], h], dim=1)  # time token
+    t_tok = sinusoidal_time_emb(t.reshape(b), H).to(cdt)[:, None]
+    h = torch.cat([t_tok, h], dim=1)  # time token
     T1 = T + 1
-    valid = torch.arange(T1, device=dev)[None] < (lengths + 1)[:, None]  # [B, T1]
+    lengths1 = lengths + 1
+    valid = torch.arange(T1, device=dev)[None] < lengths1[:, None]  # [B, T1]
     y_mask = valid.to(h.dtype)[:, :, None]
     h = h * y_mask
 
@@ -157,23 +180,58 @@ def estimator(params: Params, cfg: VoiceboxConfig, x_units: torch.Tensor, y: tor
         alibi_bias = alibi[None] * y_mask[:, :, 0][:, None, None, :]
         pad_bias = torch.where(valid[:, None, None, :], 0.0, torch.finfo(h.dtype).min)
         bias = alibi_bias + pad_bias
+    if fused_ln == "auto":
+        use_fused = h.is_cuda and H % 128 == 0 and b * T1 >= 3072
+    else:
+        use_fused = fused_ln == "fused"
 
     pos_res = h
     for w, bb in zip(params["convpos_w"], params["convpos_b"]):
         h = _conv_pos_embed(w, bb, h, y_mask, cfg.convpos_groups, cfg.convpos_width)
     h = layer_norm(h + pos_res, params["ln0_w"], params["ln0_b"]) * y_mask
 
+    layer = functools.partial(_encoder_layer, cfg, y_mask=y_mask, bias=bias,
+                              flash_ctx=flash_ctx, ln_lengths=lengths1 if use_fused else None)
+    if remat:
+        layer = functools.partial(checkpoint, layer, use_reentrant=False)
     half = cfg.num_layers // 2
     skips = []
     for lp in params["layers"][:half]:  # down path: each layer's INPUT is a skip
         skips.append(h)
-        h = _encoder_layer(cfg, lp, h, y_mask, bias, flash_ctx)
+        h = layer(lp, h)
     for i, lp in enumerate(params["layers"][half:]):  # up path pops them LIFO
         h = torch.cat([h, skips.pop()], dim=-1) @ params["skip_w"][i] + params["skip_b"][i]
-        h = _encoder_layer(cfg, lp, h, y_mask, bias, flash_ctx)
+        h = layer(lp, h)
 
     out = ((h * y_mask) @ params["proj_out_w"] + params["proj_out_b"]) * y_mask
     return out.transpose(1, 2)[:, :, 1:]  # drop the time token
+
+
+def cfm_loss(params: Params, cfg: VoiceboxConfig, x_units: torch.Tensor, mask: torch.Tensor,
+             x1: torch.Tensor, lengths: torch.Tensor, t: Optional[torch.Tensor] = None,
+             z: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None,
+             remat: bool = True) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """OT-CFM loss on non-context frames: y = (1 - (1 - sigma) t) z + t x1,
+    target u = x1 - (1 - sigma) z, cond = x1 * mask, MSE over valid and
+    non-context frames.  units [B, T], mask [B, 1, T] (1 = context frame),
+    x1 [B, n_feats, T] target mel, lengths [B]; t [B] and z (x1's shape) are
+    given or drawn from `generator`."""
+    b, nf, T = x1.shape
+    if t is None:
+        t = torch.rand(b, generator=generator, device=x1.device, dtype=x1.dtype)
+    if z is None:
+        z = torch.randn(x1.shape, generator=generator, device=x1.device, dtype=x1.dtype)
+    t3 = t[:, None, None]
+    loss_mask = (torch.arange(T, device=x1.device)[None, :] < lengths[:, None]).to(x1.dtype)[:, None]
+    y = (1.0 - (1.0 - cfg.sigma_min) * t3) * z + t3 * x1
+    cond = x1 * mask
+    u = x1 - (1.0 - cfg.sigma_min) * z
+    ue = estimator(params, cfg, x_units, y, cond, t, lengths, remat=remat)
+    loss_mask = loss_mask * (1.0 - mask)
+    diff = (ue - u) * loss_mask
+    denom = torch.clamp(loss_mask.sum() * nf, min=1.0)
+    loss = (diff * diff).sum() / denom
+    return loss, {"loss": loss, "nframes": loss_mask.sum()}
 
 
 def _cfg_estimate(params, cfg, x, z, cond, lengths, t, gradient_scale):

@@ -1,9 +1,10 @@
 """Build and load the hand-written Hopper kernels in `csrc/`.
 
-Every `csrc/*.cu` is compiled by nvcc into ONE shared library with a plain C
-interface (no PyTorch headers, so the build takes seconds), loaded with
-ctypes.  The build runs at first use, into `_build/<hash>/` keyed by the
-sources and flags, so a fresh checkout builds everything on its first call.
+Every `csrc/*.cu` is compiled by its own nvcc process, all started together,
+and the objects are linked into ONE shared library with a plain C interface
+(no PyTorch headers, so the build takes seconds), loaded with ctypes.  The
+build runs at first use, into `_build/<hash>/` keyed by the sources and
+flags, so a fresh checkout builds everything on its first call.
 A missing nvcc or a failed compile raises with the compiler's output; there
 is no fallback.
 """
@@ -27,7 +28,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 LIB_NAME = "libusdm_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # dtype codes shared with csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -58,20 +59,36 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds) -> str:
+    """Run the commands in parallel; raise with the output of the first that
+    fails, else return their output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
 def _compile(out: Path) -> None:
     global build_log, build_seconds
     nvcc = _find_nvcc()
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp),
-           *[str(p) for p in sorted(CSRC_DIR.glob("*.cu"))]]
+    tag = f"{os.getpid()}.tmp"
+    srcs = sorted(CSRC_DIR.glob("*.cu"))
+    objs = [out.parent / f"{src.stem}.{tag}.o" for src in srcs]
+    tmp = out.with_suffix(f".{tag}")
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                           f"{build_log}")
+    try:
+        build_log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-I", str(CSRC_DIR), "-o", str(obj),
+                               str(src)] for src, obj in zip(srcs, objs)])
+        build_log += _run_all([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                                *map(str, objs)]])
+    finally:
+        build_seconds = time.perf_counter() - t0
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
 
 
