@@ -12,12 +12,27 @@ Phases:
   4. slice: a full-width random UsdmPipeline (Mistral-7B bf16, XLS-R 1B,
      Voicebox, BigVGAN) runs two greedy respond() turns with stage budgets
      pinned at 48/32/256 tokens; every kernel of that path must have launched;
-  5. train: one CFM train step of a small Voicebox on the card against the
+  5. int8 serving: a small W8A8 turn on the card against the CPU plain path
+     (identical tokens); then (A) a full-width W8A8 turn,
+     UsdmPipeline.full_random(lm_int8=True, vb_int8=True).respond(), budgets
+     pinned at 48/32/256; then (B) eight client threads call
+     EngineServer.generate over a PagedEngine of the same W8A8 7B with int8
+     KV pages (bench_serving's load: prompt 384, 128 new tokens, 2 requests
+     per client, page 256, greedy, EOS masked out); every kernel of each
+     path must have launched;
+  6. train: one CFM train step of a small Voicebox on the card against the
      CPU, then the trainer CLI (usdm_tpu_torch.cli.train_voicebox) runs ~10
      full-width steps (VoiceboxConfig(), batch 8 of 16 s crops, bf16 over f32
      masters, per-layer remat) on synthetic noise clips; every kernel of that
      path must have launched, and 5 steps on one fixed batch must lower the
      loss.
+
+Each kernel's bound_ms is the least time the card could take for the work
+of its timed case: the larger of its bytes (inputs read once, outputs
+written once) over 3.35 TB/s and its operations over the H100's peak for
+their type (989 TFLOP/s bf16, 1,979 TOP/s int8, 67 TFLOP/s f32 off the
+tensor cores).  library_ms times one PyTorch call computing the same
+function where one exists (it is used nowhere in the port).
 
 Prints one JSON line of kernel results, then, as the last line,
 {"ok": true, "device": {...}}.  Exits non-zero without that line when CUDA
@@ -62,7 +77,73 @@ KERNELS = {
         "source": "usdm_tpu_torch/csrc/flash_attention_bwd.cu",
         "replaces": "usdm_tpu/ops/flash_attention.py:367",
     },
+    "stream_qmv": {
+        "source": "usdm_tpu_torch/csrc/stream_matvec.cu",
+        "replaces": "usdm_tpu/ops/stream_matvec.py:30",
+    },
+    "paged_decode_attention_int8": {
+        "source": "usdm_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "usdm_tpu/ops/paged_attention.py:41",
+    },
 }
+
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+
+
+def least_time(n_bytes: float, ops: float, kind: str) -> dict:
+    """The least time of a kernel's work on one H100: bytes over the memory
+    rate or operations over the peak for their type, whichever is larger."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[kind]
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def attn_mask(qseg, kseg, qpos, kpos, causal: bool, window):
+    """The (query, key) pairs flash attention computes, [B, Tq, Tk] bool."""
+    m = (qseg[:, :, None] == kseg[:, None, :]) & (qseg[:, :, None] >= 0)
+    d = qpos[:, :, None] - kpos[:, None, :]
+    if causal:
+        m = m & (d >= 0)
+    if window is not None:
+        m = m & (d <= window)
+    return m
+
+
+def launch_counts() -> dict:
+    """Every kernel's launch count, by the names of KERNELS."""
+    from usdm_tpu_torch.ops import flash_attention as FL
+    from usdm_tpu_torch.ops import fused_act as FA
+    from usdm_tpu_torch.ops import fused_ln as LN
+    from usdm_tpu_torch.ops import paged_attention as PA
+    from usdm_tpu_torch.ops import stream_matvec as SM
+
+    return {"paged_decode_attention": PA.paged_decode_attention.launches,
+            "flash_attention": FL.flash_attention.launches,
+            "fused_activation1d": FA.fused_activation1d.launches,
+            "add_mask_ln": LN.add_mask_ln.launches,
+            "flash_attention_bwd_dq": FL.flash_attention_bwd_dq.launches,
+            "flash_attention_bwd_dkv": FL.flash_attention_bwd_dkv.launches,
+            "stream_qmv": SM.stream_qmv.launches,
+            "paged_decode_attention_int8": PA.paged_decode_attention.int8_launches}
+
+
+def reset_counts() -> None:
+    from usdm_tpu_torch.ops import flash_attention as FL
+    from usdm_tpu_torch.ops import fused_act as FA
+    from usdm_tpu_torch.ops import fused_ln as LN
+    from usdm_tpu_torch.ops import paged_attention as PA
+    from usdm_tpu_torch.ops import stream_matvec as SM
+
+    for fn in (PA.paged_decode_attention, FL.flash_attention, FA.fused_activation1d,
+               LN.add_mask_ln, FL.flash_attention_bwd_dq, FL.flash_attention_bwd_dkv,
+               SM.stream_qmv):
+        fn.launches = 0
+    PA.paged_decode_attention.int8_launches = 0
 
 
 def log(msg: str) -> None:
@@ -112,6 +193,10 @@ def check(name: str, case: str, got, want, bound: float) -> float:
 
 
 # --------------------------------------------------------------- phase 3
+# BigVGAN's six (channels, samples) activation shapes for a 448-frame mel
+STAGES = ((768, 1792), (384, 7168), (192, 14336), (96, 28672), (48, 57344), (24, 114688))
+
+
 def kernel_checks(dev) -> dict:
     import torch
 
@@ -166,11 +251,16 @@ def kernel_checks(dev) -> dict:
                     return lambda: [fn(q, kp, vp, t, lens, 4096) for t in tables]
                 timing = (cuda_ms(step(PA.paged_decode_attention)) / n_layers,
                           cuda_ms(step(PA.paged_decode_attention_reference)) / n_layers)
+                # per layer: q, out, the table and the 700 K and V rows of 8 heads
+                k1_bound = least_time(2 * nbytes(q) + nbytes(tables[1], lens)
+                                      + 2 * seq * hkv * d * kp.element_size(),
+                                      4 * g * hkv * seq * d, "bf16")
         del kp, vp
     log(f"  K1 time at B=1 seq=700 (per layer, 32 layer regions in turn): "
         f"kernel {timing[0]:.4f} ms, plain {timing[1]:.4f} ms")
     results["paged_decode_attention"] = {"max_abs_err": max(errs), "ms": timing[0],
-                                         "plain_ms": timing[1], "case": "B=1 seq=700 bf16"}
+                                         "plain_ms": timing[1], **k1_bound, "library_ms": None,
+                                         "case": "B=1 seq=700 bf16"}
 
     # K2: (a) Mistral prefill chunk at start=768, (b) Voicebox, (c) XLS-R long
     log("K2 flash_attention vs flash_attention_reference (bf16 bound 2^-7 * max|want| + "
@@ -197,6 +287,13 @@ def kernel_checks(dev) -> dict:
     errs.append(check_flash("prefill bf16 Tq=512 Tk=2048 start=768", args_a))
     timings["a"] = (cuda_ms(lambda: FL.flash_attention(*args_a)),
                     cuda_ms(lambda: FL.flash_attention_reference(*args_a)))
+    mask_a = attn_mask(qseg, kseg, qpos, kpos, True, 4096)
+    k2_bound = least_time(2 * nbytes(q) + nbytes(k, v, qseg, kseg, qpos, kpos),
+                          4 * 128 * 32 * int(mask_a.sum()), "bf16")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    k2_lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask_a[:, None], enable_gqa=True))
+    del qt, kt, vt
     # (b) Voicebox: B=2, T=449, 16 heads d=64, ALiBi, second row shorter, f32
     t1 = 449
     q, k, v = (randn(2, t1, 16, 64) for _ in range(3))
@@ -218,15 +315,17 @@ def kernel_checks(dev) -> dict:
                     cuda_ms(lambda: FL.flash_attention_reference(*args_c)))
     for key, (km, pm) in timings.items():
         log(f"  K2 time ({key}): kernel {km:.4f} ms, plain {pm:.4f} ms")
+    log(f"  K2 (a): bound {k2_bound['bound_ms']:.4f} ms ({k2_bound['bound_by']}); one "
+        f"scaled_dot_product_attention call with the boolean mask {k2_lib:.4f} ms")
     results["flash_attention"] = {"max_abs_err": max(errs), "ms": timings["a"][0],
-                                  "plain_ms": timings["a"][1], "case": "prefill (a) bf16"}
+                                  "plain_ms": timings["a"][1], **k2_bound, "library_ms": k2_lib,
+                                  "case": "prefill (a) bf16"}
 
     # K3: the six BigVGAN stage shapes of a 448-frame mel, snake-beta, log-scale
     log("K3 fused_activation1d vs activation1d_reference (snake-beta, log-scale; "
         "bound 1e-4 f32, 3e-2 bf16)")
     errs, stage_t = [], []
-    for ch, tlen in ((768, 1792), (384, 7168), (192, 14336), (96, 28672), (48, 57344),
-                     (24, 114688)):
+    for ch, tlen in STAGES:
         alpha, beta = randn(ch) * 0.3, randn(ch) * 0.3
         for dtype, bound in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
             x = randn(1, ch, tlen, dtype=dtype)
@@ -236,12 +335,18 @@ def kernel_checks(dev) -> dict:
             if dtype == torch.float32:
                 stage_t.append((cuda_ms(lambda: FA.fused_activation1d(x, alpha, beta, True)),
                                 cuda_ms(lambda: FA.activation1d_reference(x, alpha, beta, True))))
-    for (ch, tlen), (km, pm) in zip(((768, 1792), (384, 7168), (192, 14336), (96, 28672),
-                                     (48, 57344), (24, 114688)), stage_t):
+    for (ch, tlen), (km, pm) in zip(STAGES, stage_t):
         log(f"  K3 time C={ch} T={tlen} f32: kernel {km:.4f} ms, plain {pm:.4f} ms")
+    # per element: 2x upsampling and 2x downsampling with 12-tap filters (12
+    # multiply-adds each way) and the snake on the two upsampled values
+    # (~6 operations each): ~60 f32 operations; f32 in and out, alpha, beta
+    elems = sum(ch * tlen for ch, tlen in STAGES)
     results["fused_activation1d"] = {"max_abs_err": max(errs),
                                      "ms": sum(s[0] for s in stage_t),
                                      "plain_ms": sum(s[1] for s in stage_t),
+                                     **least_time(8 * elems + sum(8 * ch for ch, _ in STAGES),
+                                                  60 * elems, "f32"),
+                                     "library_ms": None,
                                      "case": "sum of one activation per stage, f32"}
     return results
 
@@ -272,7 +377,7 @@ def train_kernel_checks(dev) -> dict:
     lens = torch.tensor([1379, 900, 1379, 1200, 640, 1379, 1000, 1301], device=dev)
     seg = torch.where(pos < lens[:, None], 0, -1)
     errs = {"dq": [], "dkv": [], "fwd": []}
-    timing = {}
+    timing, k5_bounds, library = {}, {}, None
 
     def bwd_case(case, q, k, v, do, segs, poss, causal, window, alibi, dtype):
         o, lse = FL.flash_attention(q, k, v, segs, segs, poss, poss, causal, window,
@@ -311,6 +416,28 @@ def train_kernel_checks(dev) -> dict:
                                                           None, alibi=True)),
                        cuda_ms(lambda: FL.flash_attention_reference(q, k, v, seg, seg, pos, pos,
                                                                     False, None, None, True)))
+        # dq needs 3 products over the valid (query, key) pairs (S = QK^T,
+        # dP = dO V^T, dQ = dS K), dk/dv 4 (S, dP, dV = P^T dO, dK = dS^T Q)
+        pairs = h * int(attn_mask(seg, seg, pos, pos, False, None).sum())
+        ins = nbytes(q, k, v, do, lse, delta, seg, pos)
+        k5_bounds["dq"] = least_time(ins + nbytes(q), 3 * 2 * d * pairs, "bf16")
+        k5_bounds["dkv"] = least_time(ins + nbytes(k, v), 4 * 2 * d * pairs, "bf16")
+        # K2's forward at this shape: S = QK^T and O = PV over the same pairs
+        k5_bounds["fwd"] = least_time(2 * nbytes(q) + nbytes(k, v, seg, pos), 2 * 2 * d * pairs,
+                                      "bf16")
+        # the library yardstick: scaled_dot_product_attention's backward with
+        # the ALiBi + padding bias added to the scores (key column 0 exempt)
+        slopes = FL.alibi_slopes_pow2(h).to(dev)[None, :, None, None]
+        dist = (pos[:, None, :, None] - pos[:, None, None, :]).abs().float()
+        alibi = -slopes * dist * (pos[:, None, None, :] != 0)
+        valid = attn_mask(seg, seg, pos, pos, False, None)[:, None]
+        bias = torch.where(valid, alibi, torch.finfo(dtype).min).to(dtype)
+        del dist, alibi, valid
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        ot = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias)
+        dot = do.transpose(1, 2)
+        library = cuda_ms(lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True))
+        del qt, kt, vt, ot, bias
         # (c) the kernels run with ALiBi off (forward and backward) must miss
         # the bound that the ALiBi gradient meets
         o2, lse2 = FL.flash_attention(q, k, v, seg, seg, pos, pos, False, None, alibi=False,
@@ -342,10 +469,14 @@ def train_kernel_checks(dev) -> dict:
     log(f"  K5 time (a) bf16: dq kernel {km_dq:.4f} ms, dkv kernel {km_dkv:.4f} ms, plain "
         f"backward (dq, dk, dv together) {pm:.4f} ms; K2 forward at the same shape: kernel "
         f"{fk:.4f} ms, plain {fp:.4f} ms")
+    log(f"  K5 (a) bounds: dq {k5_bounds['dq']['bound_ms']:.4f} ms, dkv "
+        f"{k5_bounds['dkv']['bound_ms']:.4f} ms (K2 forward at this shape "
+        f"{k5_bounds['fwd']['bound_ms']:.4f} ms); scaled_dot_product_attention's backward with "
+        f"the ALiBi + padding bias (dq, dk, dv together) {library:.4f} ms")
     results["flash_attention_bwd_dq"] = {"max_abs_err": max(errs["dq"]), "ms": km_dq,
-                                         "plain_ms": pm}
+                                         "plain_ms": pm, **k5_bounds["dq"], "library_ms": library}
     results["flash_attention_bwd_dkv"] = {"max_abs_err": max(errs["dkv"]), "ms": km_dkv,
-                                          "plain_ms": pm}
+                                          "plain_ms": pm, **k5_bounds["dkv"], "library_ms": library}
     results["flash_attention_train_err"] = max(errs["fwd"])  # K2 at the training shapes
     del q, k, v, do
 
@@ -367,9 +498,142 @@ def train_kernel_checks(dev) -> dict:
         if dtype == torch.bfloat16:
             timing = (cuda_ms(lambda: LN.add_mask_ln(x, r, ln_lens, w, bb, True)),
                       cuda_ms(lambda: LN.add_mask_ln_reference(x, r, ln_lens, w, bb, True)))
+            # x, r in, out; ~8 operations per element (add, mask, mean,
+            # variance, normalize, scale, shift, mask)
+            k4_bound = least_time(3 * nbytes(x) + nbytes(w, bb, ln_lens), 8 * x.numel(), "bf16")
     log(f"  K4 time [8, 1379, 1024] bf16 post_mask: kernel {timing[0]:.4f} ms, plain "
         f"{timing[1]:.4f} ms")
-    results["add_mask_ln"] = {"max_abs_err": max(errs), "ms": timing[0], "plain_ms": timing[1]}
+    results["add_mask_ln"] = {"max_abs_err": max(errs), "ms": timing[0], "plain_ms": timing[1],
+                              **k4_bound, "library_ms": None}
+    return results
+
+
+
+def int8_kernel_checks(dev) -> dict:
+    """K6 and K1's int8 branch against their plain versions at the int8
+    paths' shapes, with CUDA-event times."""
+    import torch
+
+    from usdm_tpu_torch.engine.paged_ops import quant_kv_token
+    from usdm_tpu_torch.models import quant as Q
+    from usdm_tpu_torch.ops import paged_attention as PA
+    from usdm_tpu_torch.ops import stream_matvec as SM
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    results = {}
+
+    # K6 at the 7B decode projections (Dout, Din), M 1 / 8 / 16
+    log("K6 stream_qmv vs stream_qmv_reference (f32 out: bit for bit, i.e. exact int32 "
+        "accumulators and the same epilogue; bf16 in and out: one bf16 ulp of each value)")
+    errs = []
+    for dout, din in ((4096, 4096), (1024, 4096), (14336, 4096), (4096, 14336)):
+        w = Q.quantize_weight(torch.randn(din, dout, generator=gen, device=dev) * 0.02)
+        for m in (1, 8, 16):
+            y = torch.randn(m, din, generator=gen, device=dev) * 2.0
+            got, want = SM.stream_qmv(y, w, torch.float32), SM.stream_qmv_reference(
+                y, w, torch.float32)
+            errs.append(check("K6", f"M={m} [{dout}, {din}] f32", got, want, 0.0))
+            yb = y.bfloat16()
+            got, want = (fn(yb, w, torch.bfloat16).float()
+                         for fn in (SM.stream_qmv, SM.stream_qmv_reference))
+            ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp(min=1e-30))) - 7)
+            worst = ((got - want).abs() / ulp).max().item()
+            log(f"  K6 [M={m} [{dout}, {din}] bf16] max error {worst:.2f} bf16 ulps "
+                f"{'ok' if worst <= 1 else 'FAIL'}")
+            if worst > 1:
+                raise AssertionError(f"K6 bf16 M={m} [{dout}, {din}] off by {worst} ulps")
+            errs.append(max_err(got, want))
+    # timed as a decode step streams them: 8 different [14336, 4096] weights
+    # in turn (470 MB), so none is found in the 50 MB L2; M 8, bf16 (path B)
+    m, dout, din = 8, 14336, 4096
+    ws = [Q.quantize_weight(torch.randn(din, dout, generator=gen, device=dev) * 0.02)
+          for _ in range(8)]
+    y = torch.randn(m, din, generator=gen, device=dev).bfloat16()
+    km = cuda_ms(lambda: [SM.stream_qmv(y, w) for w in ws]) / len(ws)
+    pm = cuda_ms(lambda: [SM.stream_qmv_reference(y, w) for w in ws]) / len(ws)
+    deq = [Q.dequantize_weight(w) for w in ws]  # what int8 replaces: bf16 [Din, Dout]
+    bf16_ms = cuda_ms(lambda: [y @ w for w in deq]) / len(deq)
+    del deq
+    k6_bound = least_time(nbytes(y, ws[0]["q"], ws[0]["s"]) + m * dout * 2, 2 * m * dout * din,
+                          "int8")
+    times = {}
+    for mm in (1, 8, 16):
+        yy = torch.randn(mm, din, generator=gen, device=dev).bfloat16()
+        times[mm] = cuda_ms(lambda: [SM.stream_qmv(yy, w) for w in ws]) / len(ws)
+    log(f"  K6 time M=8 [{dout}, {din}] bf16, 8 weights in turn: kernel {km:.4f} ms, plain "
+        f"{pm:.4f} ms, bound {k6_bound['bound_ms']:.4f} ms ({k6_bound['bound_by']}); the bf16 "
+        f"matmul of the dequantized weight it replaces {bf16_ms:.4f} ms; kernel at M=1/8/16: "
+        + ", ".join(f"{v:.4f}" for v in times.values()) + " ms")
+    results["stream_qmv"] = {"max_abs_err": max(errs), "ms": km, "plain_ms": pm, **k6_bound,
+                             "library_ms": None, "bf16_matmul_ms": bf16_ms,
+                             "case": "M=8 [14336, 4096] bf16"}
+    del ws
+
+    # K1 int8: GQA 32/8, d 128, bf16 queries over int8 pools of 32 layer
+    # regions with page-major f32 scales; page 64 (respond's engine) and 256
+    # (the server's); scale slots the kernel must not read hold NaN.
+    log("K1 int8 paged_decode_attention vs paged_decode_attention_reference (bound: one bf16 "
+        "ulp of the largest output + 1e-4 against the plain version on f32 queries, the "
+        "kernel's function; against usdm_tpu's semantics, which round the dequantized K/V to "
+        "bf16, that plus the rounding's measured effect)")
+    hkv, g, d, n_layers = 8, 4, 128, 32
+    errs, timing = [], {}
+    for page, b in ((64, 1), (256, 8)):
+        maxp = -(-4200 // page)
+        n_pages = b * maxp + 1
+        nt = n_layers * n_pages
+        pools = []
+        for _ in range(2):
+            qv, sv = quant_kv_token(torch.randn(hkv, nt, page, d, generator=gen, device=dev))
+            pools += [qv, sv.transpose(0, 1).contiguous()]
+            del sv
+        kq, ks, vq, vs = pools
+        perm = torch.randperm(n_pages - 1, generator=gen, device=dev).to(torch.int32)
+        table = perm[: b * maxp].reshape(b, maxp).contiguous()
+        tables = [(table + li * n_pages).contiguous() for li in range(n_layers)]
+        for seq, window in ((1, 4096), (63, 4096), (64, 4096), (700, 4096), (4200, 4096),
+                            (4200, 512)):
+            lens = torch.full((b,), seq, dtype=torch.int32, device=dev)
+            if b > 1:
+                lens[b // 2] = max(1, seq // 2)
+            q = torch.randn(b, hkv, g, d, generator=gen, device=dev).bfloat16()
+            read = torch.zeros(nt, page, dtype=torch.bool, device=dev)
+            pos = torch.arange(maxp * page, device=dev)
+            for bi in range(b):
+                n = int(lens[bi])
+                ok = (pos < n) & (n - 1 - pos <= window)
+                read[tables[1][bi].long()[pos[ok] // page], pos[ok] % page] = True
+            ks_nan, vs_nan = (a.masked_fill(~read[:, None, :], float("nan")) for a in (ks, vs))
+            got = PA.paged_decode_attention(q, kq, vq, tables[1], lens, window,
+                                            k_scales=ks_nan, v_scales=vs_nan)
+            del ks_nan, vs_nan, read
+            want = PA.paged_decode_attention_reference(q, kq, vq, tables[1], lens, window,
+                                                       k_scales=ks, v_scales=vs)
+            fold = PA.paged_decode_attention_reference(q.float(), kq, vq, tables[1], lens,
+                                                       window, k_scales=ks, v_scales=vs)
+            check("K1 int8", f"page={page} B={b} seq={seq} window={window} vs f32-query plain",
+                  got, fold, bf16_bound(fold))
+            errs.append(check("K1 int8", f"page={page} B={b} seq={seq} window={window}", got,
+                              want, bf16_bound(fold) + max_err(want, fold)))
+            if (page, seq) in ((64, 700), (256, 700)):
+                def step(fn):
+                    return lambda: [fn(q, kq, vq, t, lens, 4096, k_scales=ks, v_scales=vs)
+                                    for t in tables]
+                kv_rows = int(lens.sum())  # K and V rows of 8 heads: int8 + f32 scale
+                timing[page] = (cuda_ms(step(PA.paged_decode_attention)) / n_layers,
+                                cuda_ms(step(PA.paged_decode_attention_reference)) / n_layers,
+                                least_time(2 * nbytes(q) + nbytes(tables[1], lens)
+                                      + 2 * kv_rows * hkv * (d + 4),
+                                      4 * g * hkv * kv_rows * d, "bf16"))
+        del pools, kq, ks, vq, vs
+    for page, (km, pm, bd) in timing.items():
+        log(f"  K1 int8 time page {page} B={1 if page == 64 else 8} seq=700 (per layer, 32 "
+            f"layer regions in turn): kernel {km:.4f} ms, plain {pm:.4f} ms, bound "
+            f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+    km, pm, bd = timing[256]
+    results["paged_decode_attention_int8"] = {"max_abs_err": max(errs), "ms": km,
+                                              "plain_ms": pm, **bd, "library_ms": None,
+                                              "case": "page 256 B=8 seq=700 (350 in one slot)"}
     return results
 
 
@@ -494,8 +758,7 @@ def slice_run(dev, profile: bool, tmp: str, out_dir: str) -> dict:
                 prof = torch.profiler.profile(activities=[
                     torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA])
                 prof.__enter__()
-            for fn in (*counters, add_mask_ln):
-                fn.launches = 0
+            reset_counts()
             torch.cuda.reset_peak_memory_stats()
             wav_out = os.path.join(tmp, f"agent{turn}.wav")
             trace = {}
@@ -504,7 +767,7 @@ def slice_run(dev, profile: bool, tmp: str, out_dir: str) -> dict:
                                            n_timesteps=50, seed=1, trace=trace)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            counts = {fn.__name__: fn.launches for fn in counters}
+            counts = launch_counts()
             if prof is not None:
                 prof.__exit__(None, None, None)
                 _write_profile(prof, out_dir)
@@ -522,10 +785,12 @@ def slice_run(dev, profile: bool, tmp: str, out_dir: str) -> dict:
                 "launches": counts,
             }
             log(f"turn {turn}: " + json.dumps(info))
-            if not all(counts.values()):
+            if not all(counts[fn.__name__] for fn in counters):
                 raise AssertionError(f"a kernel of the main path never launched: {counts}")
             if add_mask_ln.launches:  # B * (T + 1) = 2 * 449 is under its gate
                 raise AssertionError("the fused LayerNorm kernel ran in respond()")
+            if counts["stream_qmv"] or counts["paged_decode_attention_int8"]:
+                raise AssertionError(f"an int8 kernel ran in the bf16 turn: {counts}")
             if len(audio) == 0 or not np.isfinite(audio).all():
                 raise AssertionError("respond() produced empty or non-finite audio")
             if len(audio) != len(res.agent_units) * 441 // 256 * 256:
@@ -541,7 +806,228 @@ def slice_run(dev, profile: bool, tmp: str, out_dir: str) -> dict:
     return {"turns": turns}
 
 
+
 # --------------------------------------------------------------- phase 5
+def _nrms(a, b) -> float:
+    return float(np.sqrt(np.mean((a - b) ** 2)) / np.sqrt(np.mean(b**2)))
+
+
+def int8_small_turn_check(dev, wav_in: str) -> None:
+    """The small turn's pipeline with lm_int8 and vb_int8 (lm_head scaled by
+    8, so no greedy argmax rests on a margin within rounding noise) runs one
+    turn on the CPU (plain paths) and on the card (K6 for the decode rows,
+    torch._int_mm above 16 rows): identical dialog tokens.  The two
+    syntheses of those units from one shared noise may differ where an
+    activation rounds to neighbouring int8 values on the two sides; they
+    must stay within the W8A8 drift of the CPU's synthesis from the same
+    pipeline's float Voicebox (normalized RMS and largest error)."""
+    import dataclasses
+
+    import torch
+
+    from usdm_tpu_torch.core.config import BigVGANConfig, MistralConfig, VoiceboxConfig, XlsrConfig
+    from usdm_tpu_torch.core.tokenizer import UsdmTokenizer
+    from usdm_tpu_torch.pipeline import UsdmPipeline
+
+    tok = UsdmTokenizer.build_test(num_units=32)
+    cfgs = (MistralConfig.tiny(vocab_size=tok.vocab_size).replace(head_dim=32),
+            XlsrConfig.tiny().replace(num_clusters=32, hidden_size=64, intermediate_size=128),
+            VoiceboxConfig.tiny().replace(n_tokens=32, n_feats=80, hidden_size=64,
+                                          intermediate_size=128),
+            BigVGANConfig.tiny().replace(num_mels=80))
+    cpu = UsdmPipeline.random_init(tok, *cfgs, "cpu", seed=0, lm_int8=True, vb_int8=True,
+                                   max_new_tokens=16)
+    cpu.lm_params["lm_head"].mul_(8.0)
+    f32_decoder = UsdmPipeline.random_init(tok, *cfgs, "cpu", seed=0).decoder
+    card = dataclasses.replace(
+        cpu, lm_params=_to(cpu.lm_params, dev), xlsr_params=_to(cpu.xlsr_params, dev),
+        decoder=dataclasses.replace(cpu.decoder,
+                                    voicebox_params=_to(cpu.decoder.voicebox_params, dev),
+                                    vocoder_params=_to(cpu.decoder.vocoder_params, dev)),
+        device=dev, _server=None)
+    results = []
+    for pipe in (cpu, card):
+        reset_counts()
+        try:
+            res = pipe.respond_with_policy(_paged_policy(pipe, seed=2), wav_in,
+                                           n_timesteps=6, seed=2)
+        finally:
+            pipe.close()
+        results.append((dataclasses.asdict(res), launch_counts()))
+    (want, _), (got, counts) = results
+    log(f"small W8A8 turn, card vs CPU: tokens {'equal' if got == want else 'DIFFER'}, "
+        f"{len(got['agent_units'])} agent units, launches {counts}")
+    if got != want:
+        raise AssertionError(f"small W8A8 turn differs on the card: {got} vs {want}")
+    if not counts["stream_qmv"]:
+        raise AssertionError(f"K6 did not run in the small W8A8 turn: {counts}")
+    units = got["agent_units"]
+    n = len(units) * 441 // 256
+    z = torch.randn(1, 80, -(-n // 64) * 64, generator=torch.Generator().manual_seed(3))
+    want_audio = cpu.decoder.synthesize(units, z=z, n_timesteps=6)
+    f32_audio = f32_decoder.synthesize(units, z=z, n_timesteps=6)
+    got_audio = card.decoder.synthesize(units, z=z.to(dev), n_timesteps=6)
+    err, drift = _nrms(got_audio, want_audio), _nrms(want_audio, f32_audio)
+    err_max, drift_max = (float(np.abs(a - want_audio).max()) for a in (got_audio, f32_audio))
+    log(f"small W8A8 synthesis, card vs CPU: nRMS {err:.3e} (bound: the W8A8 drift from the "
+        f"float Voicebox, {drift:.3e}), max_abs_err {err_max:.3e} (bound {drift_max:.3e})")
+    if got_audio.shape != want_audio.shape or not drift > 0 or err > drift or err_max > drift_max:
+        raise AssertionError("small W8A8 synthesis differs on the card beyond the W8A8 drift")
+
+
+def _serve_load(server, prompts, allow, max_new: int) -> tuple:
+    """Each client thread submits its prompts one after another through
+    EngineServer.generate -> (tokens per client, wall seconds)."""
+    import threading
+
+    done, errors = {}, []
+
+    def client(ci):
+        try:
+            done[ci] = [server.generate(p, allow, eos_id=2, max_new_tokens=max_new, timeout=600)
+                        for p in prompts[ci]]
+        except Exception as e:  # re-raised below, on the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(ci,)) for ci in range(len(prompts))]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    return done, wall
+
+
+def _profiler():
+    import torch
+
+    return torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                              torch.profiler.ProfilerActivity.CUDA])
+
+
+def int8_run(dev, tmp: str, wav_in: str, profile: bool, out_dir: str) -> dict:
+    """Paths (A) and (B) of the int8 slice; with `profile` a third (A) turn
+    and a second (B) load run under torch.profiler."""
+    import gc
+
+    import torch
+
+    from usdm_tpu_torch.core.config import EngineConfig
+    from usdm_tpu_torch.pipeline import UsdmPipeline
+
+    int8_small_turn_check(dev, wav_in)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pipe = UsdmPipeline.full_random(device=dev, seed=0, lm_int8=True, vb_int8=True)
+    torch.cuda.synchronize()
+    log(f"built full-width W8A8 pipeline in {time.perf_counter() - t0:.1f} s; allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB (peak while quantizing "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)")
+    out = {}
+    try:
+        # (A) the W8A8 turn, twice (the first warms cuBLAS's int8 heuristics)
+        for turn in range(3 if profile else 2):
+            prof = _profiler() if turn == 2 else None
+            if prof is not None:
+                prof.__enter__()
+            reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            trace = {}
+            wav_out = os.path.join(tmp, f"agent_int8_{turn}.wav")
+            t0 = time.perf_counter()
+            res = pipe.respond_with_policy(_paged_policy(pipe, seed=1), wav_in, wav_out,
+                                           n_timesteps=50, seed=1, trace=trace)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = launch_counts()
+            if prof is not None:
+                prof.__exit__(None, None, None)
+                _write_profile(prof, out_dir, "int8_turn_profile.txt")
+            audio = trace["audio"]
+            audio_s = len(audio) / pipe.decoder.mel_cfg.sampling_rate
+            info = {"turn": turn, "wall_s": wall, "xlsr_s": trace["xlsr_s"],
+                    "dialog_s": trace["dialog_s"], "synth_s": trace["synth_s"],
+                    "stage_tokens": {k: len(v) for k, v in res.stage_tokens.items()},
+                    "agent_units": len(res.agent_units), "audio_s": audio_s,
+                    "rtf": wall / audio_s if audio_s else None,
+                    "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+                    "launches": counts}
+            log(f"(A) W8A8 turn {turn}: " + json.dumps(info))
+            need = ("stream_qmv", "paged_decode_attention", "flash_attention",
+                    "fused_activation1d")
+            if not all(counts[k] for k in need):
+                raise AssertionError(f"a kernel of path (A) never launched: {counts}")
+            if len(audio) == 0 or not np.isfinite(audio).all() or not os.path.exists(wav_out):
+                raise AssertionError("the W8A8 turn produced no finite audio")
+            if len(audio) != len(res.agent_units) * 441 // 256 * 256:
+                raise AssertionError("audio length does not match the agent units")
+            out["A"] = info
+        pipe.close()
+
+        # (B) eight clients over the same W8A8 7B with int8 KV pages
+        n_clients, per_client, prompt_len, max_new = 8, 2, 384, 128
+        ecfg = EngineConfig(page_size=256, max_pages_per_seq=3, max_batch_size=n_clients,
+                            prefill_chunk=256, kv_dtype="int8")
+        server = pipe.make_server(ecfg)
+        try:
+            engine = server.engine
+            rng = np.random.default_rng(0)
+            allow = np.ones(pipe.lm_cfg.vocab_size, bool)
+            allow[:3] = False  # EOS (id 2) unreachable: every request runs its budget
+            prompts = [[rng.integers(3, 32000, prompt_len).tolist() for _ in range(per_client)]
+                       for _ in range(n_clients)]
+            _serve_load(server, [[rng.integers(3, 32000, prompt_len).tolist()]
+                                 for _ in range(n_clients)], allow, 8)  # warm-up
+            engine._ttfts.clear()
+            reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            done, wall = _serve_load(server, prompts, allow, max_new)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            ttfts = sorted(engine._ttfts)
+            n_tok = sum(len(t) for outs in done.values() for t in outs)
+            info = {"clients": n_clients, "requests": n_clients * per_client,
+                    "prompt_len": prompt_len, "max_new_tokens": max_new, "wall_s": wall,
+                    "generated_tokens": n_tok, "tok_s": n_tok / wall,
+                    "ttft_p50_s": ttfts[len(ttfts) // 2],
+                    "ttft_p95_s": ttfts[min(int(0.95 * len(ttfts)), len(ttfts) - 1)],
+                    "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+                    "engine": engine.stats(), "launches": counts}
+            log("(B) W8A8 7B, int8 KV, 8 clients: " + json.dumps(info))
+            if profile:  # the same load once more, under the profiler
+                again = [[rng.integers(3, 32000, prompt_len).tolist() for _ in range(per_client)]
+                         for _ in range(n_clients)]
+                with _profiler() as prof:
+                    _, wall_p = _serve_load(server, again, allow, max_new)
+                    torch.cuda.synchronize()
+                log(f"(B) profiled load: {wall_p:.3f} s")
+                _write_profile(prof, out_dir, "serve_profile.txt")
+        finally:
+            server.close()
+        if n_tok != n_clients * per_client * max_new or len(ttfts) != n_clients * per_client:
+            raise AssertionError(f"(B) generated {n_tok} tokens, {len(ttfts)} first tokens")
+        if not all(counts[k] for k in ("stream_qmv", "paged_decode_attention_int8",
+                                       "flash_attention")):
+            raise AssertionError(f"a kernel of path (B) never launched: {counts}")
+        if counts["paged_decode_attention"]:
+            raise AssertionError("the bf16 K1 branch ran over int8 KV pages")
+        out["B"] = info
+    finally:
+        pipe.close()
+        del pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "jax" in sys.modules:
+        raise AssertionError("jax was imported")
+    return out
+
+
+# --------------------------------------------------------------- phase 6
 def _train_counters():
     from usdm_tpu_torch.ops import flash_attention as FL
     from usdm_tpu_torch.ops import fused_ln as LN
@@ -667,19 +1153,17 @@ def train_run(dev, profile: bool, tmp: str, out_dir: str) -> dict:
     filelist = _write_train_data(tmp)
     out = os.path.join(tmp, "train_out")
     n_steps, seed = 10, 37
-    counters = _train_counters()
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    for fn in counters.values():
-        fn.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     train_voicebox.main(["--train_filelist", filelist, "--output_dir", out, "--max_steps",
                          str(n_steps), "--synthesize_every", "0", "--save_every", "1000",
                          "--seed", str(seed), "--device", str(dev)])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {k: fn.launches for k, fn in counters.items()}
+    counts = {k: v for k, v in launch_counts().items() if k in _train_counters()}
     peak = torch.cuda.max_memory_allocated() / 2**30
     with open(os.path.join(out, "metrics.jsonl")) as f:
         steps = [r for r in map(json.loads, f) if "train/loss" in r]
@@ -750,13 +1234,15 @@ def _write_profile(prof, out_dir: str, name: str = "respond_profile.txt") -> Non
     with open(path, "w") as f:
         f.write(table)
     log(f"profile: kernel table in {path}")
-    log("\n".join(table.splitlines()[:25]))
+    lines = table.splitlines()
+    log("\n".join(lines[:25] + lines[-3:]))  # the top rows and the self-time totals
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="run a third full-width turn and one train step under torch.profiler")
+                    help="run a third bf16 and a third W8A8 turn, a second server load and "
+                         "one train step under torch.profiler")
     ap.add_argument("--out-dir", default="chip_smoke_out",
                     help="where the nvcc log and the profile table are written")
     args = ap.parse_args()
@@ -782,6 +1268,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     log(f"build: {time.perf_counter() - t0:.1f} s (nvcc {_build.build_seconds:.1f} s)")
+    t_start = t0
     os.makedirs(args.out_dir, exist_ok=True)
     with open(os.path.join(args.out_dir, "nvcc_build.log"), "w") as f:
         f.write(_build.build_log)
@@ -791,17 +1278,35 @@ def main() -> int:
 
     kres = kernel_checks(dev)
     kres.update(train_kernel_checks(dev))
+    kres.update(int8_kernel_checks(dev))
     k2 = kres["flash_attention"]
     k2["max_abs_err"] = max(k2["max_abs_err"], kres.pop("flash_attention_train_err"))
+    t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        launches = slice_run(dev, args.profile, tmp, args.out_dir)["turns"][1]["launches"]
-        train_launches = train_run(dev, args.profile, tmp, args.out_dir)["launches"]
-    launches.update({k: v for k, v in train_launches.items() if k not in launches})
+        # each kernel's launches come from the run of the path it serves:
+        # K1-K3 the bf16 turn, K6 the W8A8 turn (A) and the server (B) together,
+        # K1's int8 branch (B), K4 and K5 the trainer
+        bf16 = slice_run(dev, args.profile, tmp, args.out_dir)["turns"][-1]["launches"]
+        log(f"phase time: bf16 turns {time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
+        int8 = int8_run(dev, tmp, os.path.join(tmp, "user.wav"), args.profile, args.out_dir)
+        log(f"phase time: int8 serving {time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
+        train = train_run(dev, args.profile, tmp, args.out_dir)["launches"]
+        log(f"phase time: training {time.perf_counter() - t_phase:.1f} s")
+    a, b = int8["A"]["launches"], int8["B"]["launches"]
+    launches = {**{k: bf16[k] for k in ("paged_decode_attention", "flash_attention",
+                                         "fused_activation1d")},
+                **{k: train[k] for k in ("add_mask_ln", "flash_attention_bwd_dq",
+                                         "flash_attention_bwd_dkv")},
+                "stream_qmv": a["stream_qmv"] + b["stream_qmv"],
+                "paged_decode_attention_int8": b["paged_decode_attention_int8"]}
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", **KERNELS[k], "launches": launches[k],
-         "max_abs_err": kres[k]["max_abs_err"], "ms": kres[k]["ms"],
-         "plain_ms": kres[k]["plain_ms"]} for k in KERNELS]}))
+         **{f: kres[k][f] for f in keys}} for k in KERNELS]}))
     print(smi.stdout.strip())
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the build on")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0

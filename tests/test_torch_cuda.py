@@ -1,4 +1,4 @@
-"""K1-K5 CUDA kernels against their plain PyTorch versions, on the card.
+"""K1-K6 CUDA kernels against their plain PyTorch versions, on the card.
 
 Marked `cuda`: each test skips without a CUDA device (a CUDA kernel has no
 CPU mode).  Imports no JAX, so it runs where the port runs; there, skip
@@ -9,10 +9,13 @@ tests/conftest.py (it imports JAX):
 import pytest
 import torch
 
+from usdm_tpu_torch.engine.paged_ops import quant_kv_token
+from usdm_tpu_torch.models import quant as Q
 from usdm_tpu_torch.ops import flash_attention as FL
 from usdm_tpu_torch.ops import fused_act as FA
 from usdm_tpu_torch.ops import fused_ln as LN
 from usdm_tpu_torch.ops import paged_attention as PA
+from usdm_tpu_torch.ops import stream_matvec as SM
 
 
 @pytest.fixture
@@ -196,3 +199,110 @@ def test_fused_ln_takes_channel_first_rows(cuda):
     got = LN.add_mask_ln(x, r, lengths, w, b, True)
     want = LN.add_mask_ln_reference(x, r, lengths, w, b, True)
     assert (got - want).abs().max().item() <= 1e-5  # f32 both sides
+
+
+# ----------------------------------------------------------------- K1 int8
+def _int8_case(cuda, seq, page, window):
+    """GQA 32/8, d 128, bf16 queries over int8 pools with page-major f32
+    scales (the engine's layout), two slots of lengths seq and seq // 3.
+    Every scale slot the kernel must not read (pages outside the tables,
+    rows past a slot's length or below its window) holds NaN."""
+    g = torch.Generator(device=cuda).manual_seed(seq + page)
+    hkv, grp, d = 8, 4, 128
+    maxp = -(-4200 // page)
+    nt = 2 * maxp + 2
+    pools = []
+    for _ in range(2):
+        qv, sv = quant_kv_token(torch.randn(hkv, nt, page, d, generator=g, device=cuda))
+        pools += [qv, sv.transpose(0, 1).contiguous()]  # scales [NT, Hkv, P]
+    table = torch.randperm(nt - 1, generator=g, device=cuda)[: 2 * maxp]
+    table = table.reshape(2, maxp).to(torch.int32).contiguous()
+    lens = torch.tensor([seq, max(1, seq // 3)], dtype=torch.int32, device=cuda)
+    q = torch.randn(2, hkv, grp, d, generator=g, device=cuda).bfloat16()
+    read = torch.zeros(nt, page, dtype=torch.bool, device=cuda)
+    pos = torch.arange(maxp * page, device=cuda)
+    for b in range(2):
+        n = int(lens[b])
+        ok = (pos < n) & ((n - 1 - pos <= window) if window is not None else True)
+        read[table[b].long()[pos[ok] // page], pos[ok] % page] = True
+    poisoned = [t.masked_fill(~read[:, None, :], float("nan")) for t in (pools[1], pools[3])]
+    return q, pools, poisoned, table, lens
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page", [64, 256])
+@pytest.mark.parametrize("window", [4096, 512, None])
+@pytest.mark.parametrize("seq", [1, 700, 4200])
+def test_paged_int8_kernel_matches_plain(cuda, page, window, seq):
+    """K1's int8 branch at respond()'s page 64 and serving's page 256.  The
+    kernel folds the scales in f32; the plain version (usdm_tpu's
+    semantics) rounds the dequantized K/V to q's dtype first.  Bounds: the
+    kernel within one bf16 ulp of the largest output + 1e-4 of the plain
+    version run on f32 queries (the same function with nothing rounded but
+    the output); against the plain version on bf16 queries, that plus the
+    effect of the K/V rounding, measured as the gap between the two plain
+    runs.  The kernel gets the scale pools with NaN in every slot it must
+    not read and stays finite."""
+    q, (kq, ks, vq, vs), (ks_nan, vs_nan), table, lens = _int8_case(cuda, seq, page, window)
+    got = PA.paged_decode_attention(q, kq, vq, table, lens, window, k_scales=ks_nan,
+                                    v_scales=vs_nan)
+    want = PA.paged_decode_attention_reference(q, kq, vq, table, lens, window, k_scales=ks,
+                                               v_scales=vs)
+    fold = PA.paged_decode_attention_reference(q.float(), kq, vq, table, lens, window,
+                                               k_scales=ks, v_scales=vs)
+    assert torch.isfinite(got.float()).all()
+    bound = _bf16_bound(fold)
+    assert (got.float() - fold).abs().max().item() <= bound
+    rounding = (want.float() - fold).abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= bound + rounding
+
+
+# ----------------------------------------------------------------- K6
+SHAPES_7B = [(4096, 4096), (1024, 4096), (14336, 4096), (4096, 14336)]  # (Dout, Din)
+
+
+def _qmv_case(cuda, m, dout, din):
+    g = torch.Generator(device=cuda).manual_seed(m * 7 + dout)
+    w = Q.quantize_weight(torch.randn(din, dout, generator=g, device=cuda) * 0.02)
+    y = torch.randn(m, din, generator=g, device=cuda) * 2.0
+    return y, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 8, 16])
+@pytest.mark.parametrize("dout,din", SHAPES_7B)
+def test_stream_qmv_kernel_matches_plain(cuda, m, dout, din):
+    """K6 at the 7B decode projections.  f32 out: bit for bit (the int8
+    activations, the int32 accumulators and the three IEEE operations of
+    the epilogue are the same, so any difference is a wrong accumulator);
+    bf16 activations and out: within one bf16 ulp of each value."""
+    y, w = _qmv_case(cuda, m, dout, din)
+    got = SM.stream_qmv(y, w, torch.float32)
+    want = SM.stream_qmv_reference(y, w, torch.float32)
+    assert torch.equal(got, want)
+    yb = y.bfloat16()
+    got_b = SM.stream_qmv(yb, w, torch.bfloat16).float()
+    want_b = SM.stream_qmv_reference(yb, w, torch.bfloat16).float()
+    ulp = torch.exp2(torch.floor(torch.log2(want_b.abs().clamp(min=1e-30))) - 7)
+    assert ((got_b - want_b).abs() <= ulp).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 16, 17, 512])
+def test_qmm_routes_on_the_card(cuda, m):
+    """qmm on CUDA: K6 up to 16 rows, torch._int_mm above; both equal the
+    plain version bit for bit in f32."""
+    y, w = _qmv_case(cuda, m, 1024, 4096)
+    before = SM.stream_qmv.launches
+    got = Q.qmm(y, w)
+    assert SM.stream_qmv.launches == before + (m <= SM.MAX_ROWS)
+    assert torch.equal(got, SM.stream_qmv_reference(y, w, torch.float32))
+
+
+@pytest.mark.cuda
+def test_qmm_raises_without_a_route(cuda):
+    """A shape that neither route takes raises; nothing dequantizes."""
+    for m, din, dout in ((4, 24, 64), (17, 12, 64), (17, 64, 12)):
+        y, w = _qmv_case(cuda, m, dout, din)
+        with pytest.raises(ValueError, match="no CUDA route|Din a multiple"):
+            Q.qmm(y, w)

@@ -6,6 +6,7 @@ multi-chunk prompt, stage masks and stop tokens.  JAX runs under
 default_matmul_precision("highest") in f32, like the port.
 """
 
+import dataclasses
 import threading
 
 import jax
@@ -18,13 +19,22 @@ from usdm_tpu.engine.paged import PagedEngine as JaxEngine
 from usdm_tpu.engine.paged import Request as JaxRequest
 from usdm_tpu.models import mistral as JLM
 from usdm_tpu_torch.core import bridge
+from usdm_tpu_torch.core import config as C
 from usdm_tpu_torch.engine import paged_ops
 from usdm_tpu_torch.engine.paged import PagedEngine, Request, _ctx_pages_bucket, _mask_slice
 from usdm_tpu_torch.engine.server import EngineServer
 
+
+
+def port_cfg(jcfg):
+    """The port's config of the same fields as a usdm_tpu config."""
+    return getattr(C, type(jcfg).__name__).from_dict(dataclasses.asdict(jcfg))
+
+
 CFG = MistralConfig.tiny()
 ECFG = EngineConfig(max_batch_size=2, page_size=8, max_pages_per_seq=16, prefill_chunk=16,
                     decode_horizon=4)
+PCFG, PECFG = port_cfg(CFG), port_cfg(ECFG)  # the same configs as the port's classes
 
 
 @pytest.fixture(scope="module")
@@ -59,7 +69,7 @@ def test_session_tokens_match_jax(weights, rng):
         ej = JaxEngine(jp, CFG, ECFG)
         for r in reqs_j:  # one at a time, like the dialog's stages
             ej.run([r])
-    et = PagedEngine(tp, CFG, ECFG, device="cpu")
+    et = PagedEngine(tp, PCFG, PECFG, device="cpu")
     for r in reqs_t:
         et.run([r])
     for rj, rt in zip(reqs_j, reqs_t):
@@ -81,18 +91,18 @@ def test_concurrent_requests_match_jax(weights, rng):
     with jax.default_matmul_precision("highest"):
         rj = JaxEngine(jp, CFG, ECFG).run(
             [JaxRequest(i, p, allow, 1, 9) for i, p in enumerate(prompts)])
-    rt = PagedEngine(tp, CFG, ECFG, device="cpu").run(
+    rt = PagedEngine(tp, PCFG, PECFG, device="cpu").run(
         [Request(i, p, allow, 1, 9) for i, p in enumerate(prompts)])
     assert [r.output_ids for r in rt] == [r.output_ids for r in rj]
 
 
 def test_decode_step_writes_pool_in_place(weights):
     _, tp = weights
-    kv = paged_ops.PagedKV.create(CFG, 5, 8, "cpu")
+    kv = paged_ops.PagedKV.create(PCFG, 5, 8, "cpu")
     ptr = kv.k_pages.data_ptr()
     table = torch.tensor([[0, 1, 4, 4]], dtype=torch.int32)
     allow = torch.ones((1, CFG.vocab_size), dtype=torch.bool)
-    paged_ops.paged_decode_step(tp, kv, CFG, torch.tensor([3]), torch.tensor([9], dtype=torch.int32),
+    paged_ops.paged_decode_step(tp, kv, PCFG, torch.tensor([3]), torch.tensor([9], dtype=torch.int32),
                                 table, torch.tensor([True]), allow, 8)
     assert kv.k_pages.data_ptr() == ptr
     # token at position 9 -> page table[0, 1] = 1, row 1, every layer region
@@ -114,23 +124,37 @@ def test_helpers_match_jax():
 
 @pytest.mark.parametrize("what", ["draft", "int8", "tp"])
 def test_unported_options_raise(weights, what):
-    _, tp = weights
+    """Speculation and tensor parallelism raise.  int8 KV pools are ported:
+    the "int8" case now serves the concurrent requests with int8 pools and
+    must give usdm_tpu's greedy tokens; an unknown kv_dtype raises."""
+    jp, tp = weights
     if what == "draft":
         with pytest.raises(NotImplementedError):
-            PagedEngine(tp, CFG, ECFG, device="cpu", draft="ngram")
+            PagedEngine(tp, PCFG, PECFG, device="cpu", draft="ngram")
     elif what == "int8":
-        with pytest.raises(NotImplementedError):
-            PagedEngine(tp, CFG, ECFG.replace(kv_dtype="int8"), device="cpu")
+        ecfg = ECFG.replace(kv_dtype="int8")
+        prompts = [np.random.default_rng(4).integers(0, CFG.vocab_size, size=n).tolist()
+                   for n in (9, 23, 30)]
+        allow = np.ones(CFG.vocab_size, bool)
+        with jax.default_matmul_precision("highest"):
+            rj = JaxEngine(jp, CFG, ecfg).run(
+                [JaxRequest(i, p, allow, 1, 9) for i, p in enumerate(prompts)])
+        et = PagedEngine(tp, PCFG, port_cfg(ecfg), device="cpu")
+        assert et.kv.quantized and et.kv.k_pages.dtype == torch.int8
+        rt = et.run([Request(i, p, allow, 1, 9) for i, p in enumerate(prompts)])
+        assert [r.output_ids for r in rt] == [r.output_ids for r in rj]
+        with pytest.raises(ValueError):
+            PagedEngine(tp, PCFG, PECFG.replace(kv_dtype="fp8"), device="cpu")
     else:
         with pytest.raises(NotImplementedError):
-            PagedEngine(tp, CFG, ECFG, device="cpu", mesh=object())
+            PagedEngine(tp, PCFG, PECFG, device="cpu", mesh=object())
 
 
 def test_server_failure_reaches_every_caller(weights):
     """A tick failure sets the error on every in-flight request and wakes
     every caller with it; later submissions fail fast."""
     _, tp = weights
-    engine = PagedEngine(tp, CFG, ECFG, device="cpu")
+    engine = PagedEngine(tp, PCFG, PECFG, device="cpu")
 
     def broken_tick():
         raise RuntimeError("device lost")
@@ -171,7 +195,7 @@ def test_sampled_requests_are_seeded_and_masked(weights, rng):
     def run(seed):
         req = Request(0, prompt, allow, -1, 12, top_k=8, top_p=0.9, temperature=0.8,
                       seed=seed)
-        PagedEngine(tp, CFG, ECFG, device="cpu").run([req])
+        PagedEngine(tp, PCFG, PECFG, device="cpu").run([req])
         return req.output_ids
 
     a, b, c = run(1), run(1), run(2)

@@ -63,12 +63,27 @@ def test_paged_plain_matches_jax(rng, interpret, window, lens):
     np.testing.assert_allclose(got, np.asarray(kern), **TOL)
 
 
-def test_paged_int8_pools_not_ported(rng):
+def test_paged_int8_pools_not_ported(rng, interpret):
+    """The int8 branch, ported since: int8 pools with page-major scales give
+    the JAX reference's output (f32, 2e-5) and the Pallas kernel's in
+    interpret mode (its bf16 p @ V after the v-scale fold: 2e-2, usdm_tpu's
+    own bound); one scale without the other raises."""
+    from usdm_tpu.engine.paged_ops import quant_kv_token
+
     q, kp, vp, table = _paged_inputs(rng)
-    scales = torch.ones(kp.shape[1], kp.shape[0], kp.shape[2])
-    with pytest.raises(NotImplementedError):
-        PA.paged_decode_attention(t(q), t(kp), t(vp), t(table), torch.ones(3, dtype=torch.int32),
-                                  k_scales=scales, v_scales=scales)
+    (kq, ks), (vq, vs) = (quant_kv_token(jnp.asarray(x)) for x in (kp, vp))
+    ks, vs = (np.asarray(jnp.transpose(a, (1, 0, 2))) for a in (ks, vs))  # [N, Hkv, P]
+    lens = np.asarray([5, 17, 32], np.int32)
+    got = PA.paged_decode_attention(t(q), t(kq), t(vq), t(table), t(lens), k_scales=t(ks),
+                                    v_scales=t(vs)).numpy()
+    jargs = tuple(map(jnp.asarray, (q, kq, vq, table, lens)))
+    ref = JPA.paged_decode_attention_reference(*jargs, k_scales=jnp.asarray(ks),
+                                               v_scales=jnp.asarray(vs))
+    kern = JPA.paged_decode_attention(*jargs, k_scales=jnp.asarray(ks), v_scales=jnp.asarray(vs))
+    np.testing.assert_allclose(got, np.asarray(ref), **TOL)
+    np.testing.assert_allclose(got, np.asarray(kern), rtol=2e-2, atol=2e-2)
+    with pytest.raises(ValueError):
+        PA.paged_decode_attention(t(q), t(kq), t(vq), t(table), t(lens), k_scales=t(ks))
 
 
 # ----------------------------------------------------------------- K2

@@ -6,6 +6,8 @@ default_matmul_precision("highest"), since its CPU default is bf16-like).
 Tolerances are stated at each assert.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +20,7 @@ from usdm_tpu.models import mistral as JLM
 from usdm_tpu.models import voicebox as JVB
 from usdm_tpu.models import xlsr as JXL
 from usdm_tpu_torch.core import bridge
+from usdm_tpu_torch.core import config as C
 from usdm_tpu_torch.models import bigvgan as BV
 from usdm_tpu_torch.models import mistral as LM
 from usdm_tpu_torch.models import voicebox as VB
@@ -34,6 +37,11 @@ def host(tree):
     return jax.device_get(tree)
 
 
+def port_cfg(jcfg):
+    """The port's config of the same fields as a usdm_tpu config."""
+    return getattr(C, type(jcfg).__name__).from_dict(dataclasses.asdict(jcfg))
+
+
 def close(got, want, rtol, atol):
     np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=rtol, atol=atol)
 
@@ -48,7 +56,7 @@ def test_mistral_forward_matches(rng):
     pos[1, 25:] -= 25
     want = JLM.forward(jp, cfg, jnp.asarray(ids), jnp.asarray(seg), jnp.asarray(pos),
                        attn_impl="xla")
-    got = LM.forward(bridge.mistral_from_jax(host(jp)), cfg, torch.from_numpy(ids).long(),
+    got = LM.forward(bridge.mistral_from_jax(host(jp)), port_cfg(cfg), torch.from_numpy(ids).long(),
                      torch.from_numpy(seg), torch.from_numpy(pos))
     close(got, want, rtol=1e-4, atol=1e-4)  # f32 logits of O(1)
 
@@ -78,7 +86,7 @@ def test_xlsr_units_match(xlsr, rng):
     cfg, jp, tp = xlsr
     wav = (rng.standard_normal(7000) * 0.1).astype(np.float32)
     want = JXL.extract_units_bucketed(jp, cfg, wav)
-    got = XL.extract_units_bucketed(tp, cfg, wav)
+    got = XL.extract_units_bucketed(tp, port_cfg(cfg), wav)
     assert got == want  # exact units
     assert len(got) > 100
 
@@ -89,7 +97,7 @@ def test_xlsr_features_match_with_padding(xlsr, rng):
     lens = np.asarray([6000, 4100], np.int32)
     jf, jl = JXL.encode(jp, cfg, jnp.asarray(wav), jnp.asarray(lens), attn_impl="xla")
     for impl in ("plain", "flash"):  # flash: the kernel wrapper's CPU version
-        tf, tl = XL.encode(tp, cfg, torch.from_numpy(wav), torch.from_numpy(lens).long(),
+        tf, tl = XL.encode(tp, port_cfg(cfg), torch.from_numpy(wav), torch.from_numpy(lens).long(),
                            attn_impl=impl)
         np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
         n = int(jl[1])
@@ -118,7 +126,7 @@ def test_voicebox_estimator_matches(voicebox, rng, impl):
     lens = np.asarray([t, 19], np.int32)
     want = JVB.estimator(jp, cfg, jnp.asarray(x), jnp.asarray(y), jnp.asarray(cond),
                          jnp.asarray(tt), jnp.asarray(lens), attn_impl="xla", fused_ln="xla")
-    got = VB.estimator(tp, cfg, torch.from_numpy(x).long(), torch.from_numpy(y),
+    got = VB.estimator(tp, port_cfg(cfg), torch.from_numpy(x).long(), torch.from_numpy(y),
                        torch.from_numpy(cond), torch.from_numpy(tt),
                        torch.from_numpy(lens).long(), attn_impl=impl)
     close(got, want, rtol=1e-4, atol=1e-4)  # f32 through 4 post-LN layers
@@ -134,7 +142,7 @@ def test_voicebox_generate_matches(voicebox, rng):
     lens = np.asarray([20], np.int32)
     want = JVB.generate(jp, cfg, jnp.asarray(x), jnp.asarray(cond), jnp.asarray(lens),
                         jax.random.PRNGKey(0), n_timesteps=7, z=jnp.asarray(z), fused_ln="xla")
-    got = VB.generate(tp, cfg, torch.from_numpy(x).long(), torch.from_numpy(cond),
+    got = VB.generate(tp, port_cfg(cfg), torch.from_numpy(x).long(), torch.from_numpy(cond),
                       torch.from_numpy(lens).long(), n_timesteps=7, z=torch.from_numpy(z))
     close(got, want, rtol=1e-4, atol=1e-4)  # f32 over 4 Heun steps
 
@@ -150,6 +158,6 @@ def test_bigvgan_generator_matches(rng, fused):
                 a[k] = jnp.asarray(rng.standard_normal(a[k].shape).astype(np.float32) * 0.3)
     mel = rng.standard_normal((1, cfg.num_mels, 20)).astype(np.float32)
     want = JBV.generator(jp, cfg, jnp.asarray(mel))
-    got = BV.generator(bridge.bigvgan_from_jax(host(jp)), cfg, torch.from_numpy(mel))
+    got = BV.generator(bridge.bigvgan_from_jax(host(jp)), port_cfg(cfg), torch.from_numpy(mel))
     assert got.shape == want.shape
     close(got, want, rtol=1e-4, atol=1e-5)  # f32 waveform in [-1, 1]

@@ -4,11 +4,14 @@ The port's pipeline gets usdm_tpu's tiny_random weights through the bridge;
 the same wav must give an identical DialogResult (greedy tokens, texts,
 units), and the port's synthesis, fed the initial noise the JAX synthesis
 draws, must give the same waveform within 1e-3 of its peak.  Also: the port runs
-without JAX, and asking for CUDA without a card raises.
+without JAX and without usdm_tpu, and its entry points default to CUDA and
+raise without a card.
 """
 
+import ast
 import dataclasses
 import os
+import pathlib
 import subprocess
 import sys
 
@@ -22,11 +25,17 @@ from usdm_tpu.audio.units import expand_and_pool
 from usdm_tpu.audio.wav import ceil_to, write_wav
 from usdm_tpu.pipeline import UsdmPipeline as JaxPipeline
 from usdm_tpu_torch.core import bridge
+from usdm_tpu_torch.core import config as C
 from usdm_tpu_torch.core.tokenizer import UsdmTokenizer
 from usdm_tpu_torch.engine.synthesis import SpeechDecoder
 from usdm_tpu_torch.pipeline import UsdmPipeline
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def port_cfg(jcfg):
+    """The port's config of the same fields as a usdm_tpu config."""
+    return getattr(C, type(jcfg).__name__).from_dict(dataclasses.asdict(jcfg))
 
 
 @pytest.fixture(scope="module")
@@ -35,12 +44,13 @@ def pipes():
         jpipe = JaxPipeline.tiny_random(seed=0)
     host = jax.device_get
     d = jpipe.decoder
-    decoder = SpeechDecoder(bridge.voicebox_from_jax(host(d.voicebox_params)), d.voicebox_cfg,
-                            bridge.bigvgan_from_jax(host(d.vocoder_params)), d.vocoder_cfg,
-                            d.mel_cfg)
+    decoder = SpeechDecoder(bridge.voicebox_from_jax(host(d.voicebox_params)),
+                            port_cfg(d.voicebox_cfg),
+                            bridge.bigvgan_from_jax(host(d.vocoder_params)),
+                            port_cfg(d.vocoder_cfg), port_cfg(d.mel_cfg))
     tpipe = UsdmPipeline(UsdmTokenizer.build_test(num_units=32),
-                         bridge.mistral_from_jax(host(jpipe.lm_params)), jpipe.lm_cfg,
-                         bridge.xlsr_from_jax(host(jpipe.xlsr_params)), jpipe.xlsr_cfg,
+                         bridge.mistral_from_jax(host(jpipe.lm_params)), port_cfg(jpipe.lm_cfg),
+                         bridge.xlsr_from_jax(host(jpipe.xlsr_params)), port_cfg(jpipe.xlsr_cfg),
                          decoder, device="cpu", max_new_tokens=jpipe.max_new_tokens)
     yield jpipe, tpipe
     jpipe.close()
@@ -86,19 +96,27 @@ def test_tiny_synthesis_matches_jax(pipes, rng):
 
 
 def test_port_runs_without_jax(tmp_path):
-    """Importing every usdm_tpu_torch module and running a tiny turn leaves
-    jax out of sys.modules."""
+    """With usdm_tpu made unimportable, every usdm_tpu_torch module imports,
+    chip_smoke.py and every port module it imports load, and a tiny turn
+    (W8A8 LM and Voicebox) runs on the CPU; jax never enters sys.modules."""
     code = f"""
-import importlib, os, pkgutil, sys
+import ast, importlib, os, pkgutil, sys
+sys.modules["usdm_tpu"] = None  # any import of usdm_tpu now fails
 import numpy as np
 import usdm_tpu_torch
 for m in pkgutil.walk_packages(usdm_tpu_torch.__path__, "usdm_tpu_torch."):
     importlib.import_module(m.name)
-from usdm_tpu.audio.wav import write_wav
+import chip_smoke
+for node in ast.walk(ast.parse(open("chip_smoke.py").read())):
+    if isinstance(node, ast.ImportFrom) and node.module.startswith("usdm_tpu_torch"):
+        mod = importlib.import_module(node.module)
+        for alias in node.names:
+            getattr(mod, alias.name, None) or importlib.import_module(node.module + "." + alias.name)
+from usdm_tpu_torch.audio.wav import write_wav
 from usdm_tpu_torch.pipeline import UsdmPipeline
 path = os.path.join({str(tmp_path)!r}, "u.wav")
 write_wav(path, (np.random.default_rng(0).standard_normal(8000) * 0.1).astype(np.float32), 16000)
-pipe = UsdmPipeline.tiny_random()
+pipe = UsdmPipeline.tiny_random(device="cpu", lm_int8=True, vb_int8=True)
 res = pipe.respond(path, os.path.join({str(tmp_path)!r}, "o.wav"), n_timesteps=2)
 pipe.close()
 assert isinstance(res.user_text, str)
@@ -112,6 +130,25 @@ print("OK")
     assert proc.stdout.strip().endswith("OK")
 
 
+def test_port_sources_import_no_jax_package():
+    """No .py under usdm_tpu_torch/ and not chip_smoke.py imports usdm_tpu or
+    jax, at any depth (imports inside functions included)."""
+    files = sorted(pathlib.Path(REPO, "usdm_tpu_torch").rglob("*.py"))
+    files.append(pathlib.Path(REPO, "chip_smoke.py"))
+    bad = []
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [f"{path.name}: {n}" for n in names
+                    if n.split(".")[0] in ("usdm_tpu", "jax", "jaxlib")]
+    assert len(files) > 30 and not bad, bad
+
+
 def test_cuda_request_without_card_raises(pipes):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -121,6 +158,24 @@ def test_cuda_request_without_card_raises(pipes):
                      tpipe.xlsr_cfg, tpipe.decoder, device="cuda")
     with pytest.raises(RuntimeError):
         UsdmPipeline.tiny_random(device="cuda")
+
+
+def test_entry_points_default_to_cuda(pipes):
+    """Without a device argument the entry points ask for the card, so on a
+    machine without CUDA they raise rather than run on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    _, tpipe = pipes
+    with pytest.raises(RuntimeError, match="CUDA"):
+        UsdmPipeline.tiny_random()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        UsdmPipeline.tiny_random(lm_int8=True, vb_int8=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        UsdmPipeline(tpipe.tokenizer, tpipe.lm_params, tpipe.lm_cfg, tpipe.xlsr_params,
+                     tpipe.xlsr_cfg, tpipe.decoder)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        UsdmPipeline.random_init(tpipe.tokenizer, tpipe.lm_cfg, tpipe.xlsr_cfg,
+                                 tpipe.decoder.voicebox_cfg, tpipe.decoder.vocoder_cfg)
 
 
 def test_unported_paths_raise(pipes, user_wav):

@@ -9,6 +9,7 @@ through usdm_tpu_torch.core.bridge; the same t and z).  JAX runs under
 runs end to end at --tiny on the CPU.  Tolerances are stated at each assert.
 """
 
+import dataclasses
 import functools
 import json
 import os
@@ -34,6 +35,7 @@ from usdm_tpu_torch.audio import mel as MEL
 from usdm_tpu_torch.audio import units as UN
 from usdm_tpu_torch.core import bridge
 from usdm_tpu_torch.core import checkpoint as CK
+from usdm_tpu_torch.core import config as PC
 from usdm_tpu_torch.core.tree import tree_leaves, tree_map
 from usdm_tpu_torch.data import unit_mel as UM
 from usdm_tpu_torch.models import voicebox as VB
@@ -52,6 +54,11 @@ def interpret_highest(monkeypatch):
 
 def t(x):
     return torch.from_numpy(np.array(x))
+
+
+def port_cfg(jcfg):
+    """The port's config of the same fields as a usdm_tpu config."""
+    return getattr(PC, type(jcfg).__name__).from_dict(dataclasses.asdict(jcfg))
 
 
 def close_trees(got, want_jax, rtol, atol_frac):
@@ -77,10 +84,11 @@ def test_mel_matches_jax(rng):
     for n in (22050, 22050 + 37, 5 * 256):
         wav = (rng.standard_normal((2, n)) * 0.1).astype(np.float32)
         want = np.asarray(JMEL.mel_for_config(jnp.asarray(wav), mc))
-        got = MEL.mel_for_config(t(wav), mc).numpy()
+        got = MEL.mel_for_config(t(wav), port_cfg(mc)).numpy()
         assert got.shape == want.shape == (2, mc.num_mels, n // mc.hop_size)
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
-    assert MEL.denormalize_mel(MEL.normalize_mel(1.5, mc), mc) == pytest.approx(1.5)
+    pmc = port_cfg(mc)
+    assert MEL.denormalize_mel(MEL.normalize_mel(1.5, pmc), pmc) == pytest.approx(1.5)
 
 
 def test_expand_durations_and_pool_exact(rng):
@@ -117,13 +125,14 @@ def test_unit_mel_batches_match_jax(tmp_path, rng):
     filelist = _filelist(tmp_path, rng, 6, (0.6, 1.6))
     tc = CfmTrainConfig(out_size_seconds=1)  # 86 frames: the longer clips are cropped
     mc = MelConfig()
-    ds, jds = UM.UnitMelDataset(filelist, mc, 32), JUM.UnitMelDataset(filelist, mc, 32)
+    ds, jds = UM.UnitMelDataset(filelist, port_cfg(mc), 32), JUM.UnitMelDataset(filelist, mc, 32)
     items = [ds[i] for i in range(len(ds))]
     for (u, m), (ju, jm) in zip(items, (jds[i] for i in range(len(jds)))):
         np.testing.assert_array_equal(u, ju)
         assert m.shape == jm.shape
         np.testing.assert_allclose(m, jm, rtol=0, atol=1e-4)
-    col, jcol = UM.UnitMelCollate(tc, mc, 32), JUM.UnitMelCollate(tc, mc, 32)
+    col = UM.UnitMelCollate(port_cfg(tc), port_cfg(mc), 32)
+    jcol = JUM.UnitMelCollate(tc, mc, 32)
     rng_a, rng_b = np.random.default_rng(5), np.random.default_rng(5)
     for evaluation in (False, False, True):
         got = col(items, rng_a, evaluation)
@@ -163,7 +172,7 @@ def test_estimator_bf16_params_match_jax(vb, rng):
     want = JVB.estimator(jp16, cfg, *(jnp.asarray(a) for a in (x, y, cond, tt, lens)),
                          attn_impl="xla", fused_ln="xla")
     tp = tree_map(lambda a: a.to(torch.bfloat16), bridge.voicebox_from_jax(jax.device_get(jp16)))
-    got = VB.estimator(tp, cfg, t(x).long(), t(y), t(cond), t(tt), t(lens).long())
+    got = VB.estimator(tp, port_cfg(cfg), t(x).long(), t(y), t(cond), t(tt), t(lens).long())
     assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
     want = np.asarray(want, np.float32)
     err = np.abs(got.float().numpy() - want).max()
@@ -190,7 +199,7 @@ def test_estimator_paths_match_jax(vb, rng, attn, fused, remat):
     want = jfwd(jp)
     want_grads = jax.grad(lambda p: jnp.sum(jfwd(p) * w))(jp)
     tp = tree_map(lambda a: a.requires_grad_(), bridge.voicebox_from_jax(jax.device_get(jp)))
-    got = VB.estimator(tp, cfg, t(x).long(), t(y), t(cond), t(tt), t(lens).long(), remat=remat,
+    got = VB.estimator(tp, port_cfg(cfg), t(x).long(), t(y), t(cond), t(tt), t(lens).long(), remat=remat,
                        attn_impl=attn, fused_ln=fused)
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
     (got * t(w)).sum().backward()
@@ -234,7 +243,7 @@ def test_cfm_loss_and_grads_match_jax(vb, rng):
     want_loss, want_grads = jax.value_and_grad(jloss)(jp)
     tp = tree_map(lambda a: a.requires_grad_(), bridge.voicebox_from_jax(jax.device_get(jp)))
     tb = _torch_batch(batch)
-    loss, aux = VB.cfm_loss(tp, cfg, tb["x"], tb["mask"], tb["y"], tb["y_lengths"], t=t(tt),
+    loss, aux = VB.cfm_loss(tp, port_cfg(cfg), tb["x"], tb["mask"], tb["y"], tb["y_lengths"], t=t(tt),
                             z=t(z))
     loss.backward()
     assert float(loss.detach()) == pytest.approx(float(want_loss), rel=1e-5)
@@ -255,7 +264,7 @@ def test_optimizer_matches_optax(rng):
     jopt = JC.make_optimizer(tc)
     jp = jax.tree.map(jnp.asarray, init)
     jst = jopt.init(jp)
-    opt = C.make_optimizer(tc)
+    opt = C.make_optimizer(port_cfg(tc))
     tp = tree_map(lambda a: t(a).requires_grad_(), init)
     adam = opt.init(tp)
     for g in grads:
@@ -289,10 +298,10 @@ def test_train_steps_match_jax(vb, rng):
         return JVB.cfm_loss(p, cfg, jb["x"], jb["mask"], jb["y"], jb["y_lengths"],
                             jax.random.PRNGKey(0), t=tt, z=z)[0]
 
-    opt = C.make_optimizer(tc)
+    opt = C.make_optimizer(port_cfg(tc))
     params = tree_map(lambda a: a.requires_grad_(), bridge.voicebox_from_jax(jax.device_get(jp)))
     state = C.CfmTrainState(params, opt.init(params), 0)
-    step = C.make_train_step(cfg, tc, opt, compute_dtype="float32")
+    step = C.make_train_step(port_cfg(cfg), port_cfg(tc), opt, compute_dtype="float32")
     tb = _torch_batch(batch)
     for tt, z in tz:
         want_loss, g = jax.value_and_grad(jloss)(jparams, jnp.asarray(tt), jnp.asarray(z))
@@ -309,14 +318,14 @@ def test_train_steps_match_jax(vb, rng):
 
 # ----------------------------------------------------------------- checkpoints, CLI
 def test_checkpoint_keeps_two_and_restores(tmp_path):
-    cfg = VoiceboxConfig.tiny()
-    state, opt = C.init_state(cfg, CfmTrainConfig(), "cpu", torch.Generator().manual_seed(0))
+    cfg, tc = PC.VoiceboxConfig.tiny(), PC.CfmTrainConfig()
+    state, opt = C.init_state(cfg, tc, "cpu", torch.Generator().manual_seed(0))
     for step in (1, 2, 3):
         state.step = step
         CK.save_train_state(str(tmp_path), state, step)
     assert sorted(os.listdir(tmp_path)) == ["step_2", "step_3"]
     assert CK.latest_step(str(tmp_path)) == 3
-    fresh, _ = C.init_state(cfg, CfmTrainConfig(), "cpu", torch.Generator().manual_seed(1))
+    fresh, _ = C.init_state(cfg, tc, "cpu", torch.Generator().manual_seed(1))
     CK.restore_train_state(str(tmp_path), fresh)
     assert fresh.step == 3
     for a, b in zip(tree_leaves(fresh.params), tree_leaves(state.params)):

@@ -6,7 +6,10 @@ so both packages compute the same function of the same weights.
   * Mistral's lm_head [D, V] becomes [V, D];
   * convolutions [K, Cin/g, Cout] become PyTorch's [Cout, Cin/g, K];
   * BigVGAN's transposed convs, stored [K, Cout, Cin] with the kernel
-    flipped, become ConvTranspose1d's [Cin, Cout, K].
+    flipped, become ConvTranspose1d's [Cin, Cout, K];
+  * quantized leaves {"q": int8 [in, out], "s": bf16 [out]} (usdm_tpu's
+    models/quant.py) become the port's "oi" {"q": int8 [out, in]
+    contiguous, "s": bf16 [out]}.
 
 Imports no JAX: bf16 leaves (ml_dtypes) are widened through float32.
 """
@@ -33,9 +36,16 @@ def _conv(w, device) -> torch.Tensor:
     return tensor(np.asarray(w, np.float32).transpose(2, 1, 0), device=device)
 
 
+def _quantized(qw: Tree, i: int, device) -> Tree:
+    """Entry i of a stacked quantized leaf, as the port's "oi" layout."""
+    return {"q": tensor(np.asarray(qw["q"][i]).T, device=device),
+            "s": tensor(qw["s"][i], torch.bfloat16, device)}
+
+
 def _unstack(layers: Tree, dtype, device) -> list:
-    n = len(next(iter(layers.values())))
-    return [{k: tensor(v[i], dtype, device) for k, v in layers.items()} for i in range(n)]
+    n = len(np.asarray(next(v for v in layers.values() if not isinstance(v, dict))))
+    return [{k: _quantized(v, i, device) if isinstance(v, dict) else tensor(v[i], dtype, device)
+             for k, v in layers.items()} for i in range(n)]
 
 
 def mistral_from_jax(jp: Tree, dtype: torch.dtype = torch.float32, device="cpu") -> Tree:
@@ -64,7 +74,11 @@ def voicebox_from_jax(jp: Tree, device="cpu") -> Tree:
     out["convpos_w"] = [_conv(w, device) for w in np.asarray(jp["convpos_w"])]
     out["convpos_b"] = [tensor(b, device=device) for b in np.asarray(jp["convpos_b"])]
     out["layers"] = _unstack(jp["layers"], torch.float32, device)
-    out["skip_w"] = [tensor(w, device=device) for w in np.asarray(jp["skip_w"])]
+    skip_w = jp["skip_w"]
+    if isinstance(skip_w, dict):
+        out["skip_w"] = [_quantized(skip_w, i, device) for i in range(len(np.asarray(skip_w["s"])))]
+    else:
+        out["skip_w"] = [tensor(w, device=device) for w in np.asarray(skip_w)]
     out["skip_b"] = [tensor(b, device=device) for b in np.asarray(jp["skip_b"])]
     return out
 

@@ -1,7 +1,44 @@
-"""Metrics logging, shared with usdm_tpu.
+"""Metrics logging: a JSONL stream, and TensorBoard through torch's
+SummaryWriter when it is installed and asked for (usdm_tpu's MetricsLogger
+without its audio logging, which nothing in the port calls)."""
 
-Re-exports usdm_tpu/core/logging.py's MetricsLogger (a JSONL metrics
-stream), which imports no JAX.
-"""
+from __future__ import annotations
 
-from usdm_tpu.core.logging import MetricsLogger  # noqa: F401
+import json
+import os
+import time
+from typing import Any, Dict
+
+
+class MetricsLogger:
+    def __init__(self, out_dir: str, use_tensorboard: bool = True):
+        os.makedirs(out_dir, exist_ok=True)
+        self.out_dir = out_dir
+        self._jsonl = open(os.path.join(out_dir, "metrics.jsonl"), "a")
+        self._tb = None
+        if use_tensorboard:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+
+                self._tb = SummaryWriter(os.path.join(out_dir, "tb"))
+            except Exception:
+                self._tb = None
+
+    def log(self, step: int, metrics: Dict[str, Any], prefix: str = "train") -> None:
+        rec = {"step": int(step), "time": time.time()}
+        for k, v in metrics.items():
+            try:
+                rec[f"{prefix}/{k}"] = float(v)
+            except (TypeError, ValueError):
+                continue
+        self._jsonl.write(json.dumps(rec) + "\n")
+        self._jsonl.flush()
+        if self._tb is not None:
+            for k, v in rec.items():
+                if k not in ("step", "time"):
+                    self._tb.add_scalar(k, v, step)
+
+    def close(self) -> None:
+        self._jsonl.close()
+        if self._tb is not None:
+            self._tb.close()

@@ -9,12 +9,13 @@
 namespace usdm {
 
 // dtype codes, mirrored by ops/_build.py DTYPE_CODES
-enum DtypeCode : int { kF32 = 0, kBF16 = 1 };
+enum DtypeCode : int { kF32 = 0, kBF16 = 1, kI8 = 2 };
 
 static __device__ __forceinline__ float to_f32(float x) { return x; }
 static __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+static __device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
 
 static __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 static __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {

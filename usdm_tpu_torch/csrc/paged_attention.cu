@@ -19,6 +19,21 @@
 // are read (rows past kv_len may hold anything).  At batch 1 this still uses
 // only Hkv = 8 of the 132 SMs: splitting the KV length across blocks
 // (split-K with a combine pass) is the next performance step.
+//
+// int8 pools (the Pallas kernel's quantized branch): K and V rows are int8
+// with f32 per-(head, token) scales in page-major pools [NT, Hkv, P].  The
+// scales are folded into the softmax in f32 as the TPU kernel folds them:
+// a row's k-scale multiplies its score, its v-scale multiplies its
+// probability before the p @ V product (the softmax sum takes the
+// probability without it).  A row's scales are read only where its K/V row
+// is (valid, in-window rows), so stale or unwritten slots are never read.
+// Page traffic halves against bf16; the scale rows add 8 bytes per token and
+// head.  Shared memory is the same f32 score and accumulator staging as
+// bf16: 8 warps x G x (page + d) x 4 bytes, 24 KiB at page 64 and 48 KiB at
+// page 256 (G 4, d 128), past the 48 KiB default with the static merge
+// arrays, so the launch raises the kernel's dynamic limit when needed.
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -29,13 +44,17 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMaxG = 8;  // query heads per kv head
 constexpr int kMaxE = 4;  // head_dim / 32: head_dim <= 128
 constexpr int kRows = 8;  // rows whose loads a lane issues together
+constexpr int kMaxSmem = 96 * 1024;  // dynamic shared memory the launch may ask for
 
-template <typename T>
+// T: q and out (f32 or bf16); KV: the pools (T, or int8 with scales)
+template <typename T, typename KV>
 __global__ void __launch_bounds__(kThreads)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                    const T* __restrict__ v_pool, const int* __restrict__ table,
+paged_decode_kernel(const T* __restrict__ q, const KV* __restrict__ k_pool,
+                    const KV* __restrict__ v_pool, const float* __restrict__ k_scales,
+                    const float* __restrict__ v_scales, const int* __restrict__ table,
                     const int* __restrict__ seq_lens, T* __restrict__ out, int hkv, int g, int d,
                     int n_total_pages, int page, int maxp, int window, float scale) {
+  constexpr bool kQuant = std::is_same<KV, int8_t>::value;
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int tid = threadIdx.x;
@@ -76,8 +95,9 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   for (int pg = first_page + warp; pg <= last_page; pg += kWarps) {
     const int pid = table[(size_t)b * maxp + pg];
     const size_t base = ((size_t)h * n_total_pages + pid) * page * d + lane * e_per_lane;
-    const T* kp = k_pool + base;
-    const T* vp = v_pool + base;
+    const KV* kp = k_pool + base;
+    const KV* vp = v_pool + base;
+    const size_t srow = ((size_t)pid * hkv + h) * page;  // this page's scale row
     const int j0 = max(first_valid - pg * page, 0);
     const int j1 = min(kv_len - pg * page, page);
 
@@ -92,6 +112,8 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
                          ? usdm::to_f32(kp[(size_t)(j + r) * d + e]) : 0.f;
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
+        float ksc = 1.f;
+        if constexpr (kQuant) ksc = j + r < j1 ? k_scales[srow + j + r] : 0.f;
 #pragma unroll
         for (int gi = 0; gi < kMaxG; ++gi) {
           if (gi < g) {
@@ -99,6 +121,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 #pragma unroll
             for (int e = 0; e < kMaxE; ++e) s += qr[gi][e] * kr[r][e];
             s = usdm::warp_sum(s);
+            if constexpr (kQuant) s *= ksc;
             if (lane == 0 && j + r < j1) s_p[gi * page + j + r] = s;
           }
         }
@@ -144,10 +167,13 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
         if (j + r < j1) {
+          float vsc = 1.f;
+          if constexpr (kQuant) vsc = v_scales[srow + j + r];
 #pragma unroll
           for (int gi = 0; gi < kMaxG; ++gi) {
             if (gi < g) {
-              const float p = s_p[gi * page + j + r];
+              float p = s_p[gi * page + j + r];
+              if constexpr (kQuant) p *= vsc;
 #pragma unroll
               for (int e = 0; e < kMaxE; ++e) acc[gi][e] += p * vr[r][e];
             }
@@ -189,31 +215,52 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   }
 }
 
+template <typename T, typename KV>
+cudaError_t launch(const void* q, const void* k_pool, const void* v_pool, const void* k_scales,
+                   const void* v_scales, const void* table, const void* seq_lens, void* out,
+                   int batch, int hkv, int g, int d, int n_total_pages, int page, int maxp,
+                   int window, float scale, size_t smem, cudaStream_t st) {
+  auto kern = paged_decode_kernel<T, KV>;
+  static size_t allowed = 48 * 1024 - 2 * sizeof(float) * kWarps * kMaxG;  // static arrays
+  if (smem > allowed) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (err != cudaSuccess) return err;
+    allowed = kMaxSmem;
+  }
+  kern<<<dim3(hkv, batch), kThreads, smem, st>>>(
+      (const T*)q, (const KV*)k_pool, (const KV*)v_pool, (const float*)k_scales,
+      (const float*)v_scales, (const int*)table, (const int*)seq_lens, (T*)out, hkv, g, d,
+      n_total_pages, page, maxp, window, scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
+// q/out dtype `dtype` (f32 or bf16); pools of `kv_dtype`: the same as q, or
+// int8 with f32 scale pools k_scales/v_scales [n_total_pages, hkv, page]
+// (null otherwise).
 extern "C" int usdm_paged_decode(const void* q, const void* k_pool, const void* v_pool,
-                                 const void* table, const void* seq_lens, void* out,
-                                 int batch, int hkv, int g, int d, int n_total_pages,
-                                 int page, int maxp, int window, float scale, int dtype,
-                                 void* stream) {
+                                 const void* k_scales, const void* v_scales, const void* table,
+                                 const void* seq_lens, void* out, int batch, int hkv, int g,
+                                 int d, int n_total_pages, int page, int maxp, int window,
+                                 float scale, int dtype, int kv_dtype, void* stream) {
   if (d % 32 != 0 || d > 32 * kMaxE || g < 1 || g > kMaxG || page < 1 || batch < 1)
     return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * (size_t)kWarps * g * (page + d);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  const dim3 grid(hkv, batch);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == usdm::kBF16) {
-    paged_decode_kernel<__nv_bfloat16><<<grid, kThreads, smem, st>>>(
-        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_pool, (const __nv_bfloat16*)v_pool,
-        (const int*)table, (const int*)seq_lens, (__nv_bfloat16*)out, hkv, g, d,
-        n_total_pages, page, maxp, window, scale);
-  } else if (dtype == usdm::kF32) {
-    paged_decode_kernel<float><<<grid, kThreads, smem, st>>>(
-        (const float*)q, (const float*)k_pool, (const float*)v_pool, (const int*)table,
-        (const int*)seq_lens, (float*)out, hkv, g, d, n_total_pages, page, maxp, window,
-        scale);
-  } else {
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  const bool quant = kv_dtype == usdm::kI8;
+  if (quant != (k_scales != nullptr && v_scales != nullptr) || (!quant && kv_dtype != dtype))
     return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = cudaErrorInvalidValue;
+#define USDM_LAUNCH(T, KV)                                                                   \
+  err = launch<T, KV>(q, k_pool, v_pool, k_scales, v_scales, table, seq_lens, out, batch, hkv, \
+                      g, d, n_total_pages, page, maxp, window, scale, smem, st)
+  if (dtype == usdm::kBF16 && quant) USDM_LAUNCH(__nv_bfloat16, int8_t);
+  else if (dtype == usdm::kBF16) USDM_LAUNCH(__nv_bfloat16, __nv_bfloat16);
+  else if (dtype == usdm::kF32 && quant) USDM_LAUNCH(float, int8_t);
+  else if (dtype == usdm::kF32) USDM_LAUNCH(float, float);
+#undef USDM_LAUNCH
+  return (int)err;
 }

@@ -8,17 +8,19 @@ sampled decode as CHAINS of device-side steps with one host sync per chain
 (`step_chain`: N asynchronous launches, then one `.tolist()`), sliding-window
 page reclaim, and request cancellation.
 
-Not ported, because each changes scheduling but not tokens: depth-1 chain
-run-ahead, first-token deferral, mixed prefill+decode bursts,
-`step_multi`.  Not ported and refused: speculative decoding (a draft or
-"ngram"), tensor-parallel serving, int8 KV pools.
+The params may hold W8A8 projections (models/quant.py) and the KV pool may
+be int8 (`EngineConfig.kv_dtype="int8"`).  Not ported, because each
+changes scheduling but not tokens: depth-1 chain run-ahead, first-token
+deferral, mixed prefill+decode bursts, `step_multi`.  Not ported and
+refused: speculative decoding (a draft or "ngram"), tensor-parallel serving.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import List, Optional
+from collections import deque
+from typing import Deque, List, Optional
 
 import numpy as np
 import torch
@@ -102,9 +104,7 @@ class PagedEngine:
             raise NotImplementedError("speculative decoding is not ported to usdm_tpu_torch")
         if mesh is not None:
             raise NotImplementedError("tensor-parallel serving is not ported to usdm_tpu_torch")
-        if ecfg.kv_dtype == "int8":
-            raise NotImplementedError("int8 KV pools are not ported to usdm_tpu_torch")
-        if ecfg.kv_dtype is not None:
+        if ecfg.kv_dtype not in (None, "int8"):
             raise ValueError(f"kv_dtype must be None or 'int8', got {ecfg.kv_dtype!r}")
         self.cfg = cfg
         self.ecfg = ecfg
@@ -114,7 +114,7 @@ class PagedEngine:
         # +1: the last page is the trash target of inactive slots
         n_pages = (ecfg.n_pages or ecfg.max_batch_size * ecfg.max_pages_per_seq) + 1
         self.n_pages = n_pages
-        self.kv = PagedKV.create(cfg, n_pages, ps, self.device)
+        self.kv = PagedKV.create(cfg, n_pages, ps, self.device, ecfg.kv_dtype)
         self.free_pages: List[int] = list(range(n_pages - 1))
         b = ecfg.max_batch_size
         self.page_table = np.zeros((b, ecfg.max_pages_per_seq), np.int32)
@@ -144,6 +144,7 @@ class PagedEngine:
         self.total_emitted = 0
         self.total_finished = 0
         self.total_cancelled = 0
+        self._ttfts: Deque[float] = deque(maxlen=200)  # recent times to first token
 
     # ------------------------------------------------------------ scheduling
     @property
@@ -298,6 +299,7 @@ class PagedEngine:
         self.seq_lens[slot] = len(req.prompt_ids)
         self.status[slot] = DECODE
         req.ttft_s = time.time() - req.t_submit
+        self._ttfts.append(req.ttft_s)
         req.output_ids.append(first)
         self.tokens[slot] = first
         if first == req.eos_id or len(req.output_ids) >= req.max_new_tokens:

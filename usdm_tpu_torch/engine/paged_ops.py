@@ -11,6 +11,13 @@ that is never allocated, where inactive slots and padding tokens write.
 K/V writes update the pool IN PLACE (index_put_ on the pool tensors); the
 JAX engine reaches the same effect with donate_argnums and
 dynamic_update_slice on a scan carry.
+
+int8 pools (EngineConfig.kv_dtype="int8") store each token's K and V per
+kv head as symmetric int8 with an f32 scale (`quant_kv_token`), the scales
+in page-major pools [L*N, Hkv, P]; decode hands them to K1, prefill
+dequantizes the gathered context.  Projections go through `qmm`, so W8A8
+weights (models/quant.py) and plain ones take the same code; head counts
+come from the projections' widths, as in usdm_tpu.
 """
 
 from __future__ import annotations
@@ -24,8 +31,10 @@ import torch.nn.functional as F
 
 from usdm_tpu_torch.core.config import MistralConfig
 from usdm_tpu_torch.models import mistral as M
+from usdm_tpu_torch.models.quant import out_dim, qmm
 from usdm_tpu_torch.ops.attention import mha
 from usdm_tpu_torch.ops.paged_attention import paged_decode_attention
+from usdm_tpu_torch.ops.stream_matvec import symmetric_scale
 from usdm_tpu_torch.ops.sampling import NEG_INF, sample_batched
 
 # (gumbel noise [B, V], top_k [B], top_p [B], temperature [B]) for rows that
@@ -37,14 +46,26 @@ Sampling = Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor
 class PagedKV:
     k_pages: torch.Tensor  # [Hkv, L*N, P, hd]
     v_pages: torch.Tensor
+    k_scales: Optional[torch.Tensor] = None  # [L*N, Hkv, P] f32 (int8 pools)
+    v_scales: Optional[torch.Tensor] = None
 
     @classmethod
     def create(cls, cfg: MistralConfig, n_pages: int, page_size: int, device,
                dtype: Optional[str] = None) -> "PagedKV":
-        dt = M.torch_dtype(dtype or cfg.dtype)
+        """Zeroed pools of `dtype` (None = cfg.dtype, or "int8" with zeroed
+        scale pools, so no slot ever holds a NaN bit pattern)."""
         shape = (cfg.num_kv_heads, cfg.num_layers * n_pages, page_size, cfg.head_dim)
+        if dtype == "int8":
+            sshape = (shape[1], shape[0], page_size)
+            return cls(*(torch.zeros(shape, dtype=torch.int8, device=device) for _ in range(2)),
+                       *(torch.zeros(sshape, device=device) for _ in range(2)))
+        dt = M.torch_dtype(dtype or cfg.dtype)
         return cls(torch.zeros(shape, dtype=dt, device=device),
                    torch.zeros(shape, dtype=dt, device=device))
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scales is not None
 
     @property
     def total_pages(self) -> int:
@@ -52,12 +73,37 @@ class PagedKV:
         return self.k_pages.shape[1]
 
 
+def quant_kv_token(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 over the last (head_dim) axis -> (q [..., hd] int8,
+    scale [...] f32), scale = max(amax / 127, 1e-8)."""
+    xf = x.float()
+    scale = symmetric_scale(xf.abs().amax(dim=-1))
+    return torch.clamp(torch.round(xf / scale[..., None]), -127, 127).to(torch.int8), scale
+
+
 def _write_kv(kv: PagedKV, base: int, pages: torch.Tensor, offs: torch.Tensor,
               k: torch.Tensor, v: torch.Tensor) -> None:
     """In place: token j's K/V ([Hkv, n, hd]) go to page base + pages[j],
-    row offs[j], of every kv head."""
+    row offs[j], of every kv head (int8 pools: quantized, with their scales
+    at [base + pages[j], :, offs[j]])."""
+    if kv.quantized:
+        (k, ks), (v, vs) = quant_kv_token(k), quant_kv_token(v)
+        kv.k_scales[base + pages, :, offs] = ks.t()
+        kv.v_scales[base + pages, :, offs] = vs.t()
     kv.k_pages[:, base + pages, offs] = k.to(kv.k_pages.dtype)
     kv.v_pages[:, base + pages, offs] = v.to(kv.v_pages.dtype)
+
+
+def _context(kv: PagedKV, base: int, ctx_pages: torch.Tensor, dtype: torch.dtype):
+    """The context pages of one request as [1, S_ctx, Hkv, hd] views of the
+    head-major gather, int8 pools dequantized in f32 and cast to `dtype`."""
+    kc, vc = kv.k_pages[:, base + ctx_pages], kv.v_pages[:, base + ctx_pages]
+    if kv.quantized:  # scales [ncp, Hkv, P] -> [Hkv, ncp, P, 1]
+        kc = (kc.float() * kv.k_scales[base + ctx_pages].transpose(0, 1)[..., None]).to(dtype)
+        vc = (vc.float() * kv.v_scales[base + ctx_pages].transpose(0, 1)[..., None]).to(dtype)
+    hkv, hd = kc.shape[0], kc.shape[-1]
+    return (kc.reshape(hkv, -1, hd).permute(1, 0, 2)[None],
+            vc.reshape(hkv, -1, hd).permute(1, 0, 2)[None])
 
 
 def _logits_tail(params, x: torch.Tensor, allow_masks: torch.Tensor, active: torch.Tensor,
@@ -106,7 +152,8 @@ def paged_decode_step(
     if logits_slice is not None and sampling is not None:
         raise ValueError("logits_slice requires greedy decode")
     b = tokens.shape[0]
-    hd, h, hkv = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
+    hd = cfg.head_dim
+    h, hkv = out_dim(params["layers"][0]["wq"]) // hd, out_dim(params["layers"][0]["wk"]) // hd
     maxp = page_table.shape[1]
     n_pages = kv.total_pages // cfg.num_layers
     pos = seq_lens.long()
@@ -122,15 +169,16 @@ def paged_decode_step(
     cos, sin = M.rope_tables(pos[:, None], hd, cfg.rope_theta)
     for li, lp in enumerate(params["layers"]):
         y = M.rms_norm(x, lp["ln1"], cfg.rms_norm_eps)
-        q = M.apply_rope((y @ lp["wq"]).reshape(b, 1, h, hd), cos, sin)
-        kk = M.apply_rope((y @ lp["wk"]).reshape(b, 1, hkv, hd), cos, sin)
-        vv = (y @ lp["wv"]).reshape(b, hkv, hd)
+        q = M.apply_rope(qmm(y, lp["wq"]).reshape(b, 1, h, hd), cos, sin)
+        kk = M.apply_rope(qmm(y, lp["wk"]).reshape(b, 1, hkv, hd), cos, sin)
+        vv = qmm(y, lp["wv"]).reshape(b, hkv, hd)
         _write_kv(kv, li * n_pages, page_ids, offs, kk[:, 0].transpose(0, 1),
                   vv.transpose(0, 1))
         attn = paged_decode_attention(q[:, 0].reshape(b, hkv, h // hkv, hd).contiguous(),
                                       kv.k_pages, kv.v_pages, tables[li], kv_len,
-                                      sliding_window=cfg.sliding_window)
-        x = x + attn.reshape(b, 1, h * hd) @ lp["wo"]
+                                      sliding_window=cfg.sliding_window,
+                                      k_scales=kv.k_scales, v_scales=kv.v_scales)
+        x = x + qmm(attn.reshape(b, 1, h * hd), lp["wo"])
         x = x + M.mlp(M.rms_norm(x, lp["ln2"], cfg.rms_norm_eps), lp)
     x = M.rms_norm(x, params["final_norm"], cfg.rms_norm_eps)[:, 0]
     return _logits_tail(params, x, allow_masks, active, logits_slice, sampling)
@@ -178,7 +226,8 @@ def paged_prefill_chunk(
     written so far plus the chunk itself (causal, sliding window)."""
     c = chunk_ids.shape[0]
     dev = chunk_ids.device
-    hd, h, hkv = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
+    hd = cfg.head_dim
+    h, hkv = out_dim(params["layers"][0]["wq"]) // hd, out_dim(params["layers"][0]["wk"]) // hd
     p = page_size
     s_ctx = n_ctx_pages * p
     n_pages = kv.total_pages // cfg.num_layers
@@ -204,18 +253,16 @@ def paged_prefill_chunk(
     for li, lp in enumerate(params["layers"]):
         base = li * n_pages
         y = M.rms_norm(x, lp["ln1"], cfg.rms_norm_eps)
-        q = M.apply_rope((y @ lp["wq"]).reshape(1, c, h, hd), cos, sin)
-        kk = M.apply_rope((y @ lp["wk"]).reshape(1, c, hkv, hd), cos, sin)
-        vv = (y @ lp["wv"]).reshape(1, c, hkv, hd)
+        q = M.apply_rope(qmm(y, lp["wq"]).reshape(1, c, h, hd), cos, sin)
+        kk = M.apply_rope(qmm(y, lp["wk"]).reshape(1, c, hkv, hd), cos, sin)
+        vv = qmm(y, lp["wv"]).reshape(1, c, hkv, hd)
         _write_kv(kv, base, pages_t, offs_t, kk[0].transpose(0, 1), vv[0].transpose(0, 1))
-        # context: this request's pages, the chunk just written included, as
-        # [1, S_ctx, Hkv, hd] views of the head-major gather
-        kc = kv.k_pages[:, base + ctx_pages].reshape(hkv, s_ctx, hd).permute(1, 0, 2)[None]
-        vc = kv.v_pages[:, base + ctx_pages].reshape(hkv, s_ctx, hd).permute(1, 0, 2)[None]
+        # context: this request's pages, the chunk just written included
+        kc, vc = _context(kv, base, ctx_pages, q.dtype)
         attn = mha(q, kc, vc, q_segment_ids=q_seg, kv_segment_ids=kv_seg,
                    q_positions=positions, kv_positions=kv_pos, causal=True,
                    sliding_window=cfg.sliding_window, impl="auto")
-        x = x + attn.reshape(1, c, h * hd) @ lp["wo"]
+        x = x + qmm(attn.reshape(1, c, h * hd), lp["wo"])
         x = x + M.mlp(M.rms_norm(x, lp["ln2"], cfg.rms_norm_eps), lp)
     x = M.rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     last = min(max(n_valid - 1, 0), c - 1)

@@ -9,6 +9,8 @@ tensors with one dict per layer (the JAX package stacks layers for
   wo [H*hd, D], w_gate/w_up [D, F], w_down [F, D]; final_norm [D];
   lm_head [V, D]  (transposed from the JAX [D, V], so a vocab slice is a
   contiguous row block for the sliced greedy tail of the paged engine).
+The seven projections of a layer may be W8A8 quantized leaves
+(models/quant.py); every product with them goes through `qmm`.
 
 `forward` is the dense packed forward, kept as the parity anchor of the
 paged engine (engine/paged_ops.py), which is the serving path.
@@ -23,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from usdm_tpu_torch.core.config import MistralConfig
+from usdm_tpu_torch.models.quant import qmm
 from usdm_tpu_torch.ops.attention import mha
 
 Params = Dict[str, Any]
@@ -83,7 +86,7 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 
 
 def mlp(y: torch.Tensor, lp: Params) -> torch.Tensor:
-    return (F.silu(y @ lp["w_gate"]) * (y @ lp["w_up"])) @ lp["w_down"]
+    return qmm(F.silu(qmm(y, lp["w_gate"])) * qmm(y, lp["w_up"]), lp["w_down"])
 
 
 def _layer(cfg: MistralConfig, x: torch.Tensor, lp: Params, cos, sin,
@@ -91,13 +94,13 @@ def _layer(cfg: MistralConfig, x: torch.Tensor, lp: Params, cos, sin,
     b, t, _ = x.shape
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     y = rms_norm(x, lp["ln1"], cfg.rms_norm_eps)
-    q = apply_rope((y @ lp["wq"]).reshape(b, t, h, hd), cos, sin)
-    kk = apply_rope((y @ lp["wk"]).reshape(b, t, hkv, hd), cos, sin)
-    vv = (y @ lp["wv"]).reshape(b, t, hkv, hd)
+    q = apply_rope(qmm(y, lp["wq"]).reshape(b, t, h, hd), cos, sin)
+    kk = apply_rope(qmm(y, lp["wk"]).reshape(b, t, hkv, hd), cos, sin)
+    vv = qmm(y, lp["wv"]).reshape(b, t, hkv, hd)
     attn = mha(q, kk, vv, q_segment_ids=segment_ids, kv_segment_ids=segment_ids,
                q_positions=positions, kv_positions=positions, causal=True,
                sliding_window=cfg.sliding_window, impl=attn_impl)
-    x = x + attn.reshape(b, t, h * hd) @ lp["wo"]
+    x = x + qmm(attn.reshape(b, t, h * hd), lp["wo"])
     return x + mlp(rms_norm(x, lp["ln2"], cfg.rms_norm_eps), lp)
 
 

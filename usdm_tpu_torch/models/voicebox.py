@@ -10,7 +10,11 @@ batch doubling.  Parameters: a dict of tensors, positional convs in PyTorch's
 
 The estimator computes in the dtype of `params["proj_in_w"]` and casts every
 floating parameter and input to it, as usdm_tpu does, so a trainer may cast
-only the large weights (bf16 compute over f32 masters).  The attention takes
+only the large weights (bf16 compute over f32 masters).  The per-layer
+projections and FFN and the skip combiners may be W8A8 quantized leaves
+(models/quant.py `quantize_voicebox_params`, inference only): every product
+with them goes through `qmm`, and the cast widens their scales and leaves
+the int8 values.  The attention takes
 the flash kernels (K2 forward, K5 backward; ALiBi in-kernel) on CUDA when
 T + 1 >= 128 and the head count is a power of 2, as usdm_tpu does on a TPU;
 otherwise the plain path with the bias materialized.  The residual + mask +
@@ -32,6 +36,7 @@ from torch.utils.checkpoint import checkpoint
 
 from usdm_tpu_torch.core.config import VoiceboxConfig
 from usdm_tpu_torch.core.tree import tree_map
+from usdm_tpu_torch.models.quant import is_quantized, qmm
 from usdm_tpu_torch.models.xlsr import layer_norm
 from usdm_tpu_torch.ops.attention import plain_attention
 from usdm_tpu_torch.ops.flash_attention import flash_attention
@@ -103,16 +108,20 @@ def _attention(lp: Params, x: torch.Tensor, n_heads: int, bias=None, flash_ctx=N
     """Post-LN MHA; flash_ctx = (segments, positions) selects the kernel."""
     b, t, hdim = x.shape
     d = hdim // n_heads
-    q = (x @ lp["wq"] + lp["bq"]).reshape(b, t, n_heads, d)
-    k = (x @ lp["wk"] + lp["bk"]).reshape(b, t, n_heads, d)
-    v = (x @ lp["wv"] + lp["bv"]).reshape(b, t, n_heads, d)
+    q = (qmm(x, lp["wq"]) + lp["bq"]).reshape(b, t, n_heads, d)
+    k = (qmm(x, lp["wk"]) + lp["bk"]).reshape(b, t, n_heads, d)
+    v = (qmm(x, lp["wv"]) + lp["bv"]).reshape(b, t, n_heads, d)
     if flash_ctx is not None:
         seg, pos = flash_ctx
         out = flash_attention(q, k, v, seg, seg, pos, pos, causal=False, sliding_window=None,
                               scale=d**-0.5, alibi=True)
     else:  # q scaled before the dot, additive bias = masked ALiBi + pad penalty
         out = plain_attention(q * (d**-0.5), k, v, None, bias=bias, scale=1.0)
-    return out.reshape(b, t, hdim) @ lp["wo"] + lp["bo"]
+    return qmm(out.reshape(b, t, hdim), lp["wo"]) + lp["bo"]
+
+
+def _ffn(lp: Params, h: torch.Tensor) -> torch.Tensor:
+    return qmm(F.gelu(qmm(h, lp["ffn_w1"]) + lp["ffn_b1"]), lp["ffn_w2"]) + lp["ffn_b2"]
 
 
 def _encoder_layer(cfg, lp, x, y_mask, bias, flash_ctx, ln_lengths=None):
@@ -122,11 +131,11 @@ def _encoder_layer(cfg, lp, x, y_mask, bias, flash_ctx, ln_lengths=None):
     attn = _attention(lp, x, cfg.num_heads, bias, flash_ctx)
     if ln_lengths is not None:
         h = add_mask_ln(x, attn, ln_lengths, lp["ln1_w"], lp["ln1_b"])
-        ff = F.gelu(h @ lp["ffn_w1"] + lp["ffn_b1"]) @ lp["ffn_w2"] + lp["ffn_b2"]
+        ff = _ffn(lp, h)
         return add_mask_ln(h, ff, ln_lengths, lp["ln2_w"], lp["ln2_b"], post_mask=True)
     h = (x + attn) * y_mask
     h = layer_norm(h, lp["ln1_w"], lp["ln1_b"])
-    ff = F.gelu(h @ lp["ffn_w1"] + lp["ffn_b1"]) @ lp["ffn_w2"] + lp["ffn_b2"]
+    ff = _ffn(lp, h)
     h = layer_norm((h + ff) * y_mask, lp["ln2_w"], lp["ln2_b"])
     return h * y_mask
 
@@ -200,7 +209,7 @@ def estimator(params: Params, cfg: VoiceboxConfig, x_units: torch.Tensor, y: tor
         skips.append(h)
         h = layer(lp, h)
     for i, lp in enumerate(params["layers"][half:]):  # up path pops them LIFO
-        h = torch.cat([h, skips.pop()], dim=-1) @ params["skip_w"][i] + params["skip_b"][i]
+        h = qmm(torch.cat([h, skips.pop()], dim=-1), params["skip_w"][i]) + params["skip_b"][i]
         h = layer(lp, h)
 
     out = ((h * y_mask) @ params["proj_out_w"] + params["proj_out_b"]) * y_mask
@@ -216,6 +225,8 @@ def cfm_loss(params: Params, cfg: VoiceboxConfig, x_units: torch.Tensor, mask: t
     non-context frames.  units [B, T], mask [B, 1, T] (1 = context frame),
     x1 [B, n_feats, T] target mel, lengths [B]; t [B] and z (x1's shape) are
     given or drawn from `generator`."""
+    if is_quantized(params["layers"][0]["wq"]):
+        raise ValueError("quantized Voicebox params are inference-only")
     b, nf, T = x1.shape
     if t is None:
         t = torch.rand(b, generator=generator, device=x1.device, dtype=x1.dtype)

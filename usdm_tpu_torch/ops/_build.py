@@ -30,8 +30,10 @@ LIB_NAME = "libusdm_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# dtype codes shared with csrc/common.cuh
+# dtype codes shared with csrc/common.cuh: the floating types kernels compute
+# in, and int8 for quantized operands
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+INT8_CODE = 2
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None

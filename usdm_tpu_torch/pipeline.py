@@ -3,7 +3,10 @@
 Port of usdm_tpu/pipeline.py `UsdmPipeline` (respond, respond_with_policy,
 the lazy single-caller serving engine, close, tiny_random): XLS-R unit
 extraction, the 3-stage unit->text->text->unit chain on the paged engine,
-Voicebox mel synthesis and BigVGAN vocoding, all on `device`.
+Voicebox mel synthesis and BigVGAN vocoding, all on `device` (`cuda` unless
+the caller asks for the CPU).  `lm_int8` / `vb_int8` quantize the LLM
+projections and the Voicebox estimator's matmuls to W8A8 after init, as
+usdm_tpu's `from_pretrained` does after load (models/quant.py).
 `from_pretrained` (checkpoint converters), speaker reference prompts and the
 dense dialog policy are not ported yet.
 """
@@ -33,6 +36,7 @@ from usdm_tpu_torch.models import bigvgan as BV
 from usdm_tpu_torch.models import mistral as LM
 from usdm_tpu_torch.models import voicebox as VB
 from usdm_tpu_torch.models import xlsr as XL
+from usdm_tpu_torch.models.quant import quantize_llm_params, quantize_voicebox_params
 
 
 def _check_device(device) -> torch.device:
@@ -50,7 +54,7 @@ class UsdmPipeline:
     xlsr_params: XL.Params
     xlsr_cfg: XlsrConfig
     decoder: SpeechDecoder
-    device: torch.device = torch.device("cpu")
+    device: torch.device = torch.device("cuda")
     # per-stage cap; None = tokenizer.model_max_length within the engine's pages
     max_new_tokens: Optional[int] = None
     _server: Optional[object] = dataclasses.field(default=None, repr=False, compare=False)
@@ -60,19 +64,24 @@ class UsdmPipeline:
 
     @classmethod
     def random_init(cls, tok: UsdmTokenizer, lm_cfg: MistralConfig, xl_cfg: XlsrConfig,
-                    vb_cfg: VoiceboxConfig, bv_cfg: BigVGANConfig, device="cpu", seed: int = 0,
-                    **kw) -> "UsdmPipeline":
+                    vb_cfg: VoiceboxConfig, bv_cfg: BigVGANConfig, device="cuda", seed: int = 0,
+                    lm_int8: bool = False, vb_int8: bool = False, **kw) -> "UsdmPipeline":
         """A pipeline of the given configs with random weights drawn on
-        `device` from generators seeded with `seed`."""
+        `device` from generators seeded with `seed`; `lm_int8` / `vb_int8`
+        quantize the LLM / Voicebox matmul weights to W8A8 after init (the
+        LLM layer by layer, so its float and int8 copies never coexist)."""
         device = _check_device(device)
         gens = [torch.Generator(device=device).manual_seed(seed * 4 + i) for i in range(4)]
-        decoder = SpeechDecoder(VB.init_params(vb_cfg, gens[0], device), vb_cfg,
+        vb = VB.init_params(vb_cfg, gens[0], device)
+        decoder = SpeechDecoder(quantize_voicebox_params(vb) if vb_int8 else vb, vb_cfg,
                                 BV.init_generator(bv_cfg, gens[1], device), bv_cfg, MelConfig())
-        return cls(tok, LM.init_params(lm_cfg, gens[2], device), lm_cfg,
+        lm = LM.init_params(lm_cfg, gens[2], device)
+        return cls(tok, quantize_llm_params(lm) if lm_int8 else lm, lm_cfg,
                    XL.init_params(xl_cfg, gens[3], device), xl_cfg, decoder, device, **kw)
 
     @classmethod
-    def tiny_random(cls, seed: int = 0, device="cpu") -> "UsdmPipeline":
+    def tiny_random(cls, seed: int = 0, device="cuda", lm_int8: bool = False,
+                    vb_int8: bool = False) -> "UsdmPipeline":
         """A structurally complete random pipeline at toy widths (the configs
         of usdm_tpu's tiny_random)."""
         tok = UsdmTokenizer.build_test(num_units=32)
@@ -80,20 +89,23 @@ class UsdmPipeline:
             tok, MistralConfig.tiny(vocab_size=tok.vocab_size),
             XlsrConfig.tiny().replace(num_clusters=32),
             VoiceboxConfig.tiny().replace(n_tokens=32, n_feats=80),
-            BigVGANConfig.tiny().replace(num_mels=80), device, seed, max_new_tokens=16)
+            BigVGANConfig.tiny().replace(num_mels=80), device, seed, lm_int8, vb_int8,
+            max_new_tokens=16)
 
     @classmethod
-    def full_random(cls, device="cuda", seed: int = 0) -> "UsdmPipeline":
+    def full_random(cls, device="cuda", seed: int = 0, lm_int8: bool = False,
+                    vb_int8: bool = False) -> "UsdmPipeline":
         """The full-width stack with random weights made on `device`:
         Mistral-7B (bf16, 42,003-id vocab), XLS-R 1B, Voicebox, BigVGAN
-        22 kHz/80 band (f32).  Real checkpoints load through converters that
-        are not ported yet."""
+        22 kHz/80 band (f32); `lm_int8` / `vb_int8` as in random_init (the
+        names and meaning of usdm_tpu's from_pretrained flags).  Real
+        checkpoints load through converters that are not ported yet."""
         tok = UsdmTokenizer.build_synthetic_full()
         lm_cfg = MistralConfig()
         if tok.vocab_size != lm_cfg.vocab_size:
             raise ValueError(f"tokenizer vocab {tok.vocab_size} != LM vocab {lm_cfg.vocab_size}")
         return cls.random_init(tok, lm_cfg, XlsrConfig(), VoiceboxConfig(), BigVGANConfig(),
-                           device, seed)
+                               device, seed, lm_int8, vb_int8)
 
     # ------------------------------------------------------------------ api
     def extract_units(self, wav: np.ndarray) -> list:
