@@ -25,7 +25,14 @@ Phases:
      full-width steps (VoiceboxConfig(), batch 8 of 16 s crops, bf16 over f32
      masters, per-layer remat) on synthetic noise clips; every kernel of that
      path must have launched, and 5 steps on one fixed batch must lower the
-     loss.
+     loss;
+  7. probes: X1 (io-layout bf16 and int8 matvecs), X2 (packed-int4 matvec)
+     and X3 (weight-streaming probe, every mode) against their plain versions
+     at the probe shapes (D 4096, F 14336, 16 layers), each timed over the
+     16 layers, then the port's three probe entry points
+     (usdm_tpu_torch.scripts.exp_stream_variants, exp_matvec, exp_int4) run
+     once at full size and print their JSON lines; every probe kernel must
+     have launched there.
 
 Each kernel's bound_ms is the least time the card could take for the work
 of its timed case: the larger of its bytes (inputs read once, outputs
@@ -85,6 +92,22 @@ KERNELS = {
         "source": "usdm_tpu_torch/csrc/paged_attention.cu",
         "replaces": "usdm_tpu/ops/paged_attention.py:41",
     },
+    "mv_io_bf16": {
+        "source": "usdm_tpu_torch/csrc/matvec_io.cu",
+        "replaces": "scripts/exp_matvec.py:142",
+    },
+    "mv_io_i8": {
+        "source": "usdm_tpu_torch/csrc/matvec_io.cu",
+        "replaces": "scripts/exp_matvec.py:150",
+    },
+    "qmv4": {
+        "source": "usdm_tpu_torch/csrc/int4_matvec.cu",
+        "replaces": "scripts/exp_int4_pallas.py:45",
+    },
+    "stream_probe": {
+        "source": "usdm_tpu_torch/csrc/stream_probe.cu",
+        "replaces": "scripts/exp_stream_variants.py:46",
+    },
 }
 
 HBM_BYTES_PER_S = 3.35e12
@@ -114,34 +137,40 @@ def attn_mask(qseg, kseg, qpos, kpos, causal: bool, window):
     return m
 
 
-def launch_counts() -> dict:
-    """Every kernel's launch count, by the names of KERNELS."""
+def _counted() -> dict:
+    """Every kernel wrapper that counts its launches in `.launches`."""
     from usdm_tpu_torch.ops import flash_attention as FL
     from usdm_tpu_torch.ops import fused_act as FA
     from usdm_tpu_torch.ops import fused_ln as LN
+    from usdm_tpu_torch.ops import int4_matvec as I4
+    from usdm_tpu_torch.ops import matvec_io as MV
     from usdm_tpu_torch.ops import paged_attention as PA
     from usdm_tpu_torch.ops import stream_matvec as SM
+    from usdm_tpu_torch.ops import stream_probe as SP
 
-    return {"paged_decode_attention": PA.paged_decode_attention.launches,
-            "flash_attention": FL.flash_attention.launches,
-            "fused_activation1d": FA.fused_activation1d.launches,
-            "add_mask_ln": LN.add_mask_ln.launches,
-            "flash_attention_bwd_dq": FL.flash_attention_bwd_dq.launches,
-            "flash_attention_bwd_dkv": FL.flash_attention_bwd_dkv.launches,
-            "stream_qmv": SM.stream_qmv.launches,
+    return {"paged_decode_attention": PA.paged_decode_attention,
+            "flash_attention": FL.flash_attention,
+            "fused_activation1d": FA.fused_activation1d,
+            "add_mask_ln": LN.add_mask_ln,
+            "flash_attention_bwd_dq": FL.flash_attention_bwd_dq,
+            "flash_attention_bwd_dkv": FL.flash_attention_bwd_dkv,
+            "stream_qmv": SM.stream_qmv,
+            "mv_io_bf16": MV.mv_io_bf16, "mv_io_i8": MV.mv_io_i8, "qmv4": I4.qmv4,
+            "stream_probe": SP.stream_probe}
+
+
+def launch_counts() -> dict:
+    """Every kernel's launch count, by the names of KERNELS."""
+    from usdm_tpu_torch.ops import paged_attention as PA
+
+    return {**{k: fn.launches for k, fn in _counted().items()},
             "paged_decode_attention_int8": PA.paged_decode_attention.int8_launches}
 
 
 def reset_counts() -> None:
-    from usdm_tpu_torch.ops import flash_attention as FL
-    from usdm_tpu_torch.ops import fused_act as FA
-    from usdm_tpu_torch.ops import fused_ln as LN
     from usdm_tpu_torch.ops import paged_attention as PA
-    from usdm_tpu_torch.ops import stream_matvec as SM
 
-    for fn in (PA.paged_decode_attention, FL.flash_attention, FA.fused_activation1d,
-               LN.add_mask_ln, FL.flash_attention_bwd_dq, FL.flash_attention_bwd_dkv,
-               SM.stream_qmv):
+    for fn in _counted().values():
         fn.launches = 0
     PA.paged_decode_attention.int8_launches = 0
 
@@ -150,22 +179,14 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps: int = 5, warmup: int = 2) -> float:
-    """Median CUDA-event time of `fn()` in milliseconds."""
+def cuda_ms(fn) -> float:
+    """Median CUDA-event time of `fn()` in milliseconds, on card 0 (the
+    probes' timer, usdm_tpu_torch.scripts.common.timeit)."""
     import torch
 
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    from usdm_tpu_torch.scripts.common import timeit
+
+    return timeit(fn, torch.device("cuda", 0))
 
 
 def max_err(got, want) -> float:
@@ -550,6 +571,9 @@ def int8_kernel_checks(dev) -> dict:
           for _ in range(8)]
     y = torch.randn(m, din, generator=gen, device=dev).bfloat16()
     km = cuda_ms(lambda: [SM.stream_qmv(y, w) for w in ws]) / len(ws)
+    # the same 8 calls replayed from a CUDA graph: the device's time alone
+    # (the eager loop above also waits on the host's dispatch of each call)
+    km_graph = graph_ms(lambda: [SM.stream_qmv(y, w) for w in ws], dev) / len(ws)
     pm = cuda_ms(lambda: [SM.stream_qmv_reference(y, w) for w in ws]) / len(ws)
     deq = [Q.dequantize_weight(w) for w in ws]  # what int8 replaces: bf16 [Din, Dout]
     bf16_ms = cuda_ms(lambda: [y @ w for w in deq]) / len(deq)
@@ -562,7 +586,8 @@ def int8_kernel_checks(dev) -> dict:
         times[mm] = cuda_ms(lambda: [SM.stream_qmv(yy, w) for w in ws]) / len(ws)
     log(f"  K6 time M=8 [{dout}, {din}] bf16, 8 weights in turn: kernel {km:.4f} ms, plain "
         f"{pm:.4f} ms, bound {k6_bound['bound_ms']:.4f} ms ({k6_bound['bound_by']}); the bf16 "
-        f"matmul of the dequantized weight it replaces {bf16_ms:.4f} ms; kernel at M=1/8/16: "
+        f"matmul of the dequantized weight it replaces {bf16_ms:.4f} ms; the 8 calls replayed "
+        f"from a CUDA graph {km_graph:.4f} ms each; kernel at M=1/8/16: "
         + ", ".join(f"{v:.4f}" for v in times.values()) + " ms")
     results["stream_qmv"] = {"max_abs_err": max(errs), "ms": km, "plain_ms": pm, **k6_bound,
                              "library_ms": None, "bf16_matmul_ms": bf16_ms,
@@ -1228,6 +1253,199 @@ def train_run(dev, profile: bool, tmp: str, out_dir: str) -> dict:
     return info
 
 
+# --------------------------------------------------------------- phase 7
+PROBE_D, PROBE_F, PROBE_L = 4096, 14336, 16  # the probes' chain: 16 distinct layers
+
+
+def graph_ms(fn, dev) -> float:
+    """Median CUDA-event time of fn() captured once in a CUDA graph and
+    replayed: the device's time for a list of launches, without the host's
+    dispatch between them (the probes time their chains so).  The replays
+    add their launches to the wrappers' counts."""
+    from usdm_tpu_torch.scripts.common import graphed
+
+    return cuda_ms(graphed(fn, dev))
+
+
+def probe_kernel_checks(dev) -> dict:
+    """X1-X3 against their plain versions at the probe shapes, each timed
+    over the 16 layers' calls (up and down projections for X1 and X2, one
+    [F, D] matrix per layer for X3)."""
+    import torch
+
+    from usdm_tpu_torch.ops import int4_matvec as I4
+    from usdm_tpu_torch.ops import matvec_io as MV
+    from usdm_tpu_torch.ops import stream_probe as SP
+    from usdm_tpu_torch.scripts.common import int_mm
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    d, f, n = PROBE_D, PROBE_F, PROBE_L
+    results = {}
+
+    def i8(*shape, lo=-127, hi=127):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev, dtype=torch.int8)
+
+    def scales(k, dtype):
+        return (torch.rand(n, k, generator=gen, device=dev) * 0.02 + 1e-3).to(dtype)
+
+    def per_layer(fn, ws_up, ws_dn, x_up, x_dn, s_up, s_dn):
+        return lambda: [(fn(x_up, ws_up[i], s_up[i]), fn(x_dn, ws_dn[i], s_dn[i]))
+                        for i in range(n)]
+
+    # X1: io int8 weights [D, F] and [F, D]; one activation row
+    log("X1 mv_io_bf16 / mv_io_i8 vs mv_io_bf16_reference / mv_io_i8_reference (X1a bf16: one "
+        "bf16 ulp of the largest output + 1e-4; X1b: bit for bit)")
+    up, dn = i8(n, d, f), i8(n, f, d)
+    s_up, s_dn = scales(f, torch.bfloat16), scales(d, torch.bfloat16)
+    y_up = torch.randn(1, d, generator=gen, device=dev).bfloat16()
+    y_dn = torch.randn(1, f, generator=gen, device=dev).bfloat16()
+    q_up, q_dn = i8(1, d), i8(1, f)
+    errs = {"bf16": [], "i8": []}
+    for bf in MV.TILES:
+        for i in (0, n - 1):
+            for x, q, sc, what in ((y_up, up[i], s_up[i], "up"), (y_dn, dn[i], s_dn[i], "down")):
+                want = MV.mv_io_bf16_reference(x, q, sc)
+                errs["bf16"].append(check("X1a", f"{what} [{q.shape[0]}, {q.shape[1]}] layer {i} "
+                                          f"bf {bf}", MV.mv_io_bf16(x, q, sc, bf), want,
+                                          bf16_bound(want)))
+            for x, q, sc, what in ((q_up, up[i], s_up[i], "up"), (q_dn, dn[i], s_dn[i], "down")):
+                errs["i8"].append(check("X1b", f"{what} [{q.shape[0]}, {q.shape[1]}] layer {i} "
+                                        f"bf {bf}", MV.mv_io_i8(x, q, sc, bf),
+                                        MV.mv_io_i8_reference(x, q, sc), 0.0))
+    # each call reads its weight once, its row and scales, writes Dout bf16
+    x1_bytes = {key: 2 * n * d * f + n * (nbytes(s_up[0], s_dn[0]) + (x_size + 2) * (d + f))
+                for key, x_size in (("bf16", 2), ("i8", 1))}
+    timing = {
+        "bf16": (graph_ms(per_layer(MV.mv_io_bf16, up, dn, y_up, y_dn, s_up, s_dn), dev),
+                 graph_ms(per_layer(MV.mv_io_bf16_reference, up, dn, y_up, y_dn, s_up, s_dn),
+                          dev)),
+        "i8": (graph_ms(per_layer(MV.mv_io_i8, up, dn, q_up, q_dn, s_up, s_dn), dev),
+               graph_ms(per_layer(MV.mv_io_i8_reference, up, dn, q_up, q_dn, s_up, s_dn), dev))}
+    lib_i8 = graph_ms(lambda: [(int_mm(q_up, up[i]), int_mm(q_dn, dn[i])) for i in range(n)], dev)
+    del up, dn
+    up_b = [torch.randint(-127, 127, (d, f), generator=gen, device=dev).bfloat16()
+            for _ in range(n)]
+    dn_b = [torch.randint(-127, 127, (f, d), generator=gen, device=dev).bfloat16()
+            for _ in range(n)]
+    lib_bf16 = graph_ms(lambda: [(y_up @ up_b[i], y_dn @ dn_b[i]) for i in range(n)], dev)
+    del up_b, dn_b
+    for key, kind, lib, what in (
+            ("bf16", "bf16", lib_bf16, "bf16 matmul of the dequantized bf16 weights"),
+            ("i8", "int8", lib_i8, "torch._int_mm, rows padded to 17, io int8 weights")):
+        km, pm = timing[key]
+        bound = least_time(x1_bytes[key], 2 * 2 * n * d * f, kind)
+        log(f"  X1{'a' if key == 'bf16' else 'b'} time, 16 layers x (up + down), bf 512: kernel "
+            f"{km:.4f} ms ({2 * n * d * f / km / 1e6:.1f} GB/s of weights), plain {pm:.4f} ms, "
+            f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}); {what}: {lib:.4f} ms")
+        results[f"mv_io_{key}"] = {"max_abs_err": max(errs[key]), "ms": km, "plain_ms": pm,
+                                   **bound, "library_ms": lib,
+                                   "case": "16 layers x (up [4096, 14336] + down), one row"}
+
+    # X2: int4 weights packed by halves, "oi" [F, D/2] and [D, F/2]
+    log("X2 qmv4 vs qmv4_reference (bit for bit in f32)")
+    w_up, w_dn = i8(n, f, d, lo=-8, hi=8), i8(n, d, f, lo=-8, hi=8)
+    p_up, p_dn = I4.pack_halves(w_up), I4.pack_halves(w_dn)
+    s4_up, s4_dn = scales(f, torch.float32), scales(d, torch.float32)
+    errs = []
+    for m in (1, 8, 16):
+        qa, qb = i8(m, d), i8(m, f)
+        for i in (0, n - 1):
+            errs.append(check("X2", f"M={m} up [{f}, {d}] layer {i}", I4.qmv4(qa, p_up[i],
+                              s4_up[i]), I4.qmv4_reference(qa, p_up[i], s4_up[i]), 0.0))
+            errs.append(check("X2", f"M={m} down [{d}, {f}] layer {i}", I4.qmv4(qb, p_dn[i],
+                              s4_dn[i]), I4.qmv4_reference(qb, p_dn[i], s4_dn[i]), 0.0))
+    km = graph_ms(per_layer(I4.qmv4, p_up, p_dn, q_up, q_dn, s4_up, s4_dn), dev)
+    pm = graph_ms(per_layer(I4.qmv4_reference, p_up, p_dn, q_up, q_dn, s4_up, s4_dn), dev)
+    lib = graph_ms(lambda: [(int_mm(q_up, w_up[i].t()), int_mm(q_dn, w_dn[i].t()))
+                            for i in range(n)], dev)
+    bound = least_time(n * d * f + n * (nbytes(s4_up[0], s4_dn[0]) + (d + f) + 4 * (d + f)),
+                       2 * 2 * n * d * f, "int8")
+    log(f"  X2 time, 16 layers x (up + down), M=1: kernel {km:.4f} ms ({n * d * f / km / 1e6:.1f} "
+        f"GB/s of int4 bytes, {2 * n * d * f / km / 1e6:.1f} int8-equivalent), plain {pm:.4f} ms, "
+        f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}); torch._int_mm over the same "
+        f"weights unpacked to int8 (rows padded to 17): {lib:.4f} ms")
+    results["qmv4"] = {"max_abs_err": max(errs), "ms": km, "plain_ms": pm, **bound,
+                       "library_ms": lib, "case": "16 layers x (up + down), M=1"}
+    del w_up, w_dn, p_up, p_dn
+
+    # X3: every mode over the 16-layer chain, and the loads-in-flight sweep
+    log("X3 stream_probe vs stream_probe_reference over the 16-layer chain, tiles of 1024 and "
+        "2048 rows (every mode bit for bit: vpu and dot_bf16 sum in the kernel's f32 order)")
+    ws = i8(n, f, d)
+    xs = {b: i8(b, d) for b in (1, 8, 32)}
+
+    def chain(fn, mode, bpad, bf, **kw):
+        c = torch.zeros(1, 128, device=dev)
+        for w in ws:
+            c = c + fn(xs[bpad], w, mode, bf, **kw)
+        return c
+
+    errs = []
+    for bf in (1024, 2048):
+        for mode, bpad in (("dma_only", 1), ("dot", 1), ("dot", 8), ("dot", 32), ("vpu", 1),
+                           ("dot_bf16", 1)):
+            want = chain(SP.stream_probe_reference, mode, bpad, bf)
+            for loads in SP.LOADS:
+                errs.append(check("X3", f"{mode} bpad {bpad} loads {loads} bf {bf}",
+                                  chain(SP.stream_probe, mode, bpad, bf, loads=loads), want, 0.0))
+    # the kernels line times dot at bpad 1, whose plain version reads every
+    # weight byte as the kernel does (dma_only's reads one row per tile)
+    km = graph_ms(lambda: [SP.stream_probe(xs[1], w, "dot", 1024, 8) for w in ws], dev)
+    pm = graph_ms(lambda: [SP.stream_probe_reference(xs[1], w, "dot", 1024) for w in ws], dev)
+    copy = {lo: graph_ms(lambda lo=lo: [SP.stream_probe(xs[1], w, "dma_only", 1024, lo)
+                                        for w in ws], dev) for lo in SP.LOADS}
+    dots = {b: graph_ms(lambda b=b: [SP.stream_probe(xs[b], w, "dot", 1024, 8) for w in ws], dev)
+            for b in (8, 32)}
+    bound = least_time(n * (nbytes(ws[0], xs[1]) + 4 * 128), 2 * n * f * d, "int8")
+    # a yardstick of the read rate from PyTorch's own reduction kernel over
+    # the same bytes, viewed as int64 (not the same function: no library_ms)
+    sum_ms = graph_ms(lambda: [w.view(torch.int64).sum() for w in ws], dev)
+    log(f"  X3 time dot bpad 1, 16 x [{f}, {d}] int8, loads 8: kernel {km:.4f} ms "
+        f"({n * f * d / km / 1e6:.1f} GB/s), plain {pm:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+        f"({bound['bound_by']}); dma_only by loads in flight "
+        + ", ".join(f"{lo}: {t:.4f}" for lo, t in copy.items()) + " ms; dot at bpad "
+        + ", ".join(f"{b}: {t:.4f}" for b, t in dots.items()) + " ms (loads 8); PyTorch's "
+        f"sum over the same 16 weights as int64 {sum_ms:.4f} ms ({n * f * d / sum_ms / 1e6:.1f} "
+        "GB/s)")
+    results["stream_probe"] = {"max_abs_err": max(errs), "ms": km, "plain_ms": pm, **bound,
+                               "library_ms": None,
+                               "case": "dot bpad 1, loads 8, 16 layers of [14336, 4096] int8"}
+    del ws
+    return results
+
+
+def probe_run(dev) -> dict:
+    """The port's three probe entry points at full size, as a user runs
+    them; every probe kernel must launch there."""
+    import gc
+
+    import torch
+
+    from usdm_tpu_torch.scripts import exp_int4, exp_matvec, exp_stream_variants
+
+    reset_counts()
+    lines = {}
+    for mod in (exp_stream_variants, exp_matvec, exp_int4):
+        lines[mod.__name__.rsplit(".", 1)[-1]] = mod.main([])
+        gc.collect()
+        torch.cuda.empty_cache()
+    counts = launch_counts()
+    log(f"probe entry points: launches {counts}")
+    need = ("mv_io_bf16", "mv_io_i8", "qmv4", "stream_probe")
+    if not all(counts[k] for k in need):
+        raise AssertionError(f"a probe kernel never launched in the probe entry points: {counts}")
+    # every formulation timed on the card, but the two int4 matmuls PyTorch
+    # lacks and the TPU-only operand order; X2's own checks were exact
+    skip = {"w4a8_native", "w4a4_native", "wlhs", "check"}
+    for name, line in lines.items():
+        bad = [k for k, v in line["results"].items() if k not in skip and not v.get("gbps", 0) > 0]
+        if line["device"]["platform"] != "gpu" or bad:
+            raise AssertionError(f"{name}: not run on the card, or no rate for {bad}")
+    if "jax" in sys.modules:
+        raise AssertionError("jax was imported")
+    return {"launches": counts}
+
+
 def _write_profile(prof, out_dir: str, name: str = "respond_profile.txt") -> None:
     table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
     path = os.path.join(out_dir, name)
@@ -1285,7 +1503,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         # each kernel's launches come from the run of the path it serves:
         # K1-K3 the bf16 turn, K6 the W8A8 turn (A) and the server (B) together,
-        # K1's int8 branch (B), K4 and K5 the trainer
+        # K1's int8 branch (B), K4 and K5 the trainer, X1-X3 the probe entry
+        # points (phase 7; eager calls and CUDA graph replays)
         bf16 = slice_run(dev, args.profile, tmp, args.out_dir)["turns"][-1]["launches"]
         log(f"phase time: bf16 turns {time.perf_counter() - t_phase:.1f} s")
         t_phase = time.perf_counter()
@@ -1294,13 +1513,18 @@ def main() -> int:
         t_phase = time.perf_counter()
         train = train_run(dev, args.profile, tmp, args.out_dir)["launches"]
         log(f"phase time: training {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    kres.update(probe_kernel_checks(dev))
+    probes = probe_run(dev)["launches"]
+    log(f"phase time: probes {time.perf_counter() - t_phase:.1f} s")
     a, b = int8["A"]["launches"], int8["B"]["launches"]
     launches = {**{k: bf16[k] for k in ("paged_decode_attention", "flash_attention",
                                          "fused_activation1d")},
                 **{k: train[k] for k in ("add_mask_ln", "flash_attention_bwd_dq",
                                          "flash_attention_bwd_dkv")},
                 "stream_qmv": a["stream_qmv"] + b["stream_qmv"],
-                "paged_decode_attention_int8": b["paged_decode_attention_int8"]}
+                "paged_decode_attention_int8": b["paged_decode_attention_int8"],
+                **{k: probes[k] for k in ("mv_io_bf16", "mv_io_i8", "qmv4", "stream_probe")}}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", **KERNELS[k], "launches": launches[k],

@@ -1,4 +1,4 @@
-"""K1-K6 CUDA kernels against their plain PyTorch versions, on the card.
+"""K1-K6 and X1-X3 CUDA kernels against their plain PyTorch versions, on the card.
 
 Marked `cuda`: each test skips without a CUDA device (a CUDA kernel has no
 CPU mode).  Imports no JAX, so it runs where the port runs; there, skip
@@ -306,3 +306,118 @@ def test_qmm_raises_without_a_route(cuda):
         y, w = _qmv_case(cuda, m, dout, din)
         with pytest.raises(ValueError, match="no CUDA route|Din a multiple"):
             Q.qmm(y, w)
+
+
+# ----------------------------------------------------------------- X1-X3
+from usdm_tpu_torch.ops import int4_matvec as I4  # noqa: E402
+from usdm_tpu_torch.ops import matvec_io as MV  # noqa: E402
+from usdm_tpu_torch.ops import stream_probe as SP  # noqa: E402
+
+
+def _int8(g, *shape, lo=-127, hi=127, device="cuda"):
+    return torch.randint(lo, hi, shape, generator=g, device=device, dtype=torch.int8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf", [512, 1024])
+@pytest.mark.parametrize("din,dout", [(4096, 14336), (14336, 4096), (260, 528)])
+def test_mv_io_kernels_match_plain(cuda, din, dout, bf):
+    """X1 at the probe's projections and a ragged shape (Dout not a multiple
+    of the block's columns, Din not of the slice).  X1b bit for bit (exact
+    int32, the same IEEE epilogue); X1a within one bf16 ulp of the largest
+    output + 1e-4 (f32 sums in another order)."""
+    g = torch.Generator(device=cuda).manual_seed(din + dout + bf)
+    q = _int8(g, din, dout)
+    s = (torch.rand(dout, generator=g, device=cuda) * 0.02).bfloat16()
+    y = torch.randn(1, din, generator=g, device=cuda).bfloat16()
+    qx = _int8(g, 1, din)
+    before = (MV.mv_io_bf16.launches, MV.mv_io_i8.launches)
+    got, want = MV.mv_io_bf16(y, q, s, bf), MV.mv_io_bf16_reference(y, q, s)
+    assert (got.float() - want.float()).abs().max().item() <= _bf16_bound(want)
+    assert torch.equal(MV.mv_io_i8(qx, q, s, bf), MV.mv_io_i8_reference(qx, q, s))
+    assert (MV.mv_io_bf16.launches, MV.mv_io_i8.launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 3, 16])
+@pytest.mark.parametrize("dout,din", [(14336, 4096), (4096, 14336), (100, 96)])
+def test_qmv4_kernel_matches_plain(cuda, m, dout, din):
+    """X2 bit for bit in f32 (exact int32 accumulators, one IEEE multiply),
+    at the probe's projections and a ragged one (Dout not a multiple of a
+    block's 16 rows)."""
+    g = torch.Generator(device=cuda).manual_seed(m + dout)
+    wp = I4.pack_halves(_int8(g, dout, din, lo=-8, hi=8))
+    qy = _int8(g, m, din)
+    s = torch.rand(dout, generator=g, device=cuda) * 0.02
+    before = I4.qmv4.launches
+    assert torch.equal(I4.qmv4(qy, wp, s), I4.qmv4_reference(qy, wp, s))
+    assert I4.qmv4.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loads", SP.LOADS)
+@pytest.mark.parametrize("mode,bpad", [("dma_only", 1), ("dot", 1), ("dot", 8), ("dot", 32),
+                                       ("vpu", 1), ("dot_bf16", 1)])
+@pytest.mark.parametrize("d", [4096, 4112])
+def test_stream_probe_kernel_matches_plain(cuda, mode, bpad, loads, d):
+    """X3 over a 2-layer chain ([4096, D], tiles of 2048, 1024 and 128 rows;
+    D 4112 leaves lanes without a whole chunk), every mode bit for bit:
+    exact int32 rows, or vpu/dot_bf16's f32 rows in the kernel's order, and
+    the same f32 tile and layer order."""
+    g = torch.Generator(device=cuda).manual_seed(d + bpad + loads)
+    ws = _int8(g, 2, 4096, d)
+    x = _int8(g, bpad, d)
+    for bf in (2048, 1024, 128):
+        before = SP.stream_probe.launches
+        got = sum(SP.stream_probe(x, w, mode, bf, loads) for w in ws)
+        want = sum(SP.stream_probe_reference(x, w, mode, bf) for w in ws)
+        assert SP.stream_probe.launches == before + 2
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_graph_replays_count_launches(cuda):
+    """A probe chain replayed from a CUDA graph (scripts.common.graphed):
+    the eager warm-up call counts its launches, the capture none, and every
+    replay the launches it makes."""
+    from usdm_tpu_torch.scripts.common import graphed
+
+    g = torch.Generator(device=cuda).manual_seed(1)
+    w, x = _int8(g, 2048, 256), _int8(g, 1, 256)
+    before = SP.stream_probe.launches
+    replay = graphed(lambda: [SP.stream_probe(x, w, "dot", 1024, 8) for _ in range(3)], cuda)
+    assert SP.stream_probe.launches == before + 3
+    for _ in range(2):
+        replay()
+    torch.cuda.synchronize()
+    assert SP.stream_probe.launches == before + 9
+
+
+@pytest.mark.cuda
+def test_probe_kernels_raise_on_what_they_do_not_take(cuda):
+    """Shapes, types and layouts neither version takes raise before a launch."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, s = _int8(g, 256, 512), torch.ones(512, dtype=torch.bfloat16, device=cuda)
+    y = torch.ones(1, 256, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):
+        MV.mv_io_bf16(y, q, s, bf=256)
+    with pytest.raises(ValueError):
+        MV.mv_io_bf16(y[:, :254], q[:254], s)
+    with pytest.raises(ValueError):
+        MV.mv_io_i8(_int8(g, 2, 256), q, s)
+    with pytest.raises(ValueError):
+        MV.mv_io_i8(_int8(g, 1, 256), q.t().contiguous().t(), s)  # not contiguous
+    wp = I4.pack_halves(_int8(g, 64, 256, lo=-8, hi=8))
+    with pytest.raises(ValueError):
+        I4.qmv4(_int8(g, 17, 256), wp, torch.ones(64, device=cuda))
+    with pytest.raises(ValueError):
+        I4.qmv4(_int8(g, 1, 240), wp[:, :120], torch.ones(64, device=cuda))
+    with pytest.raises(TypeError):
+        I4.qmv4(_int8(g, 1, 256), wp, torch.ones(64, device=cuda).bfloat16())
+    w = _int8(g, 1024, 256)
+    for x, mode, bf in ((_int8(g, 2, 256), "dot", 512), (_int8(g, 8, 256), "vpu", 512),
+                        (_int8(g, 1, 256), "dot", 64), (_int8(g, 1, 256), "dot", 384)):
+        with pytest.raises(ValueError):
+            SP.stream_probe(x, w, mode, bf)
+    with pytest.raises(ValueError):
+        SP.stream_probe(_int8(g, 1, 256), w, "dot", 512, loads=3)

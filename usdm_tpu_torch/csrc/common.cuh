@@ -22,6 +22,13 @@ static __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
+// signed byte i of v -> its exact float: 2^23 + (b ^ 0x80) built in the
+// mantissa, then 2^23 + 128 subtracted (no int -> float conversion)
+static __device__ __forceinline__ float byte_f32(uint32_t v, int i) {
+  const uint32_t u = v ^ 0x80808080u;
+  return __int_as_float(__byte_perm(u, 0x4B000000u, 0x7440 | i)) - 8388736.f;
+}
+
 static __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

@@ -29,8 +29,9 @@ _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 def symmetric_scale(amax: torch.Tensor) -> torch.Tensor:
     """max(amax / 127, 1e-8), the scale of symmetric int8, with an IEEE
     division on every device: PyTorch's CUDA kernels divide by a Python
-    number through its reciprocal, which rounds differently."""
-    return torch.clamp(amax / amax.new_tensor(127.0), min=1e-8)
+    number through its reciprocal, which rounds differently.  The divisor is
+    filled on the device (no host copy), so a CUDA graph can capture it."""
+    return torch.clamp(amax / torch.full_like(amax, 127.0), min=1e-8)
 
 
 def quantize_rows(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
