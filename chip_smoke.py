@@ -8,7 +8,10 @@ Phases:
   2. build: nvcc builds every kernel from usdm_tpu_torch/csrc/;
   3. kernels: each hand-written kernel against its plain PyTorch version on
      the card, at the shapes the main paths give it, with the stated bound,
-     plus CUDA-event times of both;
+     plus CUDA-event times of both.  Flash attention (K2, K5) has one route
+     per dtype: bf16 on the tensor cores, held against the plain versions
+     with round_operands=True (P and dS rounded to bf16 where the kernels
+     round them), f32 on the CUDA cores, held to 1e-4;
   4. slice: a full-width random UsdmPipeline (Mistral-7B bf16, XLS-R 1B,
      Voicebox, BigVGAN) runs two greedy respond() turns with stage budgets
      pinned at 48/32/256 tokens; every kernel of that path must have launched;
@@ -65,7 +68,8 @@ KERNELS = {
         "replaces": "usdm_tpu/ops/paged_attention.py:41",
     },
     "flash_attention": {
-        "source": "usdm_tpu_torch/csrc/flash_attention.cu",
+        "source": "usdm_tpu_torch/csrc/flash_attention_mma.cu (bf16), "
+                  "usdm_tpu_torch/csrc/flash_attention.cu (f32)",
         "replaces": "usdm_tpu/ops/flash_attention.py:57",
     },
     "fused_activation1d": {
@@ -77,11 +81,13 @@ KERNELS = {
         "replaces": "usdm_tpu/ops/fused_ln.py:44",
     },
     "flash_attention_bwd_dq": {
-        "source": "usdm_tpu_torch/csrc/flash_attention_bwd.cu",
+        "source": "usdm_tpu_torch/csrc/flash_attention_bwd_dq_mma.cu (bf16), "
+                  "usdm_tpu_torch/csrc/flash_attention_bwd.cu (f32)",
         "replaces": "usdm_tpu/ops/flash_attention.py:287",
     },
     "flash_attention_bwd_dkv": {
-        "source": "usdm_tpu_torch/csrc/flash_attention_bwd.cu",
+        "source": "usdm_tpu_torch/csrc/flash_attention_bwd_dkv_mma.cu (bf16), "
+                  "usdm_tpu_torch/csrc/flash_attention_bwd.cu (f32)",
         "replaces": "usdm_tpu/ops/flash_attention.py:367",
     },
     "stream_qmv": {
@@ -167,11 +173,23 @@ def launch_counts() -> dict:
             "paged_decode_attention_int8": PA.paged_decode_attention.int8_launches}
 
 
+def _flash_wrappers() -> dict:
+    """The three flash-attention wrappers, which also count the launches of
+    their bf16 tensor-core route in `.mma_launches`."""
+    return {k: fn for k, fn in _counted().items() if k.startswith("flash_attention")}
+
+
+def mma_counts() -> dict:
+    return {k: fn.mma_launches for k, fn in _flash_wrappers().items()}
+
+
 def reset_counts() -> None:
     from usdm_tpu_torch.ops import paged_attention as PA
 
     for fn in _counted().values():
         fn.launches = 0
+    for fn in _flash_wrappers().values():
+        fn.mma_launches = 0
     PA.paged_decode_attention.int8_launches = 0
 
 
@@ -194,10 +212,12 @@ def max_err(got, want) -> float:
 
 
 def bf16_bound(want) -> float:
-    """Bound of a bf16 kernel against its plain version when both compute in
-    f32 and round only their outputs to bf16: one bf16 ulp of the case's
-    largest output, 2^-7 * max|want|, plus 1e-4 for f32 summation order.  It
-    scales with the outputs, which shrink as the context grows."""
+    """Bound of a bf16 kernel against its plain version when both accumulate
+    in f32 and round at the same places (K1: only the outputs; the bf16 flash
+    route and its plain versions with round_operands: also P and dS): one
+    bf16 ulp of the case's largest output, 2^-7 * max|want|, plus 1e-4 for
+    f32 summation order.  It scales with the outputs, which shrink as the
+    context grows."""
     return 2.0**-7 * want.float().abs().max().item() + 1e-4
 
 
@@ -283,16 +303,36 @@ def kernel_checks(dev) -> dict:
                                          "plain_ms": timing[1], **k1_bound, "library_ms": None,
                                          "case": "B=1 seq=700 bf16"}
 
+    # the tensor-core parts (csrc/mma.cuh) on one 64 x 64 tile, before any
+    # kernel built from them: S = Q.K^T against torch.matmul of the same bf16
+    # values in f32, O = bf16(S).V against the matmul of the kernel's own
+    # rounded S; exact products, so only the order of the f32 sums differs
+    log("mma tile harness: S = Q.K^T and O = bf16(S).V of one tile vs torch.matmul in f32 "
+        "(bound 1e-5 of the largest value: summation order)")
+    for d in (64, 80, 128):
+        tq, tk, tv = (randn(64, d, dtype=torch.bfloat16) for _ in range(3))
+        s_out, o_out = FL.mma_tile_products(tq, tk, tv)
+        for what, got, want in (("S", s_out, tq.float() @ tk.float().t()),
+                                ("O", o_out, s_out.bfloat16().float() @ tv.float())):
+            check("mma tile", f"d={d} {what}", got, want, 1e-5 * want.abs().max().item())
+
     # K2: (a) Mistral prefill chunk at start=768, (b) Voicebox, (c) XLS-R long
-    log("K2 flash_attention vs flash_attention_reference (bf16 bound 2^-7 * max|want| + "
-        "1e-4, f32 bound 1e-4; the log-sum-exp, f32 on both sides, within 1e-4)")
+    log("K2 flash_attention vs flash_attention_reference (bf16, the tensor-core route, against "
+        "the plain version with round_operands=True: bound 2^-7 * max|want| + 1e-4; f32, the "
+        "CUDA-core route: bound 1e-4; the log-sum-exp, f32 on both sides, within 1e-4)")
     errs, timings = [], {}
 
     def check_flash(case, args, bound=None):
+        """f32 when `bound` is given, else bf16: held against the rounded
+        plain version; the error against the unrounded one is logged only."""
         got, got_lse = FL.flash_attention(*args, return_lse=True)
-        want, want_lse = FL.flash_attention_reference(*args)
+        want, want_lse = FL.flash_attention_reference(*args, round_operands=bound is None)
         err = check("K2", case, got, want, bf16_bound(want) if bound is None else bound)
         check("K2 lse", case, got_lse, want_lse, 1e-4)
+        if bound is None:
+            exact, _ = FL.flash_attention_reference(*args)
+            log(f"  K2 [{case}] against the unrounded plain version (not gated): "
+                f"max_abs_err={max_err(got, exact):.3e}")
         return err
 
     # (a) chunk of 512 queries at positions 768.., 300 valid; context 2048
@@ -300,21 +340,56 @@ def kernel_checks(dev) -> dict:
     q = randn(1, c, 32, 128, dtype=torch.bfloat16)
     kv = randn(2, 8, s_ctx, 128, dtype=torch.bfloat16)  # head-major context, as gathered
     k, v = kv[0].permute(1, 0, 2)[None], kv[1].permute(1, 0, 2)[None]
-    qpos = (start + torch.arange(c, device=dev))[None]
-    kpos = torch.arange(s_ctx, device=dev)[None]
-    qseg = torch.where(torch.arange(c, device=dev)[None] < n_valid, 0, -1)
-    kseg = torch.where(kpos < start + n_valid, 0, -1)
-    args_a = (q, k, v, qseg, kseg, qpos, kpos, True, 4096)
+    # rows as the engine's prefill makes them: int32, once per chunk
+    qpos = (start + torch.arange(c, device=dev, dtype=torch.int32))[None]
+    kpos = torch.arange(s_ctx, device=dev, dtype=torch.int32)[None]
+    qseg = torch.where(torch.arange(c, device=dev)[None] < n_valid, 0, -1).to(torch.int32)
+    kseg = torch.where(kpos < start + n_valid, 0, -1).to(torch.int32)
+    args_a = (q, k, v, qseg, kseg, qpos, kpos, True, 4096, None, False)
     errs.append(check_flash("prefill bf16 Tq=512 Tk=2048 start=768", args_a))
     timings["a"] = (cuda_ms(lambda: FL.flash_attention(*args_a)),
                     cuda_ms(lambda: FL.flash_attention_reference(*args_a)))
     mask_a = attn_mask(qseg, kseg, qpos, kpos, True, 4096)
-    k2_bound = least_time(2 * nbytes(q) + nbytes(k, v, qseg, kseg, qpos, kpos),
-                          4 * 128 * 32 * int(mask_a.sum()), "bf16")
+    k2_ops = 4 * 128 * 32 * int(mask_a.sum())
+    k2_bound = least_time(2 * nbytes(q) + nbytes(k, v, qseg, kseg, qpos, kpos), k2_ops, "bf16")
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    k2_lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask_a[:, None], enable_gqa=True))
+    def sdpa_a():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask_a[:, None], enable_gqa=True)
+
+    k2_lib = cuda_ms(sdpa_a)
+    # the same calls replayed from a CUDA graph, 10 to a replay: the device's
+    # time alone (a single eager call also waits on the host's dispatch: the
+    # wrapper's checks and int32 rows, or PyTorch's own)
+    k2_graph = (graph_ms(lambda: [FL.flash_attention(*args_a) for _ in range(10)], dev) / 10,
+                graph_ms(lambda: [sdpa_a() for _ in range(10)], dev) / 10)
     del qt, kt, vt
+    # bf16 at head dims the tile widths do not divide (d 80 runs at width 96),
+    # T 300 ragged against the 64-row tiles, non-causal, second row shorter
+    t3 = 300
+    pos = torch.arange(t3, device=dev)[None].expand(2, t3)
+    seg = torch.where(pos < torch.tensor([[t3], [177]], device=dev), 0, -1)
+    for d in (80, 96):
+        q, k, v = (randn(2, t3, 4, d, dtype=torch.bfloat16) for _ in range(3))
+        errs.append(check_flash(f"bf16 d={d} T=300 ragged non-causal",
+                                (q, k, v, seg, seg, pos, pos, False, None, None, False)))
+    # a bf16 view whose rows do not start on 16-byte boundaries (storage
+    # offset of 4 elements): the wrapper copies it and the tensor-core route
+    # runs; same bits as the aligned call, and counted as mma launches
+    aligned = FL.flash_attention(q, k, v, seg, seg, pos, pos, False)
+    shifted = []
+    for x in (q, k, v):
+        buf = torch.empty(x.numel() + 4, dtype=x.dtype, device=dev)
+        buf[4:].copy_(x.reshape(-1))
+        shifted.append(buf[4:].view(x.shape))
+    before = FL.flash_attention.mma_launches
+    moved = FL.flash_attention(*shifted, seg, seg, pos, pos, False)
+    ok = (shifted[0].data_ptr() % 16 != 0 and torch.equal(moved, aligned)
+          and FL.flash_attention.mma_launches == before + 1)
+    log(f"  K2 [bf16 d=96 operands at a storage offset of 8 bytes] copied by the wrapper, "
+        f"tensor-core route, bit-equal to the aligned call: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("K2: a misaligned bf16 view did not take the copy route")
     # (b) Voicebox: B=2, T=449, 16 heads d=64, ALiBi, second row shorter, f32
     t1 = 449
     q, k, v = (randn(2, t1, 16, 64) for _ in range(3))
@@ -325,6 +400,8 @@ def kernel_checks(dev) -> dict:
     errs.append(check_flash("voicebox f32 B=2 T=449 ALiBi", args_b, 1e-4))
     timings["b"] = (cuda_ms(lambda: FL.flash_attention(*args_b)),
                     cuda_ms(lambda: FL.flash_attention_reference(*args_b)))
+    f32_bounds = {"b": least_time(2 * nbytes(q) + nbytes(k, v, seg, pos), 4 * 64 * 16 * int(
+        attn_mask(seg, seg, pos, pos, False, None).sum()), "f32")}
     # (c) XLS-R long clip: T=2100, 16 heads d=80, f32, non-causal
     t = 2100
     q, k, v = (randn(1, t, 16, 80) for _ in range(3))
@@ -334,10 +411,18 @@ def kernel_checks(dev) -> dict:
     errs.append(check_flash("xlsr f32 T=2100 d=80", args_c, 1e-4))
     timings["c"] = (cuda_ms(lambda: FL.flash_attention(*args_c)),
                     cuda_ms(lambda: FL.flash_attention_reference(*args_c)))
+    f32_bounds["c"] = least_time(2 * nbytes(q) + nbytes(k, v, seg, pos), 4 * 80 * 16 * t * t,
+                                 "f32")
     for key, (km, pm) in timings.items():
         log(f"  K2 time ({key}): kernel {km:.4f} ms, plain {pm:.4f} ms")
-    log(f"  K2 (a): bound {k2_bound['bound_ms']:.4f} ms ({k2_bound['bound_by']}); one "
-        f"scaled_dot_product_attention call with the boolean mask {k2_lib:.4f} ms")
+    log(f"  K2 (a) bf16, tensor-core route: bound {k2_bound['bound_ms']:.4f} ms "
+        f"({k2_bound['bound_by']}), {k2_ops / timings['a'][0] / 1e9:.1f} TFLOP/s achieved; one "
+        f"scaled_dot_product_attention call with the boolean mask {k2_lib:.4f} ms; replayed "
+        f"from a CUDA graph (device time alone) kernel {k2_graph[0]:.4f} ms, the library call "
+        f"{k2_graph[1]:.4f} ms")
+    for key, bd in f32_bounds.items():
+        log(f"  K2 ({key}) f32, CUDA-core route: bound {bd['bound_ms']:.4f} ms "
+            f"({bd['bound_by']}, against the 67 TFLOP/s f32 peak)")
     results["flash_attention"] = {"max_abs_err": max(errs), "ms": timings["a"][0],
                                   "plain_ms": timings["a"][1], **k2_bound, "library_ms": k2_lib,
                                   "case": "prefill (a) bf16"}
@@ -390,33 +475,42 @@ def train_kernel_checks(dev) -> dict:
     # saved forward (K2's output and log-sum-exp), which is first held
     # against K2's plain version at this shape.
     log("K5 flash_attention_bwd_dq / flash_attention_bwd_dkv vs flash_attention_bwd_reference "
-        "(dq, dk, dv; bf16 bound 2^-7 * max|want| + 1e-4 per output: both compute in f32 "
-        "and round only the outputs; f32 bound 1e-4), on the forward of K2, held against "
-        "flash_attention_reference first (output: same bounds; log-sum-exp 1e-4)")
+        "(dq, dk, dv; bf16, the tensor-core route, against the plain version with "
+        "round_operands=True: bound 2^-7 * max|want| + 1e-4 per output, both multiply bf16 "
+        "operands, accumulate in f32 and round P and dS at the same places; f32, the CUDA-core "
+        "route: bound 1e-4), on the forward of K2, held against flash_attention_reference "
+        "first (output: same bounds; log-sum-exp 1e-4)")
     b, t1, h, d = 8, 1379, 16, 64
-    pos = torch.arange(t1, device=dev)[None].expand(b, t1)
+    # rows as the estimator makes them: int32, contiguous, once per forward
+    pos = torch.arange(t1, device=dev, dtype=torch.int32)[None].expand(b, t1).contiguous()
     lens = torch.tensor([1379, 900, 1379, 1200, 640, 1379, 1000, 1301], device=dev)
-    seg = torch.where(pos < lens[:, None], 0, -1)
+    seg = torch.where(pos < lens[:, None], 0, -1).to(torch.int32)
     errs = {"dq": [], "dkv": [], "fwd": []}
-    timing, k5_bounds, library = {}, {}, None
+    timing, k5_bounds, k5_ops, library, library_fwd = {}, {}, {}, None, None
 
     def bwd_case(case, q, k, v, do, segs, poss, causal, window, alibi, dtype):
         o, lse = FL.flash_attention(q, k, v, segs, segs, poss, poss, causal, window,
                                     alibi=alibi, return_lse=True)
+        rounded = dtype == torch.bfloat16
         want_o, want_lse = FL.flash_attention_reference(q, k, v, segs, segs, poss, poss, causal,
-                                                        window, None, alibi)
+                                                        window, None, alibi, rounded)
         errs["fwd"].append(check("K2", f"{case} o", o, want_o,
-                                 bf16_bound(want_o) if dtype == torch.bfloat16 else 1e-4))
+                                 bf16_bound(want_o) if rounded else 1e-4))
         check("K2 lse", case, lse, want_lse, 1e-4)
         del want_o, want_lse
-        want = FL.flash_attention_bwd_reference(q, k, v, o, lse, do, segs, segs, poss, poss,
-                                                causal, window, None, alibi)
-        got = FL.flash_attention_bwd(q, k, v, o, lse, do, segs, segs, poss, poss, causal,
-                                     window, None, alibi)
+        ref_args = (q, k, v, o, lse, do, segs, segs, poss, poss, causal, window, None, alibi)
+        want = FL.flash_attention_bwd_reference(*ref_args, rounded)
+        got = FL.flash_attention_bwd(*ref_args)
         out = []
         for name, gg, ww in zip(("dq", "dk", "dv"), got, want):
-            bound = bf16_bound(ww) if dtype == torch.bfloat16 else 1e-4
+            bound = bf16_bound(ww) if rounded else 1e-4
             out.append(check("K5", f"{case} {name}", gg, ww, bound))
+        if rounded:
+            exact = FL.flash_attention_bwd_reference(*ref_args)
+            log(f"  K5 [{case}] against the unrounded plain version (not gated): max_abs_err "
+                + ", ".join(f"{n} {max_err(gg, ee):.3e}"
+                            for n, gg, ee in zip(("dq", "dk", "dv"), got, exact)))
+            del exact
         errs["dq"].append(out[0])
         errs["dkv"].append(max(out[1:]))
         return o, lse, want
@@ -437,6 +531,12 @@ def train_kernel_checks(dev) -> dict:
                                                           None, alibi=True)),
                        cuda_ms(lambda: FL.flash_attention_reference(q, k, v, seg, seg, pos, pos,
                                                                     False, None, None, True)))
+        timing["graph"] = tuple(
+            graph_ms(lambda fn=fn: [fn() for _ in range(10)], dev) / 10
+            for fn in (lambda: FL.flash_attention(q, k, v, seg, seg, pos, pos, False, None,
+                                                  alibi=True),
+                       lambda: FL.flash_attention_bwd_dq(*args),
+                       lambda: FL.flash_attention_bwd_dkv(*args)))
         # dq needs 3 products over the valid (query, key) pairs (S = QK^T,
         # dP = dO V^T, dQ = dS K), dk/dv 4 (S, dP, dV = P^T dO, dK = dS^T Q)
         pairs = h * int(attn_mask(seg, seg, pos, pos, False, None).sum())
@@ -446,6 +546,7 @@ def train_kernel_checks(dev) -> dict:
         # K2's forward at this shape: S = QK^T and O = PV over the same pairs
         k5_bounds["fwd"] = least_time(2 * nbytes(q) + nbytes(k, v, seg, pos), 2 * 2 * d * pairs,
                                       "bf16")
+        k5_ops = {"fwd": 4 * d * pairs, "dq": 6 * d * pairs, "dkv": 8 * d * pairs}
         # the library yardstick: scaled_dot_product_attention's backward with
         # the ALiBi + padding bias added to the scores (key column 0 exempt)
         slopes = FL.alibi_slopes_pow2(h).to(dev)[None, :, None, None]
@@ -458,6 +559,9 @@ def train_kernel_checks(dev) -> dict:
         ot = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias)
         dot = do.transpose(1, 2)
         library = cuda_ms(lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True))
+        with torch.no_grad():  # K2's yardstick at this shape: the forward alone
+            library_fwd = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=bias))
         del qt, kt, vt, ot, bias
         # (c) the kernels run with ALiBi off (forward and backward) must miss
         # the bound that the ALiBi gradient meets
@@ -493,7 +597,15 @@ def train_kernel_checks(dev) -> dict:
     log(f"  K5 (a) bounds: dq {k5_bounds['dq']['bound_ms']:.4f} ms, dkv "
         f"{k5_bounds['dkv']['bound_ms']:.4f} ms (K2 forward at this shape "
         f"{k5_bounds['fwd']['bound_ms']:.4f} ms); scaled_dot_product_attention's backward with "
-        f"the ALiBi + padding bias (dq, dk, dv together) {library:.4f} ms")
+        f"the ALiBi + padding bias (dq, dk, dv together) {library:.4f} ms, its forward "
+        f"{library_fwd:.4f} ms")
+    log("  K5 (a) achieved on the tensor-core route: "
+        + ", ".join(f"{n} {k5_ops[n] / ms / 1e9:.1f} TFLOP/s"
+                    for n, ms in (("fwd", fk), ("dq", km_dq), ("dkv", km_dkv)))
+        + f"; dq + dkv {km_dq + km_dkv:.4f} ms against the library backward's {library:.4f} ms")
+    log("  K5 (a) replayed from a CUDA graph (device time alone, 10 calls to a replay): "
+        + ", ".join(f"{n} {ms:.4f} ms ({k5_ops[n] / ms / 1e9:.1f} TFLOP/s)"
+                    for n, ms in zip(("fwd", "dq", "dkv"), timing["graph"])))
     results["flash_attention_bwd_dq"] = {"max_abs_err": max(errs["dq"]), "ms": km_dq,
                                          "plain_ms": pm, **k5_bounds["dq"], "library_ms": library}
     results["flash_attention_bwd_dkv"] = {"max_abs_err": max(errs["dkv"]), "ms": km_dkv,
@@ -793,6 +905,7 @@ def slice_run(dev, profile: bool, tmp: str, out_dir: str) -> dict:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             counts = launch_counts()
+            mma = mma_counts()["flash_attention"]
             if prof is not None:
                 prof.__exit__(None, None, None)
                 _write_profile(prof, out_dir)
@@ -807,11 +920,16 @@ def slice_run(dev, profile: bool, tmp: str, out_dir: str) -> dict:
                 "rtf": wall / audio_s if audio_s else None,
                 "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
                 "engine": pipe._dialog_server().engine.stats(),
-                "launches": counts,
+                "launches": counts, "flash_attention_mma_launches": mma,
             }
             log(f"turn {turn}: " + json.dumps(info))
             if not all(counts[fn.__name__] for fn in counters):
                 raise AssertionError(f"a kernel of the main path never launched: {counts}")
+            # the LM's bf16 prefill takes K2's tensor-core route, the f32
+            # Voicebox and XLS-R its CUDA-core route
+            if not 0 < mma < counts["flash_attention"]:
+                raise AssertionError(f"K2's routes in the bf16 turn: {mma} tensor-core launches "
+                                     f"of {counts['flash_attention']}")
             if add_mask_ln.launches:  # B * (T + 1) = 2 * 449 is under its gate
                 raise AssertionError("the fused LayerNorm kernel ran in respond()")
             if counts["stream_qmv"] or counts["paged_decode_attention_int8"]:
@@ -1189,6 +1307,7 @@ def train_run(dev, profile: bool, tmp: str, out_dir: str) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {k: v for k, v in launch_counts().items() if k in _train_counters()}
+    mma = mma_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     with open(os.path.join(out, "metrics.jsonl")) as f:
         steps = [r for r in map(json.loads, f) if "train/loss" in r]
@@ -1202,13 +1321,16 @@ def train_run(dev, profile: bool, tmp: str, out_dir: str) -> dict:
     info = {"steps": len(steps), "wall_s": wall, "step_s": step_s, "median_step_s": med,
             "frames_per_s": frames / med, "loss": [r["train/loss"] for r in steps],
             "grad_norm": [r["train/grad_norm"] for r in steps],
-            "max_memory_allocated_gib": peak, "launches": counts}
+            "max_memory_allocated_gib": peak, "launches": counts, "mma_launches": mma}
     log("full-width CFM training (VoiceboxConfig(), batch 8 x 16 s crops, bf16 over f32, "
         "remat): " + json.dumps(info))
     if len(steps) != n_steps or not np.isfinite(info["loss"]).all():
         raise AssertionError(f"the trainer ran {len(steps)} steps, losses {info['loss']}")
     if not all(counts.values()):
         raise AssertionError(f"a kernel of the training path never launched: {counts}")
+    if any(mma[k] != counts[k] for k in mma):  # training computes in bf16
+        raise AssertionError(f"a flash kernel of the bf16 training path left the tensor-core "
+                             f"route: {mma} of {counts}")
 
     # the checkpoint moved away from the init; 5 steps on one fixed batch with
     # fixed t and z lower the loss

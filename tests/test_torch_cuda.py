@@ -122,10 +122,14 @@ def _bwd_case(cuda, case, dtype, t_len):
 
 
 def _bwd_pair(q, k, v, do, seg, pos, flags, kernel_flags=None):
-    o, lse = FL.flash_attention_reference(q, k, v, seg, seg, pos, pos, **flags)
+    """(kernels' dq, dk, dv; the plain backward's), the plain versions
+    rounding P and dS where the route of q's dtype does."""
+    rnd = q.dtype != torch.float32
+    o, lse = FL.flash_attention_reference(q, k, v, seg, seg, pos, pos, **flags,
+                                          round_operands=rnd)
     want = FL.flash_attention_bwd_reference(q, k, v, o, lse, do, seg, seg, pos, pos,
                                             flags["causal"], flags["sliding_window"], None,
-                                            flags["alibi"])
+                                            flags["alibi"], round_operands=rnd)
     kf = kernel_flags or flags
     if kernel_flags is not None:  # the kernel's own forward under its flags
         o, lse = FL.flash_attention(q, k, v, seg, seg, pos, pos, return_lse=True, **kf)
@@ -140,12 +144,15 @@ def _bwd_pair(q, k, v, do, seg, pos, flags, kernel_flags=None):
 def test_flash_bwd_kernels_match_plain(cuda, case, dtype):
     """dq, dk, dv of the K5 kernels against the plain backward on the same
     saved forward, after K2's forward, which K5 consumes in training, against
-    its plain version.  bf16: one bf16 ulp of each output's largest value
-    (both sides compute in f32 and round only the outputs); f32: 1e-4; the
-    log-sum-exp (f32 both sides) within 1e-4."""
+    its plain version.  bf16 (the tensor-core route against the plain
+    versions with round_operands): one bf16 ulp of each output's largest
+    value (both sides multiply the same bf16 operands, accumulate in f32 and
+    round P and dS at the same places; the sums differ in order); f32: 1e-4;
+    the log-sum-exp (f32 both sides) within 1e-4."""
     q, k, v, do, seg, pos, flags = _bwd_case(cuda, case, dtype, 300)
     o, lse = FL.flash_attention(q, k, v, seg, seg, pos, pos, return_lse=True, **flags)
-    want_o, want_lse = FL.flash_attention_reference(q, k, v, seg, seg, pos, pos, **flags)
+    want_o, want_lse = FL.flash_attention_reference(q, k, v, seg, seg, pos, pos, **flags,
+                                                    round_operands=dtype != torch.float32)
     bound = _bf16_bound(want_o) if dtype == torch.bfloat16 else 1e-4
     assert (o.float() - want_o.float()).abs().max().item() <= bound
     assert (lse - want_lse).abs().max().item() <= 1e-4
@@ -164,6 +171,205 @@ def test_flash_bwd_bound_rejects_missing_alibi(cuda):
     got, want = _bwd_pair(q, k, v, do, seg, pos, flags, {**flags, "alibi": False})
     assert all((gg.float() - ww.float()).abs().max().item() > 4 * _bf16_bound(ww)
                for gg, ww in zip(got, want))
+
+
+# ------------------------------------------------- K2/K5 tensor-core route
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 80, 96, 112, 128])
+def test_mma_tile_products(cuda, d):
+    """The parts of csrc/mma.cuh on one 64 x 64 tile: S = Q.K^T against
+    torch.matmul of the same bf16 values in f32, and O = bf16(S).V against
+    the matmul of the kernel's own rounded S.  Both sides multiply exactly
+    (bf16 x bf16 fits f32) and differ only in the order of the f32 sums:
+    1e-5 of the largest value."""
+    g = torch.Generator(device=cuda).manual_seed(d)
+    q, k, v = (torch.randn(64, d, generator=g, device=cuda).bfloat16() for _ in range(3))
+    s_out, o_out = FL.mma_tile_products(q, k, v)
+    want_s = q.float() @ k.float().t()
+    assert (s_out - want_s).abs().max().item() <= 1e-5 * want_s.abs().max().item()
+    want_o = s_out.bfloat16().float() @ v.float()
+    assert (o_out - want_o).abs().max().item() <= 1e-5 * want_o.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", FL.MIX_MODES)
+def test_mma_mix_rate_probe_runs(cuda, mode):
+    """The rate probe of csrc/mma_harness.cu launches in every form and each
+    thread of each block writes a finite sink; too little shared memory for
+    its three tiles is refused before the launch."""
+    out = FL.mma_mix_rate(mode, 3, 5, FL.MIX_TILE_BYTES, cuda)
+    assert out.shape == (5 * 128,) and torch.isfinite(out).all()
+    with pytest.raises(ValueError):
+        FL.mma_mix_rate(mode, 3, 5, FL.MIX_TILE_BYTES - 16, cuda)
+
+
+MMA_CASES = {
+    # name: (B, Tq, Tk, H, Hkv, d, causal, window, alibi, segments)
+    "voicebox d64 alibi ragged": (2, 300, 300, 16, 16, 64, False, None, True, 1),
+    "d80 ragged": (2, 300, 300, 4, 4, 80, False, None, False, 1),
+    "d96 ragged": (2, 300, 300, 4, 4, 96, False, None, False, 1),
+    "d32 causal": (2, 130, 130, 4, 2, 32, True, None, False, 1),
+    "d16 one row": (1, 1, 1, 2, 2, 16, True, None, False, 1),
+    "lm gqa d128 causal window segments": (2, 500, 500, 32, 8, 128, True, 100, False, 3),
+    "prefill chunk Tq != Tk": (1, 192, 700, 8, 2, 128, True, 4096, False, 1),
+}
+
+
+def _mma_case(cuda, name, dtype=torch.bfloat16):
+    b, tq, tk, h, hkv, d, causal, window, alibi, n_seg = MMA_CASES[name]
+    g = torch.Generator(device=cuda).manual_seed(len(name))
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=cuda).to(dtype)
+
+    q, do = rnd(b, tq, h, d), rnd(b, tq, h, d)
+    k, v = rnd(b, tk, hkv, d), rnd(b, tk, hkv, d)
+    kpos = torch.arange(tk, device=cuda)[None].expand(b, tk)
+    if tq != tk:  # a chunk of queries at start.., some of them padding
+        start = tk - tq - 50
+        qpos = (start + torch.arange(tq, device=cuda))[None].expand(b, tq)
+        qseg = torch.where(torch.arange(tq, device=cuda)[None] < tq - 30, 0, -1).expand(b, tq)
+        kseg = torch.where(kpos < start + tq - 30, 0, -1)
+    elif n_seg > 1:  # packed segments, positions restart in each
+        bounds = torch.tensor([0, tq // 3, 2 * tq // 3, tq], device=cuda)
+        qseg = kseg = torch.bucketize(kpos, bounds[1:-1], right=True).contiguous()
+        qpos = kpos = (kpos - bounds[qseg]).contiguous()
+    else:  # ragged rows: the second is shorter
+        lens = torch.tensor([[tq], [max(1, 2 * tq // 3)]], device=cuda)[:b]
+        qpos = kpos
+        qseg = kseg = torch.where(kpos < lens, 0, -1)
+    flags = dict(causal=causal, sliding_window=window, alibi=alibi)
+    return q, k, v, do, (qseg, kseg, qpos, kpos), flags
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(MMA_CASES))
+def test_flash_mma_route_matches_rounded_plain(cuda, name):
+    """The bf16 route (forward, dq, dk/dv) against the plain versions with
+    round_operands=True at head dims 16..128, ragged lengths, GQA, window,
+    packed segments, ALiBi and a chunk with Tq != Tk.  One bf16 ulp of each
+    output's largest value + 1e-4 (same operands, same roundings, another
+    summation order); log-sum-exp within 1e-4."""
+    q, k, v, do, rows, flags = _mma_case(cuda, name)
+    o, lse = FL.flash_attention(q, k, v, *rows, return_lse=True, **flags)
+    want_o, want_lse = FL.flash_attention_reference(q, k, v, *rows, **flags, round_operands=True)
+    assert torch.isfinite(o.float()).all()
+    assert (o.float() - want_o.float()).abs().max().item() <= _bf16_bound(want_o)
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+    got = FL.flash_attention_bwd(q, k, v, o, lse, do, *rows, flags["causal"],
+                                 flags["sliding_window"], None, flags["alibi"])
+    want = FL.flash_attention_bwd_reference(q, k, v, o, lse, do, *rows, flags["causal"],
+                                            flags["sliding_window"], None, flags["alibi"],
+                                            round_operands=True)
+    for gg, ww in zip(got, want):
+        assert gg.dtype == torch.bfloat16 and torch.isfinite(gg.float()).all()
+        assert (gg.float() - ww.float()).abs().max().item() <= _bf16_bound(ww)
+
+
+@pytest.mark.cuda
+def test_flash_mma_route_rejects_missing_window(cuda):
+    """The bf16 kernels run with the window off must miss, by 4x or more, the
+    bound that the windowed run meets."""
+    q, k, v, do, rows, flags = _mma_case(cuda, "lm gqa d128 causal window segments")
+    want_o, lse = FL.flash_attention_reference(q, k, v, *rows, **flags, round_operands=True)
+    want = FL.flash_attention_bwd_reference(q, k, v, want_o, lse, do, *rows, True, 100, None,
+                                            False, round_operands=True)
+    o, lse = FL.flash_attention(q, k, v, *rows, True, None, return_lse=True)
+    got = FL.flash_attention_bwd(q, k, v, o, lse, do, *rows, True, None)
+    assert (o.float() - want_o.float()).abs().max().item() > 4 * _bf16_bound(want_o)
+    for gg, ww in zip(got, want):
+        assert (gg.float() - ww.float()).abs().max().item() > 4 * _bf16_bound(ww)
+
+
+@pytest.mark.cuda
+def test_flash_mma_route_copies_misaligned_views(cuda):
+    """bf16 views whose rows do not start on 16-byte boundaries (a storage
+    offset of 4 elements; a time stride of d + 4) are copied by the wrapper
+    and computed by the tensor-core route: same result as the aligned copy,
+    bit for bit, and counted as mma launches."""
+    q, k, v, do, rows, flags = _mma_case(cuda, "voicebox d64 alibi ragged")
+    b, t, h, d = q.shape
+
+    def shifted(x):  # same values, storage offset 4 elements (8 bytes)
+        buf = torch.empty(x.numel() + 4, dtype=x.dtype, device=cuda)
+        buf[4:].copy_(x.reshape(-1))
+        return buf[4:].view(x.shape)
+
+    def strided(x):  # same values, time stride H * d + 4
+        buf = torch.empty(b, t, h * d + 4, dtype=x.dtype, device=cuda)
+        buf[..., : h * d].copy_(x.reshape(b, t, h * d))
+        return buf[..., : h * d].view(b, t, h, d)
+
+    want_o, want_lse = FL.flash_attention(q, k, v, *rows, return_lse=True, **flags)
+    want = FL.flash_attention_bwd(q, k, v, want_o, want_lse, do, *rows, False, None, None, True)
+    for view in (shifted, strided):
+        assert view(q).data_ptr() % 16 or view(q).stride(1) % 8
+        before = FL.flash_attention.mma_launches
+        o, lse = FL.flash_attention(view(q), view(k), view(v), *rows, return_lse=True, **flags)
+        assert FL.flash_attention.mma_launches == before + 1
+        assert torch.equal(o, want_o) and torch.equal(lse, want_lse)
+        got = FL.flash_attention_bwd(view(q), view(k), view(v), o, lse, view(do), *rows, False,
+                                     None, None, True)
+        assert all(torch.equal(gg, ww) for gg, ww in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_flash_mma_fully_masked_rows(cuda):
+    """Query rows with no valid key (padding rows, and valid rows whose
+    segment has no key) output 0, get lse = -1e30 + log(1e-30) and zero dq;
+    keys no query attends get zero dk and dv."""
+    q, k, v, do, (qseg, kseg, qpos, kpos), flags = _mma_case(cuda, "voicebox d64 alibi ragged")
+    qseg = qseg.clone()
+    qseg[0, 10:20] = 7  # valid queries of a segment that has no key
+    kseg = kseg.clone()
+    kseg[0, 100:164] = 9  # a whole tile of keys no query attends
+    rows = (qseg, kseg, qpos, kpos)
+    o, lse = FL.flash_attention(q, k, v, *rows, return_lse=True, **flags)
+    dq, dk, dv = FL.flash_attention_bwd(q, k, v, o, lse, do, *rows, False, None, None, True)
+    dead_q = torch.zeros_like(qseg, dtype=torch.bool)
+    dead_q[0, 10:20] = True
+    dead_q |= qseg < 0
+    assert dead_q[1].any() and (o[dead_q] == 0).all() and (dq[dead_q] == 0).all()
+    assert (lse.transpose(1, 2)[dead_q] < -9e29).all()
+    assert (dk[0, 100:164] == 0).all() and (dv[0, 100:164] == 0).all()
+    assert (dk[kseg < 0] == 0).all() and (dv[kseg < 0] == 0).all()
+    want_o, _ = FL.flash_attention_reference(q, k, v, *rows, **flags, round_operands=True)
+    assert (o.float() - want_o.float()).abs().max().item() <= _bf16_bound(want_o)
+
+
+@pytest.mark.cuda
+def test_flash_routes_by_dtype_and_counts(cuda):
+    """bf16 calls count in launches and mma_launches; f32 calls in launches
+    only, and still meet 1e-4 against the plain version."""
+    fns = (FL.flash_attention, FL.flash_attention_bwd_dq, FL.flash_attention_bwd_dkv)
+    for dtype, mma in ((torch.bfloat16, 1), (torch.float32, 0)):
+        q, k, v, do, rows, flags = _mma_case(cuda, "voicebox d64 alibi ragged", dtype)
+        before = [(f.launches, f.mma_launches) for f in fns]
+        o, lse = FL.flash_attention(q, k, v, *rows, return_lse=True, **flags)
+        got = FL.flash_attention_bwd(q, k, v, o, lse, do, *rows, False, None, None, True)
+        assert [(f.launches, f.mma_launches) for f in fns] == [(a + 1, b + mma)
+                                                               for a, b in before]
+        if dtype == torch.float32:
+            want_o, want_lse = FL.flash_attention_reference(q, k, v, *rows, **flags)
+            want = FL.flash_attention_bwd_reference(q, k, v, o, lse, do, *rows, False, None,
+                                                    None, True)
+            assert (o - want_o).abs().max().item() <= 1e-4
+            assert all((gg - ww).abs().max().item() <= 1e-4 for gg, ww in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_flash_function_bf16_gradients(cuda):
+    """autograd through `flash_attention` on bf16 CUDA leaves: the gradients
+    it returns are the rounded plain backward's of the same saved forward,
+    within one bf16 ulp of each gradient's largest value + 1e-4."""
+    q, k, v, do, rows, flags = _mma_case(cuda, "lm gqa d128 causal window segments")
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    o, lse = FL.flash_attention(*leaves, *rows, return_lse=True, **flags)
+    got = torch.autograd.grad(o, leaves, do)
+    want = FL.flash_attention_bwd_reference(q, k, v, o.detach(), lse, do, *rows, True, 100,
+                                            None, False, round_operands=True)
+    for gg, ww in zip(got, want):
+        assert (gg.float() - ww.float()).abs().max().item() <= _bf16_bound(ww)
 
 
 @pytest.mark.cuda

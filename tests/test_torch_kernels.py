@@ -134,6 +134,62 @@ def test_flash_plain_matches_jax(rng, interpret, case):
     np.testing.assert_allclose(got, np.where(pad, 0.0, np.asarray(ref)), **TOL)
 
 
+def _bf16_case(rng, case, tlen=128):
+    """bf16 inputs (made in f32 from the numpy generator, rounded once) of the
+    two cases the tensor-core route is held to: the Voicebox shape (4 heads,
+    non-causal, ALiBi, second row padded) and an LM shape (GQA 4/2, causal,
+    window 40, two packed segments)."""
+    b, d = 2, 32
+    h, hkv = (4, 4) if case == "voicebox" else (4, 2)
+    q, k, v = _attn_inputs(rng, b=b, tq=tlen, tk=tlen, h=h, hkv=hkv, d=d)
+    if case == "voicebox":
+        pos = np.broadcast_to(np.arange(tlen, dtype=np.int32), (b, tlen)).copy()
+        seg = np.where(pos < np.asarray([[tlen], [tlen * 2 // 3 + 1]]), 0, -1).astype(np.int32)
+        flags = dict(causal=False, sliding_window=None, alibi=True)
+    else:
+        seg = np.repeat(np.asarray([0, 1]), tlen // 2)[None].repeat(b, 0).astype(np.int32)
+        pos = np.tile(np.arange(tlen // 2), 2)[None].repeat(b, 0).astype(np.int32)
+        flags = dict(causal=True, sliding_window=40, alibi=False)
+    return q, k, v, seg, pos, flags
+
+
+@pytest.mark.parametrize("case", ["voicebox", "lm"])
+def test_flash_plain_rounded_matches_pallas_bf16(rng, interpret, case):
+    """bf16 operands: the plain forward with round_operands=True against the
+    Pallas forward in interpret mode (blocks of 64).  Both multiply bf16
+    values with f32 accumulation and round the probabilities to bf16 before
+    P.V, the Pallas kernel relative to its running block max, the plain
+    version to the row's max; outputs are bf16 on both sides: within one bf16
+    ulp of the largest output.  The log-sum-exp is f32 on both sides and is
+    taken from the unrounded probabilities: 1e-4."""
+    q, k, v, seg, pos, flags = _bf16_case(rng, case)
+    tb = [t(x).to(torch.bfloat16) for x in (q, k, v)]
+    got, got_lse = FL.flash_attention_reference(*tb, t(seg), t(seg), t(pos), t(pos),
+                                                flags["causal"], flags["sliding_window"], None,
+                                                flags["alibi"], round_operands=True)
+    assert got.dtype == torch.bfloat16
+    jb = [jnp.asarray(np.swapaxes(x, 1, 2), jnp.bfloat16) for x in (q, k, v)]
+    o, lse8 = JFL._fwd_call(*jb, jnp.asarray(pos), jnp.asarray(pos), jnp.asarray(seg),
+                            jnp.asarray(seg), q.shape[-1] ** -0.5, flags["causal"],
+                            flags["sliding_window"], flags["alibi"], 64, 64)
+    want = np.swapaxes(np.asarray(o, np.float32), 1, 2)
+    valid = (seg >= 0)[:, :, None, None]
+    err = np.abs(np.where(valid, got.float().numpy() - want, 0.0)).max()
+    assert err <= 2.0**-7 * np.abs(want).max()
+    lse_err = np.abs(np.where(seg[:, None, :] >= 0, got_lse.numpy() - np.asarray(lse8[..., 0]), 0))
+    assert lse_err.max() <= 1e-4
+
+
+def test_flash_plain_round_operands_is_a_no_op_in_f32(rng):
+    """f32 operands have nothing narrower to round to: round_operands=True
+    returns the unrounded plain forward bit for bit."""
+    q, k, v, seg, pos, flags = _bf16_case(rng, "voicebox")
+    args = [t(x) for x in (q, k, v, seg, seg, pos, pos)]
+    a = FL.flash_attention_reference(*args, **flags, round_operands=True)
+    b = FL.flash_attention_reference(*args, **flags)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
 def test_flash_plain_alibi_matches_jax(rng, interpret):
     """Voicebox geometry in small: non-causal, power-of-2 heads, in-kernel
     ALiBi with key position 0 exempt, second row shorter."""

@@ -123,6 +123,80 @@ def test_flash_function_grads_match_jax(rng, case):
         np.testing.assert_allclose(g.numpy(), a.numpy(), **TOL)
 
 
+def _bf16_residuals(rng, case):
+    """bf16 inputs of `_case` and the Pallas forward's residuals on them."""
+    q, k, v, do, seg, pos, flags = _case(rng, case)
+    qt, kt, vt = (jnp.asarray(np.swapaxes(x, 1, 2), jnp.bfloat16) for x in (q, k, v))
+    o, lse8 = JFL._fwd_call(qt, kt, vt, jnp.asarray(pos), jnp.asarray(pos), jnp.asarray(seg),
+                            jnp.asarray(seg), q.shape[-1] ** -0.5, flags["causal"],
+                            flags["sliding_window"], flags["alibi"], 64, 64)
+    res = (qt, kt, vt, o, lse8[..., 0], jnp.asarray(pos), jnp.asarray(pos), jnp.asarray(seg),
+           jnp.asarray(seg))
+    return q, k, v, do, seg, pos, flags, res
+
+
+def _bf(x):
+    return t(x).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_flash_bwd_plain_rounded_matches_pallas_bf16(rng, case):
+    """bf16 operands: the plain backward with round_operands=True against the
+    Pallas dq/dkv kernels in interpret mode (T 192, blocks of 64, which
+    divide it) on the Pallas forward's residuals.  Both multiply bf16 values
+    with f32 accumulation, round P before P^T.dO and dS before dS.K and
+    dS^T.Q, and round the gradients to bf16: within one bf16 ulp of each
+    gradient's largest value, plus 1e-4 for the order of the f32 sums."""
+    q, k, v, do, seg, pos, flags, res = _bf16_residuals(rng, case)
+    o = torch.from_numpy(np.swapaxes(np.asarray(res[3], np.float32), 1, 2).copy()).bfloat16()
+    lse = t(np.asarray(res[4]))
+    got = FL.flash_attention_bwd_reference(_bf(q), _bf(k), _bf(v), o, lse, _bf(do), t(seg),
+                                           t(seg), t(pos), t(pos), flags["causal"],
+                                           flags["sliding_window"], None, flags["alibi"],
+                                           round_operands=True)
+    kern = JFL._bwd_pallas(res, jnp.asarray(np.swapaxes(do, 1, 2), jnp.bfloat16), block_q=64,
+                           block_k=64, scale=q.shape[-1] ** -0.5, causal=flags["causal"],
+                           window=flags["sliding_window"], alibi=flags["alibi"])
+    for g, kk in zip(got, kern):
+        assert g.dtype == torch.bfloat16
+        want = np.swapaxes(np.asarray(kk, np.float32), 1, 2)
+        assert np.abs(g.float().numpy() - want).max() <= 2.0**-7 * np.abs(want).max() + 1e-4
+
+
+def test_flash_bwd_plain_round_operands_is_a_no_op_in_f32(rng):
+    """f32 operands: round_operands=True returns the unrounded plain
+    backward bit for bit."""
+    q, k, v, do, seg, pos, flags = _case(rng, "alibi_noncausal_padding")
+    rows = [t(x) for x in (seg, seg, pos, pos)]
+    o, lse = FL.flash_attention_reference(t(q), t(k), t(v), *rows, **flags)
+    args = (t(q), t(k), t(v), o, lse, t(do), *rows, False, None, None, True)
+    a = FL.flash_attention_bwd_reference(*args, round_operands=True)
+    b = FL.flash_attention_bwd_reference(*args)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_function_cpu_route_rounds_by_dtype(rng, dtype):
+    """The Function's CPU route computes what the card's route of that dtype
+    computes: for bf16 the plain versions with round_operands=True (bit for
+    bit, and not the unrounded ones), for f32 the unrounded ones."""
+    q, k, v, do, seg, pos, flags = _case(rng, "gqa_causal_window_packed")
+    rows = [t(x) for x in (seg, seg, pos, pos)]
+    ins = [t(x).to(dtype).requires_grad_() for x in (q, k, v)]
+    o, lse = FL.flash_attention(*ins, *rows, return_lse=True, **flags)
+    got = torch.autograd.grad(o, ins, t(do).to(dtype))
+    rounded = dtype != torch.float32
+    raw = [x.detach() for x in ins]
+    want_o, want_lse = FL.flash_attention_reference(*raw, *rows, **flags, round_operands=rounded)
+    bwd_args = (*raw, want_o, want_lse, t(do).to(dtype), *rows, True, 40, None, False)
+    want = FL.flash_attention_bwd_reference(*bwd_args, round_operands=rounded)
+    assert torch.equal(o, want_o) and torch.equal(lse, want_lse)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    if rounded:
+        exact = FL.flash_attention_bwd_reference(*bwd_args)
+        assert not all(torch.equal(g, e) for g, e in zip(got, exact))
+
+
 def test_flash_function_no_grad_matches_forward(rng):
     """Under no_grad (the respond() path) the Function returns the plain
     forward's output and log-sum-exp unchanged."""

@@ -1,4 +1,5 @@
-// K2: flash-attention forward for Hopper.
+// K2: flash-attention forward for Hopper -- the C entry point, which
+// dispatches by dtype, and the f32 route.
 //
 // Replaces the Pallas TPU kernel usdm_tpu/ops/flash_attention.py::_fwd_kernel
 // (wrapper flash_attention, forward only).  Blocked online-softmax attention
@@ -16,16 +17,18 @@
 // addressed through strides (last dim contiguous), so [B, T, H, d] and
 // [B, H, T, d] layouts, and views of a gathered KV context, need no copy.
 //
-// Bound: at the slice's shapes (Tq 512 x Tk 2048 x d 128; 449 x 449 x d 64)
-// attention is compute-bound on the H100 (tens to hundreds of flops per byte).
-// This first version is the simple one: f32 CUDA-core FMAs on tiles staged in
-// shared memory (64 query rows x 32 keys per step, 4x2 scores and 4 x d/16
-// outputs per thread), no tensor cores.  Moving the two products onto
-// wgmma/mma.sync with bf16 tiles is the performance step for a later PR.
+// One route per dtype.  bf16 operands go to the tensor-core kernel in
+// csrc/flash_attention_mma.cu.  f32 operands stay here: the Pallas kernel
+// asks for Precision.HIGHEST on f32, which a bf16 mma cannot give, so this
+// route multiplies in f32 on the CUDA cores, on tiles staged in shared memory
+// (64 query rows x 32 keys per step, 4x2 scores and 4 x d/16 outputs per
+// thread).  Attention is bound by operations at the paths' f32 shapes
+// (Voicebox B 2 x T 449 x d 64, XLS-R T 2100 x d 80), against the 67 TFLOP/s
+// f32 peak off the tensor cores.
 
 #include <limits.h>
 
-#include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -46,18 +49,16 @@ static __device__ __forceinline__ float group16_sum(float v) {
   return v;
 }
 
-struct Strides {
-  long long b, t, h;
-};
+using usdm::Strides;
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, float* __restrict__ lse, const int* __restrict__ qpos,
-                 const int* __restrict__ kpos, const int* __restrict__ qseg,
-                 const int* __restrict__ kseg, int n_heads, int n_kv_heads, int tq, int tk,
-                 int d, Strides sq, Strides sk, Strides sv, Strides so, int causal, int window,
-                 int alibi, float scale) {
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     float* __restrict__ lse, const int* __restrict__ qpos,
+                     const int* __restrict__ kpos, const int* __restrict__ qseg,
+                     const int* __restrict__ kseg, int n_heads, int n_kv_heads, int tq, int tk,
+                     int d, Strides sq, Strides sk, Strides sv, Strides so, int causal,
+                     int window, int alibi, float scale) {
   const int q0 = blockIdx.x * kBQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -83,7 +84,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
   for (int i = tid; i < kBQ * d; i += kThreads) {
     const int r = i / d, c = i - r * d, t = q0 + r;
-    s_q[r * qs_stride + c] = t < tq ? usdm::to_f32(q[b * sq.b + t * sq.t + h * sq.h + c]) : 0.f;
+    s_q[r * qs_stride + c] = t < tq ? q[b * sq.b + t * sq.t + h * sq.h + c] : 0.f;
   }
   for (int r = tid; r < kBQ; r += kThreads) {
     const int t = q0 + r;
@@ -154,8 +155,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     for (int i = tid; i < kBK * d; i += kThreads) {
       const int r = i / d, c = i - r * d, t = k0 + r;
       const bool in = t < tk;
-      s_k[r * ks_stride + c] = in ? usdm::to_f32(k[b * sk.b + t * sk.t + hk * sk.h + c]) : 0.f;
-      s_v[r * d + c] = in ? usdm::to_f32(v[b * sv.b + t * sv.t + hk * sv.h + c]) : 0.f;
+      s_k[r * ks_stride + c] = in ? k[b * sk.b + t * sk.t + hk * sk.h + c] : 0.f;
+      s_v[r * d + c] = in ? v[b * sv.b + t * sv.t + hk * sv.h + c] : 0.f;
     }
     __syncthreads();
 
@@ -229,26 +230,25 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
 #pragma unroll
     for (int j = 0; j < kMaxDJ; ++j)
-      if (j < dj) usdm::store(o + b * so.b + t * so.t + h * so.h + tc + 16 * j, acc[i][j] * inv);
+      if (j < dj) o[b * so.b + t * so.t + h * so.h + tc + 16 * j] = acc[i][j] * inv;
     if (tc == 0) lse[((size_t)b * n_heads + h) * tq + t] = m[i] + logf(fmaxf(l[i], 1e-30f));
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, float* lse, const int* qpos,
-           const int* kpos, const int* qseg, const int* kseg, int batch, int n_heads,
-           int n_kv_heads, int tq, int tk, int d, Strides sq, Strides sk, Strides sv, Strides so,
-           int causal, int window, int alibi, float scale, cudaStream_t st) {
+int launch_f32(const float* q, const float* k, const float* v, float* o, float* lse,
+               const usdm::FlashShape& s, Strides sq, Strides sk, Strides sv, Strides so,
+               cudaStream_t st) {
+  const int d = s.d;
   const size_t smem = sizeof(float) * ((size_t)kBQ * (d + 4) + (size_t)kBK * (d + 1) +
                                        (size_t)kBK * d + (size_t)kBQ * (kBK + 1)) +
                       sizeof(int) * (2 * kBQ + 2 * kBK);
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((tq + kBQ - 1) / kBQ, n_heads, batch);
-  flash_fwd_kernel<T><<<grid, kThreads, smem, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, qpos, kpos, qseg, kseg, n_heads,
-      n_kv_heads, tq, tk, d, sq, sk, sv, so, causal, window, alibi, scale);
+  const dim3 grid((s.tq + kBQ - 1) / kBQ, s.n_heads, s.batch);
+  flash_fwd_f32_kernel<<<grid, kThreads, smem, st>>>(
+      q, k, v, o, lse, s.qpos, s.kpos, s.qseg, s.kseg, s.n_heads, s.n_kv_heads, s.tq, s.tk, d,
+      sq, sk, sv, so, s.causal, s.window, s.alibi, s.scale);
   return (int)cudaGetLastError();
 }
 
@@ -262,19 +262,19 @@ extern "C" int usdm_flash_fwd(const void* q, const void* k, const void* v, void*
                               long long sv_t, long long sv_h, long long so_b, long long so_t,
                               long long so_h, int causal, int window, int alibi, float scale,
                               int dtype, void* stream) {
-  if (d % 16 != 0 || d > 16 * kMaxDJ || n_kv_heads < 1 || n_heads % n_kv_heads != 0 ||
-      tq < 1 || tk < 1 || batch < 1)
-    return (int)cudaErrorInvalidValue;
+  const usdm::FlashShape s{batch, n_heads, n_kv_heads, tq, tk, d, causal, window, alibi, scale,
+                           (const int*)qpos, (const int*)kpos, (const int*)qseg,
+                           (const int*)kseg};
+  if (usdm::flash_bad_shape(s)) return (int)cudaErrorInvalidValue;
   const Strides sq{sq_b, sq_t, sq_h}, sk{sk_b, sk_t, sk_h}, sv{sv_b, sv_t, sv_h},
       so{so_b, so_t, so_h};
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == usdm::kBF16)
-    return launch<__nv_bfloat16>(q, k, v, o, (float*)lse, (const int*)qpos, (const int*)kpos,
-                                 (const int*)qseg, (const int*)kseg, batch, n_heads, n_kv_heads,
-                                 tq, tk, d, sq, sk, sv, so, causal, window, alibi, scale, st);
-  if (dtype == usdm::kF32)
-    return launch<float>(q, k, v, o, (float*)lse, (const int*)qpos, (const int*)kpos,
-                         (const int*)qseg, (const int*)kseg, batch, n_heads, n_kv_heads, tq, tk,
-                         d, sq, sk, sv, so, causal, window, alibi, scale, st);
+  if (dtype == usdm::kBF16)  // the tensor-core route
+    return usdm::flash_fwd_bf16((const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+                                (const __nv_bfloat16*)v, (__nv_bfloat16*)o, (float*)lse, s, sq,
+                                sk, sv, so, st);
+  if (dtype == usdm::kF32)  // the CUDA-core route
+    return launch_f32((const float*)q, (const float*)k, (const float*)v, (float*)o, (float*)lse,
+                      s, sq, sk, sv, so, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,4 +1,5 @@
-// K5: flash-attention backward for Hopper (dq and dk/dv kernels).
+// K5: flash-attention backward for Hopper (dq and dk/dv kernels) -- the C
+// entry points, which dispatch by dtype, and the f32 route.
 //
 // Replaces the Pallas TPU kernels usdm_tpu/ops/flash_attention.py::
 // _bwd_dq_kernel and ::_bwd_dkv_kernel (driven by _bwd_pallas).  Both
@@ -24,16 +25,18 @@
 // does.  Ragged Tq/Tk are masked in-kernel; operands are strided [B, T, H, d]
 // views (last dim contiguous); lse and delta are [B, H, Tq] f32.
 //
-// Bound: the backward does 3.5x the forward's multiply-adds (5 products of
-// [T, T, d] per head against 2) and, like K2, is compute-bound at training
-// shapes (B 8, H 16, T 1379, d 64).  This first version is the simple one: f32
-// CUDA-core FMAs on tiles staged in shared memory, 4 x 2 scores per thread,
-// P and dS never rounded below f32, no tensor cores.  Moving the products onto
-// wgmma/mma.sync is the performance step for a later PR.
+// One route per dtype.  bf16 operands go to the tensor-core kernels in
+// csrc/flash_attention_bwd_dq_mma.cu and csrc/flash_attention_bwd_dkv_mma.cu.
+// f32 operands stay here (the Pallas kernels ask for Precision.HIGHEST on
+// f32, which a bf16 mma cannot give): f32 FMAs on the CUDA cores over tiles
+// staged in shared memory, 4 x 2 scores per thread, P and dS never rounded
+// below f32.  The backward does 3.5x the forward's multiply-adds (5 products
+// of [T, T, d] per head against 2) and is bound by operations, here against
+// the 67 TFLOP/s f32 peak off the tensor cores.
 
 #include <limits.h>
 
-#include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -43,17 +46,10 @@ constexpr int kStep = 32;      // rows of the other side per inner step
 constexpr int kMaxDJ = 8;      // head_dim / 16: head_dim <= 128
 constexpr int kPs = kStep + 1; // row stride of the [kBig][kStep] score tiles
 
-struct Strides {
-  long long b, t, h;
-};
+using usdm::Strides;
 
-static __device__ __forceinline__ bool allowed(int qseg, int kseg, int qp, int kp, int causal,
-                                               int window) {
-  bool a = qseg >= 0 && qseg == kseg;
-  if (causal) a = a && qp >= kp;
-  if (window >= 0) a = a && (qp - kp <= window);
-  return a;
-}
+using usdm::mma::allowed;    // the mask rules and the position-based tile skip are
+using usdm::mma::tile_runs;  // the tensor-core route's
 
 // min/max position of the valid rows (seg >= 0) among n <= 64 rows, by warp 0;
 // result in out[0] (min) and out[1] (max); min > max when none is valid.
@@ -78,36 +74,24 @@ static __device__ __forceinline__ void valid_range(const int* pos, const int* se
   }
 }
 
-// a (query range, key range) pair that no mask lets through: no valid row on
-// either side, all keys in the queries' future (causal), or all keys below
-// every query's window
-static __device__ __forceinline__ bool tile_runs(int q_min, int q_max, int k_min, int k_max,
-                                                 int causal, int window) {
-  bool run = q_min <= q_max && k_min <= k_max;
-  if (causal) run = run && k_min <= q_max;
-  if (window >= 0) run = run && (q_min - k_max <= window);
-  return run;
-}
-
-template <typename T>
-static __device__ __forceinline__ void stage_rows(float* dst, const T* src, Strides s, int b,
+static __device__ __forceinline__ void stage_rows(float* dst, const float* src, Strides s, int b,
                                                   int head, int t0, int n_rows, int t_len,
                                                   int d, int rs) {
   for (int i = threadIdx.x; i < n_rows * d; i += kThreads) {
     const int r = i / d, c = i - r * d, t = t0 + r;
-    dst[r * rs + c] = t < t_len ? usdm::to_f32(src[b * s.b + t * s.t + head * s.h + c]) : 0.f;
+    dst[r * rs + c] = t < t_len ? src[b * s.b + t * s.t + head * s.h + c] : 0.f;
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
-                    const int* __restrict__ qpos, const int* __restrict__ kpos,
-                    const int* __restrict__ qseg, const int* __restrict__ kseg, int n_heads,
-                    int n_kv_heads, int tq, int tk, int d, Strides sq, Strides sk, Strides sv,
-                    Strides sdo, Strides sdq, int causal, int window, int alibi, float scale) {
+flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const float* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        float* __restrict__ dq, const int* __restrict__ qpos,
+                        const int* __restrict__ kpos, const int* __restrict__ qseg,
+                        const int* __restrict__ kseg, int n_heads, int n_kv_heads, int tq,
+                        int tk, int d, Strides sq, Strides sk, Strides sv, Strides sdo,
+                        Strides sdq, int causal, int window, int alibi, float scale) {
   const int q0 = blockIdx.x * kBig;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -227,20 +211,20 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     if (t >= tq) continue;
 #pragma unroll
     for (int j = 0; j < kMaxDJ; ++j)
-      if (j < dj) usdm::store(dq + b * sdq.b + t * sdq.t + h * sdq.h + tc + 16 * j, acc[i][j]);
+      if (j < dj) dq[b * sdq.b + t * sdq.t + h * sdq.h + tc + 16 * j] = acc[i][j];
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     T* __restrict__ dk, T* __restrict__ dv, const int* __restrict__ qpos,
-                     const int* __restrict__ kpos, const int* __restrict__ qseg,
-                     const int* __restrict__ kseg, int n_heads, int n_kv_heads, int tq, int tk,
-                     int d, Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdk,
-                     Strides sdv, int causal, int window, int alibi, float scale) {
+flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const float* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         float* __restrict__ dk, float* __restrict__ dv,
+                         const int* __restrict__ qpos, const int* __restrict__ kpos,
+                         const int* __restrict__ qseg, const int* __restrict__ kseg,
+                         int n_heads, int n_kv_heads, int tq, int tk, int d, Strides sq,
+                         Strides sk, Strides sv, Strides sdo, Strides sdk, Strides sdv,
+                         int causal, int window, int alibi, float scale) {
   const int k0 = blockIdx.x * kBig;
   const int hk = blockIdx.y;
   const int b = blockIdx.z;
@@ -373,8 +357,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < kMaxDJ; ++j) {
       if (j < dj) {
-        usdm::store(dk + b * sdk.b + t * sdk.t + hk * sdk.h + tc + 16 * j, adk[i][j]);
-        usdm::store(dv + b * sdv.b + t * sdv.t + hk * sdv.h + tc + 16 * j, adv[i][j]);
+        dk[b * sdk.b + t * sdk.t + hk * sdk.h + tc + 16 * j] = adk[i][j];
+        dv[b * sdv.b + t * sdv.t + hk * sdv.h + tc + 16 * j] = adv[i][j];
       }
     }
   }
@@ -392,46 +376,38 @@ size_t dkv_smem(int d) {
          sizeof(int) * (2 * kBig + 2 * kStep);
 }
 
-bool bad_shape(int batch, int n_heads, int n_kv_heads, int tq, int tk, int d) {
-  return d % 16 != 0 || d > 16 * kMaxDJ || n_kv_heads < 1 || n_heads % n_kv_heads != 0 ||
-         tq < 1 || tk < 1 || batch < 1;
-}
-
-template <typename T>
-int launch_dq(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-              const float* delta, void* dq, const int* qpos, const int* kpos, const int* qseg,
-              const int* kseg, int batch, int n_heads, int n_kv_heads, int tq, int tk, int d,
-              Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdq, int causal,
-              int window, int alibi, float scale, cudaStream_t st) {
-  const size_t smem = dq_smem(d);
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T>,
+int launch_dq_f32(const float* q, const float* k, const float* v, const float* dout,
+                  const float* lse, const float* delta, float* dq, const usdm::FlashShape& s,
+                  Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdq,
+                  cudaStream_t st) {
+  const size_t smem = dq_smem(s.d);
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_f32_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((tq + kBig - 1) / kBig, n_heads, batch);
-  flash_bwd_dq_kernel<T><<<grid, kThreads, smem, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, (T*)dq, qpos, kpos,
-      qseg, kseg, n_heads, n_kv_heads, tq, tk, d, sq, sk, sv, sdo, sdq, causal, window, alibi,
-      scale);
+  const dim3 grid((s.tq + kBig - 1) / kBig, s.n_heads, s.batch);
+  flash_bwd_dq_f32_kernel<<<grid, kThreads, smem, st>>>(
+      q, k, v, dout, lse, delta, dq, s.qpos, s.kpos, s.qseg, s.kseg, s.n_heads, s.n_kv_heads,
+      s.tq, s.tk, s.d, sq, sk, sv, sdo, sdq, s.causal, s.window, s.alibi, s.scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-               const float* delta, void* dk, void* dv, const int* qpos, const int* kpos,
-               const int* qseg, const int* kseg, int batch, int n_heads, int n_kv_heads, int tq,
-               int tk, int d, Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdk,
-               Strides sdv, int causal, int window, int alibi, float scale, cudaStream_t st) {
-  const size_t smem = dkv_smem(d);
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T>,
+int launch_dkv_f32(const float* q, const float* k, const float* v, const float* dout,
+                   const float* lse, const float* delta, float* dk, float* dv,
+                   const usdm::FlashShape& s, Strides sq, Strides sk, Strides sv, Strides sdo,
+                   Strides sdk, Strides sdv, cudaStream_t st) {
+  const size_t smem = dkv_smem(s.d);
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_f32_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((tk + kBig - 1) / kBig, n_kv_heads, batch);
-  flash_bwd_dkv_kernel<T><<<grid, kThreads, smem, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, (T*)dk, (T*)dv, qpos,
-      kpos, qseg, kseg, n_heads, n_kv_heads, tq, tk, d, sq, sk, sv, sdo, sdk, sdv, causal,
-      window, alibi, scale);
+  const dim3 grid((s.tk + kBig - 1) / kBig, s.n_kv_heads, s.batch);
+  flash_bwd_dkv_f32_kernel<<<grid, kThreads, smem, st>>>(
+      q, k, v, dout, lse, delta, dk, dv, s.qpos, s.kpos, s.qseg, s.kseg, s.n_heads,
+      s.n_kv_heads, s.tq, s.tk, s.d, sq, sk, sv, sdo, sdk, sdv, s.causal, s.window, s.alibi,
+      s.scale);
   return (int)cudaGetLastError();
 }
+
+using bf16 = __nv_bfloat16;
 
 }  // namespace
 
@@ -443,21 +419,22 @@ extern "C" int usdm_flash_bwd_dq(const void* q, const void* k, const void* v, co
                                  int batch, int n_heads, int n_kv_heads, int tq, int tk, int d,
                                  const long long* strides, int causal, int window, int alibi,
                                  float scale, int dtype, void* stream) {
-  if (bad_shape(batch, n_heads, n_kv_heads, tq, tk, d)) return (int)cudaErrorInvalidValue;
+  const usdm::FlashShape s{batch, n_heads, n_kv_heads, tq, tk, d, causal, window, alibi, scale,
+                           (const int*)qpos, (const int*)kpos, (const int*)qseg,
+                           (const int*)kseg};
+  if (usdm::flash_bad_shape(s)) return (int)cudaErrorInvalidValue;
   const Strides sq{strides[0], strides[1], strides[2]}, sk{strides[3], strides[4], strides[5]},
       sv{strides[6], strides[7], strides[8]}, sdo{strides[9], strides[10], strides[11]},
       sdq{strides[12], strides[13], strides[14]};
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == usdm::kBF16)
-    return launch_dq<__nv_bfloat16>(q, k, v, dout, (const float*)lse, (const float*)delta, dq,
-                                    (const int*)qpos, (const int*)kpos, (const int*)qseg,
-                                    (const int*)kseg, batch, n_heads, n_kv_heads, tq, tk, d, sq,
-                                    sk, sv, sdo, sdq, causal, window, alibi, scale, st);
-  if (dtype == usdm::kF32)
-    return launch_dq<float>(q, k, v, dout, (const float*)lse, (const float*)delta, dq,
-                            (const int*)qpos, (const int*)kpos, (const int*)qseg,
-                            (const int*)kseg, batch, n_heads, n_kv_heads, tq, tk, d, sq, sk, sv,
-                            sdo, sdq, causal, window, alibi, scale, st);
+  if (dtype == usdm::kBF16)  // the tensor-core route
+    return usdm::flash_bwd_dq_bf16((const bf16*)q, (const bf16*)k, (const bf16*)v,
+                                   (const bf16*)dout, (const float*)lse, (const float*)delta,
+                                   (bf16*)dq, s, sq, sk, sv, sdo, sdq, st);
+  if (dtype == usdm::kF32)  // the CUDA-core route
+    return launch_dq_f32((const float*)q, (const float*)k, (const float*)v, (const float*)dout,
+                         (const float*)lse, (const float*)delta, (float*)dq, s, sq, sk, sv, sdo,
+                         sdq, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -467,20 +444,21 @@ extern "C" int usdm_flash_bwd_dkv(const void* q, const void* k, const void* v, c
                                   const void* kseg, int batch, int n_heads, int n_kv_heads,
                                   int tq, int tk, int d, const long long* strides, int causal,
                                   int window, int alibi, float scale, int dtype, void* stream) {
-  if (bad_shape(batch, n_heads, n_kv_heads, tq, tk, d)) return (int)cudaErrorInvalidValue;
+  const usdm::FlashShape s{batch, n_heads, n_kv_heads, tq, tk, d, causal, window, alibi, scale,
+                           (const int*)qpos, (const int*)kpos, (const int*)qseg,
+                           (const int*)kseg};
+  if (usdm::flash_bad_shape(s)) return (int)cudaErrorInvalidValue;
   const Strides sq{strides[0], strides[1], strides[2]}, sk{strides[3], strides[4], strides[5]},
       sv{strides[6], strides[7], strides[8]}, sdo{strides[9], strides[10], strides[11]},
       sdk{strides[12], strides[13], strides[14]}, sdv{strides[15], strides[16], strides[17]};
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == usdm::kBF16)
-    return launch_dkv<__nv_bfloat16>(q, k, v, dout, (const float*)lse, (const float*)delta, dk,
-                                     dv, (const int*)qpos, (const int*)kpos, (const int*)qseg,
-                                     (const int*)kseg, batch, n_heads, n_kv_heads, tq, tk, d,
-                                     sq, sk, sv, sdo, sdk, sdv, causal, window, alibi, scale, st);
-  if (dtype == usdm::kF32)
-    return launch_dkv<float>(q, k, v, dout, (const float*)lse, (const float*)delta, dk, dv,
-                             (const int*)qpos, (const int*)kpos, (const int*)qseg,
-                             (const int*)kseg, batch, n_heads, n_kv_heads, tq, tk, d, sq, sk, sv,
-                             sdo, sdk, sdv, causal, window, alibi, scale, st);
+  if (dtype == usdm::kBF16)  // the tensor-core route
+    return usdm::flash_bwd_dkv_bf16((const bf16*)q, (const bf16*)k, (const bf16*)v,
+                                    (const bf16*)dout, (const float*)lse, (const float*)delta,
+                                    (bf16*)dk, (bf16*)dv, s, sq, sk, sv, sdo, sdk, sdv, st);
+  if (dtype == usdm::kF32)  // the CUDA-core route
+    return launch_dkv_f32((const float*)q, (const float*)k, (const float*)v,
+                          (const float*)dout, (const float*)lse, (const float*)delta,
+                          (float*)dk, (float*)dv, s, sq, sk, sv, sdo, sdk, sdv, st);
   return (int)cudaErrorInvalidValue;
 }

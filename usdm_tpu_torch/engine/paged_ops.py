@@ -244,9 +244,12 @@ def paged_prefill_chunk(
 
     ar = torch.arange(c, device=dev)
     positions = (start + ar)[None]
-    q_seg = torch.where(ar < n_valid, 0, -1)[None]
-    kv_pos = torch.arange(s_ctx, device=dev)[None]
-    kv_seg = torch.where(kv_pos < start + n_valid, 0, -1)
+    # the attention rows as int32, the type the flash kernel reads: made once
+    # per chunk, not converted again by each layer's call
+    q_pos = positions.to(torch.int32)
+    q_seg = torch.where(ar < n_valid, 0, -1)[None].to(torch.int32)
+    kv_pos = torch.arange(s_ctx, device=dev, dtype=torch.int32)[None]
+    kv_seg = torch.where(kv_pos < start + n_valid, 0, -1).to(torch.int32)
 
     x = params["embed"][chunk_ids][None]  # [1, C, D]
     cos, sin = M.rope_tables(positions, hd, cfg.rope_theta)
@@ -260,7 +263,7 @@ def paged_prefill_chunk(
         # context: this request's pages, the chunk just written included
         kc, vc = _context(kv, base, ctx_pages, q.dtype)
         attn = mha(q, kc, vc, q_segment_ids=q_seg, kv_segment_ids=kv_seg,
-                   q_positions=positions, kv_positions=kv_pos, causal=True,
+                   q_positions=q_pos, kv_positions=kv_pos, causal=True,
                    sliding_window=cfg.sliding_window, impl="auto")
         x = x + qmm(attn.reshape(1, c, h * hd), lp["wo"])
         x = x + M.mlp(M.rms_norm(x, lp["ln2"], cfg.rms_norm_eps), lp)

@@ -180,7 +180,11 @@ def estimator(params: Params, cfg: VoiceboxConfig, x_units: torch.Tensor, y: tor
         use_flash = attn_impl == "flash"
     flash_ctx, bias = None, None
     if use_flash:
-        flash_ctx = (torch.where(valid, 0, -1), torch.arange(T1, device=dev)[None].expand(b, T1))
+        # int32 and contiguous, as the kernels read them: made once here, not
+        # converted again by each of the layers' calls
+        flash_ctx = (torch.where(valid, 0, -1).to(torch.int32),
+                     torch.arange(T1, device=dev, dtype=torch.int32)[None].expand(b, T1)
+                     .contiguous())
     else:  # ALiBi with key column 0 exempt, pad columns masked (as usdm_tpu)
         slopes = torch.from_numpy(-alibi_slopes(cfg.num_heads)).to(dev)
         ar = torch.arange(T1, device=dev)

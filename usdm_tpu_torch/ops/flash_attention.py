@@ -1,5 +1,4 @@
-"""K2 and K5: flash attention forward and backward (kernels in
-csrc/flash_attention.cu and csrc/flash_attention_bwd.cu).
+"""K2 and K5: flash attention forward and backward.
 
 Port of usdm_tpu/ops/flash_attention.py.  Same interface as the JAX wrapper:
 q [B, Tq, H, d], k/v [B, Tk, Hkv, d], segment ids and positions [B, T] int;
@@ -14,8 +13,21 @@ tensors the forward launches K2 and the backward the two K5 kernels (dq, and
 dk/dv summed over the GQA group); for CPU tensors both run their plain
 versions below.
 
-The kernels take ragged Tq/Tk and strided operands as they are (no padding,
-no transposes).  They derive their tile skips from positions, so query and
+The kernels have one route per dtype, chosen inside the C entry points:
+
+- bf16: tensor cores (csrc/flash_attention_mma.cu,
+  csrc/flash_attention_bwd_dq_mma.cu, csrc/flash_attention_bwd_dkv_mma.cu,
+  built from csrc/mma.cuh).  bf16 operands, f32 accumulation, and the
+  probabilities and dS rounded to bf16 before the product that consumes
+  them, as the Pallas kernels do; `round_operands=True` makes the plain
+  versions round at the same places.  Operands arrive by 16-byte cp.async,
+  so every row must start on a 16-byte boundary; a view that does not is
+  copied first.  Launches of this route are also counted in `.mma_launches`.
+- f32: CUDA cores (csrc/flash_attention.cu, csrc/flash_attention_bwd.cu),
+  full f32 products, as the Pallas kernels' Precision.HIGHEST asks.
+
+Both take ragged Tq/Tk and strided operands as they are (no padding, no
+transposes).  They derive their tile skips from positions, so query and
 key positions need not be aligned by flat index (chunked prefill), where the
 Pallas kernels' flat-index skip and clamp drop keys.
 """
@@ -54,9 +66,13 @@ def flash_attention_reference(
     sliding_window: Optional[int] = None,
     scale: Optional[float] = None,
     alibi: bool = False,
+    round_operands: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version with the kernel's semantics -> (o [B, Tq, H, d],
-    lse [B, H, Tq] f32).  f32 math throughout."""
+    lse [B, H, Tq] f32).  f32 math throughout; with `round_operands` (and
+    operands narrower than f32) the probabilities are rounded to the operands'
+    dtype before P.V, and the row sum is taken from the unrounded ones, as the
+    Pallas kernel and the tensor-core route do."""
     b, tq, h, d = q.shape
     tk, hkv = k.shape[1], k.shape[2]
     g = h // hkv
@@ -79,7 +95,12 @@ def flash_attention_reference(
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(mask, torch.exp(s - m), 0.0)
     l = p.sum(dim=-1, keepdim=True)
-    o = torch.einsum("bhgqk,bkhd->bqhgd", p / torch.where(l > 0, l, 1.0), v.float())
+    safe_l = torch.where(l > 0, l, 1.0)
+    if round_operands and v.dtype != torch.float32:
+        o = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype).float(), v.float())
+        o = o / safe_l[..., 0].permute(0, 3, 1, 2)[..., None]
+    else:
+        o = torch.einsum("bhgqk,bkhd->bqhgd", p / safe_l, v.float())
     lse = (m + torch.log(torch.clamp(l, min=1e-30)))[..., 0].reshape(b, h, tq)
     return o.reshape(b, tq, h, d).to(q.dtype), lse
 
@@ -99,11 +120,16 @@ def flash_attention_bwd_reference(
     sliding_window: Optional[int] = None,
     scale: Optional[float] = None,
     alibi: bool = False,
+    round_operands: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain backward with the kernels' semantics -> (dq, dk, dv) in the
     layouts and dtypes of q, k, v.  Port of usdm_tpu's `_bwd_reference`:
     recompute P = exp(S - lse) per block of BWD_BLOCK_K keys,
-    dS = P * (dP - rowsum(dO * O)) * scale, f32 math throughout."""
+    dS = P * (dP - rowsum(dO * O)) * scale, f32 math throughout; with
+    `round_operands` (and operands narrower than f32) P is rounded to the
+    operands' dtype before P^T.dO and dS before dS.K and dS^T.Q, as the
+    Pallas kernels and the tensor-core route do (dS itself is made from the
+    unrounded P)."""
     b, tq, h, d = q.shape
     tk, hkv = k.shape[1], k.shape[2]
     g = h // hkv
@@ -133,6 +159,8 @@ def flash_attention_bwd_reference(
         p = torch.where(mask, torch.exp(s - lse_g), 0.0)
         dp = torch.einsum("bqhgd,bkhd->bhgqk", go, vs)
         ds = p * (dp - delta[..., None]) * scale
+        if round_operands and q.dtype != torch.float32:
+            p, ds = p.to(q.dtype).float(), ds.to(q.dtype).float()
         dq += torch.einsum("bhgqk,bkhd->bqhgd", ds, ks)
         dks.append(torch.einsum("bhgqk,bqhgd->bkhd", ds, qf))
         dvs.append(torch.einsum("bhgqk,bqhgd->bkhd", p, go))
@@ -147,7 +175,8 @@ class _Flash(torch.autograd.Function):
     def forward(ctx, q, k, v, q_seg, kv_seg, q_pos, kv_pos, causal, window, scale, alibi):
         if q.device.type == "cpu":
             o, lse = flash_attention_reference(q, k, v, q_seg, kv_seg, q_pos, kv_pos, causal,
-                                               window, scale, alibi)
+                                               window, scale, alibi,
+                                               round_operands=q.dtype != torch.float32)
         else:
             o, lse = _launch(q, k, v, q_seg, kv_seg, q_pos, kv_pos, causal, window, scale,
                              alibi)
@@ -191,6 +220,7 @@ def flash_attention(
 
 
 flash_attention.launches = 0
+flash_attention.mma_launches = 0  # those of the bf16 tensor-core route
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, q_segment_ids, kv_segment_ids, q_positions,
@@ -198,11 +228,13 @@ def flash_attention_bwd(q, k, v, o, lse, do, q_segment_ids, kv_segment_ids, q_po
                         alibi=False):
     """(dq, dk, dv) of `flash_attention`: the two K5 kernels for CUDA
     tensors (delta = rowsum(dO * O) is a torch op, as in usdm_tpu), the plain
-    version for CPU tensors."""
+    version for CPU tensors, which rounds where the card's route of that
+    dtype rounds."""
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(q, k, v, o, lse, do, q_segment_ids,
                                              kv_segment_ids, q_positions, kv_positions,
-                                             causal, sliding_window, scale, alibi)
+                                             causal, sliding_window, scale, alibi,
+                                             round_operands=q.dtype != torch.float32)
     if do.stride(-1) != 1:
         do = do.contiguous()
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()  # [B, H, Tq]
@@ -239,6 +271,26 @@ def _check_qkv(name, q, k, v, *extra):
             raise ValueError(f"{name}: the head_dim axis must be contiguous")
 
 
+def _row_aligned(t: torch.Tensor) -> torch.Tensor:
+    """The bf16 route loads rows by 16-byte cp.async: the data pointer and the
+    batch, time and head strides must be multiples of 16 bytes (8 elements).
+    A bf16 view that is not gets copied into a fresh contiguous tensor; it is
+    never sent down another route."""
+    if t.dtype != torch.bfloat16:
+        return t
+    st, shape = t.stride(), t.shape  # one call each: this runs for every launch
+    if (t.data_ptr() % 16 or (st[0] % 8 and shape[0] > 1) or (st[1] % 8 and shape[1] > 1)
+            or (st[2] % 8 and shape[2] > 1)):
+        return t.clone(memory_format=torch.contiguous_format)
+    return t
+
+
+def _count(fn, dtype) -> None:
+    fn.launches += 1
+    if dtype == torch.bfloat16:
+        fn.mma_launches += 1
+
+
 def _rows(q_seg, kv_seg, q_pos, kv_pos, b, tq, tk):
     return (_int32_rows("q_segment_ids", q_seg, b, tq),
             _int32_rows("kv_segment_ids", kv_seg, b, tk),
@@ -250,6 +302,7 @@ def _launch(q, k, v, q_seg, kv_seg, q_pos, kv_pos, causal, window, scale, alibi)
     name = "flash_attention"
     _build.require_cuda(name, q, k, v, q_seg, kv_seg, q_pos, kv_pos)
     _check_qkv(name, q, k, v)
+    q, k, v = _row_aligned(q), _row_aligned(k), _row_aligned(v)
     b, tq, h, d = q.shape
     tk, hkv = k.shape[1], k.shape[2]
     q_seg, kv_seg, q_pos, kv_pos = _rows(q_seg, kv_seg, q_pos, kv_pos, b, tq, tk)
@@ -260,12 +313,11 @@ def _launch(q, k, v, q_seg, kv_seg, q_pos, kv_pos, causal, window, scale, alibi)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
              q_pos.data_ptr(), kv_pos.data_ptr(), q_seg.data_ptr(), kv_seg.data_ptr(),
              b, h, hkv, tq, tk, d,
-             q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
-             v.stride(0), v.stride(1), v.stride(2), o.stride(0), o.stride(1), o.stride(2),
+             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
              int(causal), -1 if window is None else int(window), int(alibi), float(scale),
              _build.DTYPE_CODES[q.dtype], _build.stream_ptr(q.device))
     _build.check(err, name)
-    flash_attention.launches += 1
+    _count(flash_attention, q.dtype)
     return o, lse
 
 
@@ -277,19 +329,21 @@ _DKV_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [_STRIDES]
 
 
 def _bwd_operands(name, q, k, v, do, lse, delta, q_seg, kv_seg, q_pos, kv_pos):
-    """Checks shared by the two K5 launchers -> int32 rows."""
+    """Checks shared by the two K5 launchers -> (q, k, v, do) with rows the
+    route of their dtype can load, and the int32 rows."""
     _build.require_cuda(name, q, k, v, do, lse, delta, q_seg, kv_seg, q_pos, kv_pos)
     _check_qkv(name, q, k, v, do)
+    q, k, v, do = (_row_aligned(t) for t in (q, k, v, do))
     b, tq, h, _ = q.shape
     for t, what in ((lse, "lse"), (delta, "delta")):
         if t.shape != (b, h, tq) or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name}: {what} must be a contiguous f32 [{b}, {h}, {tq}], got "
                              f"{t.dtype} {tuple(t.shape)}")
-    return _rows(q_seg, kv_seg, q_pos, kv_pos, b, tq, k.shape[1])
+    return (q, k, v, do), _rows(q_seg, kv_seg, q_pos, kv_pos, b, tq, k.shape[1])
 
 
 def _strides(*tensors):
-    flat = [s for t in tensors for s in (t.stride(0), t.stride(1), t.stride(2))]
+    flat = [s for t in tensors for s in t.stride()[:3]]
     return (ctypes.c_longlong * len(flat))(*flat)
 
 
@@ -297,8 +351,8 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, q_seg, kv_seg, q_pos, kv_pos
                            causal=True, sliding_window=None, scale=None, alibi=False):
     """K5 dq kernel (CUDA only): dq [B, Tq, H, d] in q's dtype."""
     name = "flash_attention_bwd_dq"
-    q_seg, kv_seg, q_pos, kv_pos = _bwd_operands(name, q, k, v, do, lse, delta, q_seg, kv_seg,
-                                                 q_pos, kv_pos)
+    (q, k, v, do), (q_seg, kv_seg, q_pos, kv_pos) = _bwd_operands(
+        name, q, k, v, do, lse, delta, q_seg, kv_seg, q_pos, kv_pos)
     b, tq, h, d = q.shape
     tk, hkv = k.shape[1], k.shape[2]
     dq = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
@@ -311,11 +365,12 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, q_seg, kv_seg, q_pos, kv_pos
              float(d**-0.5 if scale is None else scale), _build.DTYPE_CODES[q.dtype],
              _build.stream_ptr(q.device))
     _build.check(err, name)
-    flash_attention_bwd_dq.launches += 1
+    _count(flash_attention_bwd_dq, q.dtype)
     return dq
 
 
 flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dq.mma_launches = 0
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, q_seg, kv_seg, q_pos, kv_pos,
@@ -323,8 +378,8 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, q_seg, kv_seg, q_pos, kv_po
     """K5 dk/dv kernel (CUDA only): (dk, dv) [B, Tk, Hkv, d] in k's dtype,
     summed over each kv head's query group."""
     name = "flash_attention_bwd_dkv"
-    q_seg, kv_seg, q_pos, kv_pos = _bwd_operands(name, q, k, v, do, lse, delta, q_seg, kv_seg,
-                                                 q_pos, kv_pos)
+    (q, k, v, do), (q_seg, kv_seg, q_pos, kv_pos) = _bwd_operands(
+        name, q, k, v, do, lse, delta, q_seg, kv_seg, q_pos, kv_pos)
     b, tq, h, d = q.shape
     tk, hkv = k.shape[1], k.shape[2]
     dk = torch.empty((b, tk, hkv, d), dtype=k.dtype, device=k.device)
@@ -338,8 +393,59 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, q_seg, kv_seg, q_pos, kv_po
              float(d**-0.5 if scale is None else scale), _build.DTYPE_CODES[q.dtype],
              _build.stream_ptr(q.device))
     _build.check(err, name)
-    flash_attention_bwd_dkv.launches += 1
+    _count(flash_attention_bwd_dkv, q.dtype)
     return dk, dv
 
 
 flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dkv.mma_launches = 0
+
+
+def mma_tile_products(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """The single-tile harness of csrc/mma_harness.cu (CUDA only): for bf16 [64, d]
+    operands -> (S = q.k^T [64, 64], O = bf16(S).v [64, d]), both f32, through
+    the kernels' tile loader, ldmatrix addressing and mma fragments.  For
+    checking those parts apart from masks and softmax; no path calls it."""
+    name = "mma_tile_products"
+    _build.require_cuda(name, q, k, v)
+    d = q.shape[1]
+    for t in (q, k, v):
+        if t.shape != (64, d) or t.dtype != torch.bfloat16 or not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous bf16 [64, d]")
+    if d % 16 or not 16 <= d <= 128:
+        raise ValueError(f"{name}: d must be a multiple of 16 up to 128, got {d}")
+    s_out = torch.empty((64, 64), dtype=torch.float32, device=q.device)
+    o_out = torch.empty((64, d), dtype=torch.float32, device=q.device)
+    fn = _build.kernel("usdm_mma_tile_products",
+                       [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p])
+    _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), s_out.data_ptr(),
+                    o_out.data_ptr(), d, _build.stream_ptr(q.device)), name)
+    return s_out, o_out
+
+
+MIX_MODES = ("mix", "mma", "ldmatrix", "reuse")  # modes 0-3 of csrc/mma_harness.cu
+MIX_TILE_BYTES = 3 * 64 * (64 + 8) * 2  # the Q, K and V tiles a block of the probe holds
+
+
+def mma_mix_rate(mode: str, iters: int, blocks: int, smem: int, device) -> torch.Tensor:
+    """Launch the rate probe of csrc/mma_harness.cu (CUDA only): `blocks`
+    blocks of 4 warps repeat one 64-key step of the forward kernel's products
+    `iters` times on resident d 64 tiles: "mix" as the kernels run them (per
+    warp 36 ldmatrix.x4 and 64 mma), "mma" (128 mma) and "ldmatrix" (36) alone,
+    "reuse" with each K/V fragment used for two 16-row tiles (36 ldmatrix.x4
+    per 128 mma).  `smem` bytes of shared memory per block set how many blocks
+    an SM holds.  Returns the sink the blocks write; the caller times it."""
+    name = "mma_mix_rate"
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn(64, 64, generator=gen, device=dev).bfloat16() * 0.1
+               for _ in range(3))
+    _build.require_cuda(name, q)
+    if mode not in MIX_MODES or smem < MIX_TILE_BYTES:
+        raise ValueError(f"{name}: mode {mode!r} or {smem} bytes of shared memory not taken")
+    out = torch.empty(blocks * 128, dtype=torch.float32, device=dev)
+    fn = _build.kernel("usdm_mma_mix_rate",
+                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), iters,
+                    MIX_MODES.index(mode), blocks, smem, _build.stream_ptr(dev)), name)
+    return out
