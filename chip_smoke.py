@@ -68,8 +68,11 @@ KERNELS = {
         "replaces": "usdm_tpu/ops/paged_attention.py:41",
     },
     "flash_attention": {
-        "source": "usdm_tpu_torch/csrc/flash_attention_mma.cu (bf16), "
-                  "usdm_tpu_torch/csrc/flash_attention.cu (f32)",
+        "source": "usdm_tpu_torch/csrc/flash_attention_mma.cu (bf16)",
+        "replaces": "usdm_tpu/ops/flash_attention.py:57",
+    },
+    "flash_attention_f32": {
+        "source": "usdm_tpu_torch/csrc/flash_attention.cu (f32, 3xTF32)",
         "replaces": "usdm_tpu/ops/flash_attention.py:57",
     },
     "fused_activation1d": {
@@ -117,12 +120,16 @@ KERNELS = {
 }
 
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12, "tf32": 495e12}
 
 
 def least_time(n_bytes: float, ops: float, kind: str) -> dict:
     """The least time of a kernel's work on one H100: bytes over the memory
-    rate or operations over the peak for their type, whichever is larger."""
+    rate or operations over the peak for their type, whichever is larger.
+    Kind "3xtf32": f32 products done as three TF32 products each, against
+    the TF32 peak."""
+    if kind == "3xtf32":
+        ops, kind = 3 * ops, "tf32"
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[kind]
     return {"bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
@@ -166,10 +173,13 @@ def _counted() -> dict:
 
 
 def launch_counts() -> dict:
-    """Every kernel's launch count, by the names of KERNELS."""
+    """Every wrapper's launch count, by the names of KERNELS ("flash_attention"
+    counts both of K2's routes, "flash_attention_f32" the f32 one alone)."""
+    from usdm_tpu_torch.ops import flash_attention as FL
     from usdm_tpu_torch.ops import paged_attention as PA
 
     return {**{k: fn.launches for k, fn in _counted().items()},
+            "flash_attention_f32": FL.flash_attention.tf32_launches,
             "paged_decode_attention_int8": PA.paged_decode_attention.int8_launches}
 
 
@@ -184,12 +194,14 @@ def mma_counts() -> dict:
 
 
 def reset_counts() -> None:
+    from usdm_tpu_torch.ops import flash_attention as FL
     from usdm_tpu_torch.ops import paged_attention as PA
 
     for fn in _counted().values():
         fn.launches = 0
     for fn in _flash_wrappers().values():
         fn.mma_launches = 0
+    FL.flash_attention.tf32_launches = 0
     PA.paged_decode_attention.int8_launches = 0
 
 
@@ -234,6 +246,46 @@ def check(name: str, case: str, got, want, bound: float) -> float:
 
 
 # --------------------------------------------------------------- phase 3
+def f32_case(dev, args, bias, valid, ops: int) -> dict:
+    """Times of K2's f32 route at one case, beside its plain version and one
+    scaled_dot_product_attention call on the same f32 operands in [B, H, T,
+    d] (with `bias` as a float mask, or none); the kernel's and the library
+    call's error against the f64 plain version on the rows `valid` marks
+    (the library call gives padded query rows values, the kernel 0)."""
+    import torch
+
+    from usdm_tpu_torch.ops import flash_attention as FL
+
+    q, k, v = args[:3]
+    out = {"ms": cuda_ms(lambda: FL.flash_attention(*args)),
+           "graph_ms": graph_ms(lambda: [FL.flash_attention(*args) for _ in range(10)], dev) / 10,
+           "plain_ms": cuda_ms(lambda: FL.flash_attention_reference(*args)),
+           **least_time(2 * nbytes(q) + nbytes(k, v, *args[3:7]), ops, "3xtf32"),
+           "cuda_core_ms": least_time(2 * nbytes(q) + nbytes(k, v, *args[3:7]), ops,
+                                      "f32")["bound_ms"]}
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias)
+
+    with _profiler() as prof:
+        lib = sdpa()
+        torch.cuda.synchronize()
+    out["library_kernels"] = sorted({e.key for e in prof.key_averages()
+                                     if e.device_type == torch.autograd.DeviceType.CUDA})
+    out["library_ms"] = cuda_ms(sdpa)
+    out["library_graph_ms"] = graph_ms(lambda: [sdpa() for _ in range(10)], dev) / 10
+    exact, _ = FL.flash_attention_reference(*[x.double() for x in args[:3]], *args[3:])
+    got = FL.flash_attention(*args)
+    lib = lib.transpose(1, 2)
+    if valid is not None:
+        lib, got = torch.where(valid, lib, exact), torch.where(valid, got, exact)
+    out["library_err"] = max_err(lib.double(), exact)
+    out["err_f64"] = max_err(got.double(), exact)
+    out["tflops"] = ops / out["graph_ms"] / 1e9
+    return out
+
+
 # BigVGAN's six (channels, samples) activation shapes for a 448-frame mel
 STAGES = ((768, 1792), (384, 7168), (192, 14336), (96, 28672), (48, 57344), (24, 114688))
 
@@ -288,17 +340,24 @@ def kernel_checks(dev) -> dict:
                         raise AssertionError(f"the K1 bound cannot tell window {wrong} "
                                              f"from 512")
             if b == 1 and seq == 700:
-                def step(fn):
-                    return lambda: [fn(q, kp, vp, t, lens, 4096) for t in tables]
+                def step(fn, **kw):
+                    return lambda: [fn(q, kp, vp, t, lens, 4096, **kw) for t in tables]
                 timing = (cuda_ms(step(PA.paged_decode_attention)) / n_layers,
-                          cuda_ms(step(PA.paged_decode_attention_reference)) / n_layers)
+                          cuda_ms(step(PA.paged_decode_attention_reference)) / n_layers,
+                          graph_ms(step(PA.paged_decode_attention), dev) / n_layers,
+                          cuda_ms(step(PA.paged_decode_attention, n_splits=1)) / n_layers,
+                          graph_ms(step(PA.paged_decode_attention, n_splits=1), dev) / n_layers)
                 # per layer: q, out, the table and the 700 K and V rows of 8 heads
                 k1_bound = least_time(2 * nbytes(q) + nbytes(tables[1], lens)
                                       + 2 * seq * hkv * d * kp.element_size(),
                                       4 * g * hkv * seq * d, "bf16")
         del kp, vp
-    log(f"  K1 time at B=1 seq=700 (per layer, 32 layer regions in turn): "
-        f"kernel {timing[0]:.4f} ms, plain {timing[1]:.4f} ms")
+    log(f"  K1 time at B=1 seq=700 (per layer, 32 layer regions in turn): kernel "
+        f"{timing[0]:.4f} ms eager, {timing[2]:.4f} ms from a CUDA graph (n_splits "
+        f"{PA.split_count(1, hkv, maxp, p, PA._sm_count(0))}, the host's choice); at n_splits=1 "
+        f"{timing[3]:.4f} ms eager, {timing[4]:.4f} ms from a graph; plain {timing[1]:.4f} ms; "
+        f"bound {k1_bound['bound_ms']:.5f} ms ({k1_bound['bound_by']})")
+    k1_split_checks(dev)
     results["paged_decode_attention"] = {"max_abs_err": max(errs), "ms": timing[0],
                                          "plain_ms": timing[1], **k1_bound, "library_ms": None,
                                          "case": "B=1 seq=700 bf16"}
@@ -319,12 +378,14 @@ def kernel_checks(dev) -> dict:
     # K2: (a) Mistral prefill chunk at start=768, (b) Voicebox, (c) XLS-R long
     log("K2 flash_attention vs flash_attention_reference (bf16, the tensor-core route, against "
         "the plain version with round_operands=True: bound 2^-7 * max|want| + 1e-4; f32, the "
-        "CUDA-core route: bound 1e-4; the log-sum-exp, f32 on both sides, within 1e-4)")
-    errs, timings = [], {}
+        "3xTF32 route: bound 1e-4, error against the f64 plain version logged; the "
+        "log-sum-exp, f32 on both sides, within 1e-4)")
+    errs, errs32, timings = [], [], {}
 
     def check_flash(case, args, bound=None):
         """f32 when `bound` is given, else bf16: held against the rounded
-        plain version; the error against the unrounded one is logged only."""
+        plain version; the error against the unrounded one (bf16) or the f64
+        one (f32) is logged only."""
         got, got_lse = FL.flash_attention(*args, return_lse=True)
         want, want_lse = FL.flash_attention_reference(*args, round_operands=bound is None)
         err = check("K2", case, got, want, bf16_bound(want) if bound is None else bound)
@@ -333,6 +394,10 @@ def kernel_checks(dev) -> dict:
             exact, _ = FL.flash_attention_reference(*args)
             log(f"  K2 [{case}] against the unrounded plain version (not gated): "
                 f"max_abs_err={max_err(got, exact):.3e}")
+        else:
+            exact, _ = FL.flash_attention_reference(*[x.double() for x in args[:3]], *args[3:])
+            log(f"  K2 [{case}] against the f64 plain version (not gated): "
+                f"max_abs_err={max_err(got.double(), exact):.3e}")
         return err
 
     # (a) chunk of 512 queries at positions 768.., 300 valid; context 2048
@@ -390,42 +455,56 @@ def kernel_checks(dev) -> dict:
         f"tensor-core route, bit-equal to the aligned call: {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("K2: a misaligned bf16 view did not take the copy route")
-    # (b) Voicebox: B=2, T=449, 16 heads d=64, ALiBi, second row shorter, f32
+    # (b) Voicebox: B=2, T=449, 16 heads d=64, ALiBi, second row shorter, f32;
+    # rows as the estimator makes them: int32, contiguous, once per forward
     t1 = 449
     q, k, v = (randn(2, t1, 16, 64) for _ in range(3))
-    pos = torch.arange(t1, device=dev)[None].expand(2, t1)
+    pos = torch.arange(t1, device=dev, dtype=torch.int32)[None].expand(2, t1).contiguous()
     lens = torch.tensor([t1, 301], device=dev)
-    seg = torch.where(pos < lens[:, None], 0, -1)
+    seg = torch.where(pos < lens[:, None], 0, -1).to(torch.int32)
     args_b = (q, k, v, seg, seg, pos, pos, False, None, 64**-0.5, True)
-    errs.append(check_flash("voicebox f32 B=2 T=449 ALiBi", args_b, 1e-4))
-    timings["b"] = (cuda_ms(lambda: FL.flash_attention(*args_b)),
-                    cuda_ms(lambda: FL.flash_attention_reference(*args_b)))
-    f32_bounds = {"b": least_time(2 * nbytes(q) + nbytes(k, v, seg, pos), 4 * 64 * 16 * int(
-        attn_mask(seg, seg, pos, pos, False, None).sum()), "f32")}
+    errs32.append(check_flash("voicebox f32 B=2 T=449 ALiBi", args_b, 1e-4))
+    valid_b = attn_mask(seg, seg, pos, pos, False, None)
+    # the library yardstick as models/voicebox.py's plain path builds its
+    # bias: ALiBi with key column 0 exempt, the pad columns at finfo.min
+    slopes = FL.alibi_slopes_pow2(16).to(dev)[None, :, None, None]
+    dist = (pos[:, None, :, None] - pos[:, None, None, :]).abs().float()
+    bias_b = -slopes * dist * (pos[:, None, None, :] != 0)
+    bias_b = torch.where((seg >= 0)[:, None, None, :], bias_b, torch.finfo(torch.float32).min)
+    f32 = {"b": f32_case(dev, args_b, bias_b, (seg >= 0)[:, :, None, None],
+                         4 * 64 * 16 * int(valid_b.sum()))}
+    del dist, bias_b
     # (c) XLS-R long clip: T=2100, 16 heads d=80, f32, non-causal
     t = 2100
     q, k, v = (randn(1, t, 16, 80) for _ in range(3))
     pos = torch.arange(t, device=dev)[None]
     seg = torch.zeros_like(pos)
     args_c = (q, k, v, seg, seg, pos, pos, False)
-    errs.append(check_flash("xlsr f32 T=2100 d=80", args_c, 1e-4))
-    timings["c"] = (cuda_ms(lambda: FL.flash_attention(*args_c)),
-                    cuda_ms(lambda: FL.flash_attention_reference(*args_c)))
-    f32_bounds["c"] = least_time(2 * nbytes(q) + nbytes(k, v, seg, pos), 4 * 80 * 16 * t * t,
-                                 "f32")
-    for key, (km, pm) in timings.items():
-        log(f"  K2 time ({key}): kernel {km:.4f} ms, plain {pm:.4f} ms")
+    errs32.append(check_flash("xlsr f32 T=2100 d=80", args_c, 1e-4))
+    f32["c"] = f32_case(dev, args_c, None, None, 4 * 80 * 16 * t * t)
+    for key, r in f32.items():
+        log(f"  K2 ({key}) f32, 3xTF32 route: kernel {r['ms']:.4f} ms eager, "
+            f"{r['graph_ms']:.4f} ms from a CUDA graph ({r['tflops']:.1f} TFLOP/s of f32 "
+            f"products); plain {r['plain_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}, 3xTF32 at 495 TFLOP/s; the 67 TFLOP/s f32 CUDA-core floor "
+            f"{r['cuda_core_ms']:.4f} ms); scaled_dot_product_attention f32 "
+            f"{r['library_ms']:.4f} ms eager, {r['library_graph_ms']:.4f} ms from a graph, "
+            f"kernels {r['library_kernels']}, max_abs_err against the f64 plain version "
+            f"{r['library_err']:.3e} (the kernel's {r['err_f64']:.3e})")
     log(f"  K2 (a) bf16, tensor-core route: bound {k2_bound['bound_ms']:.4f} ms "
         f"({k2_bound['bound_by']}), {k2_ops / timings['a'][0] / 1e9:.1f} TFLOP/s achieved; one "
         f"scaled_dot_product_attention call with the boolean mask {k2_lib:.4f} ms; replayed "
         f"from a CUDA graph (device time alone) kernel {k2_graph[0]:.4f} ms, the library call "
         f"{k2_graph[1]:.4f} ms")
-    for key, bd in f32_bounds.items():
-        log(f"  K2 ({key}) f32, CUDA-core route: bound {bd['bound_ms']:.4f} ms "
-            f"({bd['bound_by']}, against the 67 TFLOP/s f32 peak)")
-    results["flash_attention"] = {"max_abs_err": max(errs), "ms": timings["a"][0],
-                                  "plain_ms": timings["a"][1], **k2_bound, "library_ms": k2_lib,
-                                  "case": "prefill (a) bf16"}
+    km, pm = timings["a"]
+    log(f"  K2 time (a): kernel {km:.4f} ms, plain {pm:.4f} ms")
+    results["flash_attention"] = {"max_abs_err": max(errs), "ms": km, "plain_ms": pm,
+                                  **k2_bound, "library_ms": k2_lib, "case": "prefill (a) bf16"}
+    rb = f32["b"]
+    results["flash_attention_f32"] = {"max_abs_err": max(errs32),
+                                      **{k: rb[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                            "bound_by", "library_ms")},
+                                      "case": "voicebox (b) f32 B=2 T=449 d=64 ALiBi"}
 
     # K3: the six BigVGAN stage shapes of a 448-frame mel, snake-beta, log-scale
     log("K3 fused_activation1d vs activation1d_reference (snake-beta, log-scale; "
@@ -457,6 +536,99 @@ def kernel_checks(dev) -> dict:
     return results
 
 
+def k1_split_checks(dev) -> None:
+    """K1 at forced split counts (1, 2) and the host's choice, B 1 and 8, page
+    64 and 256, bf16 and int8 pools, with and without a window of 512, the B
+    8 slots of lengths 1 to 4200; bounds as in the K1 and K1-int8 cases (int8
+    scale slots the kernel must not read hold NaN).  Then one call, captured
+    in a CUDA graph and replayed, must equal the eager call bit for bit, and
+    the eager call must run under sync debug mode "error": no value is read
+    back to the host."""
+    import torch
+
+    from usdm_tpu_torch.engine.paged_ops import quant_kv_token
+    from usdm_tpu_torch.ops import paged_attention as PA
+
+    log("K1 split over the KV length: forced n_splits 1, 2 and the host's choice (bounds of the "
+        "K1 cases; int8 against the f32-query plain version, then against the plain version "
+        "with the K/V rounding's measured effect added)")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    hkv, g, d = 8, 4, 128
+    slot_lens = {1: [700], 8: [1, 700, 4200, 63, 64, 257, 2, 1500]}
+    graph_cases = []
+    for kv in ("bf16", "int8"):
+        for page in (64, 256):
+            for b in (1, 8):
+                maxp = -(-4200 // page)
+                nt = b * maxp + 1
+                table = torch.randperm(nt, generator=gen, device=dev)[: b * maxp]
+                table = table.reshape(b, maxp).to(torch.int32).contiguous()
+                lens = torch.tensor(slot_lens[b], dtype=torch.int32, device=dev)
+                q = torch.randn(b, hkv, g, d, generator=gen, device=dev).bfloat16()
+                scales = {}
+                if kv == "bf16":
+                    kp, vp = (torch.randn(hkv, nt, page, d, generator=gen, device=dev).bfloat16()
+                              for _ in range(2))
+                else:
+                    (kp, ks), (vp, vs) = (quant_kv_token(torch.randn(
+                        hkv, nt, page, d, generator=gen, device=dev)) for _ in range(2))
+                    scales = {"k_scales": ks.transpose(0, 1).contiguous(),
+                              "v_scales": vs.transpose(0, 1).contiguous()}
+                auto = PA.split_count(b, hkv, maxp, page, PA._sm_count(0))
+                for window in (None, 512):
+                    seen = dict(scales)
+                    if scales:  # NaN where the kernel must not read
+                        read = torch.zeros(nt, page, dtype=torch.bool, device=dev)
+                        pos = torch.arange(maxp * page, device=dev)
+                        for bi, n in enumerate(slot_lens[b]):
+                            ok = (pos < n) & ((n - 1 - pos <= window) if window else True)
+                            read[table[bi].long()[pos[ok] // page], pos[ok] % page] = True
+                        seen = {k: a.masked_fill(~read[:, None, :], float("nan"))
+                                for k, a in scales.items()}
+                    want = PA.paged_decode_attention_reference(q, kp, vp, table, lens, window,
+                                                               **scales)
+                    fold = PA.paged_decode_attention_reference(q.float(), kp, vp, table, lens,
+                                                               window, **scales)
+                    bound = bf16_bound(fold)
+                    rounding = max_err(want, fold) if scales else 0.0
+                    errs = []
+                    for n_splits in (1, 2, None):
+                        got = PA.paged_decode_attention(q, kp, vp, table, lens, window,
+                                                        n_splits=n_splits, **seen)
+                        e1, e2 = max_err(got, fold), max_err(got, want)
+                        ok = bool(torch.isfinite(got.float()).all()) and (
+                            e1 <= bound and e2 <= bound + rounding)
+                        errs.append(f"{n_splits or auto}: {e1:.3e}/{e2:.3e}")
+                        if not ok:
+                            raise AssertionError(f"K1 split {kv} page {page} B {b} window "
+                                                 f"{window} n_splits {n_splits}: {e1}, {e2} "
+                                                 f"against {bound} + {rounding}")
+                    log(f"  K1 split [{kv} page={page} B={b} window={window}] max_abs_err by "
+                        f"n_splits (f32-query plain / plain): {', '.join(errs)}; bound "
+                        f"{bound:.3e} (+ {rounding:.3e}) ok")
+                if b == 8 and page == 64:
+                    graph_cases.append((kv, (q, kp, vp, table, lens, 512), seen))
+    for kv, args, seen in graph_cases:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eager = PA.paged_decode_attention(*args, **seen)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = PA.paged_decode_attention(*args, **seen)
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        same = torch.equal(out, eager)
+        log(f"  K1 split [{kv} page=64 B=8 window=512] eager call under sync debug mode "
+            f"\"error\": no sync; captured in a CUDA graph and replayed: "
+            f"{'bit-equal to the eager call' if same else 'DIFFERS'}")
+        if not same:
+            raise AssertionError(f"K1 ({kv}) from a CUDA graph differs from the eager call")
+
+
 def train_kernel_checks(dev) -> dict:
     """K5 and K4 against their plain versions at the training path's shapes."""
     import torch
@@ -485,7 +657,7 @@ def train_kernel_checks(dev) -> dict:
     pos = torch.arange(t1, device=dev, dtype=torch.int32)[None].expand(b, t1).contiguous()
     lens = torch.tensor([1379, 900, 1379, 1200, 640, 1379, 1000, 1301], device=dev)
     seg = torch.where(pos < lens[:, None], 0, -1).to(torch.int32)
-    errs = {"dq": [], "dkv": [], "fwd": []}
+    errs = {"dq": [], "dkv": [], "fwd": [], "fwd32": []}
     timing, k5_bounds, k5_ops, library, library_fwd = {}, {}, {}, None, None
 
     def bwd_case(case, q, k, v, do, segs, poss, causal, window, alibi, dtype):
@@ -494,8 +666,8 @@ def train_kernel_checks(dev) -> dict:
         rounded = dtype == torch.bfloat16
         want_o, want_lse = FL.flash_attention_reference(q, k, v, segs, segs, poss, poss, causal,
                                                         window, None, alibi, rounded)
-        errs["fwd"].append(check("K2", f"{case} o", o, want_o,
-                                 bf16_bound(want_o) if rounded else 1e-4))
+        errs["fwd" if rounded else "fwd32"].append(check("K2", f"{case} o", o, want_o,
+                                                         bf16_bound(want_o) if rounded else 1e-4))
         check("K2 lse", case, lse, want_lse, 1e-4)
         del want_o, want_lse
         ref_args = (q, k, v, o, lse, do, segs, segs, poss, poss, causal, window, None, alibi)
@@ -610,7 +782,8 @@ def train_kernel_checks(dev) -> dict:
                                          "plain_ms": pm, **k5_bounds["dq"], "library_ms": library}
     results["flash_attention_bwd_dkv"] = {"max_abs_err": max(errs["dkv"]), "ms": km_dkv,
                                           "plain_ms": pm, **k5_bounds["dkv"], "library_ms": library}
-    results["flash_attention_train_err"] = max(errs["fwd"])  # K2 at the training shapes
+    # K2 at the training shapes, by route
+    results["flash_attention_train_err"] = (max(errs["fwd"]), max(errs["fwd32"]))
     del q, k, v, do
 
     # K4: the estimator's residual + mask + LN at [8, 1379, 1024], ragged rows
@@ -761,13 +934,16 @@ def int8_kernel_checks(dev) -> dict:
                                 cuda_ms(step(PA.paged_decode_attention_reference)) / n_layers,
                                 least_time(2 * nbytes(q) + nbytes(tables[1], lens)
                                       + 2 * kv_rows * hkv * (d + 4),
-                                      4 * g * hkv * kv_rows * d, "bf16"))
+                                      4 * g * hkv * kv_rows * d, "bf16"),
+                                graph_ms(step(PA.paged_decode_attention), dev) / n_layers,
+                                PA.split_count(b, hkv, maxp, page, PA._sm_count(0)))
         del pools, kq, ks, vq, vs
-    for page, (km, pm, bd) in timing.items():
+    for page, (km, pm, bd, gm, n_splits) in timing.items():
         log(f"  K1 int8 time page {page} B={1 if page == 64 else 8} seq=700 (per layer, 32 "
-            f"layer regions in turn): kernel {km:.4f} ms, plain {pm:.4f} ms, bound "
-            f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
-    km, pm, bd = timing[256]
+            f"layer regions in turn): kernel {km:.4f} ms eager, {gm:.4f} ms from a CUDA graph "
+            f"(n_splits {n_splits}), plain {pm:.4f} ms, bound {bd['bound_ms']:.4f} ms "
+            f"({bd['bound_by']})")
+    km, pm, bd, _, _ = timing[256]
     results["paged_decode_attention_int8"] = {"max_abs_err": max(errs), "ms": km,
                                               "plain_ms": pm, **bd, "library_ms": None,
                                               "case": "page 256 B=8 seq=700 (350 in one slot)"}
@@ -925,11 +1101,12 @@ def slice_run(dev, profile: bool, tmp: str, out_dir: str) -> dict:
             log(f"turn {turn}: " + json.dumps(info))
             if not all(counts[fn.__name__] for fn in counters):
                 raise AssertionError(f"a kernel of the main path never launched: {counts}")
-            # the LM's bf16 prefill takes K2's tensor-core route, the f32
-            # Voicebox and XLS-R its CUDA-core route
-            if not 0 < mma < counts["flash_attention"]:
-                raise AssertionError(f"K2's routes in the bf16 turn: {mma} tensor-core launches "
-                                     f"of {counts['flash_attention']}")
+            # the LM's bf16 prefill takes K2's bf16 route, the f32 Voicebox
+            # and XLS-R its f32 route (3xTF32)
+            tf32 = counts["flash_attention_f32"]
+            if not (0 < mma and 0 < tf32 and mma + tf32 == counts["flash_attention"]):
+                raise AssertionError(f"K2's routes in the bf16 turn: {mma} bf16 and {tf32} f32 "
+                                     f"launches of {counts['flash_attention']}")
             if add_mask_ln.launches:  # B * (T + 1) = 2 * 449 is under its gate
                 raise AssertionError("the fused LayerNorm kernel ran in respond()")
             if counts["stream_qmv"] or counts["paged_decode_attention_int8"]:
@@ -1568,6 +1745,232 @@ def probe_run(dev) -> dict:
     return {"launches": counts}
 
 
+# ------------------------------------------------------- parent vs change
+def _reply(obj: dict) -> None:
+    print("RESULT " + json.dumps(obj), flush=True)
+
+
+def _worker_kernels(dev) -> dict:
+    """K2's f32 cases (b) and (c) beside one scaled_dot_product_attention
+    call on the same f32 operands, and K1 at its two timed cases over 32
+    layer regions, through the public wrappers (the same in parent and
+    change): eager and CUDA-graph ms."""
+    import torch
+
+    from usdm_tpu_torch.engine.paged_ops import quant_kv_token
+    from usdm_tpu_torch.ops import flash_attention as FL
+    from usdm_tpu_torch.ops import paged_attention as PA
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    out = {}
+    for key, (b, t, d, alibi, short) in {"b": (2, 449, 64, True, 301),
+                                          "c": (1, 2100, 80, False, 2100)}.items():
+        q, k, v = (torch.randn(b, t, 16, d, generator=gen, device=dev) for _ in range(3))
+        pos = torch.arange(t, device=dev)[None].expand(b, t)
+        seg = torch.where(pos < torch.tensor([[t], [short]], device=dev)[:b], 0, -1)
+        args = (q, k, v, seg, seg, pos, pos, False, None, d**-0.5, alibi)
+        bias = None
+        if alibi:
+            slopes = FL.alibi_slopes_pow2(16).to(dev)[None, :, None, None]
+            dist = (pos[:, None, :, None] - pos[:, None, None, :]).abs().float()
+            bias = torch.where((seg >= 0)[:, None, None, :],
+                               -slopes * dist * (pos[:, None, None, :] != 0),
+                               torch.finfo(torch.float32).min)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias)
+
+        out[f"k2_{key}"] = {
+            "ms": cuda_ms(lambda: FL.flash_attention(*args)),
+            "graph_ms": graph_ms(lambda: [FL.flash_attention(*args) for _ in range(10)], dev) / 10,
+            "sdpa_ms": cuda_ms(sdpa),
+            "sdpa_graph_ms": graph_ms(lambda: [sdpa() for _ in range(10)], dev) / 10}
+        del q, k, v, qt, kt, vt, bias
+    hkv, g, d, n_layers = 8, 4, 128, 32
+    for key, (page, b, kv) in {"k1_bf16": (64, 1, "bf16"), "k1_int8": (256, 8, "int8")}.items():
+        maxp = -(-4200 // page)
+        n_pages = b * maxp + 1
+        nt = n_layers * n_pages
+        scales = {}
+        if kv == "bf16":
+            kp, vp = (torch.randn(hkv, nt, page, d, generator=gen, device=dev).bfloat16()
+                      for _ in range(2))
+        else:
+            (kp, ks), (vp, vs) = (quant_kv_token(torch.randn(hkv, nt, page, d, generator=gen,
+                                                             device=dev)) for _ in range(2))
+            scales = {"k_scales": ks.transpose(0, 1).contiguous(),
+                      "v_scales": vs.transpose(0, 1).contiguous()}
+            del ks, vs
+        table = torch.randperm(n_pages - 1, generator=gen, device=dev)[: b * maxp]
+        table = table.to(torch.int32).reshape(b, maxp)
+        tables = [(table + li * n_pages).contiguous() for li in range(n_layers)]
+        lens = torch.full((b,), 700, dtype=torch.int32, device=dev)
+        lens[b // 2] = 350 if b > 1 else 700
+        q = torch.randn(b, hkv, g, d, generator=gen, device=dev).bfloat16()
+
+        def step():
+            return [PA.paged_decode_attention(q, kp, vp, tb, lens, 4096, **scales)
+                    for tb in tables]
+
+        out[key] = {"ms": cuda_ms(step) / n_layers, "graph_ms": graph_ms(step, dev) / n_layers}
+        del kp, vp, scales
+    torch.cuda.empty_cache()
+    return out
+
+
+def turn_worker(root: str) -> int:
+    """One tree's side of --compare-with: imports usdm_tpu_torch from `root`,
+    builds its kernels, then answers one JSON command per stdin line
+    ("kernels", "bf16_build", "turn", "bf16_close", "server_build", "load",
+    "exit") with one RESULT line."""
+    import gc
+
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    import usdm_tpu_torch
+    from usdm_tpu_torch.audio.wav import write_wav
+    from usdm_tpu_torch.core.config import EngineConfig
+    from usdm_tpu_torch.ops import _build
+    from usdm_tpu_torch.pipeline import UsdmPipeline
+
+    pkg = os.path.dirname(os.path.abspath(usdm_tpu_torch.__file__))
+    if os.path.dirname(pkg) != os.path.abspath(root):
+        raise AssertionError(f"usdm_tpu_torch came from {pkg}, not {root}")
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.library()
+    _reply({"package": pkg, "nvcc_s": _build.build_seconds})
+    tmp = tempfile.mkdtemp()
+    wav_in = os.path.join(tmp, "user.wav")
+    write_wav(wav_in, (np.random.default_rng(0).standard_normal(48000) * 0.1)
+              .astype(np.float32), 16000)
+    pipe = server = None
+    rng = np.random.default_rng(0)
+    n_clients, per_client, prompt_len, max_new = 8, 2, 384, 128
+    for line in sys.stdin:
+        op = json.loads(line)["op"]
+        if op == "kernels":
+            _reply(_worker_kernels(dev))
+        elif op == "bf16_build":
+            pipe = UsdmPipeline.full_random(device=dev, seed=0)
+            _reply({})
+        elif op == "turn":
+            trace = {}
+            t0 = time.perf_counter()
+            res = pipe.respond_with_policy(_paged_policy(pipe, seed=1), wav_in, n_timesteps=50,
+                                           seed=1, trace=trace)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            audio_s = len(trace["audio"]) / pipe.decoder.mel_cfg.sampling_rate
+            _reply({"wall_s": wall, "xlsr_s": trace["xlsr_s"], "dialog_s": trace["dialog_s"],
+                    "synth_s": trace["synth_s"], "audio_s": audio_s, "rtf": wall / audio_s,
+                    "stage_tokens": {k: len(v) for k, v in res.stage_tokens.items()}})
+        elif op in ("bf16_close", "server_close"):
+            if server is not None:
+                server.close()
+            if pipe is not None:
+                pipe.close()
+            pipe = server = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            _reply({})
+        elif op == "server_build":
+            pipe = UsdmPipeline.full_random(device=dev, seed=0, lm_int8=True, vb_int8=True)
+            server = pipe.make_server(EngineConfig(page_size=256, max_pages_per_seq=3,
+                                                   max_batch_size=n_clients, prefill_chunk=256,
+                                                   kv_dtype="int8"))
+            allow = np.ones(pipe.lm_cfg.vocab_size, bool)
+            allow[:3] = False  # EOS unreachable: every request runs its budget
+            _serve_load(server, [[rng.integers(3, 32000, prompt_len).tolist()]
+                                 for _ in range(n_clients)], allow, 8)  # warm-up
+            _reply({})
+        elif op == "load":
+            prompts = [[rng.integers(3, 32000, prompt_len).tolist() for _ in range(per_client)]
+                       for _ in range(n_clients)]
+            server.engine._ttfts.clear()
+            done, wall = _serve_load(server, prompts, allow, max_new)
+            torch.cuda.synchronize()
+            ttfts = sorted(server.engine._ttfts)
+            n_tok = sum(len(t) for outs in done.values() for t in outs)
+            _reply({"wall_s": wall, "generated_tokens": n_tok, "tok_s": n_tok / wall,
+                    "ttft_p50_s": ttfts[len(ttfts) // 2],
+                    "ttft_p95_s": ttfts[min(int(0.95 * len(ttfts)), len(ttfts) - 1)]})
+        elif op == "exit":
+            break
+    if "jax" in sys.modules:
+        raise AssertionError("jax was imported")
+    return 0
+
+
+def compare_run(parent: str, out_dir: str) -> dict:
+    """Parent and change, each in a worker process that imports its own
+    tree's usdm_tpu_torch and builds its own kernels (nvcc one after the
+    other: the build time is the host's speed marker), driven in turns on
+    one card: the kernels' times (parent, change, change, parent), one
+    warm-up bf16 turn each, then 3 bf16 turns each in the order P C C P P C,
+    then the int8 server load (warm-up inside the build) twice each, P C C P."""
+    import subprocess as sp
+
+    roots = {"parent": os.path.abspath(parent),
+             "change": os.path.dirname(os.path.abspath(__file__))}
+    workers, out = {}, {k: {"kernels": [], "turns": [], "loads": []} for k in roots}
+
+    def call(name, op):
+        w = workers[name]
+        w.stdin.write(json.dumps({"op": op}) + "\n")
+        w.stdin.flush()
+        return read(name)
+
+    def read(name):
+        for line in workers[name].stdout:
+            if line.startswith("RESULT "):
+                return json.loads(line[7:])
+            log(f"  [{name}] {line.rstrip()}")
+        raise RuntimeError(f"the {name} worker ended (exit {workers[name].wait()})")
+
+    try:
+        for name, root in roots.items():
+            workers[name] = sp.Popen([sys.executable, os.path.abspath(__file__), "--turn-worker",
+                                      root], stdin=sp.PIPE, stdout=sp.PIPE, text=True, bufsize=1)
+            out[name]["build"] = read(name)
+            log(f"compare: {name} from {out[name]['build']['package']}, nvcc "
+                f"{out[name]['build']['nvcc_s']:.1f} s")
+        for name in ("parent", "change", "change", "parent"):
+            out[name]["kernels"].append(call(name, "kernels"))
+            log(f"compare: {name} kernels {json.dumps(out[name]['kernels'][-1])}")
+        for name in roots:
+            call(name, "bf16_build")
+            log(f"compare: {name} warm-up turn {json.dumps(call(name, 'turn'))}")
+        for name in ("parent", "change", "change", "parent", "parent", "change"):
+            out[name]["turns"].append(call(name, "turn"))
+            log(f"compare: {name} bf16 turn {json.dumps(out[name]['turns'][-1])}")
+        for name in roots:
+            call(name, "bf16_close")
+        for name in roots:
+            call(name, "server_build")
+        for name in ("parent", "change", "change", "parent"):
+            out[name]["loads"].append(call(name, "load"))
+            log(f"compare: {name} int8 server load {json.dumps(out[name]['loads'][-1])}")
+        for name in roots:
+            call(name, "server_close")
+            call_exit = workers[name]
+            call_exit.stdin.write(json.dumps({"op": "exit"}) + "\n")
+            call_exit.stdin.close()
+            if call_exit.wait(timeout=120) != 0:
+                raise AssertionError(f"the {name} worker exited with {call_exit.returncode}")
+    finally:
+        for w in workers.values():
+            if w.poll() is None:
+                w.kill()
+                w.wait()
+    with open(os.path.join(out_dir, "compare.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    return out
+
+
 def _write_profile(prof, out_dir: str, name: str = "respond_profile.txt") -> None:
     table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
     path = os.path.join(out_dir, name)
@@ -1585,6 +1988,11 @@ def main() -> int:
                          "one train step under torch.profiler")
     ap.add_argument("--out-dir", default="chip_smoke_out",
                     help="where the nvcc log and the profile table are written")
+    ap.add_argument("--compare-with", metavar="PARENT",
+                    help="instead of the phases: time kernels, bf16 turns and int8 server "
+                         "loads of the usdm_tpu_torch in PARENT (a checkout of another "
+                         "commit) and of this checkout, in turns on one card")
+    ap.add_argument("--turn-worker", metavar="ROOT", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
@@ -1592,6 +2000,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    if args.turn_worker:
+        return turn_worker(args.turn_worker)
     from usdm_tpu_torch.ops import _build
 
     dev = torch.device("cuda", 0)
@@ -1605,6 +2015,13 @@ def main() -> int:
     log(f"tf32: torch.backends.cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
 
+    if args.compare_with:  # each worker builds its own tree's kernels
+        os.makedirs(args.out_dir, exist_ok=True)
+        print(json.dumps({"compare": compare_run(args.compare_with, args.out_dir)}))
+        print(smi.stdout.strip())
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
     t0 = time.perf_counter()
     _build.library()
     log(f"build: {time.perf_counter() - t0:.1f} s (nvcc {_build.build_seconds:.1f} s)")
@@ -1619,15 +2036,18 @@ def main() -> int:
     kres = kernel_checks(dev)
     kres.update(train_kernel_checks(dev))
     kres.update(int8_kernel_checks(dev))
-    k2 = kres["flash_attention"]
-    k2["max_abs_err"] = max(k2["max_abs_err"], kres.pop("flash_attention_train_err"))
+    train_err = kres.pop("flash_attention_train_err")
+    for key, err in zip(("flash_attention", "flash_attention_f32"), train_err):
+        kres[key]["max_abs_err"] = max(kres[key]["max_abs_err"], err)
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         # each kernel's launches come from the run of the path it serves:
         # K1-K3 the bf16 turn, K6 the W8A8 turn (A) and the server (B) together,
         # K1's int8 branch (B), K4 and K5 the trainer, X1-X3 the probe entry
         # points (phase 7; eager calls and CUDA graph replays)
-        bf16 = slice_run(dev, args.profile, tmp, args.out_dir)["turns"][-1]["launches"]
+        bf16_turn = slice_run(dev, args.profile, tmp, args.out_dir)["turns"][-1]
+        bf16 = {**bf16_turn["launches"],
+                "flash_attention": bf16_turn["flash_attention_mma_launches"]}
         log(f"phase time: bf16 turns {time.perf_counter() - t_phase:.1f} s")
         t_phase = time.perf_counter()
         int8 = int8_run(dev, tmp, os.path.join(tmp, "user.wav"), args.profile, args.out_dir)
@@ -1641,7 +2061,7 @@ def main() -> int:
     log(f"phase time: probes {time.perf_counter() - t_phase:.1f} s")
     a, b = int8["A"]["launches"], int8["B"]["launches"]
     launches = {**{k: bf16[k] for k in ("paged_decode_attention", "flash_attention",
-                                         "fused_activation1d")},
+                                         "flash_attention_f32", "fused_activation1d")},
                 **{k: train[k] for k in ("add_mask_ln", "flash_attention_bwd_dq",
                                          "flash_attention_bwd_dkv")},
                 "stream_qmv": a["stream_qmv"] + b["stream_qmv"],

@@ -1,4 +1,5 @@
-"""K1-K6 and X1-X3 CUDA kernels against their plain PyTorch versions, on the card.
+"""K1-K6 and X1-X3 CUDA kernels against their plain PyTorch versions, on the card
+(K1 also at forced split counts and from a CUDA graph; K2 on both routes).
 
 Marked `cuda`: each test skips without a CUDA device (a CUDA kernel has no
 CPU mode).  Imports no JAX, so it runs where the port runs; there, skip
@@ -339,22 +340,84 @@ def test_flash_mma_fully_masked_rows(cuda):
 
 @pytest.mark.cuda
 def test_flash_routes_by_dtype_and_counts(cuda):
-    """bf16 calls count in launches and mma_launches; f32 calls in launches
-    only, and still meet 1e-4 against the plain version."""
+    """bf16 calls count in launches and mma_launches; f32 calls in launches,
+    the forward's also in flash_attention.tf32_launches (its 3xTF32 route),
+    and still meet 1e-4 against the plain version."""
     fns = (FL.flash_attention, FL.flash_attention_bwd_dq, FL.flash_attention_bwd_dkv)
     for dtype, mma in ((torch.bfloat16, 1), (torch.float32, 0)):
         q, k, v, do, rows, flags = _mma_case(cuda, "voicebox d64 alibi ragged", dtype)
         before = [(f.launches, f.mma_launches) for f in fns]
+        tf32 = FL.flash_attention.tf32_launches
         o, lse = FL.flash_attention(q, k, v, *rows, return_lse=True, **flags)
         got = FL.flash_attention_bwd(q, k, v, o, lse, do, *rows, False, None, None, True)
         assert [(f.launches, f.mma_launches) for f in fns] == [(a + 1, b + mma)
                                                                for a, b in before]
+        assert FL.flash_attention.tf32_launches == tf32 + (dtype == torch.float32)
         if dtype == torch.float32:
             want_o, want_lse = FL.flash_attention_reference(q, k, v, *rows, **flags)
             want = FL.flash_attention_bwd_reference(q, k, v, o, lse, do, *rows, False, None,
                                                     None, True)
             assert (o - want_o).abs().max().item() <= 1e-4
             assert all((gg - ww).abs().max().item() <= 1e-4 for gg, ww in zip(got, want))
+
+
+# ------------------------------------------------------ K2 f32 route (3xTF32)
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(MMA_CASES))
+def test_flash_tf32_route_matches_plain(cuda, name):
+    """The f32 forward on the tensor cores (3xTF32) at head dims 16..128
+    (d 80 runs at width 96), ragged rows, GQA, window, packed segments,
+    ALiBi and a prefill chunk with Tq != Tk: output and log-sum-exp within
+    1e-4 of the f32 plain version and of the f64 one; one tf32 launch."""
+    q, k, v, _, rows, flags = _mma_case(cuda, name, torch.float32)
+    before = (FL.flash_attention.tf32_launches, FL.flash_attention.mma_launches)
+    o, lse = FL.flash_attention(q, k, v, *rows, return_lse=True, **flags)
+    assert (FL.flash_attention.tf32_launches, FL.flash_attention.mma_launches) == (
+        before[0] + 1, before[1])
+    want, want_lse = FL.flash_attention_reference(q, k, v, *rows, **flags)
+    exact, _ = FL.flash_attention_reference(q.double(), k.double(), v.double(), *rows, **flags)
+    assert torch.isfinite(o).all()
+    assert (o - want).abs().max().item() <= 1e-4
+    assert (o.double() - exact).abs().max().item() <= 1e-4
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_flash_tf32_route_beats_one_tf32_product(cuda):
+    """Against the f64 plain version, the kernel's error is a small fraction
+    of what one TF32 product per product gives (its plain emulation), which
+    misses 1e-4: the route does take three."""
+    q, k, v, _, rows, flags = _mma_case(cuda, "voicebox d64 alibi ragged", torch.float32)
+    o = FL.flash_attention(q, k, v, *rows, **flags)
+    exact, _ = FL.flash_attention_reference(q.double(), k.double(), v.double(), *rows, **flags)
+    one, _ = FL.flash_attention_3xtf32_reference(q, k, v, *rows, **flags, terms=1)
+    three, _ = FL.flash_attention_3xtf32_reference(q, k, v, *rows, **flags)
+    err, err1 = ((x.double() - exact).abs().max().item() for x in (o, one))
+    assert err1 > 1e-4 and err <= err1 / 20
+    assert (three.double() - exact).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_flash_tf32_fully_masked_rows(cuda):
+    """f32: query rows with no valid key (padding, and valid rows of a
+    segment with no key) output 0 and lse -1e30; a whole key tile no query
+    attends changes nothing."""
+    q, k, v, _, (qseg, kseg, qpos, kpos), flags = _mma_case(cuda, "voicebox d64 alibi ragged",
+                                                            torch.float32)
+    qseg = qseg.clone()
+    qseg[0, 10:20] = 7
+    kseg = kseg.clone()
+    kseg[0, 100:164] = 9
+    rows = (qseg, kseg, qpos, kpos)
+    o, lse = FL.flash_attention(q, k, v, *rows, return_lse=True, **flags)
+    dead_q = torch.zeros_like(qseg, dtype=torch.bool)
+    dead_q[0, 10:20] = True
+    dead_q |= qseg < 0
+    assert dead_q[1].any() and (o[dead_q] == 0).all()
+    assert (lse.transpose(1, 2)[dead_q] < -9e29).all()
+    want, want_lse = FL.flash_attention_reference(q, k, v, *rows, **flags)
+    assert (o - want).abs().max().item() <= 1e-4
+    assert (lse - want_lse).abs().max().item() <= 1e-4
 
 
 @pytest.mark.cuda
@@ -461,6 +524,104 @@ def test_paged_int8_kernel_matches_plain(cuda, page, window, seq):
     assert (got.float() - fold).abs().max().item() <= bound
     rounding = (want.float() - fold).abs().max().item()
     assert (got.float() - want.float()).abs().max().item() <= bound + rounding
+
+
+# ------------------------------------------------------------ K1 split-K
+SPLIT_LENS = {1: [700], 8: [1, 700, 4200, 63, 64, 257, 2, 1500]}  # a length-1 slot at B 8
+
+
+def _split_case(cuda, kv, page, b):
+    """GQA 32/8, d 128, bf16 queries over bf16 or int8 pools (int8 with
+    page-major f32 scales), shuffled tables of 4200 tokens, the slot lengths
+    of SPLIT_LENS[b]; unread scale slots hold NaN (as in _int8_case) for the
+    windowed and unwindowed calls alike: only rows inside the window of 512
+    are marked readable, the unwindowed call gets the clean scales."""
+    g = torch.Generator(device=cuda).manual_seed(b * 1000 + page)
+    hkv, grp, d = 8, 4, 128
+    maxp = -(-4200 // page)
+    nt = b * maxp + 1
+    table = torch.randperm(nt, generator=g, device=cuda)[: b * maxp]
+    table = table.reshape(b, maxp).to(torch.int32).contiguous()
+    lens = torch.tensor(SPLIT_LENS[b], dtype=torch.int32, device=cuda)
+    q = torch.randn(b, hkv, grp, d, generator=g, device=cuda).bfloat16()
+    if kv == "bf16":
+        pools = [torch.randn(hkv, nt, page, d, generator=g, device=cuda).bfloat16()
+                 for _ in range(2)]
+        return q, pools, {}, table, lens
+    pools, scales = [], []
+    for _ in range(2):
+        qv, sv = quant_kv_token(torch.randn(hkv, nt, page, d, generator=g, device=cuda))
+        pools.append(qv)
+        scales.append(sv.transpose(0, 1).contiguous())  # [NT, Hkv, P]
+    return q, pools, {"k_scales": scales[0], "v_scales": scales[1]}, table, lens
+
+
+def _poisoned(scales, table, lens, page, window):
+    read = torch.zeros(scales["k_scales"].shape[0], page, dtype=torch.bool,
+                       device=table.device)
+    pos = torch.arange(table.shape[1] * page, device=table.device)
+    for bi, n in enumerate(lens.tolist()):
+        ok = (pos < n) & ((n - 1 - pos <= window) if window is not None else True)
+        read[table[bi].long()[pos[ok] // page], pos[ok] % page] = True
+    return {k: a.masked_fill(~read[:, None, :], float("nan")) for k, a in scales.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("page", [64, 256])
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("n_splits", [1, 2, 7, None])
+@pytest.mark.parametrize("window", [None, 512])
+def test_paged_split_kernel_matches_plain(cuda, kv, page, b, n_splits, window):
+    """K1 at forced split counts and at the host's choice (None): against
+    the split computation's plain version at the kernel's split count (the
+    same function: one bf16 ulp of the largest output + 1e-4), and against
+    the plain version with its bound (bf16 pools: that bound; int8: that
+    bound on f32 queries plus the measured effect of rounding the
+    dequantized K/V, as test_paged_int8_kernel_matches_plain states it)."""
+    q, (kp, vp), scales, table, lens = _split_case(cuda, kv, page, b)
+    seen = _poisoned(scales, table, lens, page, window) if scales else {}
+    got = PA.paged_decode_attention(q, kp, vp, table, lens, window, n_splits=n_splits, **seen)
+    assert torch.isfinite(got.float()).all()
+    n = n_splits or PA.split_count(b, 8, table.shape[1], page, PA._sm_count(0))
+    split = PA.paged_decode_attention_split_reference(q.float(), kp, vp, table, lens, n,
+                                                      window, **scales)
+    assert (got.float() - split).abs().max().item() <= _bf16_bound(split)
+    want = PA.paged_decode_attention_reference(q, kp, vp, table, lens, window, **scales)
+    if kv == "bf16":
+        assert (got.float() - want.float()).abs().max().item() <= _bf16_bound(want)
+    else:
+        fold = PA.paged_decode_attention_reference(q.float(), kp, vp, table, lens, window,
+                                                   **scales)
+        rounding = (want.float() - fold).abs().max().item()
+        assert (got.float() - want.float()).abs().max().item() <= _bf16_bound(fold) + rounding
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_paged_split_graph_replay_equals_eager(cuda, kv):
+    """One K1 call (B 8, page 64, window 512, the host's split count) runs
+    with no host synchronization (sync debug mode "error") and, captured in
+    a CUDA graph and replayed, equals the eager call bit for bit; each call
+    counts one launch whatever its split count."""
+    q, (kp, vp), scales, table, lens = _split_case(cuda, kv, 64, 8)
+    fn = PA.paged_decode_attention
+    count = "int8_launches" if scales else "launches"
+    before = getattr(fn, count)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager = fn(q, kp, vp, table, lens, 512, **scales)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert getattr(fn, count) == before + 1
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(q, kp, vp, table, lens, 512, **scales)
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
 
 
 # ----------------------------------------------------------------- K6

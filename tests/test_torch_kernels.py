@@ -86,6 +86,63 @@ def test_paged_int8_pools_not_ported(rng, interpret):
         PA.paged_decode_attention(t(q), t(kq), t(vq), t(table), t(lens), k_scales=t(ks))
 
 
+@pytest.mark.parametrize("n_splits", [1, 2, 3, "maxp"])
+@pytest.mark.parametrize("case", ["plain", "window", "int8"])
+def test_paged_split_plain_matches_jax(rng, case, n_splits):
+    """The kernel's split computation (partial softmax states over n_splits
+    row ranges, merged) in plain PyTorch against the plain version and the
+    JAX golden, in f32: 2e-5.  At n_splits = maxp (4) the 5-token slot's
+    rows all fall in the first split and the other three are empty."""
+    q, kp, vp, table = _paged_inputs(rng)
+    lens = np.asarray([5, 17, 32], np.int32)
+    window = 10 if case == "window" else None
+    scales = {}
+    if case == "int8":
+        from usdm_tpu.engine.paged_ops import quant_kv_token
+
+        (kp, ks), (vp, vs) = (quant_kv_token(jnp.asarray(x)) for x in (kp, vp))
+        kp, vp = np.asarray(kp), np.asarray(vp)
+        scales = {n: np.asarray(jnp.transpose(a, (1, 0, 2))) for n, a in  # [N, Hkv, P]
+                  (("k_scales", ks), ("v_scales", vs))}
+    n = table.shape[1] if n_splits == "maxp" else n_splits
+    targs = [t(x) for x in (q, kp, vp, table, lens)]
+    tscales = {k: t(v) for k, v in scales.items()}
+    got = PA.paged_decode_attention_split_reference(*targs, n, window, **tscales).numpy()
+    plain = PA.paged_decode_attention_reference(*targs, window, **tscales).numpy()
+    golden = JPA.paged_decode_attention_reference(*map(jnp.asarray, (q, kp, vp, table, lens)),
+                                                  sliding_window=window,
+                                                  **{k: jnp.asarray(v) for k, v in scales.items()})
+    np.testing.assert_allclose(got, plain, **TOL)
+    np.testing.assert_allclose(got, np.asarray(golden), **TOL)
+    r0, r1 = PA.split_rows(t(lens), window, n)
+    if n_splits == "maxp":
+        assert (r0[0, 1:] == r1[0, 1:]).all()  # empty splits
+
+
+@pytest.mark.parametrize("window", [None, 0, 7, 100])
+def test_paged_split_rows_cover_the_valid_rows(window):
+    """Every split count cuts [lo, kv_len) into contiguous ranges that cover
+    it once, each a multiple of ROW_ALIGN rows but the last busy one."""
+    lens = torch.tensor([1, 2, 15, 16, 17, 700, 4200])
+    for n in (1, 2, 3, 5, 32, 128):
+        r0, r1 = PA.split_rows(lens, window, n)
+        lo = torch.zeros_like(lens) if window is None else (lens - 1 - window).clamp(min=0)
+        assert (r0[:, 0] == lo).all() and (r1[:, -1] == lens).all()
+        assert (r0[:, 1:] == r1[:, :-1]).all() and (r1 >= r0).all()
+        busy = (r1 - r0)[r1 < lens[:, None]]
+        assert (busy % PA.ROW_ALIGN == 0).all()
+
+
+def test_paged_split_count_from_shapes():
+    """The host's split count comes from shapes alone: two blocks per SM at
+    batch 1 and 8 kv heads (capped at 32), fewer at batch 8, never more than
+    the table's 16-row ranges."""
+    assert PA.split_count(1, 8, 128, 64, 132) == 32
+    assert PA.split_count(8, 8, 3, 256, 132) == 5
+    assert PA.split_count(1, 8, 1, 16, 132) == 1
+    assert PA.split_count(64, 8, 128, 64, 132) == 1
+
+
 # ----------------------------------------------------------------- K2
 def _attn_inputs(rng, b=2, tq=128, tk=128, h=4, hkv=2, d=32):
     return (rng.standard_normal((b, tq, h, d)).astype(np.float32),
@@ -246,6 +303,61 @@ def test_flash_plain_chunked_prefill_offset(rng):
     ref = jax_mha(*[jnp.asarray(x) for x in (q, k, v, qseg, kseg, qpos, kpos)],
                   causal=True, sliding_window=4096, impl="xla")
     np.testing.assert_allclose(got, np.where(pad, 0.0, np.asarray(ref)), **TOL)
+
+
+def test_tf32_round_is_cvt_rna():
+    """Round to 10 mantissa bits, ties away from zero; x - tf32(x) is exact
+    and its own rounding leaves x within 2^-22 of |x|."""
+    x = torch.tensor([1.0, 1.0 + 2**-11, -(1.0 + 2**-11), 1.0 + 3 * 2**-11, 1.0 + 2**-12,
+                      3.14159265, -2.7182818, 1e-3])
+    want = [1.0, 1.0 + 2**-10, -(1.0 + 2**-10), 1.0 + 2**-9, 1.0, 3.140625, -2.71875,
+            0.0010004043579101562]
+    assert FL.tf32_round(x).tolist() == want
+    y = torch.from_numpy(np.random.default_rng(0).standard_normal(10000).astype(np.float32))
+    big = FL.tf32_round(y)
+    assert ((big.view(torch.int32) & 0x1FFF) == 0).all()
+    rest = (y.double() - big.double() - FL.tf32_round(y - big).double()).abs()
+    assert (rest <= 2.0**-22 * y.double().abs()).all()
+
+
+F32_CASES = {  # name: (B, T, H, d, alibi); (b) Voicebox and (c) XLS-R in small
+    "b voicebox": (2, 160, 4, 64, True),
+    "c xlsr": (1, 192, 2, 80, False),
+}
+
+
+@pytest.mark.parametrize("name", list(F32_CASES))
+def test_flash_3xtf32_plain_matches_jax_f32(rng, interpret, name):
+    """The f32 route's arithmetic (3xTF32) within 1e-4 of the JAX f32 flash
+    forward (Pallas, interpret mode, Precision.HIGHEST) and of the f64 plain
+    version, output and log-sum-exp, at small (b)- and (c)-like shapes (the
+    second row of (b) padded); a single TF32 product misses 1e-4 against the
+    f64 plain version."""
+    b, tlen, h, d, alibi = F32_CASES[name]
+    q, k, v = _attn_inputs(rng, b=b, tq=tlen, tk=tlen, h=h, hkv=h, d=d)
+    pos = np.broadcast_to(np.arange(tlen, dtype=np.int32), (b, tlen)).copy()
+    seg = np.where(pos < np.asarray([[tlen], [101]])[:b], 0, -1).astype(np.int32)
+    targs = [t(x) for x in (q, k, v, seg, seg, pos, pos)]
+    got, lse = FL.flash_attention_3xtf32_reference(*targs, False, None, None, alibi)
+    one, _ = FL.flash_attention_3xtf32_reference(*targs, False, None, None, alibi, terms=1)
+    exact, exact_lse = FL.flash_attention_reference(*[x.double() for x in targs[:3]],
+                                                    *targs[3:], False, None, None, alibi)
+    kern = JFL.flash_attention(*map(jnp.asarray, (q, k, v, seg, seg, pos, pos)), causal=False,
+                               alibi=alibi, block_q=64, block_k=64)
+    _, jlse = JFL._fwd_call(*[jnp.asarray(np.swapaxes(x, 1, 2)) for x in (q, k, v)],
+                            *map(jnp.asarray, (pos, pos, seg, seg)), d**-0.5, False, None,
+                            alibi, 64, 64)
+    valid = (seg >= 0)[:, :, None, None]
+    rows = np.broadcast_to((seg >= 0)[:, None, :], lse.shape)
+
+    def err(a, want):
+        return np.abs(np.where(valid, np.asarray(a, np.float64) - np.asarray(want), 0.0)).max()
+
+    assert err(got, exact) <= 1e-4
+    assert err(got, kern) <= 1e-4
+    assert np.abs(lse.numpy() - exact_lse.numpy())[rows].max() <= 1e-4
+    assert np.abs(lse.numpy() - np.asarray(jlse)[..., 0])[rows].max() <= 1e-4
+    assert err(one, exact) > 1e-4
 
 
 def test_flash_rejects_non_pow2_alibi():

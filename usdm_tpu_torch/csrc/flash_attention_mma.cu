@@ -40,70 +40,6 @@ namespace {
 
 using namespace mma;
 
-// Mask, ALiBi and the online-softmax step of one 16 x 64 score tile in the
-// accumulator layout: sc (q.k sums) -> probabilities relative to the new row
-// max; m, l and the output accumulator are rescaled.  FULL: every pair of the
-// tile passes every mask.  `cols` is the count of keys the tile has.
-template <int D, bool FULL, bool ALIBI>
-static __device__ __forceinline__ void softmax_step(
-    float (&sc)[8][4], float (&acc)[D / 8][4], float (&m)[2], float (&l)[2], const int* kp_s,
-    const int* ks_s, int cols, const int (&qp)[2], const int (&qs)[2], int causal, int window,
-    float scale2, float slope2) {
-  const int c2 = (threadIdx.x & 3) * 2;
-  const float qpf[2] = {biased_pos(qp[0]), biased_pos(qp[1])};
-  uint32_t okm = 0;  // bit 4n + j: entry sc[n][j] passes the mask
-  float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    const int2 kp = *reinterpret_cast<const int2*>(kp_s + n * 8 + c2);
-    int2 ks = make_int2(0, 0);
-    if (!FULL) ks = *reinterpret_cast<const int2*>(ks_s + n * 8 + c2);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int row = j >> 1;
-      const int kpj = (j & 1) ? kp.y : kp.x;
-      const float sl = ALIBI && kpj != 0 ? slope2 : 0.f;  // key position 0 is exempt
-      float val = score2<ALIBI>(sc[n][j], scale2, sl, qpf[row], biased_pos(kpj));
-      if (!FULL) {
-        const bool a = n * 8 + c2 + (j & 1) < cols &&
-                       allowed(qs[row], (j & 1) ? ks.y : ks.x, qp[row], kpj, causal, window);
-        okm |= (uint32_t)a << (4 * n + j);
-        val = a ? val : kNegInf;
-      }
-      sc[n][j] = val;
-      mx[row] = fmaxf(mx[row], val);
-    }
-  }
-  float alpha[2];
-#pragma unroll
-  for (int row = 0; row < 2; ++row) {
-    const float m_new = fmaxf(m[row], quad_max(mx[row]));
-    alpha[row] = fast_exp2(m[row] - m_new);
-    m[row] = m_new;
-  }
-  float rs[2] = {0.f, 0.f};
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float p = fast_exp2(sc[n][j] - m[j >> 1]);
-      // a masked entry is 0 whatever the row's max (a fully-masked row has
-      // max -1e30, and ex2(-1e30 - -1e30) would be 1)
-      if (!FULL) p = (okm >> (4 * n + j)) & 1u ? p : 0.f;
-      sc[n][j] = p;
-      rs[j >> 1] += p;
-    }
-  l[0] = l[0] * alpha[0] + rs[0];
-  l[1] = l[1] * alpha[1] + rs[1];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    acc[n][0] *= alpha[0];
-    acc[n][1] *= alpha[0];
-    acc[n][2] *= alpha[1];
-    acc[n][3] *= alpha[1];
-  }
-}
-
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,

@@ -3,7 +3,9 @@
 // flash_attention_bwd_dkv_mma.cu): inline-PTX mma.sync / ldmatrix / cp.async,
 // the padded [64][D] shared-memory tile and its loader, the two warp-level
 // products every kernel is built from, the position/segment tile scan, and the
-// mask and ALiBi rules in the accumulator's register layout.
+// mask, ALiBi and online-softmax rules in the accumulator's register layout.
+// The f32 forward (3xTF32, flash_attention.cu) shares all but the bf16 tile,
+// loader and products.
 //
 // A block is 4 warps over 64 rows; warp w owns rows 16w .. 16w+15.  Products
 // are mma.sync.m16n8k16 (bf16 operands, f32 accumulators).  In its m16n8
@@ -370,6 +372,71 @@ static __device__ __forceinline__ float score2(float qk, float scale2, float slo
 // log2(e) * the Voicebox ALiBi slope 2^{-(h+1)*8/H} of head h
 static __device__ __forceinline__ float alibi_slope2(int h, int n_heads) {
   return kLog2e * exp2f(-(h + 1.0f) * (8.0f / n_heads));
+}
+
+// Mask, ALiBi and the online-softmax step of one 16 x 64 score tile in the
+// m16n8 accumulator layout (the same for the bf16 m16n8k16 and the f32
+// m16n8k8 products): sc (q.k sums) -> probabilities relative to the new row
+// max; m, l and the output accumulator are rescaled.  FULL: every pair of the
+// tile passes every mask.  `cols` is the count of keys the tile has.
+template <int D, bool FULL, bool ALIBI>
+static __device__ __forceinline__ void softmax_step(
+    float (&sc)[8][4], float (&acc)[D / 8][4], float (&m)[2], float (&l)[2], const int* kp_s,
+    const int* ks_s, int cols, const int (&qp)[2], const int (&qs)[2], int causal, int window,
+    float scale2, float slope2) {
+  const int c2 = (threadIdx.x & 3) * 2;
+  const float qpf[2] = {biased_pos(qp[0]), biased_pos(qp[1])};
+  uint32_t okm = 0;  // bit 4n + j: entry sc[n][j] passes the mask
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const int2 kp = *reinterpret_cast<const int2*>(kp_s + n * 8 + c2);
+    int2 ks = make_int2(0, 0);
+    if (!FULL) ks = *reinterpret_cast<const int2*>(ks_s + n * 8 + c2);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int row = j >> 1;
+      const int kpj = (j & 1) ? kp.y : kp.x;
+      const float sl = ALIBI && kpj != 0 ? slope2 : 0.f;  // key position 0 is exempt
+      float val = score2<ALIBI>(sc[n][j], scale2, sl, qpf[row], biased_pos(kpj));
+      if (!FULL) {
+        const bool a = n * 8 + c2 + (j & 1) < cols &&
+                       allowed(qs[row], (j & 1) ? ks.y : ks.x, qp[row], kpj, causal, window);
+        okm |= (uint32_t)a << (4 * n + j);
+        val = a ? val : kNegInf;
+      }
+      sc[n][j] = val;
+      mx[row] = fmaxf(mx[row], val);
+    }
+  }
+  float alpha[2];
+#pragma unroll
+  for (int row = 0; row < 2; ++row) {
+    const float m_new = fmaxf(m[row], quad_max(mx[row]));
+    alpha[row] = fast_exp2(m[row] - m_new);
+    m[row] = m_new;
+  }
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float p = fast_exp2(sc[n][j] - m[j >> 1]);
+      // a masked entry is 0 whatever the row's max (a fully-masked row has
+      // max -1e30, and ex2(-1e30 - -1e30) would be 1)
+      if (!FULL) p = (okm >> (4 * n + j)) & 1u ? p : 0.f;
+      sc[n][j] = p;
+      rs[j >> 1] += p;
+    }
+  l[0] = l[0] * alpha[0] + rs[0];
+  l[1] = l[1] * alpha[1] + rs[1];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    acc[n][0] *= alpha[0];
+    acc[n][1] *= alpha[0];
+    acc[n][2] *= alpha[1];
+    acc[n][3] *= alpha[1];
+  }
 }
 
 // two rows of a 16 x D f32 accumulator -> bf16 rows of a strided output

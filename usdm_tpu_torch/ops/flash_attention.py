@@ -20,11 +20,18 @@ The kernels have one route per dtype, chosen inside the C entry points:
   built from csrc/mma.cuh).  bf16 operands, f32 accumulation, and the
   probabilities and dS rounded to bf16 before the product that consumes
   them, as the Pallas kernels do; `round_operands=True` makes the plain
-  versions round at the same places.  Operands arrive by 16-byte cp.async,
-  so every row must start on a 16-byte boundary; a view that does not is
-  copied first.  Launches of this route are also counted in `.mma_launches`.
-- f32: CUDA cores (csrc/flash_attention.cu, csrc/flash_attention_bwd.cu),
-  full f32 products, as the Pallas kernels' Precision.HIGHEST asks.
+  versions round at the same places.  Launches of this route are also
+  counted in `.mma_launches`.
+- f32: the forward on the tensor cores in 3xTF32 (csrc/flash_attention.cu):
+  each f32 operand splits into two TF32 values (`tf32_round`) and a product
+  is three TF32 products, within ~2^-22 of the f32 product, as the Pallas
+  kernel's Precision.HIGHEST asks; `flash_attention_3xtf32_reference`
+  emulates it.  Its launches are also counted in `flash_attention.tf32_launches`.
+  The backward stays on the CUDA cores (csrc/flash_attention_bwd.cu) with
+  full f32 products.
+
+The tensor-core kernels load operands by 16-byte cp.async, so every row
+must start on a 16-byte boundary; a view that does not is copied first.
 
 Both take ragged Tq/Tk and strided operands as they are (no padding, no
 transposes).  They derive their tile skips from positions, so query and
@@ -69,16 +76,25 @@ def flash_attention_reference(
     round_operands: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version with the kernel's semantics -> (o [B, Tq, H, d],
-    lse [B, H, Tq] f32).  f32 math throughout; with `round_operands` (and
-    operands narrower than f32) the probabilities are rounded to the operands'
-    dtype before P.V, and the row sum is taken from the unrounded ones, as the
-    Pallas kernel and the tensor-core route do."""
+    lse [B, H, Tq] f32).  f32 math throughout (f64 for f64 operands); with
+    `round_operands` (and operands narrower than f32) the probabilities are
+    rounded to the operands' dtype before P.V, and the row sum is taken from
+    the unrounded ones, as the Pallas kernel and the tensor-core route do."""
+    return _forward(q, k, v, q_segment_ids, kv_segment_ids, q_positions, kv_positions, causal,
+                    sliding_window, scale, alibi, round_operands, torch.einsum)
+
+
+def _forward(q, k, v, q_segment_ids, kv_segment_ids, q_positions, kv_positions, causal,
+             sliding_window, scale, alibi, round_operands, product):
+    """The plain forward, its two products taken by product(eq, a, b); f64
+    operands are computed in f64 (the yardstick of the f32 routes' error)."""
+    ct = torch.float64 if q.dtype == torch.float64 else torch.float32
     b, tq, h, d = q.shape
     tk, hkv = k.shape[1], k.shape[2]
     g = h // hkv
     scale = d**-0.5 if scale is None else scale
-    qg = q.float().reshape(b, tq, hkv, g, d)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * scale
+    qg = q.to(ct).reshape(b, tq, hkv, g, d)
+    s = product("bqhgd,bkhd->bhgqk", qg, k.to(ct)) * scale
     qp = q_positions.long()[:, None, None, :, None]
     kp = kv_positions.long()[:, None, None, None, :]
     qs = q_segment_ids.long()[:, None, None, :, None]
@@ -89,8 +105,8 @@ def flash_attention_reference(
     if sliding_window is not None:
         mask = mask & (qp - kp <= sliding_window)
     if alibi:
-        slope = alibi_slopes_pow2(h).to(q.device).reshape(1, hkv, g, 1, 1)
-        s = s - slope * (qp - kp).abs().float() * (kp != 0).float()
+        slope = alibi_slopes_pow2(h).to(q.device, ct).reshape(1, hkv, g, 1, 1)
+        s = s - slope * (qp - kp).abs().to(ct) * (kp != 0).to(ct)
     s = torch.where(mask, s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(mask, torch.exp(s - m), 0.0)
@@ -99,10 +115,60 @@ def flash_attention_reference(
     if round_operands and v.dtype != torch.float32:
         o = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype).float(), v.float())
         o = o / safe_l[..., 0].permute(0, 3, 1, 2)[..., None]
+    elif product is not torch.einsum:  # P split unnormalized, as the kernel splits it
+        o = product("bhgqk,bkhd->bqhgd", p, v.to(ct))
+        o = o / safe_l[..., 0].permute(0, 3, 1, 2)[..., None]
     else:
-        o = torch.einsum("bhgqk,bkhd->bqhgd", p / safe_l, v.float())
+        o = torch.einsum("bhgqk,bkhd->bqhgd", p / safe_l, v.to(ct))
     lse = (m + torch.log(torch.clamp(l, min=1e-30)))[..., 0].reshape(b, h, tq)
     return o.reshape(b, tq, h, d).to(q.dtype), lse
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> the nearest value with 10 mantissa bits, ties away from zero:
+    what `cvt.rna.tf32.f32` gives (finite inputs)."""
+    bits = x.float().contiguous().view(torch.int32)
+    sign = bits & torch.iinfo(torch.int32).min
+    mag = ((bits & 0x7FFFFFFF) + 0x1000) & ~0x1FFF
+    return (sign | mag).view(torch.float32)
+
+
+def _tf32_product(eq: str, a: torch.Tensor, b: torch.Tensor, terms: int) -> torch.Tensor:
+    """einsum(eq, a, b) as the tensor cores compute it from TF32 operands:
+    terms 3 is 3xTF32 (small.big + big.small + big.big, each operand split as
+    big = tf32(x), small = tf32(x - big)), terms 1 one TF32 product."""
+    ab, bb = tf32_round(a), tf32_round(b)
+    out = torch.einsum(eq, ab, bb)
+    if terms == 3:
+        out = (torch.einsum(eq, tf32_round(a - ab), bb) + torch.einsum(eq, ab, tf32_round(b - bb))
+               + out)
+    return out
+
+
+def flash_attention_3xtf32_reference(
+    q: torch.Tensor,  # [B, Tq, H, d] f32
+    k: torch.Tensor,  # [B, Tk, Hkv, d]
+    v: torch.Tensor,
+    q_segment_ids: torch.Tensor,
+    kv_segment_ids: torch.Tensor,
+    q_positions: torch.Tensor,
+    kv_positions: torch.Tensor,
+    causal: bool = True,
+    sliding_window: Optional[int] = None,
+    scale: Optional[float] = None,
+    alibi: bool = False,
+    terms: int = 3,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The f32 route's arithmetic in plain PyTorch, for the tests (no path
+    calls it): `flash_attention_reference` with S = Q.K^T and O = P.V taken
+    from TF32 operands, `terms` 3 as the kernel does (3xTF32), 1 as a single
+    TF32 product would; P is split after the softmax, the row sum taken in
+    f32 from the unsplit P."""
+    if terms not in (1, 3):
+        raise ValueError(f"terms must be 1 or 3, got {terms}")
+    return _forward(q, k, v, q_segment_ids, kv_segment_ids, q_positions, kv_positions, causal,
+                    sliding_window, scale, alibi, False,
+                    lambda eq, a, b: _tf32_product(eq, a, b, terms))
 
 
 def flash_attention_bwd_reference(
@@ -221,6 +287,7 @@ def flash_attention(
 
 flash_attention.launches = 0
 flash_attention.mma_launches = 0  # those of the bf16 tensor-core route
+flash_attention.tf32_launches = 0  # those of the f32 route (3xTF32 on the tensor cores)
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, q_segment_ids, kv_segment_ids, q_positions,
@@ -272,15 +339,13 @@ def _check_qkv(name, q, k, v, *extra):
 
 
 def _row_aligned(t: torch.Tensor) -> torch.Tensor:
-    """The bf16 route loads rows by 16-byte cp.async: the data pointer and the
-    batch, time and head strides must be multiples of 16 bytes (8 elements).
-    A bf16 view that is not gets copied into a fresh contiguous tensor; it is
-    never sent down another route."""
-    if t.dtype != torch.bfloat16:
-        return t
-    st, shape = t.stride(), t.shape  # one call each: this runs for every launch
-    if (t.data_ptr() % 16 or (st[0] % 8 and shape[0] > 1) or (st[1] % 8 and shape[1] > 1)
-            or (st[2] % 8 and shape[2] > 1)):
+    """The tensor-core kernels load rows by 16-byte cp.async: the data pointer
+    and the batch, time and head strides must be multiples of 16 bytes (8
+    bf16 or 4 f32 elements).  A view that is not gets copied into a fresh
+    contiguous tensor; it is never sent down another route."""
+    st, shape, e = t.stride(), t.shape, 16 // t.element_size()  # this runs for every launch
+    if (t.data_ptr() % 16 or (st[0] % e and shape[0] > 1) or (st[1] % e and shape[1] > 1)
+            or (st[2] % e and shape[2] > 1)):
         return t.clone(memory_format=torch.contiguous_format)
     return t
 
@@ -318,6 +383,8 @@ def _launch(q, k, v, q_seg, kv_seg, q_pos, kv_pos, causal, window, scale, alibi)
              _build.DTYPE_CODES[q.dtype], _build.stream_ptr(q.device))
     _build.check(err, name)
     _count(flash_attention, q.dtype)
+    if q.dtype == torch.float32:
+        flash_attention.tf32_launches += 1
     return o, lse
 
 
