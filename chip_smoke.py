@@ -11,7 +11,11 @@ Phases:
      plus CUDA-event times of both.  Flash attention (K2, K5) has one route
      per dtype: bf16 on the tensor cores, held against the plain versions
      with round_operands=True (P and dS rounded to bf16 where the kernels
-     round them), f32 on the CUDA cores, held to 1e-4;
+     round them), f32 on the CUDA cores, held to 1e-4; K4's forward and its
+     backward kernel at the training shape (eager, from a CUDA graph, and
+     the plain autograd backward beside them); K6 at the four 7B projection
+     shapes and M 1 / 8 / 16, both routes, eager and from a CUDA graph,
+     beside torch._int_mm over rows padded to 17;
   4. slice: a full-width random UsdmPipeline (Mistral-7B bf16, XLS-R 1B,
      Voicebox, BigVGAN) runs two greedy respond() turns with stage budgets
      pinned at 48/32/256 tokens; every kernel of that path must have launched;
@@ -27,8 +31,8 @@ Phases:
      CPU, then the trainer CLI (usdm_tpu_torch.cli.train_voicebox) runs ~10
      full-width steps (VoiceboxConfig(), batch 8 of 16 s crops, bf16 over f32
      masters, per-layer remat) on synthetic noise clips; every kernel of that
-     path must have launched, and 5 steps on one fixed batch must lower the
-     loss;
+     path must have launched (K4's backward kernel too), and 5 steps on one
+     fixed batch must lower the loss;
   7. probes: X1 (io-layout bf16 and int8 matvecs), X2 (packed-int4 matvec)
      and X3 (weight-streaming probe, every mode) against their plain versions
      at the probe shapes (D 4096, F 14336, 16 layers), each timed over the
@@ -82,6 +86,11 @@ KERNELS = {
     "add_mask_ln": {
         "source": "usdm_tpu_torch/csrc/fused_ln.cu",
         "replaces": "usdm_tpu/ops/fused_ln.py:44",
+    },
+    "add_mask_ln_bwd": {
+        "source": "usdm_tpu_torch/csrc/fused_ln.cu (add_mask_ln_bwd_kernel, dw_db_reduce_kernel)",
+        "replaces": "usdm_tpu/ops/fused_ln.py:106 (the custom_vjp's backward of the kernel at "
+                    ":44)",
     },
     "flash_attention_bwd_dq": {
         "source": "usdm_tpu_torch/csrc/flash_attention_bwd_dq_mma.cu (bf16), "
@@ -164,7 +173,7 @@ def _counted() -> dict:
     return {"paged_decode_attention": PA.paged_decode_attention,
             "flash_attention": FL.flash_attention,
             "fused_activation1d": FA.fused_activation1d,
-            "add_mask_ln": LN.add_mask_ln,
+            "add_mask_ln": LN.add_mask_ln, "add_mask_ln_bwd": LN.add_mask_ln_bwd,
             "flash_attention_bwd_dq": FL.flash_attention_bwd_dq,
             "flash_attention_bwd_dkv": FL.flash_attention_bwd_dkv,
             "stream_qmv": SM.stream_qmv,
@@ -519,9 +528,12 @@ def kernel_checks(dev) -> dict:
             errs.append(check("K3", f"C={ch} T={tlen} {str(dtype)[6:]}", got, want, bound))
             if dtype == torch.float32:
                 stage_t.append((cuda_ms(lambda: FA.fused_activation1d(x, alpha, beta, True)),
-                                cuda_ms(lambda: FA.activation1d_reference(x, alpha, beta, True))))
-    for (ch, tlen), (km, pm) in zip(STAGES, stage_t):
-        log(f"  K3 time C={ch} T={tlen} f32: kernel {km:.4f} ms, plain {pm:.4f} ms")
+                                cuda_ms(lambda: FA.activation1d_reference(x, alpha, beta, True)),
+                                graph_ms(lambda: [FA.fused_activation1d(x, alpha, beta, True)
+                                                  for _ in range(10)], dev) / 10))
+    for (ch, tlen), (km, pm, gm) in zip(STAGES, stage_t):
+        log(f"  K3 time C={ch} T={tlen} f32: kernel {km:.4f} ms eager, {gm:.4f} ms from a CUDA "
+            f"graph, plain {pm:.4f} ms")
     # per element: 2x upsampling and 2x downsampling with 12-tap filters (12
     # multiply-adds each way) and the snake on the two upsampled values
     # (~6 operations each): ~60 f32 operations; f32 in and out, alpha, beta
@@ -529,10 +541,15 @@ def kernel_checks(dev) -> dict:
     results["fused_activation1d"] = {"max_abs_err": max(errs),
                                      "ms": sum(s[0] for s in stage_t),
                                      "plain_ms": sum(s[1] for s in stage_t),
+                                     "graph_ms": sum(s[2] for s in stage_t),
                                      **least_time(8 * elems + sum(8 * ch for ch, _ in STAGES),
                                                   60 * elems, "f32"),
                                      "library_ms": None,
                                      "case": "sum of one activation per stage, f32"}
+    k3 = results["fused_activation1d"]
+    log(f"  K3 one activation per stage, f32, summed: kernel {k3['ms']:.4f} ms eager, "
+        f"{k3['graph_ms']:.4f} ms from a CUDA graph, plain {k3['plain_ms']:.4f} ms, bound "
+        f"{k3['bound_ms']:.4f} ms ({k3['bound_by']})")
     return results
 
 
@@ -787,12 +804,16 @@ def train_kernel_checks(dev) -> dict:
     del q, k, v, do
 
     # K4: the estimator's residual + mask + LN at [8, 1379, 1024], ragged rows
+    # (int32 lengths, as the estimator passes them), forward and backward
     log("K4 add_mask_ln vs add_mask_ln_reference (bf16 bound 2^-6 * max|want|: two roundings "
-        "before the output, a flip of the first can carry; f32 bound 1e-5)")
-    errs, timing = [], None
-    ln_lens = lens  # valid rows incl. the time token
+        "before the output, a flip of the first can carry; f32 bound 1e-5); its backward "
+        "add_mask_ln_bwd vs add_mask_ln_backward_reference (dx = dr: bf16 2^-6 * max|want|, "
+        "f32 1e-5; dw, db: bf16 2^-6 * max|want|, f32 1e-6 * the largest column sum of the "
+        "terms' magnitudes, f32 sums in another order)")
+    errs, bwd_errs, timing = [], [], None
+    ln_lens = lens.to(torch.int32)  # valid rows incl. the time token
     for dtype in (torch.bfloat16, torch.float32):
-        x, r = randn(8, t1, 1024, dtype=dtype), randn(8, t1, 1024, dtype=dtype)
+        x, r, go = (randn(8, t1, 1024, dtype=dtype) for _ in range(3))
         w = (randn(1024) * 0.1 + 1.0).to(dtype)
         bb = (randn(1024) * 0.1).to(dtype)
         for post in (False, True):
@@ -801,18 +822,75 @@ def train_kernel_checks(dev) -> dict:
             bound = 2.0**-6 * want.float().abs().max().item() if dtype == torch.bfloat16 else 1e-5
             errs.append(check("K4", f"[8, 1379, 1024] {str(dtype)[6:]} post_mask={post}", got,
                               want, bound))
+            got = LN.add_mask_ln_bwd(x, r, ln_lens, w, go, post)
+            want = LN.add_mask_ln_backward_reference(x, r, ln_lens, w, go, post)
+            for name, gg, ww, bound in zip(("dx", "dr", "dw", "db"), got, want,
+                                           _ln_bwd_bounds(x, r, ln_lens, go, post, want)):
+                bwd_errs.append(check("K4 backward", f"[8, 1379, 1024] {str(dtype)[6:]} "
+                                      f"post_mask={post} {name}", gg, ww, bound))
+        leaves = [a.detach().requires_grad_() for a in (x, r, w, bb)]
+        out = LN.add_mask_ln_reference(leaves[0], leaves[1], ln_lens, leaves[2], leaves[3], True)
+        tag = str(dtype)[6:]
+        timing_d = {
+            "fwd": cuda_ms(lambda: LN.add_mask_ln(x, r, ln_lens, w, bb, True)),
+            "fwd_graph": graph_ms(lambda: [LN.add_mask_ln(x, r, ln_lens, w, bb, True)
+                                           for _ in range(10)], dev) / 10,
+            "fwd_plain": cuda_ms(lambda: LN.add_mask_ln_reference(x, r, ln_lens, w, bb, True)),
+            "bwd": cuda_ms(lambda: LN.add_mask_ln_bwd(x, r, ln_lens, w, go, True)),
+            "bwd_graph": graph_ms(lambda: [LN.add_mask_ln_bwd(x, r, ln_lens, w, go, True)
+                                           for _ in range(10)], dev) / 10,
+            "bwd_plain": cuda_ms(lambda: LN.add_mask_ln_backward_reference(x, r, ln_lens, w, go,
+                                                                           True)),
+            # the backward before this kernel: autograd through the plain forward
+            "bwd_autograd": cuda_ms(lambda: torch.autograd.grad(out, leaves, go,
+                                                                retain_graph=True))}
+        log(f"  K4 time [8, 1379, 1024] {tag} post_mask: forward kernel {timing_d['fwd']:.4f} ms "
+            f"eager, {timing_d['fwd_graph']:.4f} ms from a CUDA graph, plain "
+            f"{timing_d['fwd_plain']:.4f} ms; backward kernel {timing_d['bwd']:.4f} ms eager, "
+            f"{timing_d['bwd_graph']:.4f} ms from a CUDA graph, plain "
+            f"{timing_d['bwd_plain']:.4f} ms, autograd through the plain forward "
+            f"{timing_d['bwd_autograd']:.4f} ms")
         if dtype == torch.bfloat16:
-            timing = (cuda_ms(lambda: LN.add_mask_ln(x, r, ln_lens, w, bb, True)),
-                      cuda_ms(lambda: LN.add_mask_ln_reference(x, r, ln_lens, w, bb, True)))
-            # x, r in, out; ~8 operations per element (add, mask, mean,
-            # variance, normalize, scale, shift, mask)
+            timing = timing_d
+            # forward: x, r in, out; ~8 operations per element (add, mask,
+            # mean, variance, normalize, scale, shift, mask)
             k4_bound = least_time(3 * nbytes(x) + nbytes(w, bb, ln_lens), 8 * x.numel(), "bf16")
-    log(f"  K4 time [8, 1379, 1024] bf16 post_mask: kernel {timing[0]:.4f} ms, plain "
-        f"{timing[1]:.4f} ms")
-    results["add_mask_ln"] = {"max_abs_err": max(errs), "ms": timing[0], "plain_ms": timing[1],
-                              **k4_bound, "library_ms": None}
+            # backward: x, r, g in, dx out (dr is dx), dw and db out; ~20
+            # operations per element (the forward's again, dn, the sums, dx)
+            k4b_bound = least_time(4 * nbytes(x) + 3 * nbytes(w) + nbytes(ln_lens),
+                                   20 * x.numel(), "bf16")
+        del leaves, out
+    log(f"  K4 bounds bf16: forward {k4_bound['bound_ms']:.4f} ms, backward "
+        f"{k4b_bound['bound_ms']:.4f} ms ({k4b_bound['bound_by']})")
+    results["add_mask_ln"] = {"max_abs_err": max(errs), "ms": timing["fwd"],
+                              "plain_ms": timing["fwd_plain"], **k4_bound, "library_ms": None,
+                              "graph_ms": timing["fwd_graph"]}
+    results["add_mask_ln_bwd"] = {"max_abs_err": max(bwd_errs), "ms": timing["bwd"],
+                                  "plain_ms": timing["bwd_plain"], **k4b_bound,
+                                  "library_ms": None, "graph_ms": timing["bwd_graph"],
+                                  "autograd_ms": timing["bwd_autograd"]}
     return results
 
+
+def _ln_bwd_bounds(x, r, lengths, go, post_mask, want) -> list:
+    """K4 backward's bounds against its plain version: dx, dr 2^-6 * max|want|
+    in bf16 (both round dn and ds; a flip of dn can carry), 1e-5 in f32; dw,
+    db f32: 1e-6 of the largest column sum of the terms' magnitudes (f32
+    sums over rows in another order; the error grows with the terms, not
+    with the sum, which cancels); bf16: two bf16 ulps of the largest (the
+    one final rounding, single terms moved by a flip)."""
+    import torch
+
+    bf16 = x.dtype == torch.bfloat16
+    m = (torch.arange(x.shape[1], device=x.device)[None] < lengths[:, None]).to(x.dtype)[..., None]
+    xf = ((x + r) * m).float()
+    d = xf - xf.mean(-1, keepdim=True)
+    n = d * torch.rsqrt((d * d).mean(-1, keepdim=True) + 1e-5)
+    gy = (go * m if post_mask else go).float()
+    mags = ((gy * n).abs().sum((0, 1)).max().item(), gy.abs().sum((0, 1)).max().item())
+    dx_bound = 2.0**-6 * want[0].float().abs().max().item() if bf16 else 1e-5
+    return [dx_bound, dx_bound] + [2.0**-6 * ww.float().abs().max().item() if bf16
+                                   else 1e-6 * mag for ww, mag in zip(want[2:], mags)]
 
 
 def int8_kernel_checks(dev) -> dict:
@@ -849,35 +927,58 @@ def int8_kernel_checks(dev) -> dict:
             if worst > 1:
                 raise AssertionError(f"K6 bf16 M={m} [{dout}, {din}] off by {worst} ulps")
             errs.append(max_err(got, want))
-    # timed as a decode step streams them: 8 different [14336, 4096] weights
-    # in turn (470 MB), so none is found in the 50 MB L2; M 8, bf16 (path B)
-    m, dout, din = 8, 14336, 4096
-    ws = [Q.quantize_weight(torch.randn(din, dout, generator=gen, device=dev) * 0.02)
-          for _ in range(8)]
-    y = torch.randn(m, din, generator=gen, device=dev).bfloat16()
-    km = cuda_ms(lambda: [SM.stream_qmv(y, w) for w in ws]) / len(ws)
-    # the same 8 calls replayed from a CUDA graph: the device's time alone
-    # (the eager loop above also waits on the host's dispatch of each call)
-    km_graph = graph_ms(lambda: [SM.stream_qmv(y, w) for w in ws], dev) / len(ws)
-    pm = cuda_ms(lambda: [SM.stream_qmv_reference(y, w) for w in ws]) / len(ws)
-    deq = [Q.dequantize_weight(w) for w in ws]  # what int8 replaces: bf16 [Din, Dout]
-    bf16_ms = cuda_ms(lambda: [y @ w for w in deq]) / len(deq)
-    del deq
-    k6_bound = least_time(nbytes(y, ws[0]["q"], ws[0]["s"]) + m * dout * 2, 2 * m * dout * din,
-                          "int8")
-    times = {}
-    for mm in (1, 8, 16):
-        yy = torch.randn(mm, din, generator=gen, device=dev).bfloat16()
-        times[mm] = cuda_ms(lambda: [SM.stream_qmv(yy, w) for w in ws]) / len(ws)
-    log(f"  K6 time M=8 [{dout}, {din}] bf16, 8 weights in turn: kernel {km:.4f} ms, plain "
-        f"{pm:.4f} ms, bound {k6_bound['bound_ms']:.4f} ms ({k6_bound['bound_by']}); the bf16 "
-        f"matmul of the dequantized weight it replaces {bf16_ms:.4f} ms; the 8 calls replayed "
-        f"from a CUDA graph {km_graph:.4f} ms each; kernel at M=1/8/16: "
-        + ", ".join(f"{v:.4f}" for v in times.values()) + " ms")
-    results["stream_qmv"] = {"max_abs_err": max(errs), "ms": km, "plain_ms": pm, **k6_bound,
-                             "library_ms": None, "bf16_matmul_ms": bf16_ms,
-                             "case": "M=8 [14336, 4096] bf16"}
-    del ws
+    # timed as a decode step streams them: 8 different weights of a shape in
+    # turn (118-470 MB), so none is found in the 50 MB L2; bf16 rows as the
+    # paths give them (M 1: the W8A8 turn; M 8: the server's batch; M 16:
+    # the most K6 takes).  Eager (the host's dispatch included) and replayed
+    # from a CUDA graph (the device alone); at M 1 the A/B of the routes from
+    # a graph, the tensor cores forced through the test hook beside the
+    # planned __dp4a route; the library: torch._int_mm over the rows padded
+    # to 17 with qmm's quantize and epilogue around it.
+    from usdm_tpu_torch.scripts.common import int_mm
+
+    def library(yy, w):
+        qy, ys = SM.quantize_rows(yy)
+        return SM.epilogue(int_mm(qy, w["q"].t()), ys, w["s"], yy.dtype)
+
+    k6 = {}
+    for dout, din in ((14336, 4096), (4096, 14336), (4096, 4096), (1024, 4096)):
+        ws = [Q.quantize_weight(torch.randn(din, dout, generator=gen, device=dev) * 0.02)
+              for _ in range(8)]
+        for m in (1, 8, 16):
+            y = torch.randn(m, din, generator=gen, device=dev).bfloat16()
+            t = {name: fn() / len(ws) for name, fn in {
+                "ms": lambda: cuda_ms(lambda: [SM.stream_qmv(y, w) for w in ws]),
+                "graph_ms": lambda: graph_ms(lambda: [SM.stream_qmv(y, w) for w in ws], dev),
+                **({"tc_graph_ms": lambda: graph_ms(
+                    lambda: [SM._stream_qmv_route(y, w, torch.bfloat16, 1) for w in ws], dev)}
+                   if m <= 2 else {}),
+                "library_ms": lambda: cuda_ms(lambda: [library(y, w) for w in ws]),
+                "library_graph_ms": lambda: graph_ms(lambda: [library(y, w) for w in ws], dev),
+            }.items()}
+            t.update(least_time(nbytes(y, ws[0]["q"], ws[0]["s"]) + m * dout * 2,
+                                2 * m * dout * din, "int8"))
+            k6[(dout, din, m)] = t
+            log(f"  K6 time M={m} [{dout}, {din}] bf16, 8 weights in turn: eager {t['ms']:.4f} "
+                f"ms, graph {t['graph_ms']:.4f} ms ({t['bound_ms'] / t['graph_ms']:.0%} of the "
+                f"bound {t['bound_ms']:.4f} ms)"
+                + (f"; the tensor-core route forced: graph {t['tc_graph_ms']:.4f} ms"
+                   if m <= 2 else "")
+                + f"; torch._int_mm route eager {t['library_ms']:.4f} ms, graph "
+                f"{t['library_graph_ms']:.4f} ms")
+        if (dout, din) == (14336, 4096):
+            y = torch.randn(8, din, generator=gen, device=dev).bfloat16()
+            pm = cuda_ms(lambda: [SM.stream_qmv_reference(y, w) for w in ws]) / len(ws)
+            deq = [Q.dequantize_weight(w) for w in ws]  # what int8 replaces: bf16 [Din, Dout]
+            bf16_ms = cuda_ms(lambda: [y @ w for w in deq]) / len(deq)
+            del deq
+        del ws
+    k6_case = k6[(14336, 4096, 8)]
+    log(f"  K6 M=8 [14336, 4096]: plain {pm:.4f} ms, the bf16 matmul of the dequantized weight "
+        f"it replaces {bf16_ms:.4f} ms")
+    results["stream_qmv"] = {"max_abs_err": max(errs), "plain_ms": pm, **k6_case,
+                             "bf16_matmul_ms": bf16_ms, "case": "M=8 [14336, 4096] bf16",
+                             "cases": {f"M={m} [{o}, {i}]": v for (o, i, m), v in k6.items()}}
 
     # K1 int8: GQA 32/8, d 128, bf16 queries over int8 pools of 32 layer
     # regions with page-major f32 scales; page 64 (respond's engine) and 256
@@ -1353,6 +1454,7 @@ def _train_counters():
     from usdm_tpu_torch.ops import fused_ln as LN
 
     return {"flash_attention": FL.flash_attention, "add_mask_ln": LN.add_mask_ln,
+            "add_mask_ln_bwd": LN.add_mask_ln_bwd,
             "flash_attention_bwd_dq": FL.flash_attention_bwd_dq,
             "flash_attention_bwd_dkv": FL.flash_attention_bwd_dkv}
 
@@ -1752,14 +1854,19 @@ def _reply(obj: dict) -> None:
 
 def _worker_kernels(dev) -> dict:
     """K2's f32 cases (b) and (c) beside one scaled_dot_product_attention
-    call on the same f32 operands, and K1 at its two timed cases over 32
-    layer regions, through the public wrappers (the same in parent and
+    call on the same f32 operands, K1 at its two timed cases over 32 layer
+    regions, K6 at M 1 / 8 / 16 at the four 7B projection shapes and K4's
+    forward and autograd backward at the
+    training shape, through the public wrappers (the same in parent and
     change): eager and CUDA-graph ms."""
     import torch
 
     from usdm_tpu_torch.engine.paged_ops import quant_kv_token
+    from usdm_tpu_torch.models import quant as Q
     from usdm_tpu_torch.ops import flash_attention as FL
+    from usdm_tpu_torch.ops import fused_ln as LN
     from usdm_tpu_torch.ops import paged_attention as PA
+    from usdm_tpu_torch.ops import stream_matvec as SM
 
     gen = torch.Generator(device=dev).manual_seed(5)
     out = {}
@@ -1815,15 +1922,75 @@ def _worker_kernels(dev) -> dict:
 
         out[key] = {"ms": cuda_ms(step) / n_layers, "graph_ms": graph_ms(step, dev) / n_layers}
         del kp, vp, scales
+    # K6 at M 1 / 8 / 16 over 8 weights in turn, the four 7B projections
+    for dout, din in ((14336, 4096), (4096, 14336), (4096, 4096), (1024, 4096)):
+        ws = [Q.quantize_weight(torch.randn(din, dout, generator=gen, device=dev) * 0.02)
+              for _ in range(8)]
+        for m in (1, 8, 16):
+            y = torch.randn(m, din, generator=gen, device=dev).bfloat16()
+
+            def calls():
+                return [SM.stream_qmv(y, w) for w in ws]
+
+            out[f"k6_{dout}x{din}_m{m}"] = {"ms": cuda_ms(calls) / 8,
+                                            "graph_ms": graph_ms(calls, dev) / 8}
+        del ws
+    # K4 at the training shape, bf16: the forward, and the backward as the
+    # trainer runs it (autograd through add_mask_ln)
+    lens = torch.tensor([1379, 900, 1379, 1200, 640, 1379, 1000, 1301], device=dev,
+                        dtype=torch.int32)
+    x, r, go = (torch.randn(8, 1379, 1024, generator=gen, device=dev).bfloat16()
+                for _ in range(3))
+    w, b = (torch.randn(1024, generator=gen, device=dev).bfloat16() for _ in range(2))
+    leaves = [a.detach().requires_grad_() for a in (x, r, w, b)]
+    o = LN.add_mask_ln(*leaves[:2], lens, *leaves[2:], True)
+    out["k4"] = {"fwd_ms": cuda_ms(lambda: LN.add_mask_ln(x, r, lens, w, b, True)),
+                 "fwd_graph_ms": graph_ms(lambda: [LN.add_mask_ln(x, r, lens, w, b, True)
+                                                   for _ in range(10)], dev) / 10,
+                 "bwd_ms": cuda_ms(lambda: torch.autograd.grad(o, leaves, go,
+                                                               retain_graph=True))}
+    del x, r, go, leaves, o
     torch.cuda.empty_cache()
     return out
+
+
+def _worker_train(dev, tmp: str) -> dict:
+    """10 full-width CFM steps through the trainer CLI, as the train phase
+    runs them: median step time of steps 3-9, mel frames/s, peak memory."""
+    import shutil
+
+    import torch
+
+    from usdm_tpu_torch.cli import train_voicebox
+    from usdm_tpu_torch.core.config import CfmTrainConfig, MelConfig
+
+    filelist = os.path.join(tmp, "train.txt")
+    if not os.path.exists(filelist):
+        _write_train_data(tmp)
+    out = os.path.join(tmp, "train_out")
+    shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    train_voicebox.main(["--train_filelist", filelist, "--output_dir", out, "--max_steps", "10",
+                         "--synthesize_every", "0", "--save_every", "1000", "--seed", "37",
+                         "--device", str(dev)])
+    torch.cuda.synchronize()
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        step_s = [r["train/step_s"] for r in map(json.loads, f) if "train/loss" in r]
+    tc, mel_cfg = CfmTrainConfig(), MelConfig()
+    frames = tc.batch_size * (tc.out_size_seconds * mel_cfg.sampling_rate // mel_cfg.hop_size)
+    med = statistics.median(step_s[2:-1])
+    shutil.rmtree(out, ignore_errors=True)
+    return {"median_step_s": med, "frames_per_s": frames / med, "step_s": step_s,
+            "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30}
 
 
 def turn_worker(root: str) -> int:
     """One tree's side of --compare-with: imports usdm_tpu_torch from `root`,
     builds its kernels, then answers one JSON command per stdin line
-    ("kernels", "bf16_build", "turn", "bf16_close", "server_build", "load",
-    "exit") with one RESULT line."""
+    ("kernels", "bf16_build", "w8a8_build", "turn", "bf16_close",
+    "server_build", "load", "server_close", "train", "exit") with one RESULT
+    line."""
     import gc
 
     sys.path.insert(0, os.path.abspath(root))
@@ -1854,9 +2021,12 @@ def turn_worker(root: str) -> int:
         op = json.loads(line)["op"]
         if op == "kernels":
             _reply(_worker_kernels(dev))
-        elif op == "bf16_build":
-            pipe = UsdmPipeline.full_random(device=dev, seed=0)
+        elif op in ("bf16_build", "w8a8_build"):
+            int8 = op == "w8a8_build"
+            pipe = UsdmPipeline.full_random(device=dev, seed=0, lm_int8=int8, vb_int8=int8)
             _reply({})
+        elif op == "train":
+            _reply(_worker_train(dev, tmp))
         elif op == "turn":
             trace = {}
             t0 = time.perf_counter()
@@ -1905,18 +2075,24 @@ def turn_worker(root: str) -> int:
     return 0
 
 
-def compare_run(parent: str, out_dir: str) -> dict:
+COMPARE_CELLS = ("bf16", "w8a8", "load", "train")
+
+
+def compare_run(parent: str, out_dir: str, cells=COMPARE_CELLS) -> dict:
     """Parent and change, each in a worker process that imports its own
     tree's usdm_tpu_torch and builds its own kernels (nvcc one after the
     other: the build time is the host's speed marker), driven in turns on
-    one card: the kernels' times (parent, change, change, parent), one
-    warm-up bf16 turn each, then 3 bf16 turns each in the order P C C P P C,
-    then the int8 server load (warm-up inside the build) twice each, P C C P."""
+    one card: the kernels' times (parent, change, change, parent); then per
+    cell of `cells`: bf16 and W8A8 turns (one warm-up turn each, then 3 each
+    in the order P C C P P C), the int8 server load (warm-up inside the
+    build; twice each, P C C P), the CFM trainer's 10 steps (P C C P)."""
     import subprocess as sp
 
     roots = {"parent": os.path.abspath(parent),
              "change": os.path.dirname(os.path.abspath(__file__))}
-    workers, out = {}, {k: {"kernels": [], "turns": [], "loads": []} for k in roots}
+    workers = {}
+    out = {k: {"kernels": [], "turns": [], "w8a8_turns": [], "loads": [], "train": []}
+           for k in roots}
 
     def call(name, op):
         w = workers[name]
@@ -1931,6 +2107,16 @@ def compare_run(parent: str, out_dir: str) -> dict:
             log(f"  [{name}] {line.rstrip()}")
         raise RuntimeError(f"the {name} worker ended (exit {workers[name].wait()})")
 
+    def turns(build, key, label):
+        for name in roots:
+            call(name, build)
+            log(f"compare: {name} warm-up {label} turn {json.dumps(call(name, 'turn'))}")
+        for name in ("parent", "change", "change", "parent", "parent", "change"):
+            out[name][key].append(call(name, "turn"))
+            log(f"compare: {name} {label} turn {json.dumps(out[name][key][-1])}")
+        for name in roots:
+            call(name, "bf16_close")
+
     try:
         for name, root in roots.items():
             workers[name] = sp.Popen([sys.executable, os.path.abspath(__file__), "--turn-worker",
@@ -1941,26 +2127,28 @@ def compare_run(parent: str, out_dir: str) -> dict:
         for name in ("parent", "change", "change", "parent"):
             out[name]["kernels"].append(call(name, "kernels"))
             log(f"compare: {name} kernels {json.dumps(out[name]['kernels'][-1])}")
+        if "bf16" in cells:
+            turns("bf16_build", "turns", "bf16")
+        if "w8a8" in cells:
+            turns("w8a8_build", "w8a8_turns", "W8A8")
+        if "load" in cells:
+            for name in roots:
+                call(name, "server_build")
+            for name in ("parent", "change", "change", "parent"):
+                out[name]["loads"].append(call(name, "load"))
+                log(f"compare: {name} int8 server load {json.dumps(out[name]['loads'][-1])}")
+            for name in roots:
+                call(name, "server_close")
+        if "train" in cells:
+            for name in ("parent", "change", "change", "parent"):
+                out[name]["train"].append(call(name, "train"))
+                log(f"compare: {name} CFM train {json.dumps(out[name]['train'][-1])}")
         for name in roots:
-            call(name, "bf16_build")
-            log(f"compare: {name} warm-up turn {json.dumps(call(name, 'turn'))}")
-        for name in ("parent", "change", "change", "parent", "parent", "change"):
-            out[name]["turns"].append(call(name, "turn"))
-            log(f"compare: {name} bf16 turn {json.dumps(out[name]['turns'][-1])}")
-        for name in roots:
-            call(name, "bf16_close")
-        for name in roots:
-            call(name, "server_build")
-        for name in ("parent", "change", "change", "parent"):
-            out[name]["loads"].append(call(name, "load"))
-            log(f"compare: {name} int8 server load {json.dumps(out[name]['loads'][-1])}")
-        for name in roots:
-            call(name, "server_close")
-            call_exit = workers[name]
-            call_exit.stdin.write(json.dumps({"op": "exit"}) + "\n")
-            call_exit.stdin.close()
-            if call_exit.wait(timeout=120) != 0:
-                raise AssertionError(f"the {name} worker exited with {call_exit.returncode}")
+            w = workers[name]
+            w.stdin.write(json.dumps({"op": "exit"}) + "\n")
+            w.stdin.close()
+            if w.wait(timeout=120) != 0:
+                raise AssertionError(f"the {name} worker exited with {w.returncode}")
     finally:
         for w in workers.values():
             if w.poll() is None:
@@ -1989,9 +2177,13 @@ def main() -> int:
     ap.add_argument("--out-dir", default="chip_smoke_out",
                     help="where the nvcc log and the profile table are written")
     ap.add_argument("--compare-with", metavar="PARENT",
-                    help="instead of the phases: time kernels, bf16 turns and int8 server "
-                         "loads of the usdm_tpu_torch in PARENT (a checkout of another "
-                         "commit) and of this checkout, in turns on one card")
+                    help="instead of the phases: time kernels, bf16 and W8A8 turns, int8 "
+                         "server loads and CFM train steps of the usdm_tpu_torch in PARENT (a "
+                         "checkout of another commit) and of this checkout, in turns on one "
+                         "card")
+    ap.add_argument("--compare-cells", default=",".join(COMPARE_CELLS),
+                    help="with --compare-with: which of " + ", ".join(COMPARE_CELLS)
+                         + " to time after the kernels (comma-separated)")
     ap.add_argument("--turn-worker", metavar="ROOT", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
@@ -2017,7 +2209,10 @@ def main() -> int:
 
     if args.compare_with:  # each worker builds its own tree's kernels
         os.makedirs(args.out_dir, exist_ok=True)
-        print(json.dumps({"compare": compare_run(args.compare_with, args.out_dir)}))
+        cells = tuple(c for c in args.compare_cells.split(",") if c)
+        if not set(cells) <= set(COMPARE_CELLS):
+            ap.error(f"--compare-cells: {cells} not among {COMPARE_CELLS}")
+        print(json.dumps({"compare": compare_run(args.compare_with, args.out_dir, cells)}))
         print(smi.stdout.strip())
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                                  "count": torch.cuda.device_count()}}))
@@ -2062,8 +2257,8 @@ def main() -> int:
     a, b = int8["A"]["launches"], int8["B"]["launches"]
     launches = {**{k: bf16[k] for k in ("paged_decode_attention", "flash_attention",
                                          "flash_attention_f32", "fused_activation1d")},
-                **{k: train[k] for k in ("add_mask_ln", "flash_attention_bwd_dq",
-                                         "flash_attention_bwd_dkv")},
+                **{k: train[k] for k in ("add_mask_ln", "add_mask_ln_bwd",
+                                         "flash_attention_bwd_dq", "flash_attention_bwd_dkv")},
                 "stream_qmv": a["stream_qmv"] + b["stream_qmv"],
                 "paged_decode_attention_int8": b["paged_decode_attention_int8"],
                 **{k: probes[k] for k in ("mv_io_bf16", "mv_io_i8", "qmv4", "stream_probe")}}

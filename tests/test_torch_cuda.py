@@ -470,6 +470,108 @@ def test_fused_ln_takes_channel_first_rows(cuda):
     assert (got - want).abs().max().item() <= 1e-5  # f32 both sides
 
 
+def _ln_bwd_case(cuda, t_len, h, dtype, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed + t_len + h)
+    x, r, go = (torch.randn(3, t_len, h, generator=g, device=cuda).to(dtype) for _ in range(3))
+    w = (torch.randn(h, generator=g, device=cuda) * 0.1 + 1.0).to(dtype)
+    b = (torch.randn(h, generator=g, device=cuda) * 0.1).to(dtype)
+    lengths = torch.tensor([t_len, max(t_len // 2, 1), 0], device=cuda)
+    return x, r, lengths, w, b, go
+
+
+def _ln_bwd_bounds(x, r, lengths, w, go, post_mask, want):
+    """dx, dr: 2^-6 * max|want| in bf16 (both round dn and ds; a flip of dn
+    can carry), 1e-5 in f32.  dw, db: f32 sums over rows in another order,
+    at most 1e-6 of the sum of the terms' magnitudes (a column's error grows
+    with its terms, not with the sum, which cancels); bf16: two bf16 ulps of
+    the largest (the one final rounding, and single terms moved by a flip of
+    n or gy * n)."""
+    bf16 = x.dtype == torch.bfloat16
+    m = (torch.arange(x.shape[1], device=x.device)[None] < lengths[:, None]).to(x.dtype)[..., None]
+    xf = ((x + r) * m).float()
+    d = xf - xf.mean(-1, keepdim=True)
+    n = d * torch.rsqrt((d * d).mean(-1, keepdim=True) + 1e-5)
+    gy = (go * m if post_mask else go).float()
+    mags = ((gy * n).abs().sum((0, 1)).max().item(), gy.abs().sum((0, 1)).max().item())
+    dx_bound = 2.0**-6 * want[0].float().abs().max().item() if bf16 else 1e-5
+    return [dx_bound, dx_bound] + [
+        2.0**-6 * ww.float().abs().max().item() if bf16 else 1e-6 * mag
+        for ww, mag in zip(want[2:], mags)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t_len", [1, 7, 1379])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("post_mask", [False, True])
+def test_fused_ln_bwd_kernel_matches_plain(cuda, t_len, dtype, post_mask):
+    """K4's backward kernel at three row counts with ragged lengths (a row of
+    zero length too), H 1024, against add_mask_ln_backward_reference and
+    against torch.autograd through add_mask_ln_reference, within
+    _ln_bwd_bounds; dx and dr are one tensor."""
+    x, r, lengths, w, b, go = _ln_bwd_case(cuda, t_len, 1024, dtype)
+    before = LN.add_mask_ln_bwd.launches
+    got = LN.add_mask_ln_bwd(x, r, lengths, w, go, post_mask)
+    assert LN.add_mask_ln_bwd.launches == before + 1 and got[0] is got[1]
+    want = LN.add_mask_ln_backward_reference(x, r, lengths, w, go, post_mask)
+    leaves = [a.detach().requires_grad_() for a in (x, r, w, b)]
+    out = LN.add_mask_ln_reference(leaves[0], leaves[1], lengths, leaves[2], leaves[3], post_mask)
+    auto = torch.autograd.grad(out, leaves, go)
+    for ref in (want, auto):
+        bounds = _ln_bwd_bounds(x, r, lengths, w, go, post_mask, ref)
+        for name, gg, ww, bound in zip(("dx", "dr", "dw", "db"), got, ref, bounds):
+            assert gg.dtype == dtype and gg.shape == ww.shape, name
+            assert (gg.float() - ww.float()).abs().max().item() <= bound, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [128, 256, 384, 640, 2048, 4096])
+def test_fused_ln_bwd_kernel_widths(cuda, h):
+    """Every width class of the backward (a row over 1, 2, 4 or 8 warps, and
+    widths that leave a warp's last chunks idle), f32 and bf16."""
+    for dtype in (torch.float32, torch.bfloat16):
+        x, r, lengths, w, b, go = _ln_bwd_case(cuda, 50, h, dtype, seed=1)
+        got = LN.add_mask_ln_bwd(x, r, lengths, w, go, True)
+        want = LN.add_mask_ln_backward_reference(x, r, lengths, w, go, True)
+        bounds = _ln_bwd_bounds(x, r, lengths, w, go, True, want)
+        for name, gg, ww, bound in zip(("dx", "dr", "dw", "db"), got, want, bounds):
+            assert (gg.float() - ww.float()).abs().max().item() <= bound, (name, dtype)
+
+
+@pytest.mark.cuda
+def test_fused_ln_bwd_repeats_bit_for_bit(cuda):
+    """dw and db are summed in a fixed order (no float atomics): two runs
+    give the same bits."""
+    x, r, lengths, w, b, go = _ln_bwd_case(cuda, 1379, 1024, torch.float32)
+    one = LN.add_mask_ln_bwd(x, r, lengths, w, go)
+    two = LN.add_mask_ln_bwd(x, r, lengths, w, go)
+    assert all(torch.equal(a, c) for a, c in zip(one, two))
+
+
+@pytest.mark.cuda
+def test_fused_ln_function_backward_runs_no_plain_op(cuda, monkeypatch):
+    """On CUDA tensors the Function's backward launches the kernel: with
+    both plain versions made to raise, a bf16 forward and backward through
+    add_mask_ln still run, and their gradients match the plain backward."""
+    x, r, lengths, w, b, go = _ln_bwd_case(cuda, 300, 1024, torch.bfloat16)
+    want = LN.add_mask_ln_backward_reference(x, r, lengths, w, go, True)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on CUDA tensors")
+
+    monkeypatch.setattr(LN, "add_mask_ln_reference", refuse)
+    monkeypatch.setattr(LN, "add_mask_ln_backward_reference", refuse)
+    leaves = [a.detach().requires_grad_() for a in (x, r, w, b)]
+    before = (LN.add_mask_ln.launches, LN.add_mask_ln_bwd.launches)
+    out = LN.add_mask_ln(leaves[0], leaves[1], lengths.to(torch.int32), leaves[2], leaves[3],
+                         True)
+    got = torch.autograd.grad(out, leaves, go)
+    assert (LN.add_mask_ln.launches, LN.add_mask_ln_bwd.launches) == (before[0] + 1,
+                                                                      before[1] + 1)
+    for name, gg, ww in zip(("dx", "dr", "dw", "db"), got, want):
+        assert (gg.float() - ww.float()).abs().max().item() <= (
+            2.0**-6 * ww.float().abs().max().item()), name
+
+
 # ----------------------------------------------------------------- K1 int8
 def _int8_case(cuda, seq, page, window):
     """GQA 32/8, d 128, bf16 queries over int8 pools with page-major f32
@@ -652,6 +754,86 @@ def test_stream_qmv_kernel_matches_plain(cuda, m, dout, din):
     want_b = SM.stream_qmv_reference(yb, w, torch.bfloat16).float()
     ulp = torch.exp2(torch.floor(torch.log2(want_b.abs().clamp(min=1e-30))) - 7)
     assert ((got_b - want_b).abs() <= ulp).all()
+
+
+def _assert_qmv_exact(y, w, route=None):
+    """f32 out bit for bit; bf16 activations and out within one bf16 ulp
+    (route: the kernel's plan, or a route forced through the test hook)."""
+    def qmv(yy, dtype):
+        return SM.stream_qmv(yy, w, dtype) if route is None else SM._stream_qmv_route(
+            yy, w, dtype, route)
+    got = qmv(y, torch.float32)
+    assert torch.equal(got, SM.stream_qmv_reference(y, w, torch.float32))
+    yb = y.bfloat16()
+    got_b = qmv(yb, torch.bfloat16).float()
+    want_b = SM.stream_qmv_reference(yb, w, torch.bfloat16).float()
+    ulp = torch.exp2(torch.floor(torch.log2(want_b.abs().clamp(min=1e-30))) - 7)
+    assert ((got_b - want_b).abs() <= ulp).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", list(range(1, 17)))
+@pytest.mark.parametrize("dout,din", [(1024, 4096), (300, 1040)])
+def test_stream_qmv_every_row_count(cuda, m, dout, din):
+    """K6 at every M from 1 to 16 (one n-tile up to 8, two above; odd M
+    leave columns of a tile idle), at a 7B shape and at Din 1040 (not a
+    multiple of the kernel's 64-byte k-chunk) with Dout 300 (not a multiple
+    of its 16-row tile)."""
+    _assert_qmv_exact(*_qmv_case(cuda, m, dout, din))
+
+
+@pytest.mark.cuda
+def test_stream_qmv_zero_row_and_ties(cuda):
+    """Row 0 all zero (its scale is the 1e-8 floor and every product 0);
+    row 1 with amax 127, so its scale is 1 and its values on .5 ties
+    quantize half to even, as the plain version does."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    w = Q.quantize_weight(torch.randn(1024, 512, generator=g, device=cuda) * 0.02)
+    y = torch.randn(3, 1024, generator=g, device=cuda)
+    y[0] = 0.0
+    ties = torch.tensor([0.5, 1.5, 2.5, -0.5, -2.5, 126.5, -126.5, 127.0], device=cuda)
+    y[1] = ties.repeat(128)
+    qy, ys = SM.quantize_rows(y)
+    assert ys[0].item() == pytest.approx(1e-8) and ys[1].item() == 1.0
+    assert qy[1, :8].tolist() == [0, 2, 2, 0, -2, 126, -126, 127]
+    _assert_qmv_exact(y, w)
+    assert not SM.stream_qmv(y, w, torch.float32)[0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 2, 3, 8, 13, 16])
+@pytest.mark.parametrize("dout,din", [(1024, 4096), (512, 1040), (4096, 14336)])
+def test_stream_qmv_plans_agree(cuda, m, dout, din):
+    """Both routes give the same bits (the integer sum has no order): the
+    tensor cores, the row scales by the pre-pass and Din split over the
+    planned cluster, at every M; __dp4a, the row scales found in its one
+    launch, at 1-2 rows."""
+    y, w = _qmv_case(cuda, m, dout, din)
+    for route in SM.ROUTES:
+        if route == 1 or m <= 2:
+            _assert_qmv_exact(y, w, route)
+
+
+@pytest.mark.cuda
+def test_stream_qmv_graph_replay_and_allocations(cuda):
+    """One call allocates only its output, and the call captured in a CUDA
+    graph replays to the eager result's bits."""
+    y, w = _qmv_case(cuda, 8, 1024, 4096)
+    SM.stream_qmv(y, w)  # build and load the kernels first
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    eager = SM.stream_qmv(y, w, torch.float32)
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] == before + 1
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        with torch.cuda.graph(graph, stream=stream):
+            out = SM.stream_qmv(y, w, torch.float32)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
 
 
 @pytest.mark.cuda

@@ -257,8 +257,9 @@ def test_fused_ln_plain_bf16_matches_jax(rng):
 
 @pytest.mark.parametrize("post_mask", [False, True])
 def test_fused_ln_grads_match_jax(rng, post_mask):
-    """The Function's backward (plain recompute) against the JAX custom_vjp
-    (also a recompute through `_xla_ref`); lengths get no gradient."""
+    """The Function's backward (on the CPU, add_mask_ln_backward_reference)
+    against the JAX custom_vjp (a recompute through `_xla_ref`); lengths get
+    no gradient."""
     x, r, lengths, w, b = _ln_inputs(rng, 3, 40, 128)
     g = rng.standard_normal(x.shape).astype(np.float32)
 
@@ -271,3 +272,55 @@ def test_fused_ln_grads_match_jax(rng, post_mask):
     got = torch.autograd.grad((out * t(g)).sum(), ins)
     for gg, jw in zip(got, want):
         np.testing.assert_allclose(gg.numpy(), np.asarray(jw), rtol=1e-4, atol=1e-4)  # f32 sums
+
+
+@pytest.mark.parametrize("post_mask", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_ln_backward_reference_matches_jax(rng, post_mask, dtype):
+    """The plain backward (the CPU route and the card kernel's yardstick)
+    against jax.grad of usdm_tpu's add_mask_ln, on the inputs of
+    test_fused_ln_grads_match_jax.  f32: 1e-4 (f32 sums in another order).
+    bf16: dx and dr within two bf16 ulps of the largest (2^-6 * max|want|:
+    both round dn and ds, and a flip of dn can carry); dw and db within
+    four (2^-5 * max|want|): XLA sums the bf16 products of its vjp in its own
+    order and precision before the one rounding both sides make."""
+    x, r, lengths, w, b = _ln_inputs(rng, 3, 40, 128)
+    g = rng.standard_normal(x.shape).astype(np.float32)
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "float32" else (jnp.bfloat16,
+                                                                        torch.bfloat16)
+
+    def jfn(x, r, w, b):
+        return JLN.add_mask_ln(x, r, jnp.asarray(lengths), w, b, post_mask)
+
+    _, vjp = jax.vjp(jfn, *(jnp.asarray(a, jdt) for a in (x, r, w, b)))
+    want = vjp(jnp.asarray(g, jdt))
+    got = LN.add_mask_ln_backward_reference(t(x).to(tdt), t(r).to(tdt), t(lengths), t(w).to(tdt),
+                                            t(g).to(tdt), post_mask)
+    assert got[0] is got[1]  # dx and dr are one tensor
+    for name, gg, jw in zip(("dx", "dr", "dw", "db"), got, want):
+        ww = np.asarray(jw, np.float32)
+        if dtype == "float32":
+            np.testing.assert_allclose(gg.numpy(), ww, rtol=1e-4, atol=1e-4, err_msg=name)
+        else:
+            bound = (2.0**-6 if name in ("dx", "dr") else 2.0**-5) * np.abs(ww).max()
+            assert np.abs(gg.float().numpy() - ww).max() <= bound, name
+
+
+@pytest.mark.parametrize("post_mask", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_ln_backward_reference_matches_autograd(rng, post_mask, dtype):
+    """The plain backward written out against torch.autograd through the
+    plain forward, whose roundings it names: f32 within 1e-5 of the largest
+    value of each gradient (the LayerNorm backward's algebra in another
+    order); bf16 within two bf16 ulps of it (a flip of dn or ds can carry)."""
+    x, r, lengths, w, b = _ln_inputs(rng, 3, 57, 256)
+    g = rng.standard_normal(x.shape).astype(np.float32)
+    ins = [t(a).to(dtype).requires_grad_() for a in (x, r, w, b)]
+    out = LN.add_mask_ln_reference(ins[0], ins[1], t(lengths), ins[2], ins[3], post_mask)
+    want = torch.autograd.grad(out, ins, t(g).to(dtype))
+    got = LN.add_mask_ln_backward_reference(*(a.detach() for a in ins[:2]), t(lengths),
+                                            ins[2].detach(), t(g).to(dtype), post_mask)
+    for name, gg, ww in zip(("dx", "dr", "dw", "db"), got, want):
+        scale = ww.float().abs().max().item()
+        bound = 1e-5 * scale if dtype == torch.float32 else 2.0**-6 * scale
+        assert (gg.float() - ww.float()).abs().max().item() <= bound, name

@@ -183,7 +183,7 @@ def test_estimator_bf16_params_match_jax(vb, rng):
                                               ("flash", "plain", True)])
 def test_estimator_paths_match_jax(vb, rng, attn, fused, remat):
     """f32: the port's flash (plain versions of K2 and K5 on the CPU), fused
-    LayerNorm (plain version of K4, its recompute backward) and remat paths
+    LayerNorm (plain versions of K4's forward and backward) and remat paths
     against usdm_tpu's estimator on its own flash + fused + remat path
     (Pallas interpret), forward and parameter gradients of sum(out * w):
     outputs within 1e-4, each gradient leaf within 1e-4 relative plus 1e-4 of
@@ -204,6 +204,26 @@ def test_estimator_paths_match_jax(vb, rng, attn, fused, remat):
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
     (got * t(w)).sum().backward()
     close_trees(tree_map(lambda a: a.grad, tp), want_grads, rtol=1e-4, atol_frac=1e-4)
+
+
+def test_estimator_casts_ln_lengths_once(vb, rng, monkeypatch):
+    """The fused-LN path hands K4 int32 lengths, one tensor made once per
+    forward, so the K4 wrapper's cast is a no-op and not a launch per call;
+    the caller's int64 lengths are accepted as before."""
+    cfg, jp = vb
+    x, y, cond, tt, lens = _est_inputs(rng, cfg)
+    seen, real = [], VB.add_mask_ln
+
+    def spy(xx, r, lengths, *args, **kwargs):
+        seen.append(lengths)
+        return real(xx, r, lengths, *args, **kwargs)
+
+    monkeypatch.setattr(VB, "add_mask_ln", spy)
+    tp = bridge.voicebox_from_jax(jax.device_get(jp))
+    VB.estimator(tp, port_cfg(cfg), t(x).long(), t(y), t(cond), t(tt), t(lens).long(),
+                 fused_ln="fused")
+    assert len(seen) == 2 * cfg.num_layers
+    assert all(s.dtype == torch.int32 for s in seen) and len({id(s) for s in seen}) == 1
 
 
 def _train_batch(rng, cfg, b=2, tlen=24):

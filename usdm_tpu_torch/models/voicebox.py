@@ -203,8 +203,10 @@ def estimator(params: Params, cfg: VoiceboxConfig, x_units: torch.Tensor, y: tor
         h = _conv_pos_embed(w, bb, h, y_mask, cfg.convpos_groups, cfg.convpos_width)
     h = layer_norm(h + pos_res, params["ln0_w"], params["ln0_b"]) * y_mask
 
+    # K4 reads int32 lengths: cast once here, not in each of its calls
+    ln_lengths = lengths1.to(torch.int32) if use_fused else None
     layer = functools.partial(_encoder_layer, cfg, y_mask=y_mask, bias=bias,
-                              flash_ctx=flash_ctx, ln_lengths=lengths1 if use_fused else None)
+                              flash_ctx=flash_ctx, ln_lengths=ln_lengths)
     if remat:
         layer = functools.partial(checkpoint, layer, use_reentrant=False)
     half = cfg.num_layers // 2

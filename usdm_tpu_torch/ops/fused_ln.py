@@ -7,10 +7,12 @@ Port of usdm_tpu/ops/fused_ln.py, the Voicebox estimator's post-LN step:
 with f32 statistics, the normalized row rounded to the input dtype before the
 scale and shift, and row t of batch b valid iff t < lengths[b] (the mask is
 computed from `lengths`, never streamed).  `add_mask_ln` is a
-`torch.autograd.Function` like the JAX custom_vjp: its forward launches the
-kernel for CUDA tensors and runs the plain version for CPU tensors; its
-backward recomputes through the plain version with torch.autograd, as the JAX
-backward does through `_xla_ref`.  `lengths` gets no gradient.
+`torch.autograd.Function` like the JAX custom_vjp.  For CUDA tensors its
+forward and its backward each launch a kernel (`add_mask_ln_bwd`: one
+streaming pass for dx = dr, then a fixed-order sum of the per-block dw / db
+partials); for CPU tensors they run the plain versions `add_mask_ln_reference`
+and `add_mask_ln_backward_reference`, the vjp of usdm_tpu's `_xla_ref`
+written out.  `lengths` gets no gradient.
 """
 
 from __future__ import annotations
@@ -23,6 +25,9 @@ from usdm_tpu_torch.ops import _build
 
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+                 + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+BWD_MAX_BLOCKS = 264  # the backward's grid at most: two blocks per SM on 132 SMs
 
 
 def add_mask_ln_reference(x: torch.Tensor, r: torch.Tensor, lengths: torch.Tensor,
@@ -41,24 +46,51 @@ def add_mask_ln_reference(x: torch.Tensor, r: torch.Tensor, lengths: torch.Tenso
     return y * m if post_mask else y
 
 
+def add_mask_ln_backward_reference(x: torch.Tensor, r: torch.Tensor, lengths: torch.Tensor,
+                                   w: torch.Tensor, g: torch.Tensor, post_mask: bool = False,
+                                   eps: float = 1e-5):
+    """Plain version of the backward: the vjp of `add_mask_ln_reference` in
+    the direction g [B, T, H], step by step as the kernel computes it ->
+    (dx, dr, dw, db); dx and dr are one tensor.  Roundings to x's dtype where
+    the forward's tensor ops round: dn = round(gy * w), each row's
+    round(gy * n) before dw's sum, the sums of dw and db, and ds."""
+    t = x.shape[1]
+    m = (torch.arange(t, device=x.device)[None, :] < lengths[:, None]).to(x.dtype)[:, :, None]
+    xf = ((x + r) * m).float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    d = xf - mu
+    rstd = torch.rsqrt((d * d).mean(dim=-1, keepdim=True) + eps)
+    nf = d * rstd  # the normalized row before its rounding
+    gy = g * m if post_mask else g
+    db = gy.float().sum(dim=(0, 1)).to(x.dtype)
+    dw = (gy * nf.to(x.dtype)).float().sum(dim=(0, 1)).to(x.dtype)
+    dn = (gy * w).float()
+    dd = rstd * (dn - nf * (dn * nf).mean(dim=-1, keepdim=True))
+    ds = (dd - dd.mean(dim=-1, keepdim=True)).to(x.dtype) * m
+    return ds, ds, dw, db
+
+
 class _AddMaskLN(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, r, lengths, w, b, post_mask, eps):
-        ctx.save_for_backward(x, r, lengths, w, b)
         ctx.attrs = (post_mask, eps)
         if x.device.type == "cpu":
+            ctx.save_for_backward(x, r, lengths, w, b)
             return add_mask_ln_reference(x, r, lengths, w, b, post_mask, eps)
         # the estimator's first layer gets its input in the positional conv's
-        # channel-first layout; the kernel reads rows
-        return _launch(x.contiguous(), r.contiguous(), lengths, w, b, post_mask, eps)
+        # channel-first layout; the kernels read rows, so the rows are saved
+        x, r = x.contiguous(), r.contiguous()
+        ctx.save_for_backward(x, r, lengths, w, b)
+        return _launch(x, r, lengths, w, b, post_mask, eps)
 
     @staticmethod
     def backward(ctx, g):
-        x, r, lengths, w, b = ctx.saved_tensors
-        with torch.enable_grad():
-            ins = [t.detach().requires_grad_() for t in (x, r, w, b)]
-            out = add_mask_ln_reference(ins[0], ins[1], lengths, ins[2], ins[3], *ctx.attrs)
-            dx, dr, dw, db = torch.autograd.grad(out, ins, g)
+        x, r, lengths, w, _ = ctx.saved_tensors
+        if x.device.type == "cpu":
+            grads = add_mask_ln_backward_reference(x, r, lengths, w, g, *ctx.attrs)
+        else:
+            grads = add_mask_ln_bwd(x, r, lengths, w, g.contiguous(), *ctx.attrs)
+        dx, dr, dw, db = grads
         return dx, dr, None, dw, db, None, None
 
 
@@ -72,8 +104,7 @@ def add_mask_ln(x: torch.Tensor, r: torch.Tensor, lengths: torch.Tensor, w: torc
 add_mask_ln.launches = 0
 
 
-def _launch(x, r, lengths, w, b, post_mask, eps):
-    name = "add_mask_ln"
+def _check(name, x, r, lengths, w, b):
     _build.require_cuda(name, x, r, lengths, w, b)
     bsz, t, h = x.shape
     if r.shape != x.shape or w.shape != (h,) or b.shape != (h,) or lengths.shape != (bsz,):
@@ -87,7 +118,13 @@ def _launch(x, r, lengths, w, b, post_mask, eps):
     for a in (x, r, w, b):  # the kernel reads 4 neighbouring values at once
         if not a.is_contiguous() or a.data_ptr() % 16:
             raise ValueError(f"{name}: operands must be contiguous and 16-byte aligned")
-    lengths = lengths.to(torch.int32).contiguous()
+
+
+def _launch(x, r, lengths, w, b, post_mask, eps):
+    name = "add_mask_ln"
+    _check(name, x, r, lengths, w, b)
+    bsz, t, h = x.shape
+    lengths = lengths.to(torch.int32).contiguous()  # a no-op for the estimator's int32 lengths
     out = torch.empty_like(x)
     fn = _build.kernel("usdm_add_mask_ln", _ARGTYPES)
     err = fn(x.data_ptr(), r.data_ptr(), lengths.data_ptr(), w.data_ptr(), b.data_ptr(),
@@ -96,3 +133,34 @@ def _launch(x, r, lengths, w, b, post_mask, eps):
     _build.check(err, name)
     add_mask_ln.launches += 1
     return out
+
+
+def add_mask_ln_bwd(x: torch.Tensor, r: torch.Tensor, lengths: torch.Tensor, w: torch.Tensor,
+                    g: torch.Tensor, post_mask: bool = False, eps: float = 1e-5):
+    """The backward kernel on CUDA tensors: (dx, dr, dw, db) of
+    `add_mask_ln_backward_reference`, dx and dr one tensor.  Raises on CPU
+    tensors (the Function's CPU route runs the plain version)."""
+    name = "add_mask_ln_bwd"
+    _check(name, x, r, lengths, w, w)
+    _build.require_cuda(name, x, g)
+    if (g.shape != x.shape or g.dtype != x.dtype or not g.is_contiguous()
+            or g.data_ptr() % 16):
+        raise ValueError(f"{name}: g {tuple(g.shape)} {g.dtype} must match x {tuple(x.shape)} "
+                         f"{x.dtype}, contiguous and 16-byte aligned")
+    bsz, t, h = x.shape
+    lengths = lengths.to(torch.int32).contiguous()
+    n_blocks = min(BWD_MAX_BLOCKS, bsz * t)  # blocks past the last row add zeros
+    dx = torch.empty_like(x)
+    dw, db = torch.empty_like(w), torch.empty_like(w)
+    part = torch.empty((n_blocks, 2, h), dtype=torch.float32, device=x.device)
+    fn = _build.kernel("usdm_add_mask_ln_bwd", _BWD_ARGTYPES)
+    err = fn(x.data_ptr(), r.data_ptr(), g.data_ptr(), lengths.data_ptr(), w.data_ptr(),
+             dx.data_ptr(), dw.data_ptr(), db.data_ptr(), part.data_ptr(), bsz, t, h,
+             int(post_mask), float(eps), n_blocks, _build.DTYPE_CODES[x.dtype],
+             _build.stream_ptr(x.device))
+    _build.check(err, name)
+    add_mask_ln_bwd.launches += 1
+    return dx, dx, dw, db
+
+
+add_mask_ln_bwd.launches = 0

@@ -9,7 +9,13 @@ order of models/quant.py `qmm`, so qmm gives one function whatever routes
 it), cast to `out_dtype`.
 
 `stream_qmv` launches the CUDA kernel for CUDA tensors and runs
-`stream_qmv_reference` for CPU tensors.
+`stream_qmv_reference` for CPU tensors.  The kernel quantizes the rows into
+shared memory on the way to the products (qx never reaches device
+memory); the wrapper makes one allocation, `out`, whose buffer also holds
+the 16 floats of row scales that a pre-pass launch writes from 3 rows on.
+The kernel picks its route by M: at 1-2 rows __dp4a on the CUDA cores, the
+block finding the row scales itself; from 3 rows the int8 tensor cores,
+Din split over a thread-block cluster.
 """
 
 from __future__ import annotations
@@ -23,7 +29,9 @@ from usdm_tpu_torch.ops import _build
 
 MAX_ROWS = 16  # rows of y the kernel takes (decode batches)
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ROUTE_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+ROUTES = (1, 2)  # the int8 tensor cores; __dp4a on the CUDA cores (at most 2 rows)
 
 
 def symmetric_scale(amax: torch.Tensor) -> torch.Tensor:
@@ -67,13 +75,24 @@ def stream_qmv(y: torch.Tensor, w: Dict[str, torch.Tensor],
     """y [M, Din] @ W for an "oi" quantized weight -> [M, Dout] out_dtype."""
     if y.device.type == "cpu":
         return stream_qmv_reference(y, w, out_dtype)
-    return _launch(y, w["q"], w["s"], out_dtype)
+    return _launch(y, w["q"], w["s"], out_dtype, 0)
 
 
 stream_qmv.launches = 0
 
 
-def _launch(y, q, s, out_dtype):
+def _stream_qmv_route(y: torch.Tensor, w: Dict[str, torch.Tensor], out_dtype: torch.dtype,
+                      route: int) -> torch.Tensor:
+    """stream_qmv on CUDA tensors with the kernel's route forced (one of
+    ROUTES) instead of planned: for the tests and chip_smoke's route A/B,
+    which hold every route to the same bits and times."""
+    if route not in ROUTES or (route == 2 and y.shape[0] > 2):
+        raise ValueError(f"stream_qmv: route {route} is not one of {ROUTES} (2: at most 2 "
+                         f"rows), M={y.shape[0]}")
+    return _launch(y, w["q"], w["s"], out_dtype, route)
+
+
+def _launch(y, q, s, out_dtype, route):
     name = "stream_qmv"
     _build.require_cuda(name, y, q, s)
     if y.dim() != 2 or q.dim() != 2 or s.shape != (q.shape[0],) or y.shape[1] != q.shape[1]:
@@ -90,13 +109,21 @@ def _launch(y, q, s, out_dtype):
     if not all(a.is_contiguous() for a in (y, q, s)) or y.data_ptr() % 16 or q.data_ptr() % 16:
         # the kernel reads 16 bytes of a row of y and q at once
         raise ValueError(f"{name}: operands must be contiguous, y and q 16-byte aligned")
-    qx = torch.empty((m, din), dtype=torch.int8, device=y.device)
-    ys = torch.empty(m, dtype=torch.float32, device=y.device)
-    out = torch.empty((m, q.shape[0]), dtype=out_dtype, device=y.device)
-    fn = _build.kernel("usdm_stream_qmv", _ARGTYPES)
-    err = fn(y.data_ptr(), q.data_ptr(), s.data_ptr(), qx.data_ptr(), ys.data_ptr(),
-             out.data_ptr(), m, q.shape[0], din, _build.DTYPE_CODES[y.dtype],
-             _build.DTYPE_CODES[out_dtype], _build.stream_ptr(y.device))
+    dout = q.shape[0]
+    # one allocation: out, then (16-byte aligned) the pre-pass's row scales,
+    # private to this call, so concurrent calls and graphs share nothing
+    n_out = m * dout * out_dtype.itemsize
+    ws_at = -(-n_out // 16) * 16
+    buf = torch.empty(ws_at + 4 * MAX_ROWS, dtype=torch.uint8, device=y.device)
+    out = buf[:n_out].view(out_dtype).view(m, dout)
+    codes = (m, dout, din, _build.DTYPE_CODES[y.dtype], _build.DTYPE_CODES[out_dtype])
+    ptrs = (y.data_ptr(), q.data_ptr(), s.data_ptr(), buf.data_ptr() + ws_at, out.data_ptr())
+    stream = _build.stream_ptr(y.device)
+    if route:
+        err = _build.kernel("usdm_stream_qmv_route", _ROUTE_ARGTYPES)(*ptrs, *codes, route,
+                                                                      stream)
+    else:
+        err = _build.kernel("usdm_stream_qmv", _ARGTYPES)(*ptrs, *codes, stream)
     _build.check(err, name)
     stream_qmv.launches += 1
     return out
