@@ -15,7 +15,10 @@ Phases:
      backward kernel at the training shape (eager, from a CUDA graph, and
      the plain autograd backward beside them); K6 at the four 7B projection
      shapes and M 1 / 8 / 16, both routes, eager and from a CUDA graph,
-     beside torch._int_mm over rows padded to 17;
+     beside torch._int_mm over rows padded to 17; K3 at the six BigVGAN
+     stage shapes (f32 and bf16; its error against the f64 plain version
+     logged; f32 without log-scale held to 1e-4 of each channel's scale
+     against it), then a turn's 109 launches from one graph;
   4. slice: a full-width random UsdmPipeline (Mistral-7B bf16, XLS-R 1B,
      Voicebox, BigVGAN) runs two greedy respond() turns with stage budgets
      pinned at 48/32/256 tokens; every kernel of that path must have launched;
@@ -39,7 +42,11 @@ Phases:
      16 layers, then the port's three probe entry points
      (usdm_tpu_torch.scripts.exp_stream_variants, exp_matvec, exp_int4) run
      once at full size and print their JSON lines; every probe kernel must
-     have launched there.
+     have launched there;
+  8. vocoder gate: the port of scripts/bench_fused_act.py
+     (usdm_tpu_torch.scripts.bench_fused_act) at full width, BigVGAN bf16 on
+     a 10 s mel with fused_act off then on: parity rel < 6e-2, 109 K3
+     launches per call, both RTFs.
 
 Each kernel's bound_ms is the least time the card could take for the work
 of its timed case: the larger of its bytes (inputs read once, outputs
@@ -295,6 +302,7 @@ def f32_case(dev, args, bias, valid, ops: int) -> dict:
     return out
 
 
+K3_PER_TURN = 109  # BigVGAN's activations: 6 stages x 3 AMP blocks x 3 dilations x 2, + 1
 # BigVGAN's six (channels, samples) activation shapes for a 448-frame mel
 STAGES = ((768, 1792), (384, 7168), (192, 14336), (96, 28672), (48, 57344), (24, 114688))
 
@@ -302,7 +310,6 @@ STAGES = ((768, 1792), (384, 7168), (192, 14336), (96, 28672), (48, 57344), (24,
 def kernel_checks(dev) -> dict:
     import torch
 
-    from usdm_tpu_torch.ops import fused_act as FA
     from usdm_tpu_torch.ops import flash_attention as FL
     from usdm_tpu_torch.ops import paged_attention as PA
 
@@ -515,42 +522,105 @@ def kernel_checks(dev) -> dict:
                                                             "bound_by", "library_ms")},
                                       "case": "voicebox (b) f32 B=2 T=449 d=64 ALiBi"}
 
-    # K3: the six BigVGAN stage shapes of a 448-frame mel, snake-beta, log-scale
-    log("K3 fused_activation1d vs activation1d_reference (snake-beta, log-scale; "
-        "bound 1e-4 f32, 3e-2 bf16)")
-    errs, stage_t = [], []
+    results["fused_activation1d"] = k3_checks(dev, randn)
+    return results
+
+
+def k3_checks(dev, randn) -> dict:
+    """K3 at the six BigVGAN stage shapes of a 448-frame mel, snake-beta,
+    log-scale, against the plain version (f32 and bf16) and, not gated, the
+    f64 plain version (the reduced sine's error); in f32 without log-scale
+    against the f64 plain version (k3_linear_scale); per stage in f32: eager,
+    from a CUDA graph, plain, bound; then a turn's 109 launches at their
+    shapes from one CUDA graph."""
+    import torch
+
+    from usdm_tpu_torch.ops import fused_act as FA
+
+    log("K3 fused_activation1d vs activation1d_reference in f32 on the same inputs "
+        "(snake-beta, log-scale; bound 1e-4 f32, 3e-2 bf16: the bf16 output's rounding, half "
+        "an ulp, 0.0156 below |y| = 8; the f64 plain version's error logged)")
+    errs, stages, xs, max_arg, err64 = [], [], [], 0.0, 0.0
     for ch, tlen in STAGES:
         alpha, beta = randn(ch) * 0.3, randn(ch) * 0.3
         for dtype, bound in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
             x = randn(1, ch, tlen, dtype=dtype)
             got = FA.fused_activation1d(x, alpha, beta, True)
-            want = FA.activation1d_reference(x, alpha, beta, True)
+            want = FA.activation1d_reference(x.float(), alpha, beta, True)
             errs.append(check("K3", f"C={ch} T={tlen} {str(dtype)[6:]}", got, want, bound))
-            if dtype == torch.float32:
-                stage_t.append((cuda_ms(lambda: FA.fused_activation1d(x, alpha, beta, True)),
-                                cuda_ms(lambda: FA.activation1d_reference(x, alpha, beta, True)),
-                                graph_ms(lambda: [FA.fused_activation1d(x, alpha, beta, True)
-                                                  for _ in range(10)], dev) / 10))
-    for (ch, tlen), (km, pm, gm) in zip(STAGES, stage_t):
-        log(f"  K3 time C={ch} T={tlen} f32: kernel {km:.4f} ms eager, {gm:.4f} ms from a CUDA "
-            f"graph, plain {pm:.4f} ms")
+            if dtype != torch.float32:
+                continue
+            exact = FA.activation1d_reference(x.double(), alpha.double(), beta.double(), True)
+            e64 = max_err(got.double(), exact)
+            arg = (FA.upsample2(x) * alpha.exp()[None, :, None]).abs().max().item()
+            max_arg, err64 = max(max_arg, arg), max(err64, e64)
+
+            def act():
+                return FA.fused_activation1d(x, alpha, beta, True)
+
+            st = {"C": ch, "T": tlen, "err_f64": e64, "max_arg": arg, "ms": cuda_ms(act),
+                  "graph_ms": graph_ms(lambda: [act() for _ in range(10)], dev) / 10,
+                  "plain_ms": cuda_ms(lambda: FA.activation1d_reference(x, alpha, beta, True)),
+                  **least_time(8 * ch * tlen + 8 * ch, 60 * ch * tlen, "f32")}
+            stages.append(st)
+            xs.append((x, alpha, beta))
+            log(f"  K3 time C={ch} T={tlen} f32: kernel {st['ms']:.4f} ms eager, "
+                f"{st['graph_ms']:.4f} ms from a CUDA graph, "
+                f"plain {st['plain_ms']:.4f} ms, bound {st['bound_ms']:.4f} ms ({st['bound_by']}); "
+                f"against the f64 plain version {e64:.3e}; max |a u| {arg:.2f}")
+    rel_linear = k3_linear_scale(randn)
+    # a turn: 18 activations per stage (3 AMP blocks x 3 dilations x 2) and
+    # the last one at the last stage's shape, replayed from one CUDA graph
+    turn = [xs[i] for i in range(len(STAGES)) for _ in range(18)] + [xs[-1]]
+    turn_ms = graph_ms(lambda: [FA.fused_activation1d(x, a, b, True) for x, a, b in turn], dev)
+    turn_bound = 18 * sum(st["bound_ms"] for st in stages) + stages[-1]["bound_ms"]
     # per element: 2x upsampling and 2x downsampling with 12-tap filters (12
     # multiply-adds each way) and the snake on the two upsampled values
     # (~6 operations each): ~60 f32 operations; f32 in and out, alpha, beta
     elems = sum(ch * tlen for ch, tlen in STAGES)
-    results["fused_activation1d"] = {"max_abs_err": max(errs),
-                                     "ms": sum(s[0] for s in stage_t),
-                                     "plain_ms": sum(s[1] for s in stage_t),
-                                     "graph_ms": sum(s[2] for s in stage_t),
-                                     **least_time(8 * elems + sum(8 * ch for ch, _ in STAGES),
-                                                  60 * elems, "f32"),
-                                     "library_ms": None,
-                                     "case": "sum of one activation per stage, f32"}
-    k3 = results["fused_activation1d"]
-    log(f"  K3 one activation per stage, f32, summed: kernel {k3['ms']:.4f} ms eager, "
-        f"{k3['graph_ms']:.4f} ms from a CUDA graph, plain {k3['plain_ms']:.4f} ms, bound "
-        f"{k3['bound_ms']:.4f} ms ({k3['bound_by']})")
-    return results
+    res = {"max_abs_err": max(errs), "err_f64": err64, "max_arg": max_arg,
+           "ms": sum(s["ms"] for s in stages), "plain_ms": sum(s["plain_ms"] for s in stages),
+           "graph_ms": sum(s["graph_ms"] for s in stages),
+           **least_time(8 * elems + sum(8 * ch for ch, _ in STAGES), 60 * elems, "f32"),
+           "library_ms": None, "turn_graph_ms": turn_ms, "turn_launches": len(turn),
+           "turn_bound_ms": turn_bound, "stages": stages, "linear_rel_err_f64": rel_linear,
+           "case": "sum of one activation per stage, f32"}
+    log(f"  K3 one activation per stage, f32, summed: kernel {res['ms']:.4f} ms eager, "
+        f"{res['graph_ms']:.4f} ms from a CUDA graph, "
+        f"plain {res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}); "
+        f"a turn's {len(turn)} launches from one graph {turn_ms:.4f} ms (bound "
+        f"{turn_bound:.4f} ms); against the f64 plain version {err64:.3e} at |a u| <= "
+        f"{max_arg:.2f}")
+    return res
+
+
+def k3_linear_scale(randn) -> float:
+    """K3 in f32 without log-scale, alpha and beta drawn from N(0, 0.3^2) as
+    they are, at the six stage shapes: a b near 0 lifts a channel's outputs,
+    and every f32 rounding in them, by 1/b, so each channel is held to 1e-4
+    times its largest |y| (at least 1) against the f64 plain version.
+    Returns the largest error so scaled."""
+    import torch
+
+    from usdm_tpu_torch.ops import fused_act as FA
+
+    worst = 0.0
+    for ch, tlen in STAGES:
+        alpha, beta = randn(ch) * 0.3, randn(ch) * 0.3
+        x = randn(1, ch, tlen)
+        got = FA.fused_activation1d(x, alpha, beta, False).double()
+        want = FA.activation1d_reference(x.double(), alpha.double(), beta.double(), False)
+        scale = want.abs().amax(dim=(0, 2)).clamp(min=1.0)
+        rel = ((got - want).abs().amax(dim=(0, 2)) / scale).max().item()
+        ok = bool(torch.isfinite(got).all()) and rel <= 1e-4
+        log(f"  K3 [C={ch} T={tlen} f32, linear scale] max_abs_err / channel scale against the "
+            f"f64 plain version {rel:.3e} bound 1.000e-04 (min |b| {beta.abs().min().item():.3e}, "
+            f"largest channel scale {scale.max().item():.1f}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"K3 [C={ch} T={tlen} linear scale] disagrees with its f64 "
+                                 f"plain version: {rel} of the channel scale > 1e-4")
+        worst = max(worst, rel)
+    return worst
 
 
 def k1_split_checks(dev) -> None:
@@ -1208,6 +1278,9 @@ def slice_run(dev, profile: bool, tmp: str, out_dir: str) -> dict:
             if not (0 < mma and 0 < tf32 and mma + tf32 == counts["flash_attention"]):
                 raise AssertionError(f"K2's routes in the bf16 turn: {mma} bf16 and {tf32} f32 "
                                      f"launches of {counts['flash_attention']}")
+            if counts["fused_activation1d"] != K3_PER_TURN:
+                raise AssertionError(f"K3 launched {counts['fused_activation1d']} times in the "
+                                     f"turn, want {K3_PER_TURN} (one per activation)")
             if add_mask_ln.launches:  # B * (T + 1) = 2 * 449 is under its gate
                 raise AssertionError("the fused LayerNorm kernel ran in respond()")
             if counts["stream_qmv"] or counts["paged_decode_attention_int8"]:
@@ -1383,6 +1456,9 @@ def int8_run(dev, tmp: str, wav_in: str, profile: bool, out_dir: str) -> dict:
                     "fused_activation1d")
             if not all(counts[k] for k in need):
                 raise AssertionError(f"a kernel of path (A) never launched: {counts}")
+            if counts["fused_activation1d"] != K3_PER_TURN:
+                raise AssertionError(f"K3 launched {counts['fused_activation1d']} times in the "
+                                     f"W8A8 turn, want {K3_PER_TURN}")
             if len(audio) == 0 or not np.isfinite(audio).all() or not os.path.exists(wav_out):
                 raise AssertionError("the W8A8 turn produced no finite audio")
             if len(audio) != len(res.agent_units) * 441 // 256 * 256:
@@ -1847,6 +1923,28 @@ def probe_run(dev) -> dict:
     return {"launches": counts}
 
 
+# --------------------------------------------------------------- phase 8
+def vocoder_gate(dev) -> dict:
+    """The port of scripts/bench_fused_act.py at full width: BigVGAN bf16 on
+    a 10 s mel (861 frames), fused_act off then on, parity rel < 6e-2 and one
+    K3 launch per activation (109 per call); its own run of the kernel."""
+    from usdm_tpu_torch.core.config import BigVGANConfig
+    from usdm_tpu_torch.scripts import bench_fused_act
+
+    reset_counts()
+    out = bench_fused_act.run(BigVGANConfig(), dev)
+    counts = launch_counts()
+    fused = out["runs"]["fused"]
+    # 1 warm-up + 5 timed fused calls; nothing else of the port launches
+    if (counts["fused_activation1d"] != 6 * K3_PER_TURN
+            or fused["k3_launches_per_call"] != K3_PER_TURN):
+        raise AssertionError(f"bench_fused_act: K3 launched {counts['fused_activation1d']} "
+                             f"times in 6 fused calls")
+    if "jax" in sys.modules:
+        raise AssertionError("jax was imported")
+    return out
+
+
 # ------------------------------------------------------- parent vs change
 def _reply(obj: dict) -> None:
     print("RESULT " + json.dumps(obj), flush=True)
@@ -1855,15 +1953,16 @@ def _reply(obj: dict) -> None:
 def _worker_kernels(dev) -> dict:
     """K2's f32 cases (b) and (c) beside one scaled_dot_product_attention
     call on the same f32 operands, K1 at its two timed cases over 32 layer
-    regions, K6 at M 1 / 8 / 16 at the four 7B projection shapes and K4's
-    forward and autograd backward at the
-    training shape, through the public wrappers (the same in parent and
-    change): eager and CUDA-graph ms."""
+    regions, K6 at M 1 / 8 / 16 at the four 7B projection shapes, K4's
+    forward and autograd backward at the training shape and K3 at the six
+    BigVGAN stage shapes (f32), through the public wrappers (the same in
+    parent and change): eager and CUDA-graph ms."""
     import torch
 
     from usdm_tpu_torch.engine.paged_ops import quant_kv_token
     from usdm_tpu_torch.models import quant as Q
     from usdm_tpu_torch.ops import flash_attention as FL
+    from usdm_tpu_torch.ops import fused_act as FA
     from usdm_tpu_torch.ops import fused_ln as LN
     from usdm_tpu_torch.ops import paged_attention as PA
     from usdm_tpu_torch.ops import stream_matvec as SM
@@ -1950,6 +2049,17 @@ def _worker_kernels(dev) -> dict:
                  "bwd_ms": cuda_ms(lambda: torch.autograd.grad(o, leaves, go,
                                                                retain_graph=True))}
     del x, r, go, leaves, o
+    # K3 at the six stage shapes of a 448-frame mel, f32, snake-beta, log-scale
+    for ch, tlen in STAGES:
+        x = torch.randn(1, ch, tlen, generator=gen, device=dev)
+        alpha, beta = (torch.randn(ch, generator=gen, device=dev) * 0.3 for _ in range(2))
+
+        def act():
+            return FA.fused_activation1d(x, alpha, beta, True)
+
+        out[f"k3_{ch}x{tlen}"] = {"ms": cuda_ms(act),
+                                  "graph_ms": graph_ms(lambda: [act() for _ in range(10)],
+                                                       dev) / 10}
     torch.cuda.empty_cache()
     return out
 
@@ -2254,6 +2364,10 @@ def main() -> int:
     kres.update(probe_kernel_checks(dev))
     probes = probe_run(dev)["launches"]
     log(f"phase time: probes {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    vocoder = vocoder_gate(dev)
+    log("vocoder gate (bench_fused_act): " + json.dumps(vocoder))
+    log(f"phase time: vocoder gate {time.perf_counter() - t_phase:.1f} s")
     a, b = int8["A"]["launches"], int8["B"]["launches"]
     launches = {**{k: bf16[k] for k in ("paged_decode_attention", "flash_attention",
                                          "flash_attention_f32", "fused_activation1d")},

@@ -86,16 +86,98 @@ def test_flash_kernel_matches_plain(cuda):
     assert (got_lse - want_lse).abs().max().item() <= 1e-4  # padded rows: -1e30 on both
 
 
+# the plain version's own bounds; a bf16 output is held against the plain
+# version in f32 on the same bf16 inputs (both round only there: half a bf16
+# ulp, 0.0156 below |y| = 8, plus the f32 difference)
+_K3_BOUND = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+_K3_STAGES = ((768, 1792), (384, 7168), (192, 14336), (96, 28672), (48, 57344), (24, 114688))
+
+
+def _act_case(cuda, shape, dtype, seed, offset=0):
+    """x [B, C, T] at `offset` elements into its storage (a row start off the
+    16-byte grid when offset * itemsize is not a multiple of 16); alpha and
+    beta of std 0.3, read as logs with log-scale and as they are without."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    n = shape[0] * shape[1] * shape[2]
+    buf = torch.randn(n + offset, generator=g, device=cuda).to(dtype)
+    x = buf[offset:].view(shape)
+    alpha = torch.randn(shape[1], generator=g, device=cuda) * 0.3
+    beta = torch.randn(shape[1], generator=g, device=cuda) * 0.3
+    return x, alpha, beta
+
+
+def _act_err(x, alpha, beta, logscale):
+    got = FA.fused_activation1d(x, alpha, beta, logscale)
+    want = FA.activation1d_reference(x.float(), alpha, beta, logscale)
+    assert torch.isfinite(got.float()).all()
+    return (got.float() - want.float()).abs().max().item(), got
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("tlen", [1, 5, 1023, 1025, 5000])
-def test_fused_act_kernel_matches_plain(cuda, tlen):
-    g = torch.Generator(device=cuda).manual_seed(tlen)
-    x = torch.randn(2, 24, tlen, generator=g, device=cuda)
-    alpha = torch.randn(24, generator=g, device=cuda) * 0.3
-    beta = torch.randn(24, generator=g, device=cuda) * 0.3
-    got = FA.fused_activation1d(x, alpha, beta, True)
-    want = FA.activation1d_reference(x, alpha, beta, True)
-    assert (got - want).abs().max().item() <= 1e-4  # f32 both sides
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("snakebeta", [False, True])
+@pytest.mark.parametrize("logscale", [False, True])
+@pytest.mark.parametrize("tlen", [1, 2, 5, 11, 12, 13, FA.TILE - 1, FA.TILE, FA.TILE + 1, 5000])
+def test_fused_act_kernel_matches_plain(cuda, tlen, logscale, snakebeta, dtype):
+    """Every output, edges included, at B 2, lengths around the tile.  Without
+    log-scale a b near 0 lifts a channel's outputs, and every f32 rounding in
+    them, by 1/b (one f32 ulp is 6e-5 at 512), so each channel is held to the
+    bound times its largest |y| (at least 1), against the f64 plain version."""
+    x, alpha, beta = _act_case(cuda, (2, 24, tlen), dtype, tlen)
+    beta = beta if snakebeta else None
+    if logscale:
+        assert _act_err(x, alpha, beta, True)[0] <= _K3_BOUND[dtype]
+        return
+    got = FA.fused_activation1d(x, alpha, beta, False).double()
+    want = FA.activation1d_reference(x.double(), alpha.double(),
+                                     None if beta is None else beta.double(), False)
+    assert torch.isfinite(got).all()
+    scale = want.abs().amax(dim=(0, 2)).clamp(min=1.0)
+    assert ((got - want).abs().amax(dim=(0, 2)) <= _K3_BOUND[dtype] * scale).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tlen,offset", [(1792, 1), (3444, 2), (1023, 3), (3444, 0)])
+def test_fused_act_kernel_unaligned_rows(cuda, dtype, tlen, offset):
+    """Rows that start off the 16-byte grid (a storage offset, or bf16 at a
+    length that is a multiple of 4 but not 8) take the narrower vectors."""
+    x, alpha, beta = _act_case(cuda, (2, 6, tlen), dtype, 7, offset)
+    assert FA.vector_bytes(x, torch.empty_like(x)) < 16 or offset == 0
+    assert _act_err(x, alpha, beta, True)[0] <= _K3_BOUND[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stage", range(6))
+def test_fused_act_kernel_stage_shapes(cuda, stage, dtype):
+    """The six BigVGAN stage shapes of a 448-frame mel at B 1, snake-beta,
+    log-scale, as the turn runs them."""
+    ch, tlen = _K3_STAGES[stage]
+    x, alpha, beta = _act_case(cuda, (1, ch, tlen), dtype, stage)
+    assert _act_err(x, alpha, beta, True)[0] <= _K3_BOUND[dtype]
+
+
+@pytest.mark.cuda
+def test_fused_act_kernel_graph_replay_bit_equal(cuda):
+    x, alpha, beta = _act_case(cuda, (1, 96, 28672), torch.float32, 3)
+    eager = FA.fused_activation1d(x, alpha, beta, True)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = FA.fused_activation1d(x, alpha, beta, True)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+
+
+@pytest.mark.cuda
+def test_fused_act_kernel_rejects_non_contiguous(cuda):
+    x, alpha, beta = _act_case(cuda, (1, 8, 64), torch.float32, 4)
+    before = FA.fused_activation1d.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        FA.fused_activation1d(x.transpose(1, 2).contiguous().transpose(1, 2), alpha, beta, True)
+    assert FA.fused_activation1d.launches == before
 
 
 def _bwd_case(cuda, case, dtype, t_len):

@@ -37,6 +37,7 @@ INT8_CODE = 2
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_kernels: dict = {}  # entry point name -> typed ctypes function
 build_log = ""  # nvcc's output of the build this process did (ptxas stats)
 build_seconds = 0.0  # wall time of that build (0 when loaded from _build/)
 
@@ -108,11 +109,14 @@ def library() -> ctypes.CDLL:
 
 def kernel(name: str, argtypes: Sequence[type]):
     """C entry point `name` with explicit ctypes signature (pointers and the
-    stream are c_void_p; ints c_int/c_longlong; returns cudaError_t)."""
-    fn = getattr(library(), name)
-    if fn.restype is not ctypes.c_int or fn.argtypes != list(argtypes):
+    stream are c_void_p; ints c_int/c_longlong; returns cudaError_t), typed
+    on its first use and cached by name: each entry point has one signature."""
+    fn = _kernels.get(name)
+    if fn is None:
+        fn = getattr(library(), name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
+        _kernels[name] = fn
     return fn
 
 
@@ -123,7 +127,10 @@ def check(err: int, name: str) -> None:
 
 
 def stream_ptr(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The handle of `device`'s current stream (the raw pointer, without
+    building a torch.cuda.Stream object on every launch)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:

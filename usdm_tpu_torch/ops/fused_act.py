@@ -22,7 +22,7 @@ import torch.nn.functional as F
 
 from usdm_tpu_torch.ops import _build
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def kaiser_sinc_filter1d(cutoff: float, half_width: float, kernel_size: int) -> np.ndarray:
@@ -78,27 +78,71 @@ def downsample2(x: torch.Tensor) -> torch.Tensor:
 
 def snake(x: torch.Tensor, alpha: torch.Tensor, beta: Optional[torch.Tensor],
           logscale: bool) -> torch.Tensor:
-    """x + (1/b) sin^2(a x) per channel of [B, C, T]; b = a for plain snake."""
-    a = alpha.float()
-    b = a if beta is None else beta.float()
+    """x + (1/b) sin^2(a x) per channel of [B, C, T]; b = a for plain snake.
+    In f32, or in f64 when x is f64."""
+    a = alpha.to(x.dtype)
+    b = a if beta is None else beta.to(x.dtype)
     if logscale:
         a, b = torch.exp(a), torch.exp(b)
     a, b = a[None, :, None], b[None, :, None]
     return x + (1.0 / (b + 1e-9)) * torch.sin(x * a) ** 2
 
 
+# the kernel's sin^2 (csrc/fused_act.cu sin_sq): the argument reduced by pi,
+# then sin(r) = r + r z P(z), z = r^2, P's coefficients those of the kernel
+INV_PI = float(np.float32(1 / np.pi))
+PI_HI = float(np.float32(np.pi))
+PI_LO = float(np.float32(np.pi - PI_HI))
+SIN_COEFFS = (-0.166666612, 0.00833310094, -0.000198120179, 2.61099331e-06)  # f32 values
+
+
+def _fma32(a: torch.Tensor, b, c) -> torch.Tensor:
+    """f32 fma(a, b, c): the product exact in f64, the sum rounded in f64
+    then to f32 (one rounding but where the f64 sum itself rounds)."""
+    return (a.double() * b + c if isinstance(c, float) else a.double() * b + c.double()).float()
+
+
+def sin_sq_reduced(v: torch.Tensor) -> torch.Tensor:
+    """The kernel's sin^2 of f32 `v` in plain PyTorch, step by step: k =
+    rint(v / pi) (the kernel's FMA with 1.5 * 2^23 rounds v * f32(1/pi) once,
+    half to even), r = v - k pi_hi - k pi_lo as two FMAs, then s = r + r z
+    P(z), z = r^2, by Horner's rule in FMAs, and s * s."""
+    v64 = v.float().double()
+    k = torch.round(v64 * INV_PI)
+    r = (v64 - k * PI_HI).float()
+    r = _fma32(k, -PI_LO, r)
+    z = r * r
+    p = _fma32(z, SIN_COEFFS[3], SIN_COEFFS[2])
+    for c in SIN_COEFFS[1::-1]:
+        p = _fma32(p, z.double(), c)
+    s = _fma32(r * z, p.double(), r)
+    return s * s
+
+
 def activation1d_reference(x: torch.Tensor, alpha: torch.Tensor, beta: Optional[torch.Tensor],
                            logscale: bool) -> torch.Tensor:
-    """Plain up -> snake -> down composition in f32 (beta None = snake)."""
-    y = downsample2(snake(upsample2(x.float()), alpha, beta, logscale))
+    """Plain up -> snake -> down composition in f32, or in f64 for an f64 x
+    (beta None = snake)."""
+    y = downsample2(snake(upsample2(x.to(torch.promote_types(x.dtype, torch.float32))),
+                          alpha, beta, logscale))
     return y.to(x.dtype)
 
 
-@functools.lru_cache(maxsize=8)
-def _filter_table(device: torch.device) -> torch.Tensor:
-    f = _resample_filter()
-    table = np.concatenate([2.0 * f[0::2], 2.0 * f[1::2], f]).astype(np.float32)
-    return torch.from_numpy(table).to(device)
+# The kernel's tiling (csrc/fused_act.cu kR, kLanes): a warp takes a task of
+# TILE outputs of one row; lane l holds the R samples from tile start - R +
+# l R, and lanes 1..LANES-2 write them.
+R, LANES = 8, 32
+TILE = (LANES - 2) * R
+
+
+def vector_bytes(x: torch.Tensor, y: torch.Tensor) -> int:
+    """The widest vector (16, 8, 4 or, for bf16, 2 bytes) that x, y and every
+    row start of the [B, C, T] tensors are aligned to."""
+    esize, row = x.element_size(), x.shape[-1] * x.element_size()
+    for v in (16, 8, 4, 2):
+        if v >= esize and x.data_ptr() % v == 0 and y.data_ptr() % v == 0 and row % v == 0:
+            return v
+    return esize
 
 
 def fused_activation1d(x: torch.Tensor, alpha: torch.Tensor, beta: Optional[torch.Tensor],
@@ -113,7 +157,13 @@ def fused_activation1d(x: torch.Tensor, alpha: torch.Tensor, beta: Optional[torc
 fused_activation1d.launches = 0
 
 
+def _f32(v: torch.Tensor) -> torch.Tensor:
+    return v if v.dtype == torch.float32 and v.is_contiguous() else v.float().contiguous()
+
+
 def _launch(x, alpha, beta, logscale):
+    """One launch of the kernel.  Reads nothing back from the device, so a
+    call captures in a CUDA graph."""
     name = "fused_activation1d"
     if x.dim() != 3:
         raise ValueError(f"{name}: x must be [B, C, T], got {tuple(x.shape)}")
@@ -122,18 +172,19 @@ def _launch(x, alpha, beta, logscale):
         raise TypeError(f"{name}: x must be float32 or bfloat16, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError(f"{name}: x must be contiguous")
-    if t < 1 or c > 65535 or bsz > 65535:
+    if not 1 <= t <= 2**29 or bsz * c * -(-t // TILE) > 2**30:
         raise ValueError(f"{name}: unsupported shape {tuple(x.shape)}")
-    a = alpha.float().contiguous()
-    b = a if beta is None else beta.float().contiguous()
+    a = _f32(alpha)
+    b = a if beta is None else _f32(beta)
     if a.shape != (c,) or b.shape != (c,):
         raise ValueError(f"{name}: alpha/beta must be [{c}]")
-    _build.require_cuda(name, x, a, b)
+    dev = x.device
+    if not (x.is_cuda and a.device == dev and b.device == dev):
+        _build.require_cuda(name, x, a, b)  # raises, naming the devices
     y = torch.empty_like(x)
-    filt = _filter_table(x.device)
     fn = _build.kernel("usdm_fused_snake", _ARGTYPES)
-    err = fn(x.data_ptr(), y.data_ptr(), a.data_ptr(), b.data_ptr(), filt.data_ptr(),
-             bsz, c, t, int(logscale), _build.DTYPE_CODES[x.dtype], _build.stream_ptr(x.device))
+    err = fn(x.data_ptr(), y.data_ptr(), a.data_ptr(), b.data_ptr(), bsz, c, t, int(logscale),
+             _build.DTYPE_CODES[x.dtype], vector_bytes(x, y), _build.stream_ptr(dev))
     _build.check(err, name)
     fused_activation1d.launches += 1
     return y
