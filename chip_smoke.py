@@ -21,7 +21,11 @@ Phases:
      against it), then a turn's 109 launches from one graph;
   4. slice: a full-width random UsdmPipeline (Mistral-7B bf16, XLS-R 1B,
      Voicebox, BigVGAN) runs two greedy respond() turns with stage budgets
-     pinned at 48/32/256 tokens; every kernel of that path must have launched;
+     pinned at 48/32/256 tokens; every kernel of that path must have
+     launched, every decode link must have been one CUDA-graph replay
+     launching K1 once per layer, and chain run-ahead must have engaged;
+     then one more turn on an engine with eager decode links
+     (eager_links=True) must give the graphed turn's tokens;
   5. int8 serving: a small W8A8 turn on the card against the CPU plain path
      (identical tokens); then (A) a full-width W8A8 turn,
      UsdmPipeline.full_random(lm_int8=True, vb_int8=True).respond(), budgets
@@ -29,7 +33,9 @@ Phases:
      EngineServer.generate over a PagedEngine of the same W8A8 7B with int8
      KV pages (bench_serving's load: prompt 384, 128 new tokens, 2 requests
      per client, page 256, greedy, EOS masked out); every kernel of each
-     path must have launched;
+     path must have launched, and every decode link of (A) and (B) must
+     have been one graph replay launching K1 once per layer and K6 224
+     times; (A) has its eager-link turn as in phase 4;
   6. train: one CFM train step of a small Voicebox on the card against the
      CPU, then the trainer CLI (usdm_tpu_torch.cli.train_voicebox) runs ~10
      full-width steps (VoiceboxConfig(), batch 8 of 16 s crops, bf16 over f32
@@ -1213,7 +1219,92 @@ def _paged_policy(pipe, seed: int):
                seed=seed)
 
 
+def _link_checks(engine, before: dict, counts: dict, label: str, w8a8: bool,
+                 turn: bool = True) -> dict:
+    """What the engine did in one run of a path, from its stats before and
+    after: every decode link (chained or per-token) must have been one CUDA
+    graph replay, each launching K1 once per layer (and, W8A8, K6 once per
+    projection: 7 a layer); in a turn, run-ahead must have engaged.  -> the
+    run's decode links, replays, run-ahead chains and perf_s seconds."""
+    st = engine.stats()
+    steps = st["steps"] - before["steps"]
+    replays = st["graph_replays"] - before["graph_replays"]
+    ahead = st["runahead_chains"] - before["runahead_chains"]
+    perf = {k: round(v - before["perf_s"].get(k, 0.0), 4) for k, v in st["perf_s"].items()}
+    layers = engine.cfg.num_layers
+    k1 = counts["paged_decode_attention_int8" if engine.kv.quantized
+                else "paged_decode_attention"]
+    if steps <= 0 or replays != steps:
+        raise AssertionError(f"{label}: {replays} graph replays for {steps} decode links")
+    if turn and ahead <= 0:
+        raise AssertionError(f"{label}: chain run-ahead never engaged")
+    if k1 != layers * steps:
+        raise AssertionError(f"{label}: K1 launched {k1} times over {steps} decode links of "
+                             f"{layers} layers")
+    if counts["stream_qmv"] != (7 * layers * steps if w8a8 else 0):
+        raise AssertionError(f"{label}: K6 launched {counts['stream_qmv']} times over {steps} "
+                             f"decode links")
+    return {"decode_links": steps, "graph_replays": replays, "runahead_chains": ahead,
+            "perf_s": perf}
+
+
+def _eager_link_turn(pipe, wav_in: str, want: dict, label: str) -> dict:
+    """One more turn of `pipe` on a fresh dialog engine of the same config
+    with eager decode links (`eager_links=True`): its tokens must equal the
+    graphed turn's (`want`: the DialogResult and the user units)."""
+    import dataclasses
+
+    import torch
+
+    from usdm_tpu_torch.engine.paged import PagedEngine
+    from usdm_tpu_torch.engine.server import EngineServer
+
+    ecfg = pipe._dialog_server().engine.ecfg
+    pipe.close()
+    pipe._server = EngineServer(PagedEngine(pipe.lm_params, pipe.lm_cfg, ecfg,
+                                            device=pipe.device, eager_links=True))
+    try:
+        trace = {}
+        t0 = time.perf_counter()
+        res = pipe.respond_with_policy(_paged_policy(pipe, seed=1), wav_in, n_timesteps=50,
+                                       seed=1, trace=trace)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = pipe._server.engine.stats()
+    finally:
+        pipe.close()
+    got = {**dataclasses.asdict(res), "user_units": list(trace["user_units"])}
+    info = {"wall_s": wall, "dialog_s": trace["dialog_s"], "decode_links": st["steps"],
+            "graph_replays": st["graph_replays"], "perf_s": st["perf_s"],
+            "tokens": "equal" if got == want else "DIFFER"}
+    log(f"{label}, eager links: " + json.dumps(info))
+    if st["graph_replays"] or got != want:
+        raise AssertionError(f"{label}: the eager-link turn differs from the graphed turn: "
+                             f"{got} vs {want}")
+    return info
+
+
+def _device_busy(prof, wall: float) -> dict:
+    """Device seconds of a profiled run (the self time of its device events,
+    summed as the profiler table's "Self CUDA time total"), their share of
+    its wall time, and the host's launches: CUDA-graph replays and single
+    kernel launches."""
+    from torch.autograd import DeviceType
+
+    events = prof.key_averages()
+    dev_us = sum(e.self_device_time_total for e in events
+                 if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
+    calls = {e.key: e.count for e in events}
+    kernel_launches = sum(n for k, n in calls.items()
+                          if k.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
+    return {"device_s": dev_us / 1e6, "device_busy": dev_us / 1e6 / wall,
+            "graph_launches": calls.get("cudaGraphLaunch", 0),
+            "kernel_launches": kernel_launches}
+
+
 def slice_run(dev, profile: bool, tmp: str, out_dir: str) -> dict:
+    import dataclasses
+
     import torch
 
     from usdm_tpu_torch.audio.wav import write_wav
@@ -1242,6 +1333,8 @@ def slice_run(dev, profile: bool, tmp: str, out_dir: str) -> dict:
                 prof = torch.profiler.profile(activities=[
                     torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA])
                 prof.__enter__()
+            engine = pipe._dialog_server().engine
+            before = engine.stats()
             reset_counts()
             torch.cuda.reset_peak_memory_stats()
             wav_out = os.path.join(tmp, f"agent{turn}.wav")
@@ -1253,9 +1346,11 @@ def slice_run(dev, profile: bool, tmp: str, out_dir: str) -> dict:
             wall = time.perf_counter() - t0
             counts = launch_counts()
             mma = mma_counts()["flash_attention"]
+            links = _link_checks(engine, before, counts, f"bf16 turn {turn}", False)
             if prof is not None:
                 prof.__exit__(None, None, None)
                 _write_profile(prof, out_dir)
+                links.update(_device_busy(prof, wall))
             audio = trace["audio"]
             audio_s = len(audio) / pipe.decoder.mel_cfg.sampling_rate
             info = {
@@ -1266,8 +1361,7 @@ def slice_run(dev, profile: bool, tmp: str, out_dir: str) -> dict:
                 "agent_units": len(res.agent_units), "audio_s": audio_s,
                 "rtf": wall / audio_s if audio_s else None,
                 "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
-                "engine": pipe._dialog_server().engine.stats(),
-                "launches": counts, "flash_attention_mma_launches": mma,
+                "engine": links, "launches": counts, "flash_attention_mma_launches": mma,
             }
             log(f"turn {turn}: " + json.dumps(info))
             if not all(counts[fn.__name__] for fn in counters):
@@ -1293,11 +1387,13 @@ def slice_run(dev, profile: bool, tmp: str, out_dir: str) -> dict:
             if not os.path.exists(wav_out):
                 raise AssertionError("respond() wrote no output wav")
             turns.append(info)
+            graphed = {**dataclasses.asdict(res), "user_units": list(trace["user_units"])}
+        eager = _eager_link_turn(pipe, wav_in, graphed, "bf16 turn")
     finally:
         pipe.close()
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
-    return {"turns": turns}
+    return {"turns": turns, "eager": eager}
 
 
 
@@ -1405,6 +1501,7 @@ def _profiler():
 def int8_run(dev, tmp: str, wav_in: str, profile: bool, out_dir: str) -> dict:
     """Paths (A) and (B) of the int8 slice; with `profile` a third (A) turn
     and a second (B) load run under torch.profiler."""
+    import dataclasses
     import gc
 
     import torch
@@ -1429,6 +1526,8 @@ def int8_run(dev, tmp: str, wav_in: str, profile: bool, out_dir: str) -> dict:
             prof = _profiler() if turn == 2 else None
             if prof is not None:
                 prof.__enter__()
+            engine = pipe._dialog_server().engine
+            before = engine.stats()
             reset_counts()
             torch.cuda.reset_peak_memory_stats()
             trace = {}
@@ -1439,9 +1538,11 @@ def int8_run(dev, tmp: str, wav_in: str, profile: bool, out_dir: str) -> dict:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             counts = launch_counts()
+            links = _link_checks(engine, before, counts, f"W8A8 turn {turn}", True)
             if prof is not None:
                 prof.__exit__(None, None, None)
                 _write_profile(prof, out_dir, "int8_turn_profile.txt")
+                links.update(_device_busy(prof, wall))
             audio = trace["audio"]
             audio_s = len(audio) / pipe.decoder.mel_cfg.sampling_rate
             info = {"turn": turn, "wall_s": wall, "xlsr_s": trace["xlsr_s"],
@@ -1450,7 +1551,7 @@ def int8_run(dev, tmp: str, wav_in: str, profile: bool, out_dir: str) -> dict:
                     "agent_units": len(res.agent_units), "audio_s": audio_s,
                     "rtf": wall / audio_s if audio_s else None,
                     "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
-                    "launches": counts}
+                    "engine": links, "launches": counts}
             log(f"(A) W8A8 turn {turn}: " + json.dumps(info))
             need = ("stream_qmv", "paged_decode_attention", "flash_attention",
                     "fused_activation1d")
@@ -1464,7 +1565,8 @@ def int8_run(dev, tmp: str, wav_in: str, profile: bool, out_dir: str) -> dict:
             if len(audio) != len(res.agent_units) * 441 // 256 * 256:
                 raise AssertionError("audio length does not match the agent units")
             out["A"] = info
-        pipe.close()
+            graphed = {**dataclasses.asdict(res), "user_units": list(trace["user_units"])}
+        out["A_eager"] = _eager_link_turn(pipe, wav_in, graphed, "(A) W8A8 turn")
 
         # (B) eight clients over the same W8A8 7B with int8 KV pages
         n_clients, per_client, prompt_len, max_new = 8, 2, 384, 128
@@ -1481,11 +1583,13 @@ def int8_run(dev, tmp: str, wav_in: str, profile: bool, out_dir: str) -> dict:
             _serve_load(server, [[rng.integers(3, 32000, prompt_len).tolist()]
                                  for _ in range(n_clients)], allow, 8)  # warm-up
             engine._ttfts.clear()
+            before = engine.stats()
             reset_counts()
             torch.cuda.reset_peak_memory_stats()
             done, wall = _serve_load(server, prompts, allow, max_new)
             torch.cuda.synchronize()
             counts = launch_counts()
+            links = _link_checks(engine, before, counts, "(B) load", True, turn=False)
             ttfts = sorted(engine._ttfts)
             n_tok = sum(len(t) for outs in done.values() for t in outs)
             info = {"clients": n_clients, "requests": n_clients * per_client,
@@ -1493,8 +1597,9 @@ def int8_run(dev, tmp: str, wav_in: str, profile: bool, out_dir: str) -> dict:
                     "generated_tokens": n_tok, "tok_s": n_tok / wall,
                     "ttft_p50_s": ttfts[len(ttfts) // 2],
                     "ttft_p95_s": ttfts[min(int(0.95 * len(ttfts)), len(ttfts) - 1)],
+                    "ttfts_s": [round(t, 4) for t in engine._ttfts],  # in order
                     "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
-                    "engine": engine.stats(), "launches": counts}
+                    "engine": links, "stats": engine.stats(), "launches": counts}
             log("(B) W8A8 7B, int8 KV, 8 clients: " + json.dumps(info))
             if profile:  # the same load once more, under the profiler
                 again = [[rng.integers(3, 32000, prompt_len).tolist() for _ in range(per_client)]
@@ -1502,7 +1607,7 @@ def int8_run(dev, tmp: str, wav_in: str, profile: bool, out_dir: str) -> dict:
                 with _profiler() as prof:
                     _, wall_p = _serve_load(server, again, allow, max_new)
                     torch.cuda.synchronize()
-                log(f"(B) profiled load: {wall_p:.3f} s")
+                log(f"(B) profiled load: {wall_p:.3f} s, " + json.dumps(_device_busy(prof, wall_p)))
                 _write_profile(prof, out_dir, "serve_profile.txt")
         finally:
             server.close()
@@ -2095,6 +2200,17 @@ def _worker_train(dev, tmp: str) -> dict:
             "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30}
 
 
+def _stats_delta(after: dict, before: dict) -> dict:
+    """An engine's decode links, prefill chunks and (where its tree has
+    them) graph replays, run-ahead chains and perf_s seconds over one run."""
+    out = {k: after[k] - before[k] for k in ("steps", "prefill_chunks", "graph_replays",
+                                              "runahead_chains") if k in after}
+    if "perf_s" in after:
+        out["perf_s"] = {k: round(v - before["perf_s"].get(k, 0.0), 4)
+                         for k, v in after["perf_s"].items()}
+    return out
+
+
 def turn_worker(root: str) -> int:
     """One tree's side of --compare-with: imports usdm_tpu_torch from `root`,
     builds its kernels, then answers one JSON command per stdin line
@@ -2139,6 +2255,7 @@ def turn_worker(root: str) -> int:
             _reply(_worker_train(dev, tmp))
         elif op == "turn":
             trace = {}
+            before = pipe._dialog_server().engine.stats()
             t0 = time.perf_counter()
             res = pipe.respond_with_policy(_paged_policy(pipe, seed=1), wav_in, n_timesteps=50,
                                            seed=1, trace=trace)
@@ -2147,7 +2264,8 @@ def turn_worker(root: str) -> int:
             audio_s = len(trace["audio"]) / pipe.decoder.mel_cfg.sampling_rate
             _reply({"wall_s": wall, "xlsr_s": trace["xlsr_s"], "dialog_s": trace["dialog_s"],
                     "synth_s": trace["synth_s"], "audio_s": audio_s, "rtf": wall / audio_s,
-                    "stage_tokens": {k: len(v) for k, v in res.stage_tokens.items()}})
+                    "stage_tokens": {k: len(v) for k, v in res.stage_tokens.items()},
+                    "engine": _stats_delta(pipe._dialog_server().engine.stats(), before)})
         elif op in ("bf16_close", "server_close"):
             if server is not None:
                 server.close()
@@ -2171,13 +2289,16 @@ def turn_worker(root: str) -> int:
             prompts = [[rng.integers(3, 32000, prompt_len).tolist() for _ in range(per_client)]
                        for _ in range(n_clients)]
             server.engine._ttfts.clear()
+            before = server.engine.stats()
             done, wall = _serve_load(server, prompts, allow, max_new)
             torch.cuda.synchronize()
             ttfts = sorted(server.engine._ttfts)
             n_tok = sum(len(t) for outs in done.values() for t in outs)
             _reply({"wall_s": wall, "generated_tokens": n_tok, "tok_s": n_tok / wall,
                     "ttft_p50_s": ttfts[len(ttfts) // 2],
-                    "ttft_p95_s": ttfts[min(int(0.95 * len(ttfts)), len(ttfts) - 1)]})
+                    "ttft_p95_s": ttfts[min(int(0.95 * len(ttfts)), len(ttfts) - 1)],
+                    "ttfts_s": [round(t, 4) for t in server.engine._ttfts],  # in order
+                    "engine": _stats_delta(server.engine.stats(), before)})
         elif op == "exit":
             break
     if "jax" in sys.modules:

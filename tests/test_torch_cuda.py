@@ -1052,3 +1052,93 @@ def test_probe_kernels_raise_on_what_they_do_not_take(cuda):
             SP.stream_probe(x, w, mode, bf)
     with pytest.raises(ValueError):
         SP.stream_probe(_int8(g, 1, 256), w, "dot", 512, loads=3)
+
+
+# --------------------------------------------- decode links from CUDA graphs
+def _link_engine(cuda, w8a8, batch, window, eager):
+    """A tiny engine on the card (head_dim 32 for K1; prefill chunks of 32
+    rows, so K6 runs in the decode links alone): bf16 weights and pools, or
+    W8A8 projections over int8 pools."""
+    from usdm_tpu_torch.core.config import EngineConfig, MistralConfig
+    from usdm_tpu_torch.engine.paged import PagedEngine
+    from usdm_tpu_torch.models import mistral as LM
+
+    cfg = MistralConfig.tiny().replace(head_dim=32, dtype="bfloat16", sliding_window=window)
+    params = LM.init_params(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    if w8a8:
+        Q.quantize_llm_params(params)
+    ecfg = EngineConfig(page_size=8, max_pages_per_seq=10, max_batch_size=batch,
+                        prefill_chunk=32, decode_horizon=8,
+                        kv_dtype="int8" if w8a8 else None)
+    return PagedEngine(params, cfg, ecfg, device=cuda, eager_links=eager)
+
+
+def _link_requests(batch, sampled):
+    import numpy as np
+
+    from usdm_tpu_torch.engine.paged import Request
+
+    r = np.random.default_rng(3)
+    allow = np.ones(291, bool)
+    allow[:3] = False  # EOS 2 unreachable: every request runs its budget
+    kw = dict(top_k=8, top_p=0.9, temperature=0.8) if sampled else {}
+    return [Request(i, r.integers(3, 291, int(n)).tolist(), allow, 2, int(m), seed=i, **kw)
+            for i, (n, m) in enumerate(zip(r.integers(5, 40, batch + 1),
+                                           r.integers(12, 40, batch + 1)))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w8a8,sampled,batch,window", [
+    (False, False, 1, None), (False, True, 4, 24), (False, False, 4, 24),
+    (True, False, 4, None), (True, True, 1, 24), (True, False, 1, 24)])
+def test_graphed_links_match_eager(cuda, w8a8, sampled, batch, window):
+    """Each decode link replayed from a CUDA graph gives the eager links'
+    tokens and KV pool (the trash pages aside: the capture's warm-up link
+    writes there), greedy and sampled, B 1 and 4 (one request waits),
+    window reclaim on and off, bf16 pools or W8A8 with int8 pools.  Every
+    link is one replay, and each replay adds its K1 and K6 launches to
+    the wrappers' counts, as the eager links count them."""
+    runs = []
+    for eager in (False, True):
+        eng = _link_engine(cuda, w8a8, batch, window, eager)
+        k1 = "int8_launches" if w8a8 else "launches"
+        PA.paged_decode_attention.launches = PA.paged_decode_attention.int8_launches = 0
+        SM.stream_qmv.launches = 0
+        reqs = eng.run(_link_requests(batch, sampled))
+        torch.cuda.synchronize()
+        st = eng.stats()
+        layers = eng.cfg.num_layers
+        assert st["steps"] > 0 and st["runahead_chains"] > 0
+        assert st["graph_replays"] == (0 if eager else st["steps"])
+        assert getattr(PA.paged_decode_attention, k1) == layers * st["steps"]
+        assert SM.stream_qmv.launches == (7 * layers * st["steps"] if w8a8 else 0)
+        assert len(eng.free_pages) == eng.n_pages - 1
+        keep = torch.ones(eng.kv.total_pages, dtype=torch.bool, device=cuda)
+        keep[eng.n_pages - 1::eng.n_pages] = False
+        pools = [p[:, keep] for p in (eng.kv.k_pages, eng.kv.v_pages)]
+        if w8a8:
+            pools += [s[keep] for s in (eng.kv.k_scales, eng.kv.v_scales)]
+        runs.append(([r.output_ids for r in reqs], pools))
+    (got, got_pools), (want, want_pools) = runs
+    assert got == want and all(len(t) > 0 for t in got)
+    assert all(torch.equal(a, b) for a, b in zip(got_pools, want_pools))
+
+
+@pytest.mark.cuda
+def test_link_capture_failure_raises(cuda, monkeypatch):
+    """A link that synchronizes cannot be captured, and the engine raises
+    instead of falling back to eager links."""
+    from usdm_tpu_torch.engine import paged_ops
+
+    real = paged_ops.paged_decode_step_chained
+
+    def syncing(*args, **kw):
+        out = real(*args, **kw)
+        int(out[0].sum())  # a host sync: not legal under capture
+        return out
+
+    eng = _link_engine(cuda, False, 1, None, False)
+    monkeypatch.setattr(paged_ops, "paged_decode_step_chained", syncing)
+    with pytest.raises(RuntimeError):
+        eng.run(_link_requests(1, False))
+    assert eng.links.replays == 0

@@ -203,9 +203,9 @@ class CfmTrainConfig(_Base):
 
 @dataclass(frozen=True)
 class EngineConfig(_Base):
-    """The paged serving engine.  Fields the port does not run yet (spec_k,
-    ngram_max_n, mixed_*, runahead) are kept so a config round-trips with
-    usdm_tpu's."""
+    """The paged serving engine.  `runahead` turns depth-1 chain run-ahead
+    on (engine/paged.py).  Fields the port does not run yet (spec_k,
+    ngram_max_n, mixed_*) are kept so a config round-trips with usdm_tpu's."""
 
     page_size: int = 256  # tokens per KV page
     max_pages_per_seq: int = 32

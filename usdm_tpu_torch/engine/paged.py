@@ -1,18 +1,29 @@
 """Paged-KV continuous-batching engine: the host-side scheduler.
 
-Port of the part of usdm_tpu/engine/paged.py that respond() runs:
-admission with best-fit page allocation, session prefix reuse (a finished
-request of a session HOLDs its pages; the session's next request prefills
-only from its page-aligned common prefix), chunked prefill, greedy or
-sampled decode as CHAINS of device-side steps with one host sync per chain
-(`step_chain`: N asynchronous launches, then one `.tolist()`), sliding-window
-page reclaim, and request cancellation.
+Port of usdm_tpu/engine/paged.py: admission with best-fit page allocation,
+session prefix reuse (a finished request of a session HOLDs its pages; the
+session's next request prefills only from its page-aligned common prefix),
+chunked prefill, greedy or sampled decode as CHAINS of device-side links
+with one host sync per chain, sliding-window page reclaim, request
+cancellation, and the JAX engine's two latency hiders:
 
-The params may hold W8A8 projections (models/quant.py) and the KV pool may
-be int8 (`EngineConfig.kv_dtype="int8"`).  Not ported, because each
-changes scheduling but not tokens: depth-1 chain run-ahead, first-token
-deferral, mixed prefill+decode bursts, `step_multi`.  Not ported and
-refused: speculative decoding (a draft or "ngram"), tensor-parallel serving.
+  * first-token deferral: after the last prefill chunk of a quiet engine
+    the first token stays on the device, the next chain takes it as its
+    input, and the host learns it at that chain's sync;
+  * depth-1 chain run-ahead (`EngineConfig.runahead`): in the quiet state
+    the next chain is dispatched from the carried device state before the
+    previous chain's sync, so the sync and the host's bookkeeping overlap
+    the device's work.
+
+Every decode link, chained or per-token (`step`), runs through
+`DecodeLinks`: on the card one CUDA-graph replay per link; on the CPU, or
+with `eager_links=True`, eagerly.  The params may hold W8A8 projections
+(models/quant.py) and the KV pool may be int8 (`EngineConfig.kv_dtype=
+"int8"`).  Not ported yet (ROADMAP.md), because each changes scheduling
+but not tokens: mixed prefill+decode bursts and `step_multi`
+(`multi_impl`), streaming consumers (`Request.stream`, which gates the
+deferral).  Not ported and refused: speculative decoding (a draft or
+"ngram"), tensor-parallel serving.
 """
 
 from __future__ import annotations
@@ -20,19 +31,13 @@ from __future__ import annotations
 import dataclasses
 import time
 from collections import deque
-from typing import Deque, List, Optional
+from typing import Deque, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from usdm_tpu_torch.core.config import EngineConfig, MistralConfig
-from usdm_tpu_torch.engine.paged_ops import (
-    PagedKV,
-    paged_decode_step,
-    paged_decode_step_chained,
-    paged_prefill_chunk,
-    sample_next,
-)
+from usdm_tpu_torch.engine.paged_ops import DecodeLinks, PagedKV, paged_prefill_chunk, sample_next
 from usdm_tpu_torch.models import mistral as M
 from usdm_tpu_torch.ops.sampling import gumbel_noise
 
@@ -96,10 +101,15 @@ def _ctx_pages_bucket(n_pages: int, maxp: int) -> int:
 
 
 class PagedEngine:
-    """Continuous-batching engine over the paged KV pool, on one device."""
+    """Continuous-batching engine over the paged KV pool, on one device.
+
+    `eager_links=True` runs every decode link eagerly on the card too,
+    instead of replaying it from a CUDA graph: for the card tests and
+    chip_smoke.py, which hold the graphs against it (the tokens are the
+    same).  On the CPU links are always eager."""
 
     def __init__(self, params: M.Params, cfg: MistralConfig, ecfg: EngineConfig,
-                 device=None, mesh=None, draft=None):
+                 device=None, mesh=None, draft=None, eager_links: bool = False):
         if draft is not None:
             raise NotImplementedError("speculative decoding is not ported to usdm_tpu_torch")
         if mesh is not None:
@@ -122,14 +132,37 @@ class PagedEngine:
         self.tokens = np.zeros(b, np.int64)
         self.status = np.zeros(b, np.int32)
         self.eos = np.zeros(b, np.int64)
+        self.top_k = np.ones(b, np.int64)
+        self.top_p = np.ones(b, np.float32)
+        self.temp = np.ones(b, np.float32)
         # per-slot vocab masks live on the device, rewritten only on admission
         self._allow_dev = torch.ones((b, cfg.vocab_size), dtype=torch.bool, device=self.device)
         self._mask_cache: dict = {}
-        self._table_dev: Optional[torch.Tensor] = None  # None = re-upload
+        # the decode link's static device inputs (and, on the card, its CUDA
+        # graphs); a chain holds at most decode_horizon links
+        self.links = DecodeLinks(params, self.kv, cfg, self._allow_dev, ecfg.max_pages_per_seq,
+                                 ps, max(ecfg.decode_horizon, 1), graphs=not eager_links)
+        # slot state mirrored in the links' buffers (table, eos, sampling
+        # parameters) changes only at admission and window reclaim: it is
+        # re-uploaded only when dirty
+        self._dev_dirty = True
+        # the links' tok/lens/done carried between chains: the previous
+        # chain's outputs ARE the next chain's inputs, so steady-state decode
+        # uploads nothing.  False = host state changed; re-upload.
+        self._hot = False
+        # deferred post-prefill first tokens: slot -> 0-d device tensor,
+        # consumed by the next chain (_dispatch_chain); any other decode path
+        # flushes them synchronously first (_flush_pending)
+        self._pending_first: Dict[int, torch.Tensor] = {}
+        # depth-1 chain run-ahead: the dispatched but unsynced chain
+        self._inflight: Optional[dict] = None
+        # per-slot admission generation: a chain dispatched for generation g
+        # is never absorbed into a slot re-admitted at g + 1
+        self.slot_gen = np.zeros(b, np.int64)
         self.slot_req: List[Optional[Request]] = [None] * b
         self.slot_slice: List[Optional[tuple]] = [None] * b
         self.slot_pages: List[List[int]] = [[] for _ in range(b)]
-        self.slot_gen: List[Optional[torch.Generator]] = [None] * b  # sampled slots
+        self.slot_rng: List[Optional[torch.Generator]] = [None] * b  # sampled slots
         self.released = np.zeros(b, np.int32)  # leading pages reclaimed by the window
         self.prefill_pos = np.zeros(b, np.int32)
         self.prefill_order: List[int] = []
@@ -144,7 +177,14 @@ class PagedEngine:
         self.total_emitted = 0
         self.total_finished = 0
         self.total_cancelled = 0
+        self.runahead_chains = 0  # chains dispatched before their predecessor's sync
         self._ttfts: Deque[float] = deque(maxlen=200)  # recent times to first token
+        # wall seconds per scheduler phase (stats()["perf_s"]): dispatch,
+        # host sync, bookkeeping
+        self.perf: Dict[str, float] = {}
+
+    def _acc(self, key: str, dt: float) -> None:
+        self.perf[key] = self.perf.get(key, 0.0) + dt
 
     # ------------------------------------------------------------ scheduling
     @property
@@ -187,22 +227,25 @@ class PagedEngine:
 
     def _admit_into(self, req: Request, slot: int, start: int, extra: List[int]) -> None:
         self.slot_pages[slot] = self.slot_pages[slot] + extra
+        self.slot_gen[slot] += 1
         row = np.full(self.ecfg.max_pages_per_seq, self.n_pages - 1, np.int32)
         row[: len(self.slot_pages[slot])] = self.slot_pages[slot]
         row[: int(self.released[slot])] = self.n_pages - 1
         self.page_table[slot] = row
-        self._table_dev = None
         self.slot_req[slot] = req
         self.slot_history[slot] = []
         self.status[slot] = PREFILL
         self._chain_streak = 0
         self.prefill_pos[slot] = start
         self.prefill_order.append(slot)
+        self.top_k[slot] = req.top_k
+        self.top_p[slot] = req.top_p
+        self.temp[slot] = req.temperature
         self.eos[slot] = req.eos_id
         self.slot_slice[slot] = _mask_slice(req.allow_mask)
-        self.slot_gen[slot] = None
+        self.slot_rng[slot] = None
         if req.sampled:
-            self.slot_gen[slot] = torch.Generator(device=self.device).manual_seed(req.seed)
+            self.slot_rng[slot] = torch.Generator(device=self.device).manual_seed(req.seed)
         key = req.allow_mask.tobytes()
         mask_dev = self._mask_cache.get(key)
         if mask_dev is None:
@@ -210,6 +253,8 @@ class PagedEngine:
             if len(self._mask_cache) < 16:
                 self._mask_cache[key] = mask_dev
         self._allow_dev[slot] = mask_dev
+        self._dev_dirty = True
+        self._hot = False
 
     def _try_admit(self) -> None:
         """FCFS with skip: assign waiting requests to free slots and pages;
@@ -256,22 +301,16 @@ class PagedEngine:
             extra = [self.free_pages.pop() for _ in range(need)]
             self._admit_into(req, slot, 0, extra)
 
-    def _sampling_for(self, slots) -> Optional[tuple]:
-        """Per-row sampling state of a decode launch, or None when every
-        listed slot is greedy (the sliced greedy tail then applies)."""
-        reqs = [self.slot_req[s] if s is not None else None for s in slots]
-        if not any(r is not None and r.sampled for r in reqs):
+    def _first_sampling(self, slot: int):
+        """Sampling state of a slot's first token (prefill), or None when
+        its request is greedy."""
+        req = self.slot_req[slot]
+        if not req.sampled:
             return None
-        v = self.cfg.vocab_size
-        noise = torch.zeros((len(reqs), v), device=self.device)
-        for i, (s, r) in enumerate(zip(slots, reqs)):
-            if r is not None and r.sampled:
-                noise[i] = gumbel_noise((v,), self.slot_gen[s], self.device)
-        as_t = lambda vals, dt: torch.tensor(vals, dtype=dt, device=self.device)  # noqa: E731
-        return (noise,
-                as_t([r.top_k if r else 1 for r in reqs], torch.int64),
-                as_t([r.top_p if r else 1.0 for r in reqs], torch.float32),
-                as_t([r.temperature if r else 1.0 for r in reqs], torch.float32))
+        as_t = lambda val, dt: torch.tensor([val], dtype=dt, device=self.device)  # noqa: E731
+        return (gumbel_noise((1, self.cfg.vocab_size), self.slot_rng[slot], self.device),
+                as_t(req.top_k, torch.int64), as_t(req.top_p, torch.float32),
+                as_t(req.temperature, torch.float32))
 
     def _prefill_tick(self) -> Optional[int]:
         """Advance the oldest prefilling request by one chunk; returns the
@@ -294,21 +333,70 @@ class PagedEngine:
         if start + n < len(req.prompt_ids):
             return None
         self.prefill_order.pop(0)
-        sampling = self._sampling_for([slot])
-        first = int(sample_next(logits, self._allow_dev[slot], sampling))
+        first = sample_next(logits, self._allow_dev[slot], self._first_sampling(slot))
         self.seq_lens[slot] = len(req.prompt_ids)
         self.status[slot] = DECODE
+        self._hot = False
+        if self._defer_first_ok(req):
+            # no host sync here: the next chain injects the device scalar as
+            # this slot's input token and the host learns it at that sync
+            self._pending_first[slot] = first
+            return slot
+        t0 = time.perf_counter()
+        tok = int(first)
+        self._acc("first_tok_sync", time.perf_counter() - t0)
+        self._record_first(slot, tok)
+        return slot
+
+    def _multi_next(self) -> bool:
+        """The next tick's decode is a chain (the port has no speculation,
+        so this is the horizon alone)."""
+        return self.decode_horizon > 1
+
+    def _defer_first_ok(self, req: Request) -> bool:
+        """First-token deferral gate: only a chain absorbs a pending device
+        token without an extra sync, and only in the quiet state (under load
+        the scheduler keeps prefilling other prompts first, so a deferred
+        sync would sit on this request's TTFT).  usdm_tpu also refuses it
+        to streaming consumers and to the fused multi-step decode, neither
+        of which is ported yet."""
+        return self._multi_next() and not self.waiting and not self.prefill_order
+
+    def _record_first(self, slot: int, first: int) -> None:
+        """Host bookkeeping of a post-prefill first token."""
+        req = self.slot_req[slot]
         req.ttft_s = time.time() - req.t_submit
         self._ttfts.append(req.ttft_s)
         req.output_ids.append(first)
         self.tokens[slot] = first
         if first == req.eos_id or len(req.output_ids) >= req.max_new_tokens:
             self._finish(slot)
-        return slot
+
+    def _flush_pending(self) -> None:
+        """Synchronously absorb deferred first tokens (step() reads
+        self.tokens on the host)."""
+        for slot, tok in list(self._pending_first.items()):
+            t0 = time.perf_counter()
+            first = int(tok)
+            self._acc("first_tok_sync", time.perf_counter() - t0)
+            self._record_first(slot, first)
+        self._pending_first.clear()
+
+    def _slot_state_dev(self) -> None:
+        """Upload table, eos and the sampling parameters into the links'
+        buffers when host-side slot state changed."""
+        if self._dev_dirty:
+            lk = self.links
+            for dst, src in ((lk.table, self.page_table), (lk.eos, self.eos),
+                             (lk.top_k, self.top_k), (lk.top_p, self.top_p),
+                             (lk.temperature, self.temp)):
+                lk.load(dst, src)
+            self._dev_dirty = False
 
     def _finish(self, slot: int) -> None:
         req = self.slot_req[slot]
         self._chain_streak = 0
+        self._hot = False
         if req is not None:
             req.finished = True
             self.total_finished += 1
@@ -355,7 +443,9 @@ class PagedEngine:
     def cancel(self, req_id: int) -> bool:
         """Abort one request (waiting or slot-resident); its pages return to
         the pool or, for a session, go to HOLD with only the kv-written
-        prefix advertised.  Runs on the thread that ticks the engine."""
+        prefix advertised.  Runs on the thread that ticks the engine.  False
+        if the request already finished (the in-flight chain's sync may
+        finish it first) or is unknown."""
         for i, r in enumerate(self.waiting):
             if r.req_id == req_id:
                 self.waiting.pop(i)
@@ -363,14 +453,21 @@ class PagedEngine:
                 self.total_cancelled += 1
                 return True
         for slot, r in enumerate(self.slot_req):
-            if r is None or r.req_id != req_id or r.finished:
+            if r is None or r.req_id != req_id:
                 continue
+            # the run-ahead chain writes into this slot at its sync: absorb it
+            # first, so the finish below retires consistent state
+            self.drain_inflight()
+            if self.slot_req[slot] is not r or r.finished:
+                return False
             r.cancelled = True
             if self.status[slot] == PREFILL:
                 if slot in self.prefill_order:
                     self.prefill_order.remove(slot)
                 self.seq_lens[slot] = int(self.prefill_pos[slot])
+            self._pending_first.pop(slot, None)
             self._finish(slot)
+            self._dev_dirty = True
             self.total_cancelled += 1
             return True
         return False
@@ -387,48 +484,52 @@ class PagedEngine:
         while r < first_needed and r < len(self.slot_pages[slot]):
             self.free_pages.append(self.slot_pages[slot][r])
             self.page_table[slot, r] = self.n_pages - 1
-            self._table_dev = None
             r += 1
+        if r != int(self.released[slot]):
+            self._dev_dirty = True
         self.released[slot] = r
 
-    def _active_slice(self, dec: np.ndarray, sampling) -> Optional[tuple]:
+    def _sampled(self, dec: np.ndarray) -> bool:
+        return any(self.slot_req[s].sampled for s in np.flatnonzero(dec))
+
+    def _active_slice(self, dec: np.ndarray, sampled: bool) -> Optional[tuple]:
         """The lm_head slice shared by every decoding slot; None when any row
         samples (the slice is a greedy-only tail)."""
-        if sampling is not None:
+        if sampled:
             return None
         slices = {self.slot_slice[i] for i in np.flatnonzero(dec)}
         return slices.pop() if len(slices) == 1 else None
 
-    def _table(self) -> torch.Tensor:
-        if self._table_dev is None:
-            self._table_dev = torch.from_numpy(self.page_table.copy()).to(self.device)
-        return self._table_dev
-
     # ------------------------------------------------------------------ run
     def step(self, _defer_chain: bool = False) -> int:
-        """Admit + one prefill chunk + one decode step (one host sync).
+        """Admit + one prefill chunk + one decode link (one host sync).
         `_defer_chain` (tick only): when this step's chunk drained the
         queue, leave decode to the next tick's chain."""
+        if self._inflight is not None:  # absorb any run-ahead chain first
+            fl, self._inflight = self._inflight, None
+            self._sync_chain(fl)
+        t0 = time.perf_counter()
         self._try_admit()
+        self._acc("admit", time.perf_counter() - t0)
+        t0 = time.perf_counter()
         done_slot = self._prefill_tick()
+        self._acc("prefill", time.perf_counter() - t0)
         dec = self.status == DECODE
         if not dec.any():
             return self._occupied()
         if (_defer_chain and done_slot is not None and not self.prefill_order
-                and not self.waiting and self.decode_horizon > 1):
+                and not self.waiting and self._multi_next()):
             return self._occupied()
-        b = self.ecfg.max_batch_size
-        sampling = self._sampling_for([s if dec[s] else None for s in range(b)])
-        dev = self.device
-        nxt = paged_decode_step(
-            self.params, self.kv, self.cfg, torch.from_numpy(self.tokens).to(dev),
-            torch.from_numpy(self.seq_lens).to(dev), self._table(),
-            torch.from_numpy(dec).to(dev), self._allow_dev, self.ecfg.page_size,
-            logits_slice=self._active_slice(dec, sampling), sampling=sampling,
-        ).tolist()  # the step's one host sync
-        self.steps += 1
-        toks = np.asarray(nxt, np.int64)[:, None]
-        return self._absorb(dec, toks, np.where(dec, 1, 0))
+        self._flush_pending()  # the link below starts from self.tokens
+        dec = self.status == DECODE  # a pending EOS may have finished a slot
+        if not dec.any():
+            return self._occupied()
+        # a chain of one link from the host's state: done = ~active gives
+        # paged_decode_step's tokens
+        self._hot = False
+        self._sync_chain(self._dispatch_chain(1, dec, "step"))
+        self._hot = False
+        return self._occupied()
 
     def _safe_horizon(self, n_steps: int, dec: np.ndarray) -> int:
         """Clamp a chain so no slot decodes past its token budget or its page
@@ -437,50 +538,148 @@ class PagedEngine:
         ps = self.ecfg.page_size
         for slot in np.flatnonzero(dec):
             req = self.slot_req[slot]
-            n = min(n, req.max_new_tokens - len(req.output_ids))
+            # a deferred first token spends one unit of the budget when the
+            # chain absorbs it
+            pend = 1 if slot in self._pending_first else 0
+            n = min(n, req.max_new_tokens - len(req.output_ids) - pend)
             n = min(n, len(self.slot_pages[slot]) * ps - (int(self.seq_lens[slot]) + 1))
         return max(n, 1)
 
     def step_chain(self, n_steps: int) -> int:
-        """Multi-token decode: n_steps chained single-step launches with ONE
-        host sync at the end.  Chains ramp 8 -> 16 -> ... up to n_steps
-        while the decoding set is unchanged, so an early EOS wastes at most
-        the current short chain's tail."""
+        """Multi-token decode: n_steps chained links with ONE host sync.
+        Chains ramp 8 -> 16 -> ... up to n_steps while the decoding set is
+        unchanged, so an early EOS wastes at most the current short chain's
+        tail.  In the quiet state (nothing waiting or prefilling, and
+        `ecfg.runahead`) chains run ahead depth-1: the successor is
+        dispatched from the carried device state before this chain's sync."""
+        t0 = time.perf_counter()
         self._try_admit()
+        self._acc("admit", time.perf_counter() - t0)
+        t0 = time.perf_counter()
         self._prefill_tick()
-        n_steps = min(n_steps, 8 << min(self._chain_streak, 8))
+        self._acc("prefill", time.perf_counter() - t0)
+        n_steps = min(n_steps, self.links.max_links, 8 << min(self._chain_streak, 8))
         self._chain_streak += 1
         if self.waiting:
             n_steps = min(n_steps, 8)
         dec = self.status == DECODE
+        fl, self._inflight = self._inflight, None
         if not dec.any():
+            if fl is not None:
+                self._sync_chain(fl)  # tail chain of a drained decode set
             return self._occupied()
-        n_steps = self._safe_horizon(n_steps, dec)
-        b = self.ecfg.max_batch_size
-        dev = self.device
-        tok = torch.from_numpy(self.tokens).to(dev)
-        lens = torch.from_numpy(self.seq_lens).to(dev)
-        active = torch.from_numpy(dec).to(dev)
-        done = ~active
-        eos = torch.from_numpy(self.eos).to(dev)
-        table = self._table()
-        slots = [s if dec[s] else None for s in range(b)]
-        outs = []
-        for _ in range(n_steps):
-            sampling = self._sampling_for(slots)  # fresh noise every link
-            tok, done, lens = paged_decode_step_chained(
-                self.params, self.kv, self.cfg, tok, lens, table, active, done, eos,
-                self._allow_dev, self.ecfg.page_size,
-                logits_slice=self._active_slice(dec, sampling), sampling=sampling)
-            outs.append(tok)
-        toks = np.asarray(torch.stack(outs, dim=1).tolist(), np.int64)  # ONE host sync
-        self.steps += n_steps
-        is_eos = toks == self.eos[:, None]
-        n_emitted = np.where(dec, np.where(is_eos.any(axis=1), is_eos.argmax(axis=1) + 1,
-                                           n_steps), 0)
-        return self._absorb(dec, toks, n_emitted)
+        quiet = self.ecfg.runahead and not self.waiting and not self.prefill_order
+        if fl is not None:
+            meta = None
+            if quiet and self._hot:
+                # length assumes the in-flight chain emits fully: if it emits
+                # less it hit EOS, and `done` freezes the slot on the device
+                n = self._runahead_len(n_steps, dec, fl)
+                if n > 0:
+                    meta = self._dispatch_chain(n, dec)
+                    self.runahead_chains += 1
+            self._sync_chain(fl)
+            if meta is not None:
+                self._inflight = meta
+                return self._occupied()
+            # nothing ran ahead: dispatch from the just-absorbed state
+            dec = self.status == DECODE
+            if not dec.any():
+                return self._occupied()
+        meta = self._dispatch_chain(self._safe_horizon(n_steps, dec), dec)
+        if quiet and self._runahead_len(self.decode_horizon, dec, meta) > 0:
+            # a successor exists: the next tick dispatches it, then syncs this
+            self._inflight = meta
+            return self._occupied()
+        self._sync_chain(meta)
+        return self._occupied()
 
-    def _absorb(self, dec: np.ndarray, toks: np.ndarray, n_emitted: np.ndarray) -> int:
+    def _runahead_len(self, n_steps: int, dec: np.ndarray, fl: dict) -> int:
+        """Longest chain dispatchable after the in-flight chain `fl`,
+        assuming it emits fully; <= 0 means no run-ahead (a slot's budget
+        or page allocation would run out)."""
+        n = n_steps
+        ps = self.ecfg.page_size
+        for slot in np.flatnonzero(dec):
+            req = self.slot_req[slot]
+            n = min(n, req.max_new_tokens - len(req.output_ids) - int(fl["full_emit"][slot]))
+            n = min(n, len(self.slot_pages[slot]) * ps
+                    - (int(self.seq_lens[slot]) + fl["n_steps"] + 1))
+        return n
+
+    def _dispatch_chain(self, n_steps: int, dec: np.ndarray, kind: str = "chain") -> dict:
+        """Dispatch one chain of `n_steps` links without a host sync ->
+        what _sync_chain needs to absorb it later."""
+        t0 = time.perf_counter()
+        lk = self.links
+        sampled = self._sampled(dec)
+        lslice = self._active_slice(dec, sampled)
+        lk.load(lk.active, dec)
+        if not self._hot:
+            lk.load(lk.tok, self.tokens)
+            lk.load(lk.lens, self.seq_lens)
+            torch.logical_not(lk.active, out=lk.done)
+        self._slot_state_dev()
+        # deferred first tokens ride this chain as their slots' inputs; the
+        # host learns them at the sync, as column 0
+        pend = sorted(self._pending_first)
+        for slot in pend:
+            lk.inject(slot, self._pending_first[slot])
+        self._pending_first.clear()
+        lk.begin()
+        sampled_slots = [s for s in np.flatnonzero(dec) if self.slot_req[s].sampled]
+        v = self.cfg.vocab_size
+        for _ in range(n_steps):
+            for s in sampled_slots:  # fresh noise every link, as the eager chain drew it
+                lk.noise[s].copy_(gumbel_noise((v,), self.slot_rng[s], self.device))
+            lk.run(lslice, sampled)
+        self._hot = True
+        handle = lk.fetch()
+        self._acc(f"{kind}_dispatch", time.perf_counter() - t0)
+        full = np.where(dec, n_steps, 0)
+        for slot in pend:
+            full[slot] += 1
+        return {"handle": handle, "dec": dec, "pend": pend, "n_steps": n_steps,
+                "gen": self.slot_gen.copy(), "full_emit": full, "kind": kind}
+
+    def _sync_chain(self, meta: dict) -> int:
+        """ONE host sync for a dispatched chain (its tokens' copy alone),
+        then absorb them."""
+        t0 = time.perf_counter()
+        toks_all = self.links.wait(meta["handle"], meta["n_steps"])
+        self._acc(f"{meta['kind']}_sync", time.perf_counter() - t0)
+        return self._absorb_chain(meta, toks_all)
+
+    def _absorb_chain(self, meta: dict, toks_all: np.ndarray) -> int:
+        """Absorb a synced chain.  Slots re-admitted since the dispatch
+        (generation bump) or finished by an earlier absorb are skipped:
+        their links were frozen or trash-routed on the device."""
+        n_steps = meta["n_steps"]
+        pend = meta["pend"]
+        self.steps += n_steps
+        dec = meta["dec"] & (self.status == DECODE) & (self.slot_gen == meta["gen"])
+        b = self.ecfg.max_batch_size
+        # pending slots emit their deferred first token as column 0 (their
+        # chain input); everyone else's column 0 was emitted already, so
+        # their window starts at column 1
+        em = np.zeros((b, n_steps + 1), np.int64)
+        em[:, :n_steps] = toks_all[:, 1:]
+        valid = np.full(b, n_steps)
+        for slot in pend:
+            em[slot] = toks_all[slot]
+            valid[slot] = n_steps + 1
+        cols = np.arange(n_steps + 1)[None]
+        is_eos = (em == self.eos[:, None]) & (cols < valid[:, None])
+        n_emitted = np.where(dec, np.where(is_eos.any(axis=1), is_eos.argmax(axis=1) + 1, valid),
+                             0)
+        t0 = time.perf_counter()
+        try:
+            return self._absorb_multi(dec, em, n_emitted, pend_slots=pend)
+        finally:
+            self._acc("absorb", time.perf_counter() - t0)
+
+    def _absorb_multi(self, dec: np.ndarray, toks: np.ndarray, n_emitted: np.ndarray,
+                      pend_slots=()) -> int:
         """Append each decoding slot's emitted tokens; finish on EOS, budget
         or page capacity; otherwise reclaim pages below the window."""
         cap = self.ecfg.max_pages_per_seq * self.ecfg.page_size
@@ -488,8 +687,14 @@ class PagedEngine:
             n = int(n_emitted[slot])
             req = self.slot_req[slot]
             emitted = toks[slot, :n].tolist()
+            if req.ttft_s is None and emitted:  # a deferred first token
+                req.ttft_s = time.time() - req.t_submit
+                self._ttfts.append(req.ttft_s)
             req.output_ids.extend(emitted)
-            self.seq_lens[slot] += n
+            # a pending slot's column 0 was its chain input: the chain wrote
+            # its KV, but it never counted in seq_lens (the kv-written
+            # length), so the slot's kv grows by n - 1
+            self.seq_lens[slot] += n - (1 if slot in pend_slots and n > 0 else 0)
             if emitted:
                 self.tokens[slot] = emitted[-1]
             hit_eos = n > 0 and emitted[-1] == req.eos_id
@@ -505,31 +710,63 @@ class PagedEngine:
         """One scheduler turn: while prompts are pending, drain up to
         prefill_chunks_per_tick chunks (then one per-token step unless the
         queue just drained); otherwise one decode chain."""
+        if self.waiting and self._inflight is not None:
+            # the pending sync may free slots and pages (EOS or budget ends),
+            # which admission below can only see after it
+            fl, self._inflight = self._inflight, None
+            self._sync_chain(fl)
         if self.waiting or self.prefill_order:
+            if self.waiting:
+                # new arrivals end the quiet state a deferral was granted in
+                # (EngineServer hands them over between ticks, so the gate
+                # could not see them): learn the deferred first tokens now
+                # instead of behind the newcomers' prefill chunks
+                self._flush_pending()
             self._try_admit()
             if self.prefill_order:
+                t0 = time.perf_counter()
+                deferred = False
                 for _ in range(self.ecfg.prefill_chunks_per_tick - 1):
                     done_slot = self._prefill_tick()
                     self._try_admit()
                     if (done_slot is not None and not self.prefill_order
-                            and not self.waiting and self.decode_horizon > 1):
-                        # the queue drained: the next tick runs a chain
-                        return self._occupied()
+                            and not self.waiting and self._multi_next()):
+                        deferred = True  # the queue drained: the next tick runs a chain
+                        break
                     if not self.prefill_order:
                         break
+                self._acc("prefill", time.perf_counter() - t0)
+                if deferred:
+                    return self._occupied()
                 return self.step(_defer_chain=True)
         if self.decode_horizon == 1:
             return self.step()
         return self.step_chain(self.decode_horizon)
+
+    def drain_inflight(self) -> None:
+        """Sync and absorb the run-ahead chain, if any.  The last request of
+        a burst can finish at the in-flight chain's sync with the successor
+        still dispatched: its tokens are frozen or trash-routed, but until it
+        is absorbed `steps` and `perf_s` undercount.  run() and an idle
+        EngineServer call this."""
+        if self._inflight is not None:
+            fl, self._inflight = self._inflight, None
+            self._sync_chain(fl)
 
     def run(self, requests: List[Request]) -> List[Request]:
         for r in requests:
             self.submit(r)
         while self.busy:
             self.tick()
+        self.drain_inflight()
         return requests
 
     def stats(self) -> dict:
+        """Serving telemetry.  `perf_s`: wall seconds by scheduler phase
+        (admit, prefill, chain/step dispatch and sync, absorb,
+        first_tok_sync); `graph_replays`: decode links run as CUDA-graph
+        replays; `runahead_chains`: chains dispatched before their
+        predecessor's sync."""
         return {
             "steps": self.steps,
             "prefill_chunks": self.prefill_chunks,
@@ -540,4 +777,7 @@ class PagedEngine:
             "held_sessions": len(self.session_slots),
             "waiting": len(self.waiting),
             "free_pages": len(self.free_pages),
+            "graph_replays": self.links.replays,
+            "runahead_chains": self.runahead_chains,
+            "perf_s": {k: round(v, 4) for k, v in sorted(self.perf.items())},
         }

@@ -1,9 +1,11 @@
 """Device side of the paged continuous-batching engine.
 
-Port of the parts of usdm_tpu/engine/paged_ops.py that the greedy serving
-path runs: the paged KV pool, one decode step, one chained decode step,
-chunked prefill, and first-token sampling.  The host scheduler is
-engine/paged.py.
+Port of the parts of usdm_tpu/engine/paged_ops.py that the serving path
+runs: the paged KV pool, one decode step, one chained decode step,
+chunked prefill, and first-token sampling; and `DecodeLinks`, the static
+inputs of a chained decode link, which on the card runs each link as one
+CUDA-graph replay (the counterpart of the JAX engine's one jitted dispatch
+per link).  The host scheduler is engine/paged.py.
 
 The pool keeps the JAX layout [Hkv, L*N, P, hd]: layer li's page p lives at
 li*N + p, and the last page of every layer's region (N - 1) is a trash page
@@ -23,7 +25,7 @@ come from the projections' widths, as in usdm_tpu.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,7 +36,7 @@ from usdm_tpu_torch.models import mistral as M
 from usdm_tpu_torch.models.quant import out_dim, qmm
 from usdm_tpu_torch.ops.attention import mha
 from usdm_tpu_torch.ops.paged_attention import paged_decode_attention
-from usdm_tpu_torch.ops.stream_matvec import symmetric_scale
+from usdm_tpu_torch.ops.stream_matvec import stream_qmv, symmetric_scale
 from usdm_tpu_torch.ops.sampling import NEG_INF, sample_batched
 
 # (gumbel noise [B, V], top_k [B], top_p [B], temperature [B]) for rows that
@@ -208,6 +210,161 @@ def paged_decode_step_chained(
     new_done = done | (nxt == eos_ids)
     new_lens = torch.where(done, seq_lens, seq_lens + 1)
     return nxt, new_done, new_lens
+
+
+def _link_counters() -> List[Tuple[object, str]]:
+    """Every launch counter of the kernels a decode link runs (K1, K6):
+    each `*launches` attribute of their wrappers."""
+    return [(fn, name) for fn in (paged_decode_attention, stream_qmv)
+            for name in sorted(vars(fn)) if name.endswith("launches")]
+
+
+class DecodeLinks:
+    """The static inputs of one chained decode link and the link itself.
+
+    Owns the link's inputs as persistent device buffers, which the engine
+    fills in place between links (`load`, `inject`): tok [B] int64, lens
+    [B] int32, done [B] bool, active [B] bool, eos [B] int64, table [B,
+    maxp] int32, and for sampled links noise [B, V] f32, top_k, top_p,
+    temperature.  A link (`run`) is `paged_decode_step_chained` over them;
+    it writes its outputs back into tok, done and lens, so the next link
+    needs no host work, and its token into the next column of `stacked` [B,
+    max_links + 1] (column 0 holds the chain's input, `begin`).
+
+    On the card each link variant (logits slice, sampled or greedy) is
+    captured once in a CUDA graph, after one eager warm-up link, and every
+    later link of that variant is one replay; all the graphs share one
+    memory pool.  A capture that fails raises: there is no eager fallback.
+    A replay calls no kernel wrapper, so it adds to the wrappers' launch
+    counts what its capture launched (`_link_counters`).  On the CPU, or
+    with `graphs=False` (the card tests and chip_smoke.py hold graphs
+    against it), every link runs eagerly.
+
+    `fetch` copies `stacked` to one of two pinned host buffers without
+    waiting and `wait` blocks on that copy alone, so a chain can be
+    dispatched while its predecessor's tokens are still on their way."""
+
+    def __init__(self, params: M.Params, kv: PagedKV, cfg: MistralConfig,
+                 allow_masks: torch.Tensor, max_pages: int, page_size: int, max_links: int,
+                 graphs: bool = True):
+        self.params, self.kv, self.cfg = params, kv, cfg
+        self.allow = allow_masks  # [B, V] bool, rewritten in place by the engine
+        self.page_size = page_size
+        self.max_links = max_links
+        b, v = allow_masks.shape
+        dev = self.device = allow_masks.device
+
+        def zeros(*shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        self.tok, self.eos = zeros(b, dtype=torch.int64), zeros(b, dtype=torch.int64)
+        self.lens = zeros(b, dtype=torch.int32)
+        self.done, self.active = zeros(b, dtype=torch.bool), zeros(b, dtype=torch.bool)
+        self.table = zeros(b, max_pages, dtype=torch.int32)
+        self.noise = zeros(b, v)
+        self.top_k = torch.ones(b, dtype=torch.int64, device=dev)
+        self.top_p, self.temperature = (torch.ones(b, device=dev) for _ in range(2))
+        self.stacked = zeros(b, max_links + 1, dtype=torch.int64)
+        self.col = zeros(1, dtype=torch.int64)  # the column the next link writes
+        self.graphed = graphs and dev.type == "cuda"
+        self.replays = 0
+        self._graphs: dict = {}  # (logits_slice, sampled) -> (graph, launches per replay)
+        self._pool = self._stream = None
+        card = dev.type == "cuda"
+        self._host = [torch.empty((b, max_links + 1), dtype=torch.int64, pin_memory=card)
+                      for _ in range(2)]
+        self._events = [torch.cuda.Event() if card else None for _ in range(2)]
+        self._flip = 0
+
+    def load(self, dst: torch.Tensor, values: np.ndarray) -> None:
+        """dst <- host values, in stream order; on the card through pinned
+        memory without waiting for the device."""
+        src = torch.from_numpy(np.ascontiguousarray(values))
+        if self.device.type == "cuda":
+            src = src.pin_memory()
+        dst.copy_(src, non_blocking=True)
+
+    def inject(self, slot: int, first: torch.Tensor) -> None:
+        """A deferred first token (0-d, on the device) becomes the slot's
+        chain input; done is set if it already is the slot's EOS."""
+        first = first.reshape(1)
+        self.tok[slot: slot + 1].copy_(first)
+        self.done[slot: slot + 1].copy_(first == self.eos[slot: slot + 1])
+
+    def begin(self) -> None:
+        """Start a chain: column 0 of `stacked` holds its input tokens."""
+        self.stacked[:, 0].copy_(self.tok)
+        self.col.fill_(1)
+
+    def run(self, logits_slice: Optional[Tuple[int, int, int]], sampled: bool) -> None:
+        """One link: a graph replay on the card, else the eager link."""
+        key = (logits_slice, sampled)
+        if not self.graphed:
+            self._link(key)
+            return
+        entry = self._graphs.get(key)
+        if entry is None:
+            entry = self._graphs[key] = self._capture(key)
+        graph, launches = entry
+        graph.replay()
+        for (fn, name), n in zip(_link_counters(), launches):
+            setattr(fn, name, getattr(fn, name) + n)
+        self.replays += 1
+
+    def _link(self, key) -> None:
+        logits_slice, sampled = key
+        sampling = (self.noise, self.top_k, self.top_p, self.temperature) if sampled else None
+        tok, done, lens = paged_decode_step_chained(
+            self.params, self.kv, self.cfg, self.tok, self.lens, self.table, self.active,
+            self.done, self.eos, self.allow, self.page_size, logits_slice, sampling)
+        self.tok.copy_(tok)
+        self.done.copy_(done)
+        self.lens.copy_(lens)
+        self.stacked.index_copy_(1, self.col, tok[:, None])
+        self.col.add_(1)
+
+    def _capture(self, key) -> tuple:
+        """One eager warm-up link (libraries loaded, RoPE table made, nothing
+        built under capture) and one captured link, on a side stream, with
+        every row frozen (done: writes go to the trash page); the carried
+        state and the launch counts are restored afterwards."""
+        counters = _link_counters()
+        counts = [getattr(fn, name) for fn, name in counters]
+        saved = [t.clone() for t in (self.tok, self.lens, self.done, self.stacked, self.col)]
+        self.done.fill_(True)
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+            self._pool = torch.cuda.graph_pool_handle()
+        self._stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self._stream):
+            self._link(key)
+        torch.cuda.current_stream(self.device).wait_stream(self._stream)
+        warm = [getattr(fn, name) for fn, name in counters]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
+                              capture_error_mode="thread_local"):
+            self._link(key)
+        launches = [getattr(fn, name) - n for (fn, name), n in zip(counters, warm)]
+        for (fn, name), n in zip(counters, counts):
+            setattr(fn, name, n)
+        for t, s in zip((self.tok, self.lens, self.done, self.stacked, self.col), saved):
+            t.copy_(s)
+        return graph, launches
+
+    def fetch(self) -> int:
+        """Start copying `stacked` to the host -> a handle for `wait`."""
+        i = self._flip
+        self._flip ^= 1
+        self._host[i].copy_(self.stacked, non_blocking=True)
+        if self._events[i] is not None:
+            self._events[i].record()
+        return i
+
+    def wait(self, handle: int, n_links: int) -> np.ndarray:
+        """The tokens of a fetched chain, [B, n_links + 1] int64."""
+        if self._events[handle] is not None:
+            self._events[handle].synchronize()
+        return self._host[handle][:, : n_links + 1].numpy().copy()
 
 
 def paged_prefill_chunk(

@@ -123,6 +123,10 @@ class EngineServer:
                     self.engine.cancel(rid)
                 if self.engine.busy:
                     self.engine.tick()
+                if not self.engine.busy:
+                    # work drained: absorb the run-ahead chain, so telemetry
+                    # is exact before the callers wake
+                    self.engine.drain_inflight()
             except Exception as e:  # device failure: fail the requests, not the callers
                 tb = traceback.format_exc()
                 with self._cv:

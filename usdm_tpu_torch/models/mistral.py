@@ -18,6 +18,7 @@ paged engine (engine/paged_ops.py), which is the serving path.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -67,13 +68,20 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return (xf * w.float()).to(x.dtype)
 
 
+@functools.lru_cache(maxsize=16)
+def _inv_freq(device: torch.device, head_dim: int, theta: float) -> torch.Tensor:
+    """RoPE's inverse frequencies on `device`, made once per (device,
+    head_dim, theta): the host-to-device copy is not legal inside a CUDA
+    graph capture, so a captured decode link finds them here.  Read-only."""
+    inv_freq = 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32) / head_dim))
+    return torch.from_numpy(inv_freq.astype(np.float32)).to(device)
+
+
 def rope_tables(positions: torch.Tensor, head_dim: int,
                 theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """HF-convention cos/sin tables for absolute positions [..., T] ->
     [..., T, head_dim] f32."""
-    inv_freq = 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32) / head_dim))
-    inv = torch.from_numpy(inv_freq.astype(np.float32)).to(positions.device)
-    freqs = positions[..., None].float() * inv
+    freqs = positions[..., None].float() * _inv_freq(positions.device, head_dim, theta)
     emb = torch.cat([freqs, freqs], dim=-1)
     return torch.cos(emb), torch.sin(emb)
 
