@@ -11,7 +11,9 @@ Phases:
      plus CUDA-event times of both.  Flash attention (K2, K5) has one route
      per dtype: bf16 on the tensor cores, held against the plain versions
      with round_operands=True (P and dS rounded to bf16 where the kernels
-     round them), f32 on the CUDA cores, held to 1e-4; K4's forward and its
+     round them; K2 also at a mixed link's chunk rows, each with its own
+     start, two fully padded), f32 on the tensor cores (3xTF32), held to
+     1e-4; K4's forward and its
      backward kernel at the training shape (eager, from a CUDA graph, and
      the plain autograd backward beside them); K6 at the four 7B projection
      shapes and M 1 / 8 / 16, both routes, eager and from a CUDA graph,
@@ -32,10 +34,19 @@ Phases:
      pinned at 48/32/256; then (B) eight client threads call
      EngineServer.generate over a PagedEngine of the same W8A8 7B with int8
      KV pages (bench_serving's load: prompt 384, 128 new tokens, 2 requests
-     per client, page 256, greedy, EOS masked out); every kernel of each
-     path must have launched, and every decode link of (A) and (B) must
-     have been one graph replay launching K1 once per layer and K6 224
-     times; (A) has its eager-link turn as in phase 4;
+     per client, page 256, greedy, EOS masked out; the EngineConfig
+     defaults, so mixed prefill + decode links engage while three slots
+     decode), then the same prompts once more with multi_impl="fused" (the
+     same tokens); then (C) 16 clients arriving 0.15 s apart (bench.py's
+     stagger_s load, batch 16) once with mixed prefill and once without:
+     identical tokens, mixed links carrying more than one chunk row, the
+     pool whole afterwards; on the mixed server three clients stream
+     (generate_stream: the same tokens) and one generator closed after its
+     first yield must cancel its request; every kernel of each path must
+     have launched, every decode link of (A), (B) and (C) must have been
+     one graph replay launching K1 once per layer and K6 224 times, and
+     every (eager) mixed link K1 once per layer; (A) has its eager-link
+     turn as in phase 4;
   6. train: one CFM train step of a small Voicebox on the card against the
      CPU, then the trainer CLI (usdm_tpu_torch.cli.train_voicebox) runs ~10
      full-width steps (VoiceboxConfig(), batch 8 of 16 s crops, bf16 over f32
@@ -69,6 +80,7 @@ is absent or any phase fails.  Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import statistics
@@ -520,6 +532,7 @@ def kernel_checks(dev) -> dict:
         f"{k2_graph[1]:.4f} ms")
     km, pm = timings["a"]
     log(f"  K2 time (a): kernel {km:.4f} ms, plain {pm:.4f} ms")
+    errs += [k2_mixed_case(dev, randn, *case) for case in MIXED_CASES]
     results["flash_attention"] = {"max_abs_err": max(errs), "ms": km, "plain_ms": pm,
                                   **k2_bound, "library_ms": k2_lib, "case": "prefill (a) bf16"}
     rb = f32["b"]
@@ -530,6 +543,69 @@ def kernel_checks(dev) -> dict:
 
     results["fused_activation1d"] = k3_checks(dev, randn)
     return results
+
+
+# the chunk rows of one mixed prefill + decode link (engine/paged_ops.py::
+# paged_mixed_step at the serving cell's page 256, chunk 256, 3 pages a
+# sequence) as (starts, n_valid, S_ctx): each row its own start, 128 or 256
+# valid queries or none (fully padded, every query segment -1); NPF 8 over 3
+# pages, and the NPF 2 and 4 rows over 1 and 2 pages that part (C)'s
+# 384-token prompts mostly give (chunk 0 at start 0, chunk 1 at 256)
+MIXED_CASES = (((0, 256, 0, 256, 0, 0, 256, 0), (256, 128, 256, 256, 0, 128, 256, 0), 768),
+               ((0, 0), (256, 128), 256), ((0, 256, 0, 0), (256, 128, 256, 0), 512))
+
+
+def k2_mixed_case(dev, randn, starts, valid, s_ctx) -> float:
+    """K2 (bf16) at a mixed link's shape: NPF rows (B), T 256, GQA 32/8, d
+    128, S_ctx keys, window 4096, per-row starts and kv segments, against
+    the plain version with round_operands at the bf16 bound; padded rows
+    (n_valid 0) must be 0 on both sides.  Logs eager, CUDA-graph and SDPA
+    (boolean mask) ms and the bound -> the error."""
+    import torch
+
+    from usdm_tpu_torch.ops import flash_attention as FL
+
+    npf, c = len(starts), 256
+    q = randn(npf, c, 32, 128, dtype=torch.bfloat16)
+    kv = randn(2, npf, 8, s_ctx, 128, dtype=torch.bfloat16)  # head-major, as gathered
+    k, v = kv[0].permute(0, 2, 1, 3), kv[1].permute(0, 2, 1, 3)
+    start = torch.tensor(starts, device=dev, dtype=torch.int32)[:, None]
+    n_valid = torch.tensor(valid, device=dev, dtype=torch.int32)[:, None]
+    ar = torch.arange(c, device=dev, dtype=torch.int32)[None]
+    qpos = start + ar
+    qseg = torch.where(ar < n_valid, 0, -1).to(torch.int32)
+    kpos = torch.arange(s_ctx, device=dev, dtype=torch.int32)[None].expand(npf, s_ctx)
+    kseg = torch.where(kpos < start + n_valid, 0, -1).to(torch.int32)
+    kpos = kpos.contiguous()
+    args = (q, k, v, qseg, kseg, qpos, kpos, True, 4096, None, False)
+    got = FL.flash_attention(*args)
+    want, _ = FL.flash_attention_reference(*args, round_operands=True)
+    case = (f"mixed link B={npf} T=256 S_ctx={s_ctx} per-row starts, "
+            f"{valid.count(0)} rows padded")
+    err = check("K2", case, got, want, bf16_bound(want))
+    padded = n_valid[:, 0] == 0
+    if not (torch.all(got[padded] == 0) and torch.all(want[padded] == 0)):
+        raise AssertionError("K2: a fully padded row is not 0")
+    mask = attn_mask(qseg, kseg, qpos, kpos, True, 4096)
+    bound = least_time(2 * nbytes(q) + nbytes(k, v, qseg, kseg, qpos, kpos),
+                       4 * 128 * 32 * int(mask.sum()), "bf16")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask[:, None], enable_gqa=True)
+
+    ms = cuda_ms(lambda: FL.flash_attention(*args))
+    g_ms = graph_ms(lambda: [FL.flash_attention(*args) for _ in range(10)], dev) / 10
+    lib = cuda_ms(sdpa)
+    lib_g = graph_ms(lambda: [sdpa() for _ in range(10)], dev) / 10
+    plain = cuda_ms(lambda: FL.flash_attention_reference(*args))
+    log(f"  K2 [{case}]: kernel {ms:.4f} ms eager, {g_ms:.4f} ms from a CUDA graph; plain "
+        f"{plain:.4f} ms; scaled_dot_product_attention with the boolean mask {lib:.4f} ms, "
+        f"{lib_g:.4f} ms from a graph; bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}); "
+        f"{int(mask.sum())} of {npf * c * s_ctx} (query, key) pairs pass the masks (the "
+        f"wrapper does not report its skipped tiles)")
+    return err
 
 
 def k3_checks(dev, randn) -> dict:
@@ -631,8 +707,9 @@ def k3_linear_scale(randn) -> float:
 
 def k1_split_checks(dev) -> None:
     """K1 at forced split counts (1, 2) and the host's choice, B 1 and 8, page
-    64 and 256, bf16 and int8 pools, with and without a window of 512, the B
-    8 slots of lengths 1 to 4200; bounds as in the K1 and K1-int8 cases (int8
+    64 and 256, and B 16 at page 256 with 3 pages a slot (part (C)'s server),
+    bf16 and int8 pools, with and without a window of 512, the B 8 slots of
+    lengths 1 to 4200, the B 16 of 1 to 768; bounds as in the K1 and K1-int8 cases (int8
     scale slots the kernel must not read hold NaN).  Then one call, captured
     in a CUDA graph and replayed, must equal the eager call bit for bit, and
     the eager call must run under sync debug mode "error": no value is read
@@ -647,60 +724,61 @@ def k1_split_checks(dev) -> None:
         "with the K/V rounding's measured effect added)")
     gen = torch.Generator(device=dev).manual_seed(4)
     hkv, g, d = 8, 4, 128
-    slot_lens = {1: [700], 8: [1, 700, 4200, 63, 64, 257, 2, 1500]}
+    slot_lens = {1: [700], 8: [1, 700, 4200, 63, 64, 257, 2, 1500],
+                 16: [1, 384, 385, 512, 767, 768, 256, 257, 2, 100, 450, 500, 700, 64, 65, 640]}
     graph_cases = []
     for kv in ("bf16", "int8"):
-        for page in (64, 256):
-            for b in (1, 8):
-                maxp = -(-4200 // page)
-                nt = b * maxp + 1
-                table = torch.randperm(nt, generator=gen, device=dev)[: b * maxp]
-                table = table.reshape(b, maxp).to(torch.int32).contiguous()
-                lens = torch.tensor(slot_lens[b], dtype=torch.int32, device=dev)
-                q = torch.randn(b, hkv, g, d, generator=gen, device=dev).bfloat16()
-                scales = {}
-                if kv == "bf16":
-                    kp, vp = (torch.randn(hkv, nt, page, d, generator=gen, device=dev).bfloat16()
-                              for _ in range(2))
-                else:
-                    (kp, ks), (vp, vs) = (quant_kv_token(torch.randn(
-                        hkv, nt, page, d, generator=gen, device=dev)) for _ in range(2))
-                    scales = {"k_scales": ks.transpose(0, 1).contiguous(),
-                              "v_scales": vs.transpose(0, 1).contiguous()}
-                auto = PA.split_count(b, hkv, maxp, page, PA._sm_count(0))
-                for window in (None, 512):
-                    seen = dict(scales)
-                    if scales:  # NaN where the kernel must not read
-                        read = torch.zeros(nt, page, dtype=torch.bool, device=dev)
-                        pos = torch.arange(maxp * page, device=dev)
-                        for bi, n in enumerate(slot_lens[b]):
-                            ok = (pos < n) & ((n - 1 - pos <= window) if window else True)
-                            read[table[bi].long()[pos[ok] // page], pos[ok] % page] = True
-                        seen = {k: a.masked_fill(~read[:, None, :], float("nan"))
-                                for k, a in scales.items()}
-                    want = PA.paged_decode_attention_reference(q, kp, vp, table, lens, window,
-                                                               **scales)
-                    fold = PA.paged_decode_attention_reference(q.float(), kp, vp, table, lens,
-                                                               window, **scales)
-                    bound = bf16_bound(fold)
-                    rounding = max_err(want, fold) if scales else 0.0
-                    errs = []
-                    for n_splits in (1, 2, None):
-                        got = PA.paged_decode_attention(q, kp, vp, table, lens, window,
-                                                        n_splits=n_splits, **seen)
-                        e1, e2 = max_err(got, fold), max_err(got, want)
-                        ok = bool(torch.isfinite(got.float()).all()) and (
-                            e1 <= bound and e2 <= bound + rounding)
-                        errs.append(f"{n_splits or auto}: {e1:.3e}/{e2:.3e}")
-                        if not ok:
-                            raise AssertionError(f"K1 split {kv} page {page} B {b} window "
-                                                 f"{window} n_splits {n_splits}: {e1}, {e2} "
-                                                 f"against {bound} + {rounding}")
-                    log(f"  K1 split [{kv} page={page} B={b} window={window}] max_abs_err by "
-                        f"n_splits (f32-query plain / plain): {', '.join(errs)}; bound "
-                        f"{bound:.3e} (+ {rounding:.3e}) ok")
-                if b == 8 and page == 64:
-                    graph_cases.append((kv, (q, kp, vp, table, lens, 512), seen))
+        # B 16 with 3 pages of 256 a slot: part (C)'s server
+        for page, b in ((64, 1), (64, 8), (256, 1), (256, 8), (256, 16)):
+            maxp = 3 if b == 16 else -(-4200 // page)
+            nt = b * maxp + 1
+            table = torch.randperm(nt, generator=gen, device=dev)[: b * maxp]
+            table = table.reshape(b, maxp).to(torch.int32).contiguous()
+            lens = torch.tensor(slot_lens[b], dtype=torch.int32, device=dev)
+            q = torch.randn(b, hkv, g, d, generator=gen, device=dev).bfloat16()
+            scales = {}
+            if kv == "bf16":
+                kp, vp = (torch.randn(hkv, nt, page, d, generator=gen, device=dev).bfloat16()
+                          for _ in range(2))
+            else:
+                (kp, ks), (vp, vs) = (quant_kv_token(torch.randn(
+                    hkv, nt, page, d, generator=gen, device=dev)) for _ in range(2))
+                scales = {"k_scales": ks.transpose(0, 1).contiguous(),
+                          "v_scales": vs.transpose(0, 1).contiguous()}
+            auto = PA.split_count(b, hkv, maxp, page, PA._sm_count(0))
+            for window in (None, 512):
+                seen = dict(scales)
+                if scales:  # NaN where the kernel must not read
+                    read = torch.zeros(nt, page, dtype=torch.bool, device=dev)
+                    pos = torch.arange(maxp * page, device=dev)
+                    for bi, n in enumerate(slot_lens[b]):
+                        ok = (pos < n) & ((n - 1 - pos <= window) if window else True)
+                        read[table[bi].long()[pos[ok] // page], pos[ok] % page] = True
+                    seen = {k: a.masked_fill(~read[:, None, :], float("nan"))
+                            for k, a in scales.items()}
+                want = PA.paged_decode_attention_reference(q, kp, vp, table, lens, window,
+                                                           **scales)
+                fold = PA.paged_decode_attention_reference(q.float(), kp, vp, table, lens,
+                                                           window, **scales)
+                bound = bf16_bound(fold)
+                rounding = max_err(want, fold) if scales else 0.0
+                errs = []
+                for n_splits in (1, 2, None):
+                    got = PA.paged_decode_attention(q, kp, vp, table, lens, window,
+                                                    n_splits=n_splits, **seen)
+                    e1, e2 = max_err(got, fold), max_err(got, want)
+                    ok = bool(torch.isfinite(got.float()).all()) and (
+                        e1 <= bound and e2 <= bound + rounding)
+                    errs.append(f"{n_splits or f'host {auto}'}: {e1:.3e}/{e2:.3e}")
+                    if not ok:
+                        raise AssertionError(f"K1 split {kv} page {page} B {b} window "
+                                             f"{window} n_splits {n_splits}: {e1}, {e2} "
+                                             f"against {bound} + {rounding}")
+                log(f"  K1 split [{kv} page={page} B={b} window={window}] max_abs_err by "
+                    f"n_splits (f32-query plain / plain): {', '.join(errs)}; bound "
+                    f"{bound:.3e} (+ {rounding:.3e}) ok")
+            if b == 8 and page == 64:
+                graph_cases.append((kv, (q, kp, vp, table, lens, 512), seen))
     for kv, args, seen in graph_cases:
         torch.cuda.set_sync_debug_mode("error")
         try:
@@ -1065,8 +1143,9 @@ def int8_kernel_checks(dev) -> dict:
         "bf16, that plus the rounding's measured effect)")
     hkv, g, d, n_layers = 8, 4, 128, 32
     errs, timing = [], {}
-    for page, b in ((64, 1), (256, 8)):
-        maxp = -(-4200 // page)
+    # (page, B, pages a slot): respond's engine, the 8-client server, and
+    # part (C)'s server (batch 16, 3 pages of 256 a sequence)
+    for page, b, maxp in ((64, 1, 66), (256, 8, 17), (256, 16, 3)):
         n_pages = b * maxp + 1
         nt = n_layers * n_pages
         pools = []
@@ -1078,10 +1157,18 @@ def int8_kernel_checks(dev) -> dict:
         perm = torch.randperm(n_pages - 1, generator=gen, device=dev).to(torch.int32)
         table = perm[: b * maxp].reshape(b, maxp).contiguous()
         tables = [(table + li * n_pages).contiguous() for li in range(n_layers)]
-        for seq, window in ((1, 4096), (63, 4096), (64, 4096), (700, 4096), (4200, 4096),
-                            (4200, 512)):
+        cases = ((1, 4096), (63, 4096), (64, 4096), (700, 4096), (4200, 4096), (4200, 512))
+        if maxp == 3:
+            cases = ((1, 4096), (63, 4096), (257, 4096), (384, 4096), (512, 4096), (768, 4096),
+                     (768, 512))
+        auto = PA.split_count(b, hkv, maxp, page, PA._sm_count(0))
+        for seq, window in cases:
             lens = torch.full((b,), seq, dtype=torch.int32, device=dev)
-            if b > 1:
+            if b == 16:  # part (C)'s slots hold different lengths
+                lens = torch.randint(1, seq + 1, (b,), generator=gen, device=dev,
+                                     dtype=torch.int32)
+                lens[0] = seq
+            elif b > 1:
                 lens[b // 2] = max(1, seq // 2)
             q = torch.randn(b, hkv, g, d, generator=gen, device=dev).bfloat16()
             read = torch.zeros(nt, page, dtype=torch.bool, device=dev)
@@ -1098,11 +1185,10 @@ def int8_kernel_checks(dev) -> dict:
                                                        k_scales=ks, v_scales=vs)
             fold = PA.paged_decode_attention_reference(q.float(), kq, vq, tables[1], lens,
                                                        window, k_scales=ks, v_scales=vs)
-            check("K1 int8", f"page={page} B={b} seq={seq} window={window} vs f32-query plain",
-                  got, fold, bf16_bound(fold))
-            errs.append(check("K1 int8", f"page={page} B={b} seq={seq} window={window}", got,
-                              want, bf16_bound(fold) + max_err(want, fold)))
-            if (page, seq) in ((64, 700), (256, 700)):
+            case = f"page={page} B={b} seq={seq} window={window} n_splits={auto} (the host's)"
+            check("K1 int8", f"{case} vs f32-query plain", got, fold, bf16_bound(fold))
+            errs.append(check("K1 int8", case, got, want, bf16_bound(fold) + max_err(want, fold)))
+            if (page, b, seq) in ((64, 1, 700), (256, 8, 700)):
                 def step(fn):
                     return lambda: [fn(q, kq, vq, t, lens, 4096, k_scales=ks, v_scales=vs)
                                     for t in tables]
@@ -1222,30 +1308,37 @@ def _paged_policy(pipe, seed: int):
 def _link_checks(engine, before: dict, counts: dict, label: str, w8a8: bool,
                  turn: bool = True) -> dict:
     """What the engine did in one run of a path, from its stats before and
-    after: every decode link (chained or per-token) must have been one CUDA
-    graph replay, each launching K1 once per layer (and, W8A8, K6 once per
-    projection: 7 a layer); in a turn, run-ahead must have engaged.  -> the
-    run's decode links, replays, run-ahead chains and perf_s seconds."""
+    after.  `steps` counts decode links and mixed prefill + decode links:
+    every decode link (chained, fused or per-token) must have been one CUDA
+    graph replay; each decode link and each (eager) mixed link launches K1
+    once per layer; W8A8 decode links launch K6 once per projection (7 a
+    layer), mixed links none (their NPF*256 + B rows go to torch._int_mm);
+    in a turn, run-ahead must have engaged.  -> the run's decode links,
+    mixed links and their chunk rows, replays, run-ahead chains and perf_s
+    seconds."""
     st = engine.stats()
     steps = st["steps"] - before["steps"]
+    mixed = st["mixed_links"] - before["mixed_links"]
+    decode = steps - mixed
     replays = st["graph_replays"] - before["graph_replays"]
     ahead = st["runahead_chains"] - before["runahead_chains"]
     perf = {k: round(v - before["perf_s"].get(k, 0.0), 4) for k, v in st["perf_s"].items()}
     layers = engine.cfg.num_layers
     k1 = counts["paged_decode_attention_int8" if engine.kv.quantized
                 else "paged_decode_attention"]
-    if steps <= 0 or replays != steps:
-        raise AssertionError(f"{label}: {replays} graph replays for {steps} decode links")
+    if decode <= 0 or replays != decode:
+        raise AssertionError(f"{label}: {replays} graph replays for {decode} decode links")
     if turn and ahead <= 0:
         raise AssertionError(f"{label}: chain run-ahead never engaged")
     if k1 != layers * steps:
-        raise AssertionError(f"{label}: K1 launched {k1} times over {steps} decode links of "
-                             f"{layers} layers")
-    if counts["stream_qmv"] != (7 * layers * steps if w8a8 else 0):
-        raise AssertionError(f"{label}: K6 launched {counts['stream_qmv']} times over {steps} "
+        raise AssertionError(f"{label}: K1 launched {k1} times over {decode} decode links and "
+                             f"{mixed} mixed links of {layers} layers")
+    if counts["stream_qmv"] != (7 * layers * decode if w8a8 else 0):
+        raise AssertionError(f"{label}: K6 launched {counts['stream_qmv']} times over {decode} "
                              f"decode links")
-    return {"decode_links": steps, "graph_replays": replays, "runahead_chains": ahead,
-            "perf_s": perf}
+    return {"decode_links": decode, "mixed_links": mixed,
+            "mixed_rows": st["mixed_rows"] - before["mixed_rows"], "graph_replays": replays,
+            "runahead_chains": ahead, "perf_s": perf}
 
 
 def _eager_link_turn(pipe, wav_in: str, want: dict, label: str) -> dict:
@@ -1465,17 +1558,28 @@ def int8_small_turn_check(dev, wav_in: str) -> None:
         raise AssertionError("small W8A8 synthesis differs on the card beyond the W8A8 drift")
 
 
-def _serve_load(server, prompts, allow, max_new: int) -> tuple:
-    """Each client thread submits its prompts one after another through
-    EngineServer.generate -> (tokens per client, wall seconds)."""
+def _serve_load(server, prompts, allow, max_new: int, stagger_s: float = 0.0,
+                stream=()) -> tuple:
+    """Each client thread (client ci from ci * stagger_s seconds on, as
+    bench.py's `stagger_s` load) submits its prompts one after another
+    through EngineServer.generate, or, for the clients in `stream`, through
+    generate_stream (its yields concatenated) -> (tokens per client, wall
+    seconds)."""
     import threading
 
     done, errors = {}, []
 
+    def one(ci, p):
+        if ci in stream:
+            return [t for part in server.generate_stream(p, allow, eos_id=2,
+                                                         max_new_tokens=max_new, timeout=600)
+                    for t in part]
+        return server.generate(p, allow, eos_id=2, max_new_tokens=max_new, timeout=600)
+
     def client(ci):
         try:
-            done[ci] = [server.generate(p, allow, eos_id=2, max_new_tokens=max_new, timeout=600)
-                        for p in prompts[ci]]
+            time.sleep(ci * stagger_s)
+            done[ci] = [one(ci, p) for p in prompts[ci]]
         except Exception as e:  # re-raised below, on the main thread
             errors.append(e)
 
@@ -1489,6 +1593,205 @@ def _serve_load(server, prompts, allow, max_new: int) -> tuple:
     if errors:
         raise errors[0]
     return done, wall
+
+
+def _load_info(engine, before, counts, label, done, wall, prompt_len, max_new) -> dict:
+    """One timed load's numbers (tokens, tok/s, TTFTs, the engine's links)
+    after `_link_checks`."""
+    import torch
+
+    links = _link_checks(engine, before, counts, label, True, turn=False)
+    ttfts = sorted(engine._ttfts)
+    n_tok = sum(len(t) for outs in done.values() for t in outs)
+    return {"clients": len(done), "requests": sum(len(o) for o in done.values()),
+            "prompt_len": prompt_len, "max_new_tokens": max_new, "wall_s": wall,
+            "generated_tokens": n_tok, "tok_s": n_tok / wall,
+            "ttft_p50_s": ttfts[len(ttfts) // 2],
+            "ttft_p95_s": ttfts[min(int(0.95 * len(ttfts)), len(ttfts) - 1)],
+            "ttfts_s": [round(t, 4) for t in engine._ttfts],  # in order
+            "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "engine": links, "stats": engine.stats(), "launches": counts}
+
+
+def _fused_load(server, prompts, allow, max_new: int, want: dict) -> dict:
+    """The multi-step part: load (B)'s prompts once more with
+    `multi_impl="fused"` (step_multi: one horizon of graphed links and one
+    sync a tick); its tokens must equal the chained load's (`want`)."""
+    import torch
+
+    engine = server.engine
+    engine.multi_impl = "fused"
+    try:
+        engine._ttfts.clear()
+        before = engine.stats()
+        reset_counts()
+        done, wall = _serve_load(server, prompts, allow, max_new)
+        torch.cuda.synchronize()
+        info = _load_info(engine, before, launch_counts(), "(B) fused multi-step load", done,
+                          wall, len(prompts[0][0]), max_new)
+    finally:
+        engine.multi_impl = "chain"
+    same = all(done[ci] == want[ci] for ci in want)
+    info["tokens"] = "equal" if same else "DIFFER"
+    log("(B) multi_impl=fused: " + json.dumps(info))
+    if not same:
+        raise AssertionError("(B): multi_impl='fused' gave other tokens than 'chain'")
+    if "multi_dispatch" not in info["engine"]["perf_s"]:
+        raise AssertionError("(B): the fused multi-step decode never ran")
+    return info
+
+
+LOAD16 = {"clients": 16, "per_client": 2, "prompt_len": 384, "max_new": 128, "stagger_s": 0.15}
+
+
+def load16_run(pipe) -> dict:
+    """Part (C): 16 clients over the W8A8 7B with int8 KV pages, client i
+    first submitting at i * 0.15 s (bench.py's `stagger_s` load), 2
+    requests each of 384-token prompts, 128 new tokens, greedy, EOS masked
+    out, one warm-up request each; once with mixed prefill (the defaults:
+    rows 8, min_decode 3) and once alternating, on the same prompts.  Their
+    tokens must be identical per request, mixed links must have engaged with
+    more than one chunk row in some link, every decode link must have been a
+    graph replay and the pool must be whole afterwards.  Then the streaming
+    part on the mixed server."""
+    import torch
+
+    from usdm_tpu_torch.core.config import EngineConfig
+
+    n, per, plen, max_new = (LOAD16[k] for k in ("clients", "per_client", "prompt_len",
+                                                  "max_new"))
+    rng = np.random.default_rng(16)
+    allow = np.ones(pipe.lm_cfg.vocab_size, bool)
+    allow[:3] = False  # EOS (id 2) unreachable: every request runs its budget
+    prompts = [[rng.integers(3, 32000, plen).tolist() for _ in range(per)] for _ in range(n)]
+    warm = [[rng.integers(3, 32000, plen).tolist()] for _ in range(n)]
+    out, toks = {}, {}
+    for mixed in (True, False):
+        label = f"(C) 16 staggered clients, mixed_prefill={mixed}"
+        server = pipe.make_server(EngineConfig(page_size=256, max_pages_per_seq=3,
+                                               max_batch_size=n, prefill_chunk=256,
+                                               kv_dtype="int8", mixed_prefill=mixed))
+        try:
+            engine = server.engine
+            _serve_load(server, warm, allow, 8)
+            engine._ttfts.clear()
+            before = engine.stats()
+            reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            done, wall = _serve_load(server, prompts, allow, max_new, LOAD16["stagger_s"])
+            torch.cuda.synchronize()
+            info = _load_info(engine, before, launch_counts(), label, done, wall, plen, max_new)
+            log(label + ": " + json.dumps(info))
+            if info["generated_tokens"] != n * per * max_new or len(engine._ttfts) != n * per:
+                raise AssertionError(f"{label}: {info['generated_tokens']} tokens, "
+                                     f"{len(engine._ttfts)} first tokens")
+            if len(engine.free_pages) != engine.n_pages - 1:
+                raise AssertionError(f"{label}: {len(engine.free_pages)} of "
+                                     f"{engine.n_pages - 1} pages free after the load")
+            m = info["engine"]
+            if mixed and not (m["mixed_links"] > 0 and m["mixed_rows"] > m["mixed_links"]):
+                raise AssertionError(f"{label}: {m['mixed_links']} mixed links carrying "
+                                     f"{m['mixed_rows']} chunk rows")
+            if not mixed and m["mixed_links"]:
+                raise AssertionError(f"{label}: mixed links ran")
+            if mixed:
+                out["stream"] = _stream_part(server, prompts, allow, max_new, done)
+        finally:
+            server.close()
+        out["mixed" if mixed else "alternating"] = info
+        toks[mixed] = done
+    same = all(toks[True][ci] == toks[False][ci] for ci in range(n))
+    log(f"(C) tokens, mixed against alternating: {'equal' if same else 'DIFFER'}")
+    if not same:
+        bad = [ci for ci in range(n) if toks[True][ci] != toks[False][ci]]
+        raise AssertionError(f"(C): mixed and alternating tokens differ for clients {bad}")
+    return out
+
+
+def mixed_link_times(pipe, out_dir: str) -> dict:
+    """One mixed link (paged_mixed_step, eager) of the W8A8 7B over int8
+    pages at NPF 1 and 8 chunk rows of 256 queries beside 16 decode rows:
+    the host's wall time of the synchronized call and, under the profiler,
+    its device time (the kernels' summed self time; the tables in
+    `out_dir`) -> per NPF."""
+    import torch
+
+    from usdm_tpu_torch.engine.paged_ops import PagedKV, paged_mixed_step
+
+    dev, cfg, b, c = pipe.device, pipe.lm_cfg, 16, 256
+    n_pages = b * 3 + 1
+    kv = PagedKV.create(cfg, n_pages, 256, dev, "int8")
+    rng = np.random.default_rng(8)
+    table = torch.arange(b * 3, device=dev, dtype=torch.int32).reshape(b, 3)
+    lens = torch.full((b,), 600, device=dev, dtype=torch.int32)  # past the chunk rows' pages
+    tok = torch.as_tensor(rng.integers(3, 32000, b), device=dev)
+    active = torch.ones(b, dtype=torch.bool, device=dev)
+    allow = torch.ones(b, cfg.vocab_size, dtype=torch.bool, device=dev)
+    out = {}
+    for npf in (1, 8):
+        packed = np.full((npf, c + 2 + 3), n_pages - 1, np.int32)
+        for r in range(npf):  # rows at start 0 and 256 over the slots' pages
+            packed[r, :c] = rng.integers(3, 32000, c)
+            packed[r, c], packed[r, c + 1] = (r % 2) * 256, c
+            packed[r, c + 2:] = table[r % b].cpu().numpy()
+        rows = torch.as_tensor(packed, device=dev)
+
+        def link():
+            return paged_mixed_step(pipe.lm_params, kv, cfg, rows, tok, lens, table, active,
+                                    ~active, torch.full_like(tok, 2), allow, 256, 2, c, True)
+
+        link()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            link()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        with _profiler() as prof:
+            link()
+            torch.cuda.synchronize()
+        busy = _device_busy(prof, 1.0)
+        _write_profile(prof, out_dir, f"mixed_link_npf{npf}_profile.txt")
+        out[f"npf{npf}"] = {"wall_s": statistics.median(walls), "device_s": busy["device_s"],
+                            "kernel_launches": busy["kernel_launches"]}
+    log("(C) one mixed link, W8A8 7B, int8 KV, B 16: " + json.dumps(out))
+    del kv
+    return out
+
+
+def _stream_part(server, prompts, allow, max_new: int, want: dict) -> dict:
+    """Three clients of (C) call generate_stream while the others call
+    generate: every client's tokens must equal (C)'s.  Then one generator
+    closed after its first yield must cancel its request: the engine idle,
+    every slot free, every page back."""
+    import torch
+
+    engine = server.engine
+    done, wall = _serve_load(server, prompts, allow, max_new, LOAD16["stagger_s"],
+                             stream=(0, 1, 2))
+    torch.cuda.synchronize()
+    same = all(done[ci] == want[ci] for ci in want)
+    cancelled = engine.total_cancelled
+    gen = server.generate_stream(prompts[0][0], allow, eos_id=2, max_new_tokens=max_new,
+                                 timeout=60)
+    first = next(gen)
+    gen.close()
+    deadline = time.monotonic() + 60
+    while time.monotonic() < deadline and (engine.busy or engine.total_cancelled == cancelled):
+        time.sleep(0.01)
+    st = engine.stats()
+    freed = (st["total_cancelled"] == cancelled + 1 and not engine.busy
+             and st["active_slots"] == st["held_sessions"] == 0
+             and st["free_pages"] == engine.n_pages - 1)
+    info = {"wall_s": wall, "tokens": "equal" if same else "DIFFER",
+            "closed_after_tokens": len(first), "cancel_freed": freed}
+    log("(C) streaming part: " + json.dumps(info))
+    if not same:
+        raise AssertionError("(C): generate_stream's tokens differ from generate's")
+    if not freed:
+        raise AssertionError("(C): closing a generator did not cancel its request")
+    return info
 
 
 def _profiler():
@@ -1589,18 +1892,10 @@ def int8_run(dev, tmp: str, wav_in: str, profile: bool, out_dir: str) -> dict:
             done, wall = _serve_load(server, prompts, allow, max_new)
             torch.cuda.synchronize()
             counts = launch_counts()
-            links = _link_checks(engine, before, counts, "(B) load", True, turn=False)
-            ttfts = sorted(engine._ttfts)
-            n_tok = sum(len(t) for outs in done.values() for t in outs)
-            info = {"clients": n_clients, "requests": n_clients * per_client,
-                    "prompt_len": prompt_len, "max_new_tokens": max_new, "wall_s": wall,
-                    "generated_tokens": n_tok, "tok_s": n_tok / wall,
-                    "ttft_p50_s": ttfts[len(ttfts) // 2],
-                    "ttft_p95_s": ttfts[min(int(0.95 * len(ttfts)), len(ttfts) - 1)],
-                    "ttfts_s": [round(t, 4) for t in engine._ttfts],  # in order
-                    "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
-                    "engine": links, "stats": engine.stats(), "launches": counts}
+            info = _load_info(engine, before, counts, "(B) load", done, wall, prompt_len,
+                              max_new)
             log("(B) W8A8 7B, int8 KV, 8 clients: " + json.dumps(info))
+            out["B_fused"] = _fused_load(server, prompts, allow, max_new, done)
             if profile:  # the same load once more, under the profiler
                 again = [[rng.integers(3, 32000, prompt_len).tolist() for _ in range(per_client)]
                          for _ in range(n_clients)]
@@ -1611,14 +1906,17 @@ def int8_run(dev, tmp: str, wav_in: str, profile: bool, out_dir: str) -> dict:
                 _write_profile(prof, out_dir, "serve_profile.txt")
         finally:
             server.close()
-        if n_tok != n_clients * per_client * max_new or len(ttfts) != n_clients * per_client:
-            raise AssertionError(f"(B) generated {n_tok} tokens, {len(ttfts)} first tokens")
+        n_tok, n_first = info["generated_tokens"], len(info["ttfts_s"])
+        if n_tok != n_clients * per_client * max_new or n_first != n_clients * per_client:
+            raise AssertionError(f"(B) generated {n_tok} tokens, {n_first} first tokens")
         if not all(counts[k] for k in ("stream_qmv", "paged_decode_attention_int8",
                                        "flash_attention")):
             raise AssertionError(f"a kernel of path (B) never launched: {counts}")
         if counts["paged_decode_attention"]:
             raise AssertionError("the bf16 K1 branch ran over int8 KV pages")
         out["B"] = info
+        out["C"] = load16_run(pipe)
+        out["C"]["link"] = mixed_link_times(pipe, out_dir)
     finally:
         pipe.close()
         del pipe
@@ -2204,7 +2502,8 @@ def _stats_delta(after: dict, before: dict) -> dict:
     """An engine's decode links, prefill chunks and (where its tree has
     them) graph replays, run-ahead chains and perf_s seconds over one run."""
     out = {k: after[k] - before[k] for k in ("steps", "prefill_chunks", "graph_replays",
-                                              "runahead_chains") if k in after}
+                                              "runahead_chains", "mixed_links", "mixed_rows")
+           if k in after}
     if "perf_s" in after:
         out["perf_s"] = {k: round(v - before["perf_s"].get(k, 0.0), 4)
                          for k, v in after["perf_s"].items()}
@@ -2215,8 +2514,8 @@ def turn_worker(root: str) -> int:
     """One tree's side of --compare-with: imports usdm_tpu_torch from `root`,
     builds its kernels, then answers one JSON command per stdin line
     ("kernels", "bf16_build", "w8a8_build", "turn", "bf16_close",
-    "server_build", "load", "server_close", "train", "exit") with one RESULT
-    line."""
+    "server_build", "load", "server16_build", "load16", "server_close",
+    "train", "exit") with one RESULT line."""
     import gc
 
     sys.path.insert(0, os.path.abspath(root))
@@ -2275,29 +2574,37 @@ def turn_worker(root: str) -> int:
             gc.collect()
             torch.cuda.empty_cache()
             _reply({})
-        elif op == "server_build":
+        elif op in ("server_build", "server16_build"):
+            # the load's server (8 clients), or part (C)'s (16 staggered
+            # clients) with the EngineConfig defaults: a parent that ignores
+            # mixed_prefill alternates there
+            batch = n_clients if op == "server_build" else LOAD16["clients"]
             pipe = UsdmPipeline.full_random(device=dev, seed=0, lm_int8=True, vb_int8=True)
             server = pipe.make_server(EngineConfig(page_size=256, max_pages_per_seq=3,
-                                                   max_batch_size=n_clients, prefill_chunk=256,
+                                                   max_batch_size=batch, prefill_chunk=256,
                                                    kv_dtype="int8"))
             allow = np.ones(pipe.lm_cfg.vocab_size, bool)
             allow[:3] = False  # EOS unreachable: every request runs its budget
             _serve_load(server, [[rng.integers(3, 32000, prompt_len).tolist()]
-                                 for _ in range(n_clients)], allow, 8)  # warm-up
+                                 for _ in range(batch)], allow, 8)  # warm-up
             _reply({})
-        elif op == "load":
+        elif op in ("load", "load16"):
+            batch, stagger = ((n_clients, 0.0) if op == "load"
+                              else (LOAD16["clients"], LOAD16["stagger_s"]))
             prompts = [[rng.integers(3, 32000, prompt_len).tolist() for _ in range(per_client)]
-                       for _ in range(n_clients)]
+                       for _ in range(batch)]
             server.engine._ttfts.clear()
             before = server.engine.stats()
-            done, wall = _serve_load(server, prompts, allow, max_new)
+            done, wall = _serve_load(server, prompts, allow, max_new, stagger)
             torch.cuda.synchronize()
             ttfts = sorted(server.engine._ttfts)
             n_tok = sum(len(t) for outs in done.values() for t in outs)
+            tokens = json.dumps([done[ci] for ci in range(batch)]).encode()
             _reply({"wall_s": wall, "generated_tokens": n_tok, "tok_s": n_tok / wall,
                     "ttft_p50_s": ttfts[len(ttfts) // 2],
                     "ttft_p95_s": ttfts[min(int(0.95 * len(ttfts)), len(ttfts) - 1)],
                     "ttfts_s": [round(t, 4) for t in server.engine._ttfts],  # in order
+                    "tokens_sha1": hashlib.sha1(tokens).hexdigest(),
                     "engine": _stats_delta(server.engine.stats(), before)})
         elif op == "exit":
             break
@@ -2306,7 +2613,7 @@ def turn_worker(root: str) -> int:
     return 0
 
 
-COMPARE_CELLS = ("bf16", "w8a8", "load", "train")
+COMPARE_CELLS = ("bf16", "w8a8", "load", "load16", "train")
 
 
 def compare_run(parent: str, out_dir: str, cells=COMPARE_CELLS) -> dict:
@@ -2316,14 +2623,17 @@ def compare_run(parent: str, out_dir: str, cells=COMPARE_CELLS) -> dict:
     one card: the kernels' times (parent, change, change, parent); then per
     cell of `cells`: bf16 and W8A8 turns (one warm-up turn each, then 3 each
     in the order P C C P P C), the int8 server load (warm-up inside the
-    build; twice each, P C C P), the CFM trainer's 10 steps (P C C P)."""
+    build; twice each, P C C P), part (C)'s 16 staggered clients with the
+    EngineConfig defaults (load16; twice each, P C C P; each worker draws the
+    same prompts, so `tokens_sha1` compares their tokens), the CFM trainer's
+    10 steps (P C C P)."""
     import subprocess as sp
 
     roots = {"parent": os.path.abspath(parent),
              "change": os.path.dirname(os.path.abspath(__file__))}
     workers = {}
-    out = {k: {"kernels": [], "turns": [], "w8a8_turns": [], "loads": [], "train": []}
-           for k in roots}
+    out = {k: {"kernels": [], "turns": [], "w8a8_turns": [], "loads": [], "loads16": [],
+               "train": []} for k in roots}
 
     def call(name, op):
         w = workers[name]
@@ -2362,12 +2672,15 @@ def compare_run(parent: str, out_dir: str, cells=COMPARE_CELLS) -> dict:
             turns("bf16_build", "turns", "bf16")
         if "w8a8" in cells:
             turns("w8a8_build", "w8a8_turns", "W8A8")
-        if "load" in cells:
+        for cell, build, key in (("load", "server_build", "loads"),
+                                 ("load16", "server16_build", "loads16")):
+            if cell not in cells:
+                continue
             for name in roots:
-                call(name, "server_build")
+                call(name, build)
             for name in ("parent", "change", "change", "parent"):
-                out[name]["loads"].append(call(name, "load"))
-                log(f"compare: {name} int8 server load {json.dumps(out[name]['loads'][-1])}")
+                out[name][key].append(call(name, cell))
+                log(f"compare: {name} int8 server {cell} {json.dumps(out[name][key][-1])}")
             for name in roots:
                 call(name, "server_close")
         if "train" in cells:

@@ -1,5 +1,7 @@
 """K1-K6 and X1-X3 CUDA kernels against their plain PyTorch versions, on the card
-(K1 also at forced split counts and from a CUDA graph; K2 on both routes).
+(K1 also at forced split counts and from a CUDA graph; K2 on both routes and
+at a mixed link's chunk rows); the engine's decode links from CUDA graphs
+against eager links, and its mixed prefill + decode links against the CPU.
 
 Marked `cuda`: each test skips without a CUDA device (a CUDA kernel has no
 CPU mode).  Imports no JAX, so it runs where the port runs; there, skip
@@ -1108,10 +1110,11 @@ def test_graphed_links_match_eager(cuda, w8a8, sampled, batch, window):
         torch.cuda.synchronize()
         st = eng.stats()
         layers = eng.cfg.num_layers
+        decode = st["steps"] - st["mixed_links"]  # mixed links run eagerly, K6-free
         assert st["steps"] > 0 and st["runahead_chains"] > 0
-        assert st["graph_replays"] == (0 if eager else st["steps"])
+        assert st["graph_replays"] == (0 if eager else decode)
         assert getattr(PA.paged_decode_attention, k1) == layers * st["steps"]
-        assert SM.stream_qmv.launches == (7 * layers * st["steps"] if w8a8 else 0)
+        assert SM.stream_qmv.launches == (7 * layers * decode if w8a8 else 0)
         assert len(eng.free_pages) == eng.n_pages - 1
         keep = torch.ones(eng.kv.total_pages, dtype=torch.bool, device=cuda)
         keep[eng.n_pages - 1::eng.n_pages] = False
@@ -1142,3 +1145,147 @@ def test_link_capture_failure_raises(cuda, monkeypatch):
     with pytest.raises(RuntimeError):
         eng.run(_link_requests(1, False))
     assert eng.links.replays == 0
+
+
+# ------------------------------------------ mixed prefill + decode on the card
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rms_norm_rows_independent_of_row_count(cuda, dtype):
+    """The mixed link normalizes its NPF*256 chunk rows in one call where a
+    lone prefill chunk normalizes 256 (and its B decode rows apart, as a
+    decode link does): a row's result must not depend on how many rows of
+    at least 256 share the call, or mixed and alternating schedules would
+    give other tokens."""
+    from usdm_tpu_torch.models.mistral import rms_norm
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(8 * 256 + 16, 4096, generator=g, device=cuda).to(dtype)
+    w = torch.randn(4096, generator=g, device=cuda).to(dtype)
+    alone = rms_norm(x[:256], w, 1e-5)
+    for n in (512, 1024, 2048, 8 * 256 + 16):
+        assert torch.equal(rms_norm(x[:n], w, 1e-5)[:256], alone)
+
+
+@pytest.mark.cuda
+def test_flash_mixed_rows_match_plain(cuda):
+    """K2 (bf16) at a mixed link's chunk rows: 8 rows of 256 queries, each
+    with its own start and kv segment over a 768-key context, GQA 32/8, d
+    128, window 4096, two rows fully padded (0 on both sides)."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    starts, valid = (0, 256, 0, 256, 0, 0, 256, 0), (256, 128, 256, 256, 0, 128, 256, 0)
+    q = torch.randn(8, 256, 32, 128, generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn(8, 768, 8, 128, generator=g, device=cuda).bfloat16() for _ in range(2))
+    start = torch.tensor(starts, device=cuda, dtype=torch.int32)[:, None]
+    n_valid = torch.tensor(valid, device=cuda, dtype=torch.int32)[:, None]
+    ar = torch.arange(256, device=cuda, dtype=torch.int32)[None]
+    qseg = torch.where(ar < n_valid, 0, -1).to(torch.int32)
+    kpos = torch.arange(768, device=cuda, dtype=torch.int32)[None].expand(8, 768).contiguous()
+    kseg = torch.where(kpos < start + n_valid, 0, -1).to(torch.int32)
+    args = (q, k, v, qseg, kseg, start + ar, kpos, True, 4096)
+    got = FL.flash_attention(*args)
+    want, _ = FL.flash_attention_reference(*args, round_operands=True)
+    assert torch.isfinite(got.float()).all()
+    assert (got.float() - want.float()).abs().max().item() <= _bf16_bound(want)
+    assert torch.all(got[4] == 0) and torch.all(got[7] == 0)
+
+
+def _mixed_engine(dev, params, w8a8, mixed, eager=False, dtype="float32"):
+    """A tiny engine (head_dim 32 for K1, 128-token chunks so chunk rows take
+    K2) with mixed links from one decoding slot on, 4 rows a link."""
+    from usdm_tpu_torch.core.config import EngineConfig, MistralConfig
+    from usdm_tpu_torch.engine.paged import PagedEngine
+
+    cfg = MistralConfig.tiny().replace(head_dim=32, dtype=dtype)
+    ecfg = EngineConfig(page_size=16, max_pages_per_seq=24, max_batch_size=4, prefill_chunk=128,
+                        decode_horizon=8, kv_dtype="int8" if w8a8 else None,
+                        mixed_prefill=mixed, mixed_min_decode=1, mixed_prefill_rows=4)
+    return PagedEngine(params, cfg, ecfg, device=dev, eager_links=eager)
+
+
+def _mixed_run(eng):
+    """tests/test_torch_mixed.py's staggered harness: one request decodes,
+    then four arrive at once -> (tokens per request, stats, real pools)."""
+    import numpy as np
+
+    from usdm_tpu_torch.engine.paged import Request
+
+    r = np.random.default_rng(5)
+    allow = np.ones(291, bool)
+    allow[:3] = False  # EOS 2 unreachable: every request runs its budget
+    reqs = [Request(i, r.integers(3, 291, int(n)).tolist(), allow, 2, 24)
+            for i, n in enumerate((40, 300, 150, 260, 90))]
+    eng.submit(reqs[0])
+    for _ in range(3):
+        eng.tick()
+    for q in reqs[1:]:
+        eng.submit(q)
+    while eng.busy:
+        eng.tick()
+    eng.drain_inflight()
+    assert len(eng.free_pages) == eng.n_pages - 1
+    keep = torch.ones(eng.kv.total_pages, dtype=torch.bool, device=eng.kv.k_pages.device)
+    keep[eng.n_pages - 1::eng.n_pages] = False
+    return [q.output_ids for q in reqs], eng.stats(), [p[:, keep] for p in
+                                                       (eng.kv.k_pages, eng.kv.v_pages)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f32", "w8a8", "bf16"])
+def test_mixed_link_on_card(cuda, kind):
+    """Mixed links on the card (eager; chunk rows through K2, decode rows
+    through K1, decode links from graphs) give the alternating schedule's
+    tokens on the card, with f32, W8A8 (int8 pools) and bf16 weights; f32,
+    also the CPU plain path's tokens, with KV within the bf16 bound.  Every
+    decode link is one replay; every link, mixed or not, launches K1 once
+    per layer."""
+    from usdm_tpu_torch.core.config import MistralConfig
+    from usdm_tpu_torch.core.tree import tree_map
+    from usdm_tpu_torch.models import mistral as LM
+
+    w8a8, dtype = kind == "w8a8", "bfloat16" if kind == "bf16" else "float32"
+    cfg = MistralConfig.tiny().replace(head_dim=32)
+    params = LM.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    card = tree_map(lambda a: a.to(cuda, LM.torch_dtype(dtype)), params)
+    if w8a8:
+        Q.quantize_llm_params(card)
+    runs = {}
+    for mixed in (True, False):
+        k1 = "int8_launches" if w8a8 else "launches"
+        PA.paged_decode_attention.launches = PA.paged_decode_attention.int8_launches = 0
+        FL.flash_attention.launches = 0
+        eng = _mixed_engine(cuda, card, w8a8, mixed, dtype=dtype)
+        toks, st, pools = _mixed_run(eng)
+        torch.cuda.synchronize()
+        assert (st["mixed_links"] > 0) == mixed and st["mixed_rows"] >= st["mixed_links"]
+        assert st["graph_replays"] == st["steps"] - st["mixed_links"]
+        assert getattr(PA.paged_decode_attention, k1) == cfg.num_layers * st["steps"]
+        assert FL.flash_attention.launches > 0
+        runs[mixed] = toks, pools
+    assert runs[True][0] == runs[False][0]
+    if kind == "f32":
+        toks, _, pools = _mixed_run(_mixed_engine("cpu", params, False, True))
+        assert toks == runs[True][0]
+        for got, want in zip(runs[True][1], pools):
+            assert (got.cpu() - want).abs().max().item() <= _bf16_bound(want)
+
+
+@pytest.mark.cuda
+def test_step_multi_graphs_match_eager(cuda):
+    """multi_impl="fused" (step_multi): its links replayed from CUDA graphs
+    give the eager links' tokens and pools, and the chained decode's tokens."""
+    runs = []
+    for eager, impl in ((False, "fused"), (True, "fused"), (False, "chain")):
+        eng = _link_engine(cuda, True, 4, None, eager)
+        eng.multi_impl = impl
+        reqs = eng.run(_link_requests(4, False))
+        torch.cuda.synchronize()
+        st = eng.stats()
+        assert st["graph_replays"] == (0 if eager else st["steps"] - st["mixed_links"])
+        assert ("multi_dispatch" in st["perf_s"]) == (impl == "fused")
+        assert len(eng.free_pages) == eng.n_pages - 1
+        keep = torch.ones(eng.kv.total_pages, dtype=torch.bool, device=cuda)
+        keep[eng.n_pages - 1::eng.n_pages] = False
+        runs.append(([r.output_ids for r in reqs], [p[:, keep] for p in
+                                                    (eng.kv.k_pages, eng.kv.v_pages)]))
+    assert runs[0][0] == runs[1][0] == runs[2][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))

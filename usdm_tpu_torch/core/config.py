@@ -203,9 +203,14 @@ class CfmTrainConfig(_Base):
 
 @dataclass(frozen=True)
 class EngineConfig(_Base):
-    """The paged serving engine.  `runahead` turns depth-1 chain run-ahead
-    on (engine/paged.py).  Fields the port does not run yet (spec_k,
-    ngram_max_n, mixed_*) are kept so a config round-trips with usdm_tpu's."""
+    """The paged serving engine (engine/paged.py).  `runahead` turns depth-1
+    chain run-ahead on.  `mixed_prefill` coalesces prefill chunks into the
+    decode batch while prompts wait and at least `mixed_min_decode` slots
+    decode, up to `mixed_prefill_rows` chunk rows per link (False: drain
+    chunks back to back, decode between bursts); either schedule gives the
+    same greedy tokens, with float or W8A8 weights.  Fields the port does not
+    run yet (spec_k, ngram_max_n) are kept so a config round-trips with
+    usdm_tpu's."""
 
     page_size: int = 256  # tokens per KV page
     max_pages_per_seq: int = 32

@@ -5,7 +5,12 @@ session prefix reuse (a finished request of a session HOLDs its pages; the
 session's next request prefills only from its page-aligned common prefix),
 chunked prefill, greedy or sampled decode as CHAINS of device-side links
 with one host sync per chain, sliding-window page reclaim, request
-cancellation, and the JAX engine's two latency hiders:
+cancellation, mixed prefill + decode bursts (`step_mixed_burst`: while
+prompts wait and at least `EngineConfig.mixed_min_decode` slots decode,
+each link packs up to `mixed_prefill_rows` prefill chunks with every
+decoding slot, one sync per burst), the fused multi-step decode
+(`multi_impl="fused"`, `step_multi`), streaming consumers (`Request.stream`),
+and the JAX engine's two latency hiders:
 
   * first-token deferral: after the last prefill chunk of a quiet engine
     the first token stays on the device, the next chain takes it as its
@@ -15,15 +20,12 @@ cancellation, and the JAX engine's two latency hiders:
     previous chain's sync, so the sync and the host's bookkeeping overlap
     the device's work.
 
-Every decode link, chained or per-token (`step`), runs through
+Every decode link, chained, fused or per-token (`step`), runs through
 `DecodeLinks`: on the card one CUDA-graph replay per link; on the CPU, or
-with `eager_links=True`, eagerly.  The params may hold W8A8 projections
-(models/quant.py) and the KV pool may be int8 (`EngineConfig.kv_dtype=
-"int8"`).  Not ported yet (ROADMAP.md), because each changes scheduling
-but not tokens: mixed prefill+decode bursts and `step_multi`
-(`multi_impl`), streaming consumers (`Request.stream`, which gates the
-deferral).  Not ported and refused: speculative decoding (a draft or
-"ngram"), tensor-parallel serving.
+with `eager_links=True`, eagerly.  Mixed links run eagerly everywhere.
+The params may hold W8A8 projections (models/quant.py) and the KV pool may
+be int8 (`EngineConfig.kv_dtype="int8"`).  Not ported and refused:
+speculative decoding (a draft or "ngram"), tensor-parallel serving.
 """
 
 from __future__ import annotations
@@ -37,7 +39,14 @@ import numpy as np
 import torch
 
 from usdm_tpu_torch.core.config import EngineConfig, MistralConfig
-from usdm_tpu_torch.engine.paged_ops import DecodeLinks, PagedKV, paged_prefill_chunk, sample_next
+from usdm_tpu_torch.engine.paged_ops import (
+    DecodeLinks,
+    PagedKV,
+    paged_decode_multi,
+    paged_prefill_chunk_packed,
+    sample_next,
+    to_device,
+)
 from usdm_tpu_torch.models import mistral as M
 from usdm_tpu_torch.ops.sampling import gumbel_noise
 
@@ -58,6 +67,9 @@ class Request:
     temperature: float = 1.0
     seed: int = 0
     session: Optional[int] = None  # requests of one session reuse KV prefixes
+    # a streaming consumer reads output_ids as they grow
+    # (EngineServer.generate_stream): its first token is never deferred
+    stream: bool = False
     # filled by the engine:
     output_ids: List[int] = dataclasses.field(default_factory=list)
     finished: bool = False
@@ -139,9 +151,12 @@ class PagedEngine:
         self._allow_dev = torch.ones((b, cfg.vocab_size), dtype=torch.bool, device=self.device)
         self._mask_cache: dict = {}
         # the decode link's static device inputs (and, on the card, its CUDA
-        # graphs); a chain holds at most decode_horizon links
+        # graphs); a chain holds at most decode_horizon links, a mixed burst
+        # at most its link budget
+        self._burst_links = -(-ecfg.prefill_chunks_per_tick // max(1, ecfg.mixed_prefill_rows))
         self.links = DecodeLinks(params, self.kv, cfg, self._allow_dev, ecfg.max_pages_per_seq,
-                                 ps, max(ecfg.decode_horizon, 1), graphs=not eager_links)
+                                 ps, max(ecfg.decode_horizon, self._burst_links, 1),
+                                 graphs=not eager_links)
         # slot state mirrored in the links' buffers (table, eos, sampling
         # parameters) changes only at admission and window reclaim: it is
         # re-uploaded only when dirty
@@ -171,8 +186,14 @@ class PagedEngine:
         self.slot_history: List[List[int]] = [[] for _ in range(b)]
         self._hold_order: List[int] = []
         self.decode_horizon = ecfg.decode_horizon
+        # multi-token decode: "chain" (step_chain: ramped chains, run-ahead,
+        # first-token deferral) or "fused" (step_multi: one horizon of links
+        # and one sync per tick, first tokens flushed before it)
+        self.multi_impl = "chain"
         self._chain_streak = 0
-        self.steps = 0
+        self.steps = 0  # decode links and mixed links
+        self.mixed_links = 0
+        self.mixed_rows = 0  # prefill chunk rows carried by mixed links
         self.prefill_chunks = 0
         self.total_emitted = 0
         self.total_finished = 0
@@ -324,11 +345,11 @@ class PagedEngine:
         c = self.ecfg.prefill_chunk
         n = min(c, len(req.prompt_ids) - start)
         ncp = _ctx_pages_bucket(self._pages_needed(start + c), self.ecfg.max_pages_per_seq)
-        ids = np.zeros(c, np.int64)
-        ids[:n] = req.prompt_ids[start: start + n]
-        logits = paged_prefill_chunk(self.params, self.kv, self.cfg,
-                                     torch.from_numpy(ids).to(self.device), start, n,
-                                     self.page_table[slot], self.ecfg.page_size, ncp)
+        # every per-chunk input rides one host-to-device copy
+        packed = self._pack_rows([(slot, req, start, n)], 1)[0]
+        logits = paged_prefill_chunk_packed(self.params, self.kv, self.cfg,
+                                            to_device(packed, self.device),
+                                            self.ecfg.page_size, ncp, c)
         self.prefill_pos[slot] = start + n
         if start + n < len(req.prompt_ids):
             return None
@@ -355,12 +376,26 @@ class PagedEngine:
 
     def _defer_first_ok(self, req: Request) -> bool:
         """First-token deferral gate: only a chain absorbs a pending device
-        token without an extra sync, and only in the quiet state (under load
-        the scheduler keeps prefilling other prompts first, so a deferred
-        sync would sit on this request's TTFT).  usdm_tpu also refuses it
-        to streaming consumers and to the fused multi-step decode, neither
-        of which is ported yet."""
-        return self._multi_next() and not self.waiting and not self.prefill_order
+        token without an extra sync (the fused multi-step decode and step()
+        flush first), only in the quiet state (under load the scheduler keeps
+        prefilling other prompts first, so a deferred sync would sit on this
+        request's TTFT), and never for a streaming consumer, whose first
+        visible token would wait a whole chain."""
+        return (self._multi_next() and self.multi_impl == "chain" and not self.waiting
+                and not self.prefill_order and not req.stream)
+
+    def _pack_rows(self, rows, npf: int) -> np.ndarray:
+        """Chunk rows [(slot, request, start, n_valid)] -> [npf, C + 2 + maxp]
+        int32: ids | start | n_valid | page-table row.  Rows past the given
+        ones are padding: no valid token, every table entry the trash page."""
+        c = self.ecfg.prefill_chunk
+        packed = np.zeros((npf, c + 2 + self.page_table.shape[1]), np.int32)
+        packed[:, c + 2:] = self.n_pages - 1
+        for ri, (slot, req, start, n) in enumerate(rows):
+            packed[ri, :n] = req.prompt_ids[start: start + n]
+            packed[ri, c], packed[ri, c + 1] = start, n
+            packed[ri, c + 2:] = self.page_table[slot]
+        return packed
 
     def _record_first(self, slot: int, first: int) -> None:
         """Host bookkeeping of a post-prefill first token."""
@@ -545,6 +580,72 @@ class PagedEngine:
             n = min(n, len(self.slot_pages[slot]) * ps - (int(self.seq_lens[slot]) + 1))
         return max(n, 1)
 
+    def step_multi(self, n_steps: int) -> int:
+        """One prefill chunk, then up to n_steps decode links with ONE host
+        sync (`multi_impl="fused"`, usdm_tpu's fused fori_loop): no ramp, no
+        run-ahead, and pending first tokens are flushed before the links (the
+        links start from the host's tokens).  On the card each link is a
+        CUDA-graph replay, as in a chain; links without graphs (the CPU,
+        `eager_links`) are one call of `paged_decode_multi`, as in usdm_tpu."""
+        if self._inflight is not None:  # absorb any run-ahead chain first
+            fl, self._inflight = self._inflight, None
+            self._sync_chain(fl)
+        t0 = time.perf_counter()
+        self._try_admit()
+        self._acc("admit", time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        self._prefill_tick()
+        self._acc("prefill", time.perf_counter() - t0)
+        self._flush_pending()
+        dec = self.status == DECODE
+        if not dec.any():
+            return self._occupied()
+        n_steps = min(n_steps, self.links.max_links)
+        if self.waiting:
+            n_steps = min(n_steps, 8)  # the capacity-wait cap of step_chain
+        self._hot = False
+        n_steps = self._safe_horizon(n_steps, dec)
+        if self.links.graphed:
+            self._sync_chain(self._dispatch_chain(n_steps, dec, "multi"))
+        else:
+            self._decode_multi(n_steps, dec)
+        self._hot = False
+        return self._occupied()
+
+    def _decode_multi(self, n_steps: int, dec: np.ndarray) -> int:
+        """step_multi's links as one `paged_decode_multi` call from the
+        host's tokens and lengths; a sampled slot draws its noise link by
+        link, as a chain draws it."""
+        t0 = time.perf_counter()
+        lk = self.links
+        sampled = self._sampled(dec)
+        lk.load(lk.active, dec)
+        lk.load(lk.tok, self.tokens)
+        lk.load(lk.lens, self.seq_lens)
+        self._slot_state_dev()
+        sampling = None
+        if sampled:
+            noise = torch.zeros((n_steps, *lk.noise.shape), device=self.device)
+            v = self.cfg.vocab_size
+            for i in range(n_steps):
+                for s in np.flatnonzero(dec):
+                    if self.slot_req[s].sampled:
+                        noise[i, s] = gumbel_noise((v,), self.slot_rng[s], self.device)
+            sampling = (noise, lk.top_k, lk.top_p, lk.temperature)
+        toks, n_emitted = paged_decode_multi(
+            self.params, self.kv, self.cfg, lk.tok, lk.lens, lk.table, lk.active, lk.allow,
+            lk.eos, self.ecfg.page_size, n_steps, self._active_slice(dec, sampled), sampling)
+        self._acc("multi_dispatch", time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        toks, n_emitted = toks.cpu().numpy(), n_emitted.cpu().numpy()
+        self._acc("multi_sync", time.perf_counter() - t0)
+        self.steps += n_steps
+        t0 = time.perf_counter()
+        try:
+            return self._absorb_multi(dec, toks, n_emitted)
+        finally:
+            self._acc("absorb", time.perf_counter() - t0)
+
     def step_chain(self, n_steps: int) -> int:
         """Multi-token decode: n_steps chained links with ONE host sync.
         Chains ramp 8 -> 16 -> ... up to n_steps while the decoding set is
@@ -678,6 +779,109 @@ class PagedEngine:
         finally:
             self._acc("absorb", time.perf_counter() - t0)
 
+    def step_mixed_burst(self) -> int:
+        """Drain prefill chunks where every link also advances every decoding
+        slot by one token (`paged_mixed_step`): up to `mixed_prefill_rows`
+        chunk rows, packed FCFS (consecutive chunks of one prompt may share a
+        link), ride each link with the decode rows, so a prefill burst no
+        longer stalls the decodes.  The burst holds
+        ceil(prefill_chunks_per_tick / mixed_prefill_rows) links at most and
+        absorbs its decode tokens, and the first tokens of prompts it
+        completed, with ONE host sync; a streaming request's first token is
+        synced at its link instead."""
+        if self._inflight is not None:
+            fl, self._inflight = self._inflight, None
+            self._sync_chain(fl)
+        dec = self.status == DECODE
+        # _safe_horizon runs before the pending first tokens are injected
+        budget = self._safe_horizon(self._burst_links, dec)
+        gen = self.slot_gen.copy()
+        sampled = self._sampled(dec)
+        lslice = self._active_slice(dec, sampled)
+        sampled_slots = [s for s in np.flatnonzero(dec) if self.slot_req[s].sampled]
+        c, maxp, v = self.ecfg.prefill_chunk, self.ecfg.max_pages_per_seq, self.cfg.vocab_size
+        npf_max = max(1, self.ecfg.mixed_prefill_rows)
+        t0 = time.perf_counter()
+        # the burst starts from the host's state: an admission since the last
+        # chain (prefill_order is not empty) made it stale
+        lk = self.links
+        lk.load(lk.active, dec)
+        lk.load(lk.tok, self.tokens)
+        lk.load(lk.lens, self.seq_lens)
+        torch.logical_not(lk.active, out=lk.done)
+        self._slot_state_dev()
+        pend = sorted(self._pending_first)
+        for slot in pend:
+            lk.inject(slot, self._pending_first[slot])
+        self._pending_first.clear()
+        lk.begin()
+        # first tokens of prompts completed mid-burst ride the burst's sync
+        first_col = torch.zeros(self.ecfg.max_batch_size, dtype=torch.int64, device=self.device)
+        pf_slots: List[int] = []
+        n_links = 0
+        while self.prefill_order and n_links < budget:
+            rows, oi = [], 0
+            while len(rows) < npf_max and oi < len(self.prefill_order):
+                slot = self.prefill_order[oi]
+                req = self.slot_req[slot]
+                start = int(self.prefill_pos[slot])
+                n = min(c, len(req.prompt_ids) - start)
+                rows.append((slot, req, start, n))
+                self.prefill_pos[slot] = start + n
+                if start + n >= len(req.prompt_ids):
+                    oi += 1  # the next row serves the next queued prompt
+            npf = 1
+            while npf < len(rows):
+                npf *= 2
+            npf = min(npf, npf_max)
+            ncp = max(_ctx_pages_bucket(self._pages_needed(r[2] + c), maxp) for r in rows)
+            completes = [r[2] + r[3] >= len(r[1].prompt_ids) for r in rows]
+            for s in sampled_slots:  # one draw per link the slot decodes in
+                lk.noise[s].copy_(gumbel_noise((v,), self.slot_rng[s], self.device))
+            logits = lk.mixed(self._pack_rows(rows, npf), ncp, c, lslice, sampled,
+                              any(completes))
+            n_links += 1
+            self.mixed_links += 1
+            self.mixed_rows += len(rows)
+            self.prefill_chunks += len(rows)
+            for ri, (slot, req, _, _) in enumerate(rows):
+                if not completes[ri]:
+                    continue
+                assert self.prefill_order[0] == slot
+                self.prefill_order.pop(0)
+                first = sample_next(logits[ri], self._allow_dev[slot], self._first_sampling(slot))
+                self.seq_lens[slot] = len(req.prompt_ids)
+                self.status[slot] = DECODE
+                if req.stream:
+                    # a streaming consumer's first token does not wait for
+                    # the burst's sync
+                    ts = time.perf_counter()
+                    tok = int(first)
+                    self._acc("first_tok_sync", time.perf_counter() - ts)
+                    self._record_first(slot, tok)
+                else:
+                    first_col[slot: slot + 1].copy_(first.reshape(1))
+                    pf_slots.append(slot)
+            self._try_admit()  # a completed prompt may free pages
+            self._slot_state_dev()
+        lk.append(first_col)
+        handle = lk.fetch()
+        self._acc("mixed_dispatch", time.perf_counter() - t0)
+        full = np.where(dec, n_links, 0)
+        for slot in pend:
+            full[slot] += 1
+        meta = {"dec": dec, "pend": pend, "n_steps": n_links, "gen": gen, "full_emit": full}
+        t0 = time.perf_counter()
+        toks = lk.wait(handle, n_links + 1)  # ONE sync for the burst
+        self._acc("mixed_sync", time.perf_counter() - t0)
+        self._absorb_chain(meta, toks[:, : n_links + 1])
+        # the carried rows of slots that completed mid-burst are stale: the
+        # host's state is the truth after the sync
+        self._hot = False
+        for slot in pf_slots:
+            self._record_first(slot, int(toks[slot, n_links + 1]))
+        return self._occupied()
+
     def _absorb_multi(self, dec: np.ndarray, toks: np.ndarray, n_emitted: np.ndarray,
                       pend_slots=()) -> int:
         """Append each decoding slot's emitted tokens; finish on EOS, budget
@@ -707,9 +911,12 @@ class PagedEngine:
         return self._occupied()
 
     def tick(self) -> int:
-        """One scheduler turn: while prompts are pending, drain up to
-        prefill_chunks_per_tick chunks (then one per-token step unless the
-        queue just drained); otherwise one decode chain."""
+        """One scheduler turn: while prompts are pending, a mixed burst when
+        `ecfg.mixed_prefill` and at least `mixed_min_decode` slots decode,
+        else drain up to prefill_chunks_per_tick chunks (then one per-token
+        step unless the queue just drained); otherwise one per-token step
+        (decode_horizon 1), one decode chain or one fused multi-step
+        decode."""
         if self.waiting and self._inflight is not None:
             # the pending sync may free slots and pages (EOS or budget ends),
             # which admission below can only see after it
@@ -723,6 +930,9 @@ class PagedEngine:
                 # instead of behind the newcomers' prefill chunks
                 self._flush_pending()
             self._try_admit()
+            if (self.prefill_order and self.ecfg.mixed_prefill
+                    and int((self.status == DECODE).sum()) >= max(1, self.ecfg.mixed_min_decode)):
+                return self.step_mixed_burst()
             if self.prefill_order:
                 t0 = time.perf_counter()
                 deferred = False
@@ -741,7 +951,9 @@ class PagedEngine:
                 return self.step(_defer_chain=True)
         if self.decode_horizon == 1:
             return self.step()
-        return self.step_chain(self.decode_horizon)
+        if self.multi_impl == "chain":
+            return self.step_chain(self.decode_horizon)
+        return self.step_multi(self.decode_horizon)
 
     def drain_inflight(self) -> None:
         """Sync and absorb the run-ahead chain, if any.  The last request of
@@ -762,13 +974,18 @@ class PagedEngine:
         return requests
 
     def stats(self) -> dict:
-        """Serving telemetry.  `perf_s`: wall seconds by scheduler phase
-        (admit, prefill, chain/step dispatch and sync, absorb,
-        first_tok_sync); `graph_replays`: decode links run as CUDA-graph
-        replays; `runahead_chains`: chains dispatched before their
-        predecessor's sync."""
+        """Serving telemetry.  `steps`: decode and mixed links;
+        `mixed_links`: mixed prefill + decode links (eager), carrying
+        `mixed_rows` prefill chunk rows between them; `graph_replays`:
+        decode links run as CUDA-graph replays (on the card every decode
+        link: steps - mixed_links); `runahead_chains`: chains dispatched
+        before their predecessor's sync; `perf_s`: wall seconds by scheduler
+        phase (admit, prefill, chain/multi/step/mixed dispatch and sync,
+        absorb, first_tok_sync)."""
         return {
             "steps": self.steps,
+            "mixed_links": self.mixed_links,
+            "mixed_rows": self.mixed_rows,
             "prefill_chunks": self.prefill_chunks,
             "total_emitted": self.total_emitted,
             "total_finished": self.total_finished,

@@ -1,11 +1,13 @@
 """Device side of the paged continuous-batching engine.
 
 Port of the parts of usdm_tpu/engine/paged_ops.py that the serving path
-runs: the paged KV pool, one decode step, one chained decode step,
-chunked prefill, and first-token sampling; and `DecodeLinks`, the static
-inputs of a chained decode link, which on the card runs each link as one
+runs: the paged KV pool, one decode step, one chained decode step, the
+packed prefill chunk, the mixed prefill + decode link, the multi-step
+decode, and first-token sampling; and `DecodeLinks`, the static inputs of a
+chained decode link, which on the card runs each decode link as one
 CUDA-graph replay (the counterpart of the JAX engine's one jitted dispatch
-per link).  The host scheduler is engine/paged.py.
+per link) and each mixed link eagerly.  The host scheduler is
+engine/paged.py.
 
 The pool keeps the JAX layout [Hkv, L*N, P, hd]: layer li's page p lives at
 li*N + p, and the last page of every layer's region (N - 1) is a trash page
@@ -33,7 +35,7 @@ import torch.nn.functional as F
 
 from usdm_tpu_torch.core.config import MistralConfig
 from usdm_tpu_torch.models import mistral as M
-from usdm_tpu_torch.models.quant import out_dim, qmm
+from usdm_tpu_torch.models.quant import is_quantized, out_dim, qmm
 from usdm_tpu_torch.ops.attention import mha
 from usdm_tpu_torch.ops.paged_attention import paged_decode_attention
 from usdm_tpu_torch.ops.stream_matvec import stream_qmv, symmetric_scale
@@ -97,15 +99,18 @@ def _write_kv(kv: PagedKV, base: int, pages: torch.Tensor, offs: torch.Tensor,
 
 
 def _context(kv: PagedKV, base: int, ctx_pages: torch.Tensor, dtype: torch.dtype):
-    """The context pages of one request as [1, S_ctx, Hkv, hd] views of the
-    head-major gather, int8 pools dequantized in f32 and cast to `dtype`."""
-    kc, vc = kv.k_pages[:, base + ctx_pages], kv.v_pages[:, base + ctx_pages]
-    if kv.quantized:  # scales [ncp, Hkv, P] -> [Hkv, ncp, P, 1]
-        kc = (kc.float() * kv.k_scales[base + ctx_pages].transpose(0, 1)[..., None]).to(dtype)
-        vc = (vc.float() * kv.v_scales[base + ctx_pages].transpose(0, 1)[..., None]).to(dtype)
-    hkv, hd = kc.shape[0], kc.shape[-1]
-    return (kc.reshape(hkv, -1, hd).permute(1, 0, 2)[None],
-            vc.reshape(hkv, -1, hd).permute(1, 0, 2)[None])
+    """The context pages of R chunk rows ([R, ncp] layer-relative page ids)
+    as [R, S_ctx, Hkv, hd] views of the head-major gather in `dtype` (int8
+    pools dequantized in f32 first)."""
+    ids = base + ctx_pages
+    kc, vc = kv.k_pages[:, ids], kv.v_pages[:, ids]  # [Hkv, R, ncp, P, hd]
+    if kv.quantized:  # scales [R, ncp, Hkv, P] -> [Hkv, R, ncp, P, 1]
+        kc = kc.float() * kv.k_scales[ids].permute(2, 0, 1, 3)[..., None]
+        vc = vc.float() * kv.v_scales[ids].permute(2, 0, 1, 3)[..., None]
+    kc, vc = kc.to(dtype), vc.to(dtype)
+    hkv, r, hd = kc.shape[0], kc.shape[1], kc.shape[-1]
+    return (kc.reshape(hkv, r, -1, hd).permute(1, 2, 0, 3),
+            vc.reshape(hkv, r, -1, hd).permute(1, 2, 0, 3))
 
 
 def _logits_tail(params, x: torch.Tensor, allow_masks: torch.Tensor, active: torch.Tensor,
@@ -229,7 +234,10 @@ class DecodeLinks:
     temperature.  A link (`run`) is `paged_decode_step_chained` over them;
     it writes its outputs back into tok, done and lens, so the next link
     needs no host work, and its token into the next column of `stacked` [B,
-    max_links + 1] (column 0 holds the chain's input, `begin`).
+    max_links + 2] (column 0 holds the chain's input, `begin`; a mixed burst's
+    last column the first tokens of prompts it completed, `append`).  A
+    mixed prefill + decode link (`mixed`) reads and writes the same buffers,
+    eagerly.
 
     On the card each link variant (logits slice, sampled or greedy) is
     captured once in a CUDA graph, after one eager warm-up link, and every
@@ -264,14 +272,14 @@ class DecodeLinks:
         self.noise = zeros(b, v)
         self.top_k = torch.ones(b, dtype=torch.int64, device=dev)
         self.top_p, self.temperature = (torch.ones(b, device=dev) for _ in range(2))
-        self.stacked = zeros(b, max_links + 1, dtype=torch.int64)
+        self.stacked = zeros(b, max_links + 2, dtype=torch.int64)
         self.col = zeros(1, dtype=torch.int64)  # the column the next link writes
         self.graphed = graphs and dev.type == "cuda"
         self.replays = 0
         self._graphs: dict = {}  # (logits_slice, sampled) -> (graph, launches per replay)
         self._pool = self._stream = None
         card = dev.type == "cuda"
-        self._host = [torch.empty((b, max_links + 1), dtype=torch.int64, pin_memory=card)
+        self._host = [torch.empty((b, max_links + 2), dtype=torch.int64, pin_memory=card)
                       for _ in range(2)]
         self._events = [torch.cuda.Event() if card else None for _ in range(2)]
         self._flip = 0
@@ -279,10 +287,7 @@ class DecodeLinks:
     def load(self, dst: torch.Tensor, values: np.ndarray) -> None:
         """dst <- host values, in stream order; on the card through pinned
         memory without waiting for the device."""
-        src = torch.from_numpy(np.ascontiguousarray(values))
-        if self.device.type == "cuda":
-            src = src.pin_memory()
-        dst.copy_(src, non_blocking=True)
+        dst.copy_(_host(values, self.device), non_blocking=True)
 
     def inject(self, slot: int, first: torch.Tensor) -> None:
         """A deferred first token (0-d, on the device) becomes the slot's
@@ -317,11 +322,35 @@ class DecodeLinks:
         tok, done, lens = paged_decode_step_chained(
             self.params, self.kv, self.cfg, self.tok, self.lens, self.table, self.active,
             self.done, self.eos, self.allow, self.page_size, logits_slice, sampling)
+        self._advance(tok, done, lens)
+
+    def _advance(self, tok: torch.Tensor, done: torch.Tensor, lens: torch.Tensor) -> None:
+        """A link's outputs become the next link's inputs; its token goes to
+        the next column of `stacked`."""
         self.tok.copy_(tok)
         self.done.copy_(done)
         self.lens.copy_(lens)
-        self.stacked.index_copy_(1, self.col, tok[:, None])
+        self.append(tok)
+
+    def append(self, col: torch.Tensor) -> None:
+        """Write [B] values into the next column of `stacked`."""
+        self.stacked.index_copy_(1, self.col, col[:, None])
         self.col.add_(1)
+
+    def mixed(self, packed: np.ndarray, n_ctx_pages: int, c: int,
+              logits_slice: Optional[Tuple[int, int, int]], sampled: bool,
+              sample_chunk: bool) -> Optional[torch.Tensor]:
+        """One mixed prefill + decode link (`paged_mixed_step`) over the
+        packed chunk rows [NPF, C + 2 + maxp] (one host-to-device copy) and
+        the link buffers, run eagerly -> the rows' chunk logits when
+        `sample_chunk`."""
+        sampling = (self.noise, self.top_k, self.top_p, self.temperature) if sampled else None
+        logits, tok, done, lens = paged_mixed_step(
+            self.params, self.kv, self.cfg, to_device(packed, self.device), self.tok, self.lens,
+            self.table, self.active, self.done, self.eos, self.allow, self.page_size,
+            n_ctx_pages, c, sample_chunk, logits_slice, sampling)
+        self._advance(tok, done, lens)
+        return logits
 
     def _capture(self, key) -> tuple:
         """One eager warm-up link (libraries loaded, RoPE table made, nothing
@@ -367,66 +396,251 @@ class DecodeLinks:
         return self._host[handle][:, : n_links + 1].numpy().copy()
 
 
-def paged_prefill_chunk(
-    params: M.Params,
-    kv: PagedKV,
-    cfg: MistralConfig,
-    chunk_ids: torch.Tensor,  # [C] right-padded chunk of prompt tokens
-    start: int,  # tokens already written for this slot
-    n_valid: int,  # valid tokens in this chunk
-    page_table_row: np.ndarray,  # [maxp] this request's layer-relative pages
-    page_size: int,
-    n_ctx_pages: int,  # pages gathered as attention context (covers start + C)
-) -> torch.Tensor:
-    """Prefill one chunk of one request into its pages -> logits of the last
-    valid token [V] f32.  Chunk queries attend to the request's pages
-    written so far plus the chunk itself (causal, sliding window)."""
-    c = chunk_ids.shape[0]
-    dev = chunk_ids.device
+def _host(values: np.ndarray, device) -> torch.Tensor:
+    """`values` as a host tensor, pinned when it is bound for the card."""
+    src = torch.from_numpy(np.ascontiguousarray(values))
+    return src.pin_memory() if torch.device(device).type == "cuda" else src
+
+
+def to_device(values: np.ndarray, device) -> torch.Tensor:
+    """One host-to-device copy of `values`, on the card through pinned
+    memory without waiting for the device."""
+    return _host(values, device).to(device, non_blocking=True)
+
+
+def _rms_norm_parts(x: torch.Tensor, w: torch.Tensor, eps: float, nc: int) -> torch.Tensor:
+    """M.rms_norm of the chunk rows x[:nc] and the decode rows x[nc:] in two
+    calls.  A CUDA reduction's summation order depends on how many rows
+    share the call (below 16 rows it changes), so each row is normalized as
+    the alternating schedule normalizes it, in a prefill chunk or in a decode
+    link of the same B slots, and greedy tokens do not depend on whether a
+    link was mixed."""
+    if nc in (0, x.shape[0]):
+        return M.rms_norm(x, w, eps)
+    return torch.cat([M.rms_norm(x[:nc], w, eps), M.rms_norm(x[nc:], w, eps)])
+
+
+def _qmm_parts(y: torch.Tensor, w, nc: int, c: int) -> torch.Tensor:
+    """qmm over a mixed link's NPF chunk rows of C tokens (y[:nc]) and its
+    decode rows (y[nc:]).  W8A8 products are exact integer sums with an
+    elementwise epilogue, the same bits at any row count, so they take one
+    call.  A float GEMM's summation order depends on its row count (cuBLAS
+    picks its kernel by shape: on an H100, f32 rows at Mistral-7B's shapes
+    differ between 256 and up to 2,048 rows), so each chunk row and the
+    decode rows are multiplied apart, at the shapes of a lone prefill chunk
+    and of a decode link."""
+    if is_quantized(w) or y.shape[0] <= c:
+        return qmm(y, w)
+    parts = [y[i: i + c] for i in range(0, nc, c)]
+    if nc < y.shape[0]:
+        parts.append(y[nc:])
+    return torch.cat([qmm(x, w) for x in parts])
+
+
+def _mlp_parts(y: torch.Tensor, lp: M.Params, nc: int, c: int) -> torch.Tensor:
+    """M.mlp with its products split as `_qmm_parts` splits them."""
+    gate = F.silu(_qmm_parts(y, lp["w_gate"], nc, c))
+    return _qmm_parts(gate * _qmm_parts(y, lp["w_up"], nc, c), lp["w_down"], nc, c)
+
+
+def _mixed_layers(params: M.Params, kv: PagedKV, cfg: MistralConfig, packed: torch.Tensor,
+                  c: int, page_size: int, n_ctx_pages: int,
+                  decode: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]]
+                  ) -> torch.Tensor:
+    """The layers over NPF packed chunk rows and, with `decode` = (tokens
+    [B], seq_lens [B] int32, page_table [B, maxp] int32, live [B] bool), B
+    decode rows in one [NPF*C + B, D] activation -> its final hidden state
+    (before the final norm).  Writes every row's K/V in place first (chunk
+    padding and rows that are not live go to the trash page), then gathers
+    each chunk row's context: consecutive chunks of one prompt may share a
+    link."""
+    npf = packed.shape[0]
+    dev = packed.device
     hd = cfg.head_dim
     h, hkv = out_dim(params["layers"][0]["wq"]) // hd, out_dim(params["layers"][0]["wk"]) // hd
     p = page_size
     s_ctx = n_ctx_pages * p
     n_pages = kv.total_pages // cfg.num_layers
-    maxp = page_table_row.shape[0]
+    trash = n_pages - 1
+    nc = npf * c
 
-    # write targets: chunk token i lives at global index start + i; padding
-    # tokens go to the trash page
-    gidx = start + np.arange(c)
-    pages_t = np.where(np.arange(c) < n_valid, page_table_row[np.minimum(gidx // p, maxp - 1)],
-                       n_pages - 1)
-    pages_t = torch.from_numpy(pages_t.astype(np.int64)).to(dev)
-    offs_t = torch.from_numpy((gidx % p).astype(np.int64)).to(dev)
-    ctx_pages = torch.from_numpy(page_table_row[:n_ctx_pages].astype(np.int64)).to(dev)
-
-    ar = torch.arange(c, device=dev)
-    positions = (start + ar)[None]
-    # the attention rows as int32, the type the flash kernel reads: made once
-    # per chunk, not converted again by each layer's call
-    q_pos = positions.to(torch.int32)
-    q_seg = torch.where(ar < n_valid, 0, -1)[None].to(torch.int32)
-    kv_pos = torch.arange(s_ctx, device=dev, dtype=torch.int32)[None]
+    # chunk side: token i of row r lives at start[r] + i; padding -> trash
+    ids = packed[:, :c].long()
+    start, n_valid = packed[:, c: c + 1], packed[:, c + 1: c + 2]  # [NPF, 1]
+    rows = packed[:, c + 2:].long()
+    maxp = rows.shape[1]
+    ar = torch.arange(c, device=dev, dtype=torch.int32)[None]
+    q_pos = start + ar  # [NPF, C] int32, the type the flash kernel reads
+    valid = ar < n_valid
+    q_seg = torch.where(valid, 0, -1).to(torch.int32)
+    w_pages = torch.gather(rows, 1, torch.clamp(q_pos.long() // p, max=maxp - 1))
+    w_pages = torch.where(valid, w_pages, trash).reshape(-1)
+    w_offs = (q_pos.long() % p).reshape(-1)
+    ctx_pages = rows[:, :n_ctx_pages]
+    kv_pos = torch.arange(s_ctx, device=dev, dtype=torch.int32)[None].expand(npf, s_ctx)
     kv_seg = torch.where(kv_pos < start + n_valid, 0, -1).to(torch.int32)
+    kv_pos = kv_pos.contiguous()
+    cos_c, sin_c = M.rope_tables(q_pos, hd, cfg.rope_theta)
+    xa = params["embed"][ids.reshape(-1)]  # [NPF*C, D]
 
-    x = params["embed"][chunk_ids][None]  # [1, C, D]
-    cos, sin = M.rope_tables(positions, hd, cfg.rope_theta)
+    b = 0
+    if decode is not None:  # decode side, as paged_decode_step
+        tokens, seq_lens, page_table, live = decode
+        b = tokens.shape[0]
+        pos_d = seq_lens.long()
+        d_pages = page_table.long()[torch.arange(b, device=dev),
+                                    torch.clamp(pos_d // p, max=maxp - 1)]
+        w_pages = torch.cat([w_pages, torch.where(live, d_pages, trash)])
+        w_offs = torch.cat([w_offs, pos_d % p])
+        kv_len = (seq_lens + 1).to(torch.int32)
+        bases = torch.arange(cfg.num_layers, device=dev, dtype=torch.int32) * n_pages
+        tables = (page_table[None] + bases[:, None, None]).contiguous()  # [L, B, maxp]
+        cos_d, sin_d = M.rope_tables(pos_d[:, None], hd, cfg.rope_theta)
+        xa = torch.cat([xa, params["embed"][tokens]])
+
     for li, lp in enumerate(params["layers"]):
         base = li * n_pages
-        y = M.rms_norm(x, lp["ln1"], cfg.rms_norm_eps)
-        q = M.apply_rope(qmm(y, lp["wq"]).reshape(1, c, h, hd), cos, sin)
-        kk = M.apply_rope(qmm(y, lp["wk"]).reshape(1, c, hkv, hd), cos, sin)
-        vv = qmm(y, lp["wv"]).reshape(1, c, hkv, hd)
-        _write_kv(kv, base, pages_t, offs_t, kk[0].transpose(0, 1), vv[0].transpose(0, 1))
-        # context: this request's pages, the chunk just written included
-        kc, vc = _context(kv, base, ctx_pages, q.dtype)
-        attn = mha(q, kc, vc, q_segment_ids=q_seg, kv_segment_ids=kv_seg,
+        ya = _rms_norm_parts(xa, lp["ln1"], cfg.rms_norm_eps, nc)
+        qa, ka, va = (_qmm_parts(ya, lp[k], nc, c) for k in ("wq", "wk", "wv"))
+        q_c = M.apply_rope(qa[:nc].reshape(npf, c, h, hd), cos_c, sin_c)
+        k_c = M.apply_rope(ka[:nc].reshape(npf, c, hkv, hd), cos_c, sin_c)
+        k_w, v_w = k_c.reshape(nc, hkv, hd), va[:nc].reshape(nc, hkv, hd)
+        if b:
+            q_d = M.apply_rope(qa[nc:].reshape(b, 1, h, hd), cos_d, sin_d)
+            k_d = M.apply_rope(ka[nc:].reshape(b, 1, hkv, hd), cos_d, sin_d)
+            k_w = torch.cat([k_w, k_d[:, 0]])
+            v_w = torch.cat([v_w, va[nc:].reshape(b, hkv, hd)])
+        # every row's K/V lands before any row reads its context
+        _write_kv(kv, base, w_pages, w_offs, k_w.transpose(0, 1), v_w.transpose(0, 1))
+        kc, vc = _context(kv, base, ctx_pages, q_c.dtype)
+        attn = mha(q_c, kc, vc, q_segment_ids=q_seg, kv_segment_ids=kv_seg,
                    q_positions=q_pos, kv_positions=kv_pos, causal=True,
-                   sliding_window=cfg.sliding_window, impl="auto")
-        x = x + qmm(attn.reshape(1, c, h * hd), lp["wo"])
-        x = x + M.mlp(M.rms_norm(x, lp["ln2"], cfg.rms_norm_eps), lp)
-    x = M.rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    last = min(max(n_valid - 1, 0), c - 1)
-    return F.linear(x[0, last], params["lm_head"]).float()
+                   sliding_window=cfg.sliding_window, impl="auto").reshape(nc, h * hd)
+        if b:
+            attn_d = paged_decode_attention(
+                q_d[:, 0].reshape(b, hkv, h // hkv, hd).contiguous(), kv.k_pages, kv.v_pages,
+                tables[li], kv_len, sliding_window=cfg.sliding_window,
+                k_scales=kv.k_scales, v_scales=kv.v_scales)
+            attn = torch.cat([attn, attn_d.reshape(b, h * hd)])
+        xa = xa + _qmm_parts(attn, lp["wo"], nc, c)
+        xa = xa + _mlp_parts(_rms_norm_parts(xa, lp["ln2"], cfg.rms_norm_eps, nc), lp, nc, c)
+    return xa
+
+
+def _chunk_logits(params: M.Params, cfg: MistralConfig, xc: torch.Tensor,
+                  n_valid: torch.Tensor, c: int) -> torch.Tensor:
+    """Chunk rows' final hidden [NPF*C, D] -> each row's last-valid-position
+    logits [NPF, V] f32, one lm_head product per row (the shape of a lone
+    prefill chunk's, so a mixed link's first tokens are the alternating
+    schedule's)."""
+    npf = xc.shape[0] // c
+    xn = M.rms_norm(xc, params["final_norm"], cfg.rms_norm_eps).reshape(npf, c, -1)
+    last = torch.clamp(n_valid.long() - 1, 0, c - 1)
+    x_last = xn[torch.arange(npf, device=xc.device), last]
+    return torch.cat([F.linear(x_last[r: r + 1], params["lm_head"]) for r in range(npf)]).float()
+
+
+def paged_prefill_chunk_packed(
+    params: M.Params,
+    kv: PagedKV,
+    cfg: MistralConfig,
+    packed: torch.Tensor,  # [C + 2 + maxp] int32 on the device: ids | start | n_valid | table row
+    page_size: int,
+    n_ctx_pages: int,  # pages gathered as attention context (covers start + C)
+    c: int,
+) -> torch.Tensor:
+    """Prefill one chunk of one request into its pages -> logits of the last
+    valid token [V] f32.  Every per-chunk host input rides in `packed`, one
+    host-to-device copy.  Chunk queries attend to the request's pages written
+    so far plus the chunk itself (causal, sliding window)."""
+    packed = packed[None]
+    xc = _mixed_layers(params, kv, cfg, packed, c, page_size, n_ctx_pages, None)
+    return _chunk_logits(params, cfg, xc, packed[:, c + 1], c)[0]
+
+
+def paged_mixed_step(
+    params: M.Params,
+    kv: PagedKV,
+    cfg: MistralConfig,
+    packed: torch.Tensor,  # [NPF, C + 2 + maxp] int32 rows: ids | start | n_valid | table row
+    tokens: torch.Tensor,  # [B] decode input token per slot
+    seq_lens: torch.Tensor,  # [B] int32
+    page_table: torch.Tensor,  # [B, maxp] int32
+    active: torch.Tensor,  # [B] bool: slots decoding in this burst
+    done: torch.Tensor,  # [B] bool: EOS'd earlier in the burst
+    eos_ids: torch.Tensor,  # [B]
+    allow_masks: torch.Tensor,  # [B, V] bool
+    page_size: int,
+    n_ctx_pages: int,
+    c: int,
+    sample_chunk: bool = False,
+    logits_slice: Optional[Tuple[int, int, int]] = None,
+    sampling: Sampling = None,
+) -> Tuple[Optional[torch.Tensor], torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Mixed prefill + decode: one link advances NPF prefill chunk rows AND
+    every decoding slot by one token -> (chunk_logits [NPF, V] f32 | None,
+    token [B], done' [B], seq_lens' [B]).
+
+    The chunk rows' NPF*C tokens and the B decode rows share one activation,
+    so each W8A8 projection and FFN weight is read once for all of them
+    (float weights once per chunk row and once for the decode rows,
+    `_qmm_parts`); attention splits: chunk rows run masked attention over their gathered
+    context (the flash kernel on the card), decode rows the paged decode
+    kernel.  Rows may be different requests or consecutive chunks of one
+    prompt; fully padded rows (n_valid 0, every table entry the trash page)
+    bucket NPF.  The decode side carries the chained bookkeeping (EOS freeze
+    and lengths, as paged_decode_step_chained).  `sample_chunk` (some row
+    completes its prompt) also returns each row's last-valid-position
+    logits; otherwise no chunk logits are computed."""
+    if logits_slice is not None and sampling is not None:
+        raise ValueError("logits_slice requires greedy decode")
+    live = active & ~done
+    xa = _mixed_layers(params, kv, cfg, packed, c, page_size, n_ctx_pages,
+                       (tokens, seq_lens, page_table, live))
+    nc = packed.shape[0] * c
+    x_d = M.rms_norm(xa[nc:], params["final_norm"], cfg.rms_norm_eps)
+    nxt = _logits_tail(params, x_d, allow_masks, live, logits_slice, sampling)
+    nxt = torch.where(done, 0, nxt)
+    new_done = done | (nxt == eos_ids)
+    new_lens = torch.where(done | ~active, seq_lens, seq_lens + 1)
+    chunk_logits = None
+    if sample_chunk:
+        chunk_logits = _chunk_logits(params, cfg, xa[:nc], packed[:, c + 1], c)
+    return chunk_logits, nxt, new_done, new_lens
+
+
+def paged_decode_multi(
+    params: M.Params,
+    kv: PagedKV,
+    cfg: MistralConfig,
+    tokens: torch.Tensor,  # [B]
+    seq_lens: torch.Tensor,  # [B] int32
+    page_table: torch.Tensor,  # [B, maxp] int32
+    active: torch.Tensor,  # [B] bool
+    allow_masks: torch.Tensor,  # [B, V] bool
+    eos_ids: torch.Tensor,  # [B]
+    page_size: int,
+    n_steps: int,
+    logits_slice: Optional[Tuple[int, int, int]] = None,
+    sampling: Sampling = None,  # its noise [n_steps, B, V]: one draw per link
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`n_steps` chained decode links with no host sync between them ->
+    (tokens [B, n_steps], n_emitted [B]); rows freeze at their own EOS.
+    usdm_tpu's fused multi-step decode, which `PagedEngine.step_multi` calls
+    where its links run without CUDA graphs; on the card it replays the same
+    links from graphs through DecodeLinks."""
+    tok, lens, done = tokens, seq_lens, ~active
+    out = []
+    for i in range(n_steps):
+        link = None if sampling is None else (sampling[0][i], *sampling[1:])
+        tok, done, lens = paged_decode_step_chained(params, kv, cfg, tok, lens, page_table,
+                                                    active, done, eos_ids, allow_masks,
+                                                    page_size, logits_slice, link)
+        out.append(tok)
+    out = torch.stack(out, dim=1)
+    is_eos = out == eos_ids[:, None]
+    n_emitted = torch.where(is_eos.any(dim=1), is_eos.int().argmax(dim=1) + 1, n_steps)
+    return out, torch.where(active, n_emitted, 0)
 
 
 def sample_next(logits: torch.Tensor, allow: torch.Tensor, sampling: Sampling = None

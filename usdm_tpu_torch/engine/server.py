@@ -1,11 +1,12 @@
 """Serving front door: a background thread owns the PagedEngine loop.
 
 Port of usdm_tpu/engine/server.py (`EngineServer.generate`,
-`PagedDialogPolicy`).  Caller threads submit requests and block until they
-finish; one loop thread ticks the engine outside the lock.  A failure in a
-tick sets `error` on every in-flight request, wakes every caller with it,
-and makes later submissions fail fast.  Streaming (`generate_stream`) is not
-ported yet.
+`generate_stream`, `PagedDialogPolicy` with its streaming hooks).  Caller
+threads submit requests and block until they finish, or read their tokens
+as the engine's syncs deliver them; one loop thread ticks the engine outside
+the lock and wakes every waiter after each tick.  A failure in a tick sets
+`error` on every in-flight request, wakes every caller with it, and makes
+later submissions fail fast.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import itertools
 import threading
 import time
 import traceback
-from typing import Dict, List, Optional
+from typing import Callable, Dict, Iterator, List, Optional
 
 import numpy as np
 
@@ -50,21 +51,9 @@ class EngineServer:
                  temperature: float = 1.0, seed: int = 0, timeout: Optional[float] = None,
                  session: Optional[int] = None) -> List[int]:
         """Submit one generation; blocks until it finishes, returns tokens."""
-        rid = next(self._ids)
-        req = Request(rid, list(prompt_ids), allow_mask, eos_id, max_new_tokens, top_k=top_k,
-                      top_p=top_p, temperature=temperature, seed=seed, session=session)
-        req.t_submit = time.time()
-        ev = threading.Event()
-        with self._cv:
-            if not self._running:
-                raise RuntimeError("EngineServer is closed")
-            if self._fatal is not None:
-                raise RuntimeError(f"EngineServer failed: {self._fatal!r}") from self._fatal
-            self._events[rid] = ev
-            self._reqs[rid] = req
-            self._inbox.append(req)
-            self._cv.notify_all()
-        finished = ev.wait(timeout)
+        rid, req = self._submit(prompt_ids, allow_mask, eos_id, max_new_tokens, top_k, top_p,
+                                temperature, seed, session)
+        finished = self._events[rid].wait(timeout)
         if not finished:
             self.cancel(rid)  # stop decoding for a caller that gave up
         with self._cv:
@@ -75,6 +64,70 @@ class EngineServer:
         if req.error is not None:
             raise RuntimeError(req.error)
         return req.output_ids
+
+    def generate_stream(self, prompt_ids: List[int], allow_mask: np.ndarray, eos_id: int,
+                        max_new_tokens: int, top_k: int = 1, top_p: float = 1.0,
+                        temperature: float = 1.0, seed: int = 0,
+                        timeout: Optional[float] = None,
+                        session: Optional[int] = None) -> Iterator[List[int]]:
+        """Streaming `generate`: yields each batch of new token ids as the
+        engine's syncs deliver them; the yields concatenated equal
+        `generate()`'s tokens for the same arguments.  `timeout` bounds each
+        wait for progress (on the monotonic clock), not the whole generation.
+        Closing the generator early cancels the request on the engine: its
+        slot and pages free at the loop's next turn."""
+        rid, req = self._submit(prompt_ids, allow_mask, eos_id, max_new_tokens, top_k, top_p,
+                                temperature, seed, session, stream=True)
+        seen = 0
+        try:
+            while True:
+                # the loop thread notifies after every tick, also when this
+                # request made no progress: only new tokens restart the clock
+                deadline = None if timeout is None else time.monotonic() + timeout
+                with self._cv:
+                    while len(req.output_ids) <= seen and not req.finished:
+                        remaining = None if deadline is None else deadline - time.monotonic()
+                        if remaining is not None and remaining <= 0:
+                            raise TimeoutError(f"request {rid}: no progress in {timeout}s")
+                        self._cv.wait(remaining)
+                    # the loop ticks outside _cv and the engine appends a
+                    # request's last tokens before it finishes it: read
+                    # `finished` first, so a True read sees every token
+                    done = req.finished
+                    new = list(req.output_ids[seen:])
+                seen += len(new)
+                if new:
+                    yield new
+                if done:
+                    break
+            if req.error is not None:
+                raise RuntimeError(req.error)
+        finally:
+            abandoned = not req.finished
+            with self._cv:
+                self._events.pop(rid, None)
+                self._reqs.pop(rid, None)
+            if abandoned:
+                self.cancel(rid)
+
+    def _submit(self, prompt_ids, allow_mask, eos_id, max_new_tokens, top_k, top_p,
+                temperature, seed, session, stream: bool = False):
+        """Queue one request for the loop thread -> (its id, the Request)."""
+        rid = next(self._ids)
+        req = Request(rid, list(prompt_ids), allow_mask, eos_id, max_new_tokens, top_k=top_k,
+                      top_p=top_p, temperature=temperature, seed=seed, session=session,
+                      stream=stream)
+        req.t_submit = time.time()  # the TTFT clock starts at the caller's submit
+        with self._cv:
+            if not self._running:
+                raise RuntimeError("EngineServer is closed")
+            if self._fatal is not None:
+                raise RuntimeError(f"EngineServer failed: {self._fatal!r}") from self._fatal
+            self._events[rid] = threading.Event()
+            self._reqs[rid] = req
+            self._inbox.append(req)
+            self._cv.notify_all()
+        return rid, req
 
     def new_session(self) -> int:
         """Fresh id for a chain of prefix-sharing requests."""
@@ -115,12 +168,15 @@ class EngineServer:
                     self._cv.wait(timeout=self._idle_wait_s)
                     continue
             try:
-                for s in releases:
-                    self.engine.release_session(s)
+                # cancels before releases: a cancelled session request goes
+                # to HOLD, and its dialog's release, queued right after the
+                # cancel (DialogAborted), must find it there
                 for req in inbox:
                     self.engine.submit(req)
                 for rid in cancels:
                     self.engine.cancel(rid)
+                for s in releases:
+                    self.engine.release_session(s)
                 if self.engine.busy:
                     self.engine.tick()
                 if not self.engine.busy:
@@ -143,16 +199,30 @@ class EngineServer:
                 for rid, req in list(self._reqs.items()):
                     if req.finished and rid in self._events:
                         self._events[rid].set()
+                # wakes generate_stream callers too: a tick may have extended
+                # output_ids without finishing anything
                 self._cv.notify_all()
+
+
+class DialogAborted(RuntimeError):
+    """The caller went away mid-dialog (`abort_check` returned True); the
+    stage's request was cancelled on the engine."""
 
 
 class PagedDialogPolicy:
     """3-stage dialog driver over an EngineServer: one engine session across
-    the three stages, so stages B and C prefill only their new suffix."""
+    the three stages, so stages B and C prefill only their new suffix.
+
+    `on_tokens(stage, new_ids)` is called as the engine delivers each
+    stage's tokens, and `abort_check()` is polled between deliveries (True
+    cancels the stage's request and raises DialogAborted); with either, the
+    stages run through `generate_stream`, whose tokens are `generate`'s."""
 
     def __init__(self, server: EngineServer, tokenizer: UsdmTokenizer,
                  max_new_tokens: Optional[int] = None, top_k: int = 1, top_p: float = 1.0,
-                 temperature: float = 1.0, seed: int = 0):
+                 temperature: float = 1.0, seed: int = 0,
+                 on_tokens: Optional[Callable[[str, List[int]], None]] = None,
+                 abort_check: Optional[Callable[[], bool]] = None):
         self.server = server
         self.tok = tokenizer
         self.ts = tokenizer.ts
@@ -161,6 +231,8 @@ class PagedDialogPolicy:
         self.top_p = top_p
         self.temperature = temperature
         self.seed = seed
+        self.on_tokens = on_tokens
+        self.abort_check = abort_check
         self._stage_idx = 0
         self._session: Optional[int] = None
 
@@ -175,12 +247,23 @@ class PagedDialogPolicy:
     def _run_stage(self, stage: str, prompt: str) -> List[int]:
         ids = self.tok.encode(prompt)
         self._stage_idx += 1
-        return self.server.generate(
-            ids, stage_allow_mask(stage, self.ts), stage_eos(stage, self.ts),
-            self._budget(len(ids)), top_k=self.top_k, top_p=self.top_p,
-            temperature=self.temperature,
-            # distinct deterministic stream per stage of this conversation
-            seed=self.seed * 1000003 + self._stage_idx, session=self._session)
+        args = (ids, stage_allow_mask(stage, self.ts), stage_eos(stage, self.ts),
+                self._budget(len(ids)))
+        kwargs = dict(top_k=self.top_k, top_p=self.top_p, temperature=self.temperature,
+                      # distinct deterministic stream per stage of this conversation
+                      seed=self.seed * 1000003 + self._stage_idx, session=self._session)
+        if self.on_tokens is None and self.abort_check is None:
+            return self.server.generate(*args, **kwargs)
+        out: List[int] = []
+        for delta in self.server.generate_stream(*args, **kwargs):
+            out.extend(delta)
+            if self.on_tokens is not None:
+                self.on_tokens(stage, delta)
+            if self.abort_check is not None and self.abort_check():
+                # leaving the loop closes the generator, which cancels the
+                # request on the engine
+                raise DialogAborted(f"caller gone during stage {stage}")
+        return out
 
     def respond_to_units(self, user_units: List[int]) -> DialogResult:
         self._stage_idx = 0
