@@ -63,7 +63,22 @@ Phases:
   8. vocoder gate: the port of scripts/bench_fused_act.py
      (usdm_tpu_torch.scripts.bench_fused_act) at full width, BigVGAN bf16 on
      a 10 s mel with fused_act off then on: parity rel < 6e-2, 109 K3
-     launches per call, both RTFs.
+     launches per call, both RTFs;
+  9. speculation: (a) tiny engines with a draft model (the target, or a
+     random one) or "ngram", f32 or bf16, bf16/f32 or int8 pools: rounds
+     replayed from CUDA graphs equal eager rounds bit for bit, and the
+     tokens equal the plain engine's and (f32) the CPU port's; (b) the
+     ports of scripts/bench_ngram.py (W8A8 7B, 1219-token prompt, 256 new
+     tokens, zero and random weights) and scripts/bench_spec_degraded.py
+     (plain, early-exit:4, a random 4-layer draft) print their JSON lines,
+     every W8A8 speculative run identical to plain greedy; (c) phases 4
+     and 5 each end with a full-width turn under
+     enable_speculation("ngram"): W8A8 identical to the plain turn, bf16
+     identical or each divergence a tie-flip by bench_ngram's rule
+     (counted); (d) every round one graph replay launching K1 once a
+     target layer plus K+1 times a draft layer, K6 7 times each; then the
+     stress port (usdm_tpu_torch.scripts.stress_engine) runs 2 rounds with
+     mixed links on, in bf16 and with draft="ngram".
 
 Each kernel's bound_ms is the least time the card could take for the work
 of its timed case: the larger of its bytes (inputs read once, outputs
@@ -709,76 +724,107 @@ def k1_split_checks(dev) -> None:
     """K1 at forced split counts (1, 2) and the host's choice, B 1 and 8, page
     64 and 256, and B 16 at page 256 with 3 pages a slot (part (C)'s server),
     bf16 and int8 pools, with and without a window of 512, the B 8 slots of
-    lengths 1 to 4200, the B 16 of 1 to 768; bounds as in the K1 and K1-int8 cases (int8
-    scale slots the kernel must not read hold NaN).  Then one call, captured
-    in a CUDA graph and replayed, must equal the eager call bit for bit, and
-    the eager call must run under sync debug mode "error": no value is read
-    back to the host."""
+    lengths 1 to 4200, the B 16 of 1 to 768; then a speculative verify's
+    launch: B*(K+1) rows (B 1 and 4, K 4; row j*B + b reads slot b's table
+    row up to kv_len lens_b + j + 1) at the split count the host picks for B
+    rows, at bench_ngram's page 64 with 128 and 24 pages a slot and
+    bench_spec_degraded's page 256 with 3, windows None, 512 and the 7B's
+    4096; bounds as in the K1 and K1-int8 cases (int8 scale slots the kernel
+    must not read hold NaN).  Then one call, captured in a CUDA graph and
+    replayed, must equal the eager call bit for bit, and the eager call must
+    run under sync debug mode "error": no value is read back to the host."""
     import torch
 
     from usdm_tpu_torch.engine.paged_ops import quant_kv_token
     from usdm_tpu_torch.ops import paged_attention as PA
 
-    log("K1 split over the KV length: forced n_splits 1, 2 and the host's choice (bounds of the "
-        "K1 cases; int8 against the f32-query plain version, then against the plain version "
-        "with the K/V rounding's measured effect added)")
+    log("K1 split over the KV length: forced n_splits 1, 2 and the host's choice, and a "
+        "verify's B*(K+1) rows at B's (bounds of the K1 cases; int8 against the f32-query "
+        "plain version, then against the plain version with the K/V rounding's measured "
+        "effect added)")
     gen = torch.Generator(device=dev).manual_seed(4)
     hkv, g, d = 8, 4, 128
+
+    def setup(kv, b, maxp, page, rows):
+        nt = b * maxp + 1
+        table = torch.randperm(nt, generator=gen, device=dev)[: b * maxp]
+        table = table.reshape(b, maxp).to(torch.int32).contiguous()
+        q = torch.randn(rows, hkv, g, d, generator=gen, device=dev).bfloat16()
+        if kv == "bf16":
+            kp, vp = (torch.randn(hkv, nt, page, d, generator=gen, device=dev).bfloat16()
+                      for _ in range(2))
+            return table, q, kp, vp, {}
+        (kp, ks), (vp, vs) = (quant_kv_token(torch.randn(
+            hkv, nt, page, d, generator=gen, device=dev)) for _ in range(2))
+        return table, q, kp, vp, {"k_scales": ks.transpose(0, 1).contiguous(),
+                                  "v_scales": vs.transpose(0, 1).contiguous()}
+
+    def case(label, q, kp, vp, scales, table, lens, windows, splits):
+        """Each window and (tag, n_splits) against the plain version -> the
+        scales the last window's calls took (NaN where they must not read)."""
+        nt, page = kp.shape[1], kp.shape[2]
+        for window in windows:
+            seen = dict(scales)
+            if scales:  # NaN where the kernel must not read
+                read = torch.zeros(nt, page, dtype=torch.bool, device=dev)
+                pos = torch.arange(table.shape[1] * page, device=dev)
+                for bi, n in enumerate(lens.tolist()):
+                    ok = (pos < n) & ((n - 1 - pos <= window) if window else True)
+                    read[table[bi].long()[pos[ok] // page], pos[ok] % page] = True
+                seen = {k: a.masked_fill(~read[:, None, :], float("nan"))
+                        for k, a in scales.items()}
+            want = PA.paged_decode_attention_reference(q, kp, vp, table, lens, window,
+                                                       **scales)
+            fold = PA.paged_decode_attention_reference(q.float(), kp, vp, table, lens,
+                                                       window, **scales)
+            bound = bf16_bound(fold)
+            rounding = max_err(want, fold) if scales else 0.0
+            errs = []
+            for tag, n_splits in splits:
+                got = PA.paged_decode_attention(q, kp, vp, table, lens, window,
+                                                n_splits=n_splits, **seen)
+                e1, e2 = max_err(got, fold), max_err(got, want)
+                ok = bool(torch.isfinite(got.float()).all()) and (
+                    e1 <= bound and e2 <= bound + rounding)
+                errs.append(f"{tag}: {e1:.3e}/{e2:.3e}")
+                if not ok:
+                    raise AssertionError(f"K1 {label} window {window} n_splits {tag}: "
+                                         f"{e1}, {e2} against {bound} + {rounding}")
+            log(f"  K1 [{label} window={window}] max_abs_err by n_splits (f32-query plain "
+                f"/ plain): {', '.join(errs)}; bound {bound:.3e} (+ {rounding:.3e}) ok")
+        return seen
+
     slot_lens = {1: [700], 8: [1, 700, 4200, 63, 64, 257, 2, 1500],
                  16: [1, 384, 385, 512, 767, 768, 256, 257, 2, 100, 450, 500, 700, 64, 65, 640]}
+    # a verify's slots (the position of its current token); the last sits
+    # past the 7B's window where the table holds it
+    verify_lens = {1: [700], 4: [1, 700, 62, 763]}
+    k1 = 5
     graph_cases = []
     for kv in ("bf16", "int8"):
         # B 16 with 3 pages of 256 a slot: part (C)'s server
         for page, b in ((64, 1), (64, 8), (256, 1), (256, 8), (256, 16)):
             maxp = 3 if b == 16 else -(-4200 // page)
-            nt = b * maxp + 1
-            table = torch.randperm(nt, generator=gen, device=dev)[: b * maxp]
-            table = table.reshape(b, maxp).to(torch.int32).contiguous()
+            table, q, kp, vp, scales = setup(kv, b, maxp, page, b)
             lens = torch.tensor(slot_lens[b], dtype=torch.int32, device=dev)
-            q = torch.randn(b, hkv, g, d, generator=gen, device=dev).bfloat16()
-            scales = {}
-            if kv == "bf16":
-                kp, vp = (torch.randn(hkv, nt, page, d, generator=gen, device=dev).bfloat16()
-                          for _ in range(2))
-            else:
-                (kp, ks), (vp, vs) = (quant_kv_token(torch.randn(
-                    hkv, nt, page, d, generator=gen, device=dev)) for _ in range(2))
-                scales = {"k_scales": ks.transpose(0, 1).contiguous(),
-                          "v_scales": vs.transpose(0, 1).contiguous()}
             auto = PA.split_count(b, hkv, maxp, page, PA._sm_count(0))
-            for window in (None, 512):
-                seen = dict(scales)
-                if scales:  # NaN where the kernel must not read
-                    read = torch.zeros(nt, page, dtype=torch.bool, device=dev)
-                    pos = torch.arange(maxp * page, device=dev)
-                    for bi, n in enumerate(slot_lens[b]):
-                        ok = (pos < n) & ((n - 1 - pos <= window) if window else True)
-                        read[table[bi].long()[pos[ok] // page], pos[ok] % page] = True
-                    seen = {k: a.masked_fill(~read[:, None, :], float("nan"))
-                            for k, a in scales.items()}
-                want = PA.paged_decode_attention_reference(q, kp, vp, table, lens, window,
-                                                           **scales)
-                fold = PA.paged_decode_attention_reference(q.float(), kp, vp, table, lens,
-                                                           window, **scales)
-                bound = bf16_bound(fold)
-                rounding = max_err(want, fold) if scales else 0.0
-                errs = []
-                for n_splits in (1, 2, None):
-                    got = PA.paged_decode_attention(q, kp, vp, table, lens, window,
-                                                    n_splits=n_splits, **seen)
-                    e1, e2 = max_err(got, fold), max_err(got, want)
-                    ok = bool(torch.isfinite(got.float()).all()) and (
-                        e1 <= bound and e2 <= bound + rounding)
-                    errs.append(f"{n_splits or f'host {auto}'}: {e1:.3e}/{e2:.3e}")
-                    if not ok:
-                        raise AssertionError(f"K1 split {kv} page {page} B {b} window "
-                                             f"{window} n_splits {n_splits}: {e1}, {e2} "
-                                             f"against {bound} + {rounding}")
-                log(f"  K1 split [{kv} page={page} B={b} window={window}] max_abs_err by "
-                    f"n_splits (f32-query plain / plain): {', '.join(errs)}; bound "
-                    f"{bound:.3e} (+ {rounding:.3e}) ok")
+            seen = case(f"split {kv} page={page} B={b}", q, kp, vp, scales, table, lens,
+                        (None, 512), ((1, 1), (2, 2), (f"host {auto}", None)))
             if b == 8 and page == 64:
                 graph_cases.append((kv, (q, kp, vp, table, lens, 512), seen))
+        # a verify's launch (paged_ops.paged_verify_step): B*(K+1) rows, row
+        # j*B + b on slot b's table row at kv_len lens_b + j + 1, cut at the
+        # split count the host picks for a decode link's B rows
+        for page, maxp in ((64, 128), (64, 24), (256, 3)):
+            for b in (1, 4):
+                table, q, kp, vp, scales = setup(kv, b, maxp, page, b * k1)
+                base = verify_lens[b][:-1] + [6000 if maxp == 128 else verify_lens[b][-1]]
+                lens = (torch.tensor(base, dtype=torch.int32, device=dev)[None, :]
+                        + torch.arange(1, k1 + 1, dtype=torch.int32, device=dev)[:, None])
+                n_splits = PA.host_split_count(b, hkv, maxp, page, q.device)
+                case(f"verify {kv} page={page} pages={maxp} B={b} K+1={k1}", q, kp, vp,
+                     scales, table.repeat(k1, 1), lens.reshape(-1), (None, 512, 4096),
+                     ((f"B {b}'s {n_splits}", n_splits),))
     for kv, args, seen in graph_cases:
         torch.cuda.set_sync_debug_mode("error")
         try:
@@ -1060,13 +1106,14 @@ def int8_kernel_checks(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(2)
     results = {}
 
-    # K6 at the 7B decode projections (Dout, Din), M 1 / 8 / 16
+    # K6 at the 7B decode projections (Dout, Din), M 1 / 5 / 8 / 16 (M 5:
+    # a speculative verify at B 1, K 4)
     log("K6 stream_qmv vs stream_qmv_reference (f32 out: bit for bit, i.e. exact int32 "
         "accumulators and the same epilogue; bf16 in and out: one bf16 ulp of each value)")
     errs = []
     for dout, din in ((4096, 4096), (1024, 4096), (14336, 4096), (4096, 14336)):
         w = Q.quantize_weight(torch.randn(din, dout, generator=gen, device=dev) * 0.02)
-        for m in (1, 8, 16):
+        for m in (1, 5, 8, 16):
             y = torch.randn(m, din, generator=gen, device=dev) * 2.0
             got, want = SM.stream_qmv(y, w, torch.float32), SM.stream_qmv_reference(
                 y, w, torch.float32)
@@ -1083,8 +1130,8 @@ def int8_kernel_checks(dev) -> dict:
             errs.append(max_err(got, want))
     # timed as a decode step streams them: 8 different weights of a shape in
     # turn (118-470 MB), so none is found in the 50 MB L2; bf16 rows as the
-    # paths give them (M 1: the W8A8 turn; M 8: the server's batch; M 16:
-    # the most K6 takes).  Eager (the host's dispatch included) and replayed
+    # paths give them (M 1: the W8A8 turn; M 5: its speculative verify; M 8:
+    # the server's batch; M 16: the most K6 takes).  Eager (the host's dispatch included) and replayed
     # from a CUDA graph (the device alone); at M 1 the A/B of the routes from
     # a graph, the tensor cores forced through the test hook beside the
     # planned __dp4a route; the library: torch._int_mm over the rows padded
@@ -1099,7 +1146,7 @@ def int8_kernel_checks(dev) -> dict:
     for dout, din in ((14336, 4096), (4096, 14336), (4096, 4096), (1024, 4096)):
         ws = [Q.quantize_weight(torch.randn(din, dout, generator=gen, device=dev) * 0.02)
               for _ in range(8)]
-        for m in (1, 8, 16):
+        for m in (1, 5, 8, 16):
             y = torch.randn(m, din, generator=gen, device=dev).bfloat16()
             t = {name: fn() / len(ws) for name, fn in {
                 "ms": lambda: cuda_ms(lambda: [SM.stream_qmv(y, w) for w in ws]),
@@ -1290,19 +1337,32 @@ def small_turn_check(dev, wav_in: str) -> None:
 BUDGETS = {"unit2text": 48, "text2text": 32, "text2unit": 256}
 
 
-def _paged_policy(pipe, seed: int):
+def _paged_policy(pipe, seed: int, stages: dict = None):
     """respond()'s paged dialog policy; on the full-width pipeline with the
-    stage budgets pinned at 48/32/256 tokens."""
+    stage budgets pinned at 48/32/256 tokens.  With `stages`, it records
+    there, per stage, the prompt's ids, the stage mask and the engine's
+    speculative rounds and emitted tokens (the dialog server has one
+    caller)."""
     from usdm_tpu_torch.engine.server import PagedDialogPolicy
+    from usdm_tpu_torch.ops.sampling import stage_allow_mask
 
     class BudgetedPolicy(PagedDialogPolicy):
         def _run_stage(self, stage, prompt):
-            self.max_new_tokens = BUDGETS[stage]
-            return super()._run_stage(stage, prompt)
+            if pipe.max_new_tokens is None:
+                self.max_new_tokens = BUDGETS[stage]
+            if stages is None:
+                return super()._run_stage(stage, prompt)
+            eng = self.server.engine
+            rounds, emitted = eng.spec_rounds, eng.spec_emitted
+            out = super()._run_stage(stage, prompt)
+            stages[stage] = {"prompt": self.tok.encode(prompt),
+                             "allow": stage_allow_mask(stage, self.ts),
+                             "rounds": eng.spec_rounds - rounds,
+                             "emitted": eng.spec_emitted - emitted}
+            return out
 
-    cls = PagedDialogPolicy if pipe.max_new_tokens else BudgetedPolicy
-    return cls(pipe._dialog_server(), pipe.tokenizer, max_new_tokens=pipe.max_new_tokens,
-               seed=seed)
+    return BudgetedPolicy(pipe._dialog_server(), pipe.tokenizer,
+                          max_new_tokens=pipe.max_new_tokens, seed=seed)
 
 
 def _link_checks(engine, before: dict, counts: dict, label: str, w8a8: bool,
@@ -1482,11 +1542,14 @@ def slice_run(dev, profile: bool, tmp: str, out_dir: str) -> dict:
             turns.append(info)
             graphed = {**dataclasses.asdict(res), "user_units": list(trace["user_units"])}
         eager = _eager_link_turn(pipe, wav_in, graphed, "bf16 turn")
+        t0 = time.perf_counter()
+        spec = spec_turn(pipe, wav_in, graphed, "bf16 turn", False)
+        log(f"phase time: speculation, bf16 turn {time.perf_counter() - t0:.1f} s")
     finally:
         pipe.close()
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
-    return {"turns": turns, "eager": eager}
+    return {"turns": turns, "eager": eager, "spec": spec}
 
 
 
@@ -1870,6 +1933,9 @@ def int8_run(dev, tmp: str, wav_in: str, profile: bool, out_dir: str) -> dict:
             out["A"] = info
             graphed = {**dataclasses.asdict(res), "user_units": list(trace["user_units"])}
         out["A_eager"] = _eager_link_turn(pipe, wav_in, graphed, "(A) W8A8 turn")
+        t0 = time.perf_counter()
+        out["A_spec"] = spec_turn(pipe, wav_in, graphed, "(A) W8A8 turn", True)
+        log(f"phase time: speculation, W8A8 turn {time.perf_counter() - t0:.1f} s")
 
         # (B) eight clients over the same W8A8 7B with int8 KV pages
         n_clients, per_client, prompt_len, max_new = 8, 2, 384, 128
@@ -2348,6 +2414,236 @@ def vocoder_gate(dev) -> dict:
     return out
 
 
+# --------------------------------------------------------------- phase 9
+def spec_turn(pipe, wav_in: str, want: dict, label: str, w8a8: bool) -> dict:
+    """Phase 9 (c): one more full-width turn of `pipe` (budgets pinned at
+    48/32/256) with enable_speculation("ngram"), against the graphed
+    non-speculative turn `want` (its DialogResult and user units).  Every
+    decode link and round must be one graph replay, launching K1 once a
+    layer (and K6 7 times a layer with W8A8).  W8A8: identical tokens.
+    bf16: identical, or the first divergence is classified by
+    bench_ngram's tie-flip rule (a later stage then reads another prompt
+    and is not compared).  -> wall, rounds, accepted tokens per round by
+    stage, the verdicts and the count of divergences."""
+    import dataclasses
+
+    import torch
+
+    from usdm_tpu_torch.scripts.bench_ngram import classify_divergence
+
+    pipe.enable_speculation("ngram")
+    stages: dict = {}
+    try:
+        engine = pipe._dialog_server().engine
+        before = engine.stats()
+        reset_counts()
+        trace = {}
+        t0 = time.perf_counter()
+        res = pipe.respond_with_policy(_paged_policy(pipe, 1, stages), wav_in, n_timesteps=50,
+                                       seed=1, trace=trace)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        links = _link_checks(engine, before, counts, label, w8a8, turn=False)
+    finally:
+        pipe.enable_speculation(None)
+    got = dataclasses.asdict(res)
+    if list(trace["user_units"]) != want["user_units"]:
+        raise AssertionError(f"{label}: the user units differ from the plain turn's")
+    verdicts, compared = {}, True
+    for stage, toks in want["stage_tokens"].items():
+        if not compared:
+            verdicts[stage] = {"compared": False}
+            continue
+        rec = stages[stage]
+        verdicts[stage] = classify_divergence(pipe.lm_params, pipe.lm_cfg, rec["prompt"], toks,
+                                              got["stage_tokens"][stage], rec["allow"],
+                                              pipe.device)
+        compared = not verdicts[stage]["divergences"]
+    n_div = sum(v.get("divergences", 0) for v in verdicts.values())
+    rounds = sum(r["rounds"] for r in stages.values())
+    info = {"wall_s": wall, "dialog_s": trace["dialog_s"], "synth_s": trace["synth_s"],
+            "spec_rounds": rounds,
+            "accept_per_round": {s: (r["emitted"] / r["rounds"] if r["rounds"] else None)
+                                 for s, r in stages.items()},
+            "rounds_by_stage": {s: r["rounds"] for s, r in stages.items()},
+            "stage_tokens": {k: len(v) for k, v in got["stage_tokens"].items()},
+            "divergences": n_div, "verdicts": verdicts, "engine": links,
+            "launches": {k: counts[k] for k in ("paged_decode_attention",
+                                                "paged_decode_attention_int8", "stream_qmv")}}
+    log(f"{label}, ngram speculation: " + json.dumps(info))
+    if rounds <= 0:
+        raise AssertionError(f"{label}: no speculative round ran")
+    if w8a8 and n_div:
+        raise AssertionError(f"{label}: W8A8 speculative tokens differ from plain greedy")
+    if any(v.get("divergences") and not v["tie_flip"] for v in verdicts.values()):
+        raise AssertionError(f"{label}: a divergence is not a tie-flip: {verdicts}")
+    return info
+
+
+# tiny engines of phase 9 (a): (dtype, draft, prompts, kv pool)
+SPEC_SMALL = (("float32", "same", "random", None), ("float32", "random", "random", None),
+              ("float32", "ngram", "cyclic", None), ("float32", "ngram", "random", None),
+              ("float32", "ngram", "cyclic", "int8"), ("float32", "same", "random", "int8"),
+              ("bfloat16", "same", "random", None), ("bfloat16", "ngram", "cyclic", None),
+              ("bfloat16", "random", "cyclic", "int8"))
+
+
+def _spec_small_run(params, draft, cfg, dev, kv, prompts, spec_k, eager=False):
+    """One tiny engine (page 8, 12 pages, batch 2, chunk 32, horizon 8) over
+    three requests -> (tokens, stats, real pages of its pools)."""
+    from usdm_tpu_torch.core.config import EngineConfig
+    from usdm_tpu_torch.engine.paged import PagedEngine, Request
+
+    ecfg = EngineConfig(page_size=8, max_pages_per_seq=12, max_batch_size=2, prefill_chunk=32,
+                        decode_horizon=8, spec_k=spec_k, kv_dtype=kv)
+    eng = PagedEngine(params, cfg, ecfg, device=dev, draft=draft, eager_links=eager)
+    r = np.random.default_rng(6)
+    allow = np.ones(cfg.vocab_size, bool)
+    allow[:3] = False
+    if prompts == "cyclic":  # greedy under a 2-token mask cycles: lookup accepts
+        allow[:] = False
+        allow[40:42] = True
+    reqs = eng.run([Request(i, r.integers(3, cfg.vocab_size, int(n)).tolist(), allow, 2, 30)
+                    for i, n in enumerate((12, 37, 20))])
+    pools = []
+    for kvp in (eng.kv, eng.draft_kv):
+        if kvp is not None:
+            keep = np.arange(kvp.total_pages) % eng.n_pages != eng.n_pages - 1
+            pools += [t[:, keep].cpu() for t in (kvp.k_pages, kvp.v_pages)]
+    return [q.output_ids for q in reqs], eng.stats(), pools
+
+
+def spec_small_checks(dev) -> dict:
+    """Phase 9 (a): tiny engines (MistralConfig.tiny() with head_dim 32)
+    with a draft equal to the target, a random draft, or ngram, on cyclic
+    (2-token mask) or random prompts, f32 or bf16 weights, pools of the
+    weights' dtype or int8: on the card, rounds replayed from graphs give
+    the eager rounds' tokens and pool bits, and the tokens are the card's
+    plain engine's (spec_k 0) and, in f32, the CPU port's speculative
+    engine's (the CPU rounds bf16 products in other orders than the card).
+    Every decode link and round is one replay."""
+    import torch
+
+    from usdm_tpu_torch.core.config import MistralConfig
+    from usdm_tpu_torch.core.tree import tree_map
+    from usdm_tpu_torch.models import mistral as LM
+
+    base = MistralConfig.tiny().replace(head_dim=32)
+    cpu = {s: LM.init_params(base, torch.Generator().manual_seed(s), "cpu") for s in (0, 9)}
+    rounds = replays = 0
+    for dtype, draft, prompts, kv in SPEC_SMALL:
+        cfg = base.replace(dtype=dtype)
+        card = {s: tree_map(lambda a: a.to(dev, LM.torch_dtype(dtype)), p) for s, p in cpu.items()}
+        pick = lambda w: {"same": (w[0], cfg), "random": (w[9], cfg), "ngram": "ngram"}[draft]  # noqa: E731
+        graphed, st, pools = _spec_small_run(card[0], pick(card), cfg, dev, kv, prompts, 3)
+        eager, st_e, pools_e = _spec_small_run(card[0], pick(card), cfg, dev, kv, prompts, 3, True)
+        plain, _, _ = _spec_small_run(card[0], None, cfg, dev, kv, prompts, 0)
+        case = f"{dtype} {draft} {prompts} kv={kv or dtype}"
+        if st["spec_rounds"] <= 0 or st["graph_replays"] != st["steps"] - st["mixed_links"]:
+            raise AssertionError(f"spec small {case}: {st['spec_rounds']} rounds, "
+                                 f"{st['graph_replays']} replays of {st['steps']} links")
+        if graphed != eager or not all(torch.equal(a, b) for a, b in zip(pools, pools_e)):
+            raise AssertionError(f"spec small {case}: graphed rounds differ from eager rounds")
+        if graphed != plain:
+            raise AssertionError(f"spec small {case}: tokens differ from the plain engine's: "
+                                 f"{graphed} vs {plain}")
+        line = (f"spec small {case}: {st['spec_rounds']} rounds, accept/round "
+                f"{st['spec_accept_per_round']}, graphed == eager == plain")
+        if dtype == "float32":
+            got, _, _ = _spec_small_run(cpu[0], pick(cpu), cfg, "cpu", kv, prompts, 3)
+            if got != graphed:
+                raise AssertionError(f"spec small {case}: card {graphed} vs CPU {got}")
+            line += " == CPU"
+        log(line)
+        rounds += st["spec_rounds"]
+        replays += st["graph_replays"]
+    return {"cases": len(SPEC_SMALL), "rounds": rounds, "graph_replays": replays}
+
+
+def spec_rows_table() -> list:
+    """Which float products a verify ran as one product over every column
+    (their rows keep the decode link's bits at B*(K+1) rows on this card)
+    and which one a column: paged_ops.row_invariance() after the phase."""
+    from usdm_tpu_torch.engine import paged_ops
+
+    return [{"device": str(k[0]), "dtype": str(k[1]).replace("torch.", ""), "shape": list(k[2]),
+             "b": k[3], "k1": k[4], "one_product": v}
+            for k, v in sorted(paged_ops.row_invariance().items(), key=lambda kv: str(kv[0]))]
+
+
+def _round_launches(name: str, r: dict, layers: int, kk: int) -> None:
+    """Phase 9 (d) on a bench run's timed requests (bf16 pools, W8A8
+    weights): every link and round one replay; K1 once a target layer per
+    link or round, plus K+1 times a draft layer per round and once per
+    mirrored step; K6 7 times each of those layers (verify at B*(K+1) = 5
+    rows, K6's range)."""
+    t, dl = r["timed"], r.get("draft_layers", 0)
+    steps, rounds = t["steps"], t["spec_rounds"]
+    drafted = dl * ((steps - rounds) + kk * rounds)
+    want = {"graph_replays": steps, "k1": layers * steps + drafted, "k1_int8": 0,
+            "k6": 7 * (layers * steps + drafted)}
+    got = {k: t[k] for k in want}
+    if got != want or steps <= 0:
+        raise AssertionError(f"{name}: launches {got}, want {want}")
+
+
+def spec_run(dev) -> dict:
+    """Phase 9: speculative decoding.  (a) tiny engines on the card against
+    eager rounds, the plain engine and the CPU; (b) bench_ngram and
+    bench_spec_degraded, the ports, at full width (W8A8 7B), their JSON
+    lines printed, every speculative run identical to plain greedy; (d)
+    their timed requests' replays and K1/K6 launches per link and round;
+    then the stress port twice with mixed links from one decoding slot on
+    (bf16; draft="ngram").  The full-width turns (c) ran in phases 4 and 5.
+    -> the results and the phase's K1/K6 launches."""
+    import gc
+
+    import torch
+
+    from usdm_tpu_torch.scripts import bench_ngram, bench_spec_degraded, stress_engine
+
+    out = {"small": spec_small_checks(dev)}
+    reset_counts()
+    ngram = bench_ngram.run(dev)
+    print(json.dumps({"bench_ngram": ngram}), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    degraded = bench_spec_degraded.run(dev)
+    print(json.dumps({"bench_spec_degraded": degraded}), flush=True)
+    out["launches"] = launch_counts()
+    gc.collect()
+    torch.cuda.empty_cache()
+    for regime, r in ngram["regimes"].items():
+        if r["verdict"]["divergences"]:
+            raise AssertionError(f"bench_ngram {regime}: W8A8 ngram tokens differ from plain")
+        _round_launches(f"bench_ngram {regime} plain", {"timed": r["plain_timed"]}, 32, 5)
+        _round_launches(f"bench_ngram {regime} ngram", {"timed": r["ngram_timed"]}, 32, 5)
+    for name, r in degraded["runs"].items():
+        _round_launches(f"bench_spec_degraded {name}", r, 32, 5)
+    out["bench_ngram"] = {k: {f: v[f] for f in ("plain_tok_s", "ngram_tok_s", "speedup",
+                                                 "accept_per_round")}
+                          for k, v in ngram["regimes"].items()}
+    out["bench_spec_degraded"] = {k: {f: v[f] for f in ("tok_s", "spec_rounds",
+                                                         "accept_per_round")}
+                                  for k, v in degraded["runs"].items()}
+    out["stress"] = {}
+    for label, kw in (("bf16", dict(draft_mode="none", dtype="bfloat16")),
+                      ("ngram", dict(draft_mode="ngram", dtype="float32"))):
+        st = stress_engine.run(dev, rounds=2, **kw)
+        mixed = sum(r["mixed_links"] for r in st["rounds"])
+        spec = sum(r["spec_rounds"] for r in st["rounds"])
+        if mixed <= 0 or (label == "ngram") != (spec > 0):
+            raise AssertionError(f"stress {label}: {mixed} mixed links, {spec} rounds")
+        out["stress"][label] = {"seconds": st["seconds"], "mixed_links": mixed,
+                                "spec_rounds": spec}
+    out["verify_products"] = spec_rows_table()
+    log("speculation: " + json.dumps(out))
+    if "jax" in sys.modules:
+        raise AssertionError("jax was imported")
+    return out
+
+
 # ------------------------------------------------------- parent vs change
 def _reply(obj: dict) -> None:
     print("RESULT " + json.dumps(obj), flush=True)
@@ -2784,7 +3080,8 @@ def main() -> int:
         # K1-K3 the bf16 turn, K6 the W8A8 turn (A) and the server (B) together,
         # K1's int8 branch (B), K4 and K5 the trainer, X1-X3 the probe entry
         # points (phase 7; eager calls and CUDA graph replays)
-        bf16_turn = slice_run(dev, args.profile, tmp, args.out_dir)["turns"][-1]
+        bf16_run = slice_run(dev, args.profile, tmp, args.out_dir)
+        bf16_turn = bf16_run["turns"][-1]
         bf16 = {**bf16_turn["launches"],
                 "flash_attention": bf16_turn["flash_attention_mma_launches"]}
         log(f"phase time: bf16 turns {time.perf_counter() - t_phase:.1f} s")
@@ -2802,14 +3099,24 @@ def main() -> int:
     vocoder = vocoder_gate(dev)
     log("vocoder gate (bench_fused_act): " + json.dumps(vocoder))
     log(f"phase time: vocoder gate {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    spec = spec_run(dev)["launches"]
+    log(f"phase time: speculation {time.perf_counter() - t_phase:.1f} s (its two turns: "
+        f"phases 4 and 5)")
     a, b = int8["A"]["launches"], int8["B"]["launches"]
+    # K1 and K6 add the speculative paths: the ngram turns (c) and the
+    # bench ports' engines (b)
+    spec_k1 = (bf16_run["spec"]["launches"]["paged_decode_attention"]
+               + spec["paged_decode_attention"])
+    spec_k6 = int8["A_spec"]["launches"]["stream_qmv"] + spec["stream_qmv"]
     launches = {**{k: bf16[k] for k in ("paged_decode_attention", "flash_attention",
                                          "flash_attention_f32", "fused_activation1d")},
                 **{k: train[k] for k in ("add_mask_ln", "add_mask_ln_bwd",
                                          "flash_attention_bwd_dq", "flash_attention_bwd_dkv")},
-                "stream_qmv": a["stream_qmv"] + b["stream_qmv"],
+                "stream_qmv": a["stream_qmv"] + b["stream_qmv"] + spec_k6,
                 "paged_decode_attention_int8": b["paged_decode_attention_int8"],
                 **{k: probes[k] for k in ("mv_io_bf16", "mv_io_i8", "qmv4", "stream_probe")}}
+    launches["paged_decode_attention"] += spec_k1
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", **KERNELS[k], "launches": launches[k],

@@ -1289,3 +1289,263 @@ def test_step_multi_graphs_match_eager(cuda):
                                                     (eng.kv.k_pages, eng.kv.v_pages)]))
     assert runs[0][0] == runs[1][0] == runs[2][0]
     assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+
+
+# ------------------------------------------------------ speculative rounds
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("page", [64, 256])
+@pytest.mark.parametrize("b,k", [(1, 4), (8, 3)])
+@pytest.mark.parametrize("window", [None, 512])
+def test_k1_verify_rows_equal_decode_link(cuda, kv, page, b, k, window):
+    """K1 over a verify's B*(K+1) rows (row j*B + b reads slot b's pages up
+    to kv_len lens_b + j + 1), with the split count the host picks for B
+    rows, gives every row the bits of the decode link's K1 call over the B
+    slots at that length."""
+    _, (kp, vp), scales, table, lens = _split_case(cuda, kv, page, b)
+    lens = torch.clamp(lens - (k + 1), min=0)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn(b * (k + 1), 8, 4, 128, generator=g, device=cuda).bfloat16()
+    kv_len = torch.cat([lens + j + 1 for j in range(k + 1)]).to(torch.int32)
+    n = PA.host_split_count(b, 8, table.shape[1], page, cuda)
+    rows = PA.paged_decode_attention(q, kp, vp, table.repeat(k + 1, 1), kv_len, window,
+                                     n_splits=n, **scales)
+    for j in range(k + 1):
+        link = PA.paged_decode_attention(q[j * b:(j + 1) * b].contiguous(), kp, vp, table,
+                                         (lens + j + 1).to(torch.int32), window, **scales)
+        assert torch.equal(rows[j * b:(j + 1) * b], link)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,k", [(1, 4), (4, 4), (8, 3)])
+def test_verify_norm_and_tail_columns_equal_decode_link(cuda, dtype, b, k):
+    """The verify forward's rms_norms and logits tail run per column: at a
+    7B width each column's normalized rows and greedy tokens (full vocab,
+    and an interval with an extra column) are the decode link's over its B
+    rows, bit for bit."""
+    from usdm_tpu_torch.engine import paged_ops as P
+    from usdm_tpu_torch.models.mistral import rms_norm
+
+    g = torch.Generator(device=cuda).manual_seed(b)
+    x = torch.randn(b * (k + 1), 1, 4096, generator=g, device=cuda).to(dtype)
+    w = torch.randn(4096, generator=g, device=cuda).to(dtype)
+    params = {"lm_head": (torch.randn(42003, 4096, generator=g, device=cuda) * 0.02).to(dtype)}
+    allow = torch.ones(b, 42003, dtype=torch.bool, device=cuda)
+    active = torch.ones(b, dtype=torch.bool, device=cuda)
+    cols = P._rms_norm_cols(x, w, 1e-5, k + 1)
+    for j in range(k + 1):
+        link = rms_norm(x[j * b:(j + 1) * b], w, 1e-5)
+        assert torch.equal(cols[j * b:(j + 1) * b], link)
+        for lslice in (None, (2000, 30000, 5)):
+            got = P._logits_tail(params, cols[j * b:(j + 1) * b, 0], allow, active, lslice, None)
+            want = P._logits_tail(params, link[:, 0], allow, active, lslice, None)
+            assert torch.equal(got, want)
+
+
+def _full_width(cuda, kind, layers=2):
+    """Mistral-7B's widths (GQA 32/8, head 128, FFN 14336, vocab 42003) at
+    `layers` layers, random weights: bf16 with W8A8 projections ("w8a8"),
+    bf16 or f32."""
+    from usdm_tpu_torch.core.config import MistralConfig
+    from usdm_tpu_torch.models import mistral as LM
+
+    cfg = MistralConfig().replace(num_layers=layers,
+                                  dtype="float32" if kind == "f32" else "bfloat16")
+    params = LM.init_params(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    return cfg, Q.quantize_llm_params(params) if kind == "w8a8" else params
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,b,k,lslice", [
+    ("w8a8", 1, 4, None), ("w8a8", 1, 4, (100, 30000, 5)), ("w8a8", 4, 4, None),
+    ("w8a8", 3, 3, None), ("bf16", 1, 4, None), ("bf16", 4, 4, (100, 30000, 5)),
+    ("f32", 1, 4, None), ("f32", 2, 3, None)])
+def test_verify_columns_equal_decode_links(cuda, kind, b, k, lslice):
+    """At the 7B widths (2 layers) the verify forward's column j is the
+    decode link that consumes the same token at position lens + j: the same
+    greedy token and the same K/V bits in the pool.  W8A8 over int8 pools
+    (K6 at B*(K+1) <= 16 rows, torch._int_mm above, against K6 at B rows
+    in the links), bf16 and f32 over pools of their dtype (one product over
+    every column where its rows keep the link's bits, else one a column; each
+    such decision holds for a probe captured in a CUDA graph)."""
+    from usdm_tpu_torch.engine import paged_ops as P
+
+    cfg, params = _full_width(cuda, kind)
+    page, maxp = 64, 24
+    n_pages = b * maxp + 1
+    kv = P.PagedKV.create(cfg, n_pages, page, cuda, "int8" if kind == "w8a8" else None)
+    g = torch.Generator(device=cuda).manual_seed(11)
+    if kind == "w8a8":
+        for pool, scales in ((kv.k_pages, kv.k_scales), (kv.v_pages, kv.v_scales)):
+            qv, sv = quant_kv_token(torch.randn(pool.shape, generator=g, device=cuda))
+            pool.copy_(qv)
+            scales.copy_(sv.transpose(0, 1))
+    else:
+        for pool in (kv.k_pages, kv.v_pages):
+            pool.copy_(torch.randn(pool.shape, generator=g, device=cuda))
+    table = torch.arange(b * maxp, device=cuda, dtype=torch.int32).reshape(b, maxp)
+    lens = torch.tensor([300, 1200, 65, 900][:b], device=cuda, dtype=torch.int32)
+    tokens = torch.randint(3, cfg.vocab_size, (b, k + 1), generator=g, device=cuda)
+    allow = torch.ones(b, cfg.vocab_size, dtype=torch.bool, device=cuda)
+    active = torch.ones(b, dtype=torch.bool, device=cuda)
+    pools = lambda c: [t for t in (c.k_pages, c.v_pages, c.k_scales, c.v_scales)  # noqa: E731
+                       if t is not None]
+    links = P.PagedKV(*(t.clone() for t in pools(kv)))
+    got = P.paged_verify_step(params, kv, cfg, tokens, lens, table, active, allow, page, lslice)
+    for j in range(k + 1):
+        want = P.paged_decode_step(params, links, cfg, tokens[:, j].contiguous(), lens + j,
+                                   table, active, allow, page, lslice)
+        assert torch.equal(got[:, j], want)
+    assert all(torch.equal(a, c) for a, c in zip(pools(kv), pools(links)))
+    if kind != "w8a8":
+        _row_decisions_hold_under_capture(cuda, params, b, k + 1)
+
+
+def _row_decisions_hold_under_capture(cuda, params, b, k1):
+    """The one-product-or-per-column decision the verify cached for each of
+    the seven float projections (an eager probe on seed-0 rows) is what a
+    probe on other rows gives when it is captured in a CUDA graph and
+    replayed, as a round runs it."""
+    from usdm_tpu_torch.engine import paged_ops as P
+
+    decided = P.row_invariance()
+    g = torch.Generator(device=cuda).manual_seed(5)
+    seen = 0
+    for name, w in params["layers"][0].items():
+        if w.dim() != 2:
+            continue
+        key = (w.device, w.dtype, tuple(w.shape), b, k1)
+        y = torch.randn(b * k1, 1, w.shape[0], generator=g, device=cuda).to(w.dtype)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            full, cols = P.rows_probe(y, w, b)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(full, cols) == decided[key], (name, key)
+        seen += 1
+    assert seen == 7
+
+
+def _spec_engine(cuda, w8a8, batch, draft, eager, spec_k=3):
+    """_link_engine's tiny engine with a speculative draft: "ngram", "same"
+    (the target itself) or "random" (another seed)."""
+    from usdm_tpu_torch.core.config import EngineConfig, MistralConfig
+    from usdm_tpu_torch.engine.paged import PagedEngine
+    from usdm_tpu_torch.models import mistral as LM
+
+    cfg = MistralConfig.tiny().replace(head_dim=32, dtype="bfloat16", sliding_window=24)
+
+    def weights(seed):
+        p = LM.init_params(cfg, torch.Generator(device=cuda).manual_seed(seed), cuda)
+        return Q.quantize_llm_params(p) if w8a8 else p
+
+    params = weights(0)
+    d = {"ngram": "ngram", "same": (params, cfg), "random": (weights(9), cfg),
+         None: None}[draft]
+    ecfg = EngineConfig(page_size=8, max_pages_per_seq=10, max_batch_size=batch,
+                        prefill_chunk=32, decode_horizon=8, spec_k=spec_k,
+                        kv_dtype="int8" if w8a8 else None)
+    return PagedEngine(params, cfg, ecfg, device=cuda, draft=d, eager_links=eager)
+
+
+def _spec_requests(batch, cyclic):
+    import numpy as np
+
+    from usdm_tpu_torch.engine.paged import Request
+
+    r = np.random.default_rng(4)
+    allow = np.ones(291, bool)
+    allow[:3] = False  # EOS 2 unreachable: every request runs its budget
+    if cyclic:  # greedy decode under a 2-token mask cycles: ngram accepts
+        allow[:] = False
+        allow[40:42] = True
+    return [Request(i, r.integers(3, 291, int(n)).tolist(), allow, 2, int(m))
+            for i, (n, m) in enumerate(zip(r.integers(5, 30, batch + 1),
+                                           r.integers(16, 40, batch + 1)))]
+
+
+def _real_pages(eng, kv):
+    keep = torch.ones(kv.total_pages, dtype=torch.bool, device=kv.k_pages.device)
+    keep[eng.n_pages - 1::eng.n_pages] = False
+    out = [p[:, keep] for p in (kv.k_pages, kv.v_pages)]
+    if kv.quantized:
+        out += [s[keep] for s in (kv.k_scales, kv.v_scales)]
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w8a8,batch,draft,cyclic", [
+    (False, 1, "ngram", True), (False, 4, "ngram", False), (True, 1, "ngram", True),
+    (True, 4, "same", False), (False, 1, "random", False), (True, 1, "same", True)])
+def test_graphed_rounds_match_eager(cuda, w8a8, batch, draft, cyclic):
+    """Each speculative round replayed from a CUDA graph gives the eager
+    rounds' tokens and pools (the draft's too), B 1 and 4, bf16 or W8A8
+    with int8 pools, ngram or a draft model.  Every decode link and round
+    is one replay; an ngram round launches K1 once a target layer, a draft
+    round K+1 times a draft layer and once a target layer, a mirrored step
+    once a layer of each, a mixed link (batch 4 admits a fifth request while
+    three slots decode) once a target layer; a W8A8 round launches K6 7
+    times a layer of each forward whose rows K6 takes (at most 16).  The
+    tokens equal the plain engine's (spec_k 0) on the card."""
+    runs = []
+    for eager in (False, True):
+        eng = _spec_engine(cuda, w8a8, batch, draft, eager)
+        k1 = "int8_launches" if w8a8 else "launches"
+        PA.paged_decode_attention.launches = PA.paged_decode_attention.int8_launches = 0
+        SM.stream_qmv.launches = 0
+        reqs = eng.run(_spec_requests(batch, cyclic))
+        torch.cuda.synchronize()
+        st = eng.stats()
+        lt = eng.cfg.num_layers
+        ld = eng.draft_cfg.num_layers if eng.draft_cfg is not None else 0
+        rounds, mixed = st["spec_rounds"], st["mixed_links"]
+        links = st["steps"] - rounds - mixed  # decode links (mirrored steps with a draft)
+        assert rounds > 0 and (mixed == 0 or draft == "ngram")
+        assert st["graph_replays"] == (0 if eager else st["steps"] - mixed)
+        kk = eng.ecfg.spec_k + 1
+        target = lt * st["steps"]
+        if draft == "ngram":
+            assert getattr(PA.paged_decode_attention, k1) == target
+        else:  # draft pools are bf16: their K1 launches count under `launches`
+            drafted = ld * (links + kk * rounds)
+            if w8a8:
+                assert PA.paged_decode_attention.int8_launches == target
+                assert PA.paged_decode_attention.launches == drafted
+            else:
+                assert PA.paged_decode_attention.launches == target + drafted
+        if w8a8:
+            verify = 7 * lt * rounds if batch * kk <= 16 else 0
+            drafts = 7 * ld * (links + kk * rounds)
+            assert SM.stream_qmv.launches == 7 * lt * links + verify + drafts
+        assert len(eng.free_pages) == eng.n_pages - 1
+        pools = _real_pages(eng, eng.kv)
+        if eng.draft_kv is not None:
+            pools += _real_pages(eng, eng.draft_kv)
+        runs.append(([r.output_ids for r in reqs], pools))
+    (got, got_pools), (want, want_pools) = runs
+    assert got == want and all(len(t) > 0 for t in got)
+    assert all(torch.equal(a, b) for a, b in zip(got_pools, want_pools))
+    plain = _spec_engine(cuda, w8a8, batch, None, False, spec_k=0)
+    assert [r.output_ids for r in plain.run(_spec_requests(batch, cyclic))] == got
+
+
+@pytest.mark.cuda
+def test_round_capture_failure_raises(cuda, monkeypatch):
+    """A round that synchronizes cannot be captured, and the engine raises
+    instead of falling back to eager rounds."""
+    from usdm_tpu_torch.engine import paged_ops
+
+    real = paged_ops.paged_ngram_round
+
+    def syncing(*args, **kw):
+        out = real(*args, **kw)
+        int(out[1].sum())  # a host sync: not legal under capture
+        return out
+
+    eng = _spec_engine(cuda, False, 1, "ngram", False)
+    monkeypatch.setattr(paged_ops, "paged_ngram_round", syncing)
+    with pytest.raises(RuntimeError):
+        eng.run(_spec_requests(1, True))
+    assert eng.spec_rounds == 0

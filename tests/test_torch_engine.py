@@ -124,13 +124,23 @@ def test_helpers_match_jax():
 
 @pytest.mark.parametrize("what", ["draft", "int8", "tp"])
 def test_unported_options_raise(weights, what):
-    """Speculation and tensor parallelism raise.  int8 KV pools are ported:
-    the "int8" case now serves the concurrent requests with int8 pools and
-    must give usdm_tpu's greedy tokens; an unknown kv_dtype raises."""
+    """Tensor parallelism raises.  int8 KV pools and speculation are
+    ported: the "int8" case serves the concurrent requests with int8 pools
+    and must give usdm_tpu's greedy tokens (an unknown kv_dtype raises); the
+    "draft" case serves them on an ngram engine, which must give usdm_tpu's
+    ngram engine's tokens and speculate."""
     jp, tp = weights
     if what == "draft":
-        with pytest.raises(NotImplementedError):
-            PagedEngine(tp, PCFG, PECFG, device="cpu", draft="ngram")
+        prompts = [np.random.default_rng(4).integers(0, CFG.vocab_size, size=n).tolist()
+                   for n in (9, 23, 30)]
+        allow = np.ones(CFG.vocab_size, bool)
+        with jax.default_matmul_precision("highest"):
+            rj = JaxEngine(jp, CFG, ECFG, draft="ngram").run(
+                [JaxRequest(i, p, allow, 1, 9) for i, p in enumerate(prompts)])
+        et = PagedEngine(tp, PCFG, PECFG, device="cpu", draft="ngram")
+        rt = et.run([Request(i, p, allow, 1, 9) for i, p in enumerate(prompts)])
+        assert [r.output_ids for r in rt] == [r.output_ids for r in rj]
+        assert et.ngram and et.spec_rounds > 0
     elif what == "int8":
         ecfg = ECFG.replace(kv_dtype="int8")
         prompts = [np.random.default_rng(4).integers(0, CFG.vocab_size, size=n).tolist()

@@ -208,9 +208,9 @@ class EngineConfig(_Base):
     decode batch while prompts wait and at least `mixed_min_decode` slots
     decode, up to `mixed_prefill_rows` chunk rows per link (False: drain
     chunks back to back, decode between bursts); either schedule gives the
-    same greedy tokens, with float or W8A8 weights.  Fields the port does not
-    run yet (spec_k, ngram_max_n) are kept so a config round-trips with
-    usdm_tpu's."""
+    same greedy tokens, with float or W8A8 weights.  `spec_k` is the tokens
+    a speculative round drafts (engines built with a draft), `ngram_max_n`
+    the longest suffix an ngram proposal matches."""
 
     page_size: int = 256  # tokens per KV page
     max_pages_per_seq: int = 32

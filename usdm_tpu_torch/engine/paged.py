@@ -20,12 +20,20 @@ and the JAX engine's two latency hiders:
     previous chain's sync, so the sync and the host's bookkeeping overlap
     the device's work.
 
-Every decode link, chained, fused or per-token (`step`), runs through
-`DecodeLinks`: on the card one CUDA-graph replay per link; on the CPU, or
-with `eager_links=True`, eagerly.  Mixed links run eagerly everywhere.
-The params may hold W8A8 projections (models/quant.py) and the KV pool may
-be int8 (`EngineConfig.kv_dtype="int8"`).  Not ported and refused:
-speculative decoding (a draft or "ngram"), tensor-parallel serving.
+Greedy speculative decoding: `draft=(params, cfg)` drafts `spec_k` tokens
+per round with a draft model over its own KV pool (which shares the
+target's page table), `draft="ngram"` proposes them from each sequence's
+own token history; one target forward verifies a round and acceptance runs
+on the device, so R rounds take one host sync (`step_spec`,
+`step_spec_ngram`).  The tokens are plain greedy decode's for any draft.
+
+Every decode link, chained, fused or per-token (`step`), and every
+speculative round runs through `DecodeLinks`: on the card one CUDA-graph
+replay per link or round; on the CPU, or with `eager_links=True`, eagerly.
+Mixed links run eagerly everywhere.  The params may hold W8A8 projections
+(models/quant.py) and the KV pool may be int8
+(`EngineConfig.kv_dtype="int8"`).  Not ported and refused: tensor-parallel
+serving (with or without a draft).
 """
 
 from __future__ import annotations
@@ -115,15 +123,28 @@ def _ctx_pages_bucket(n_pages: int, maxp: int) -> int:
 class PagedEngine:
     """Continuous-batching engine over the paged KV pool, on one device.
 
-    `eager_links=True` runs every decode link eagerly on the card too,
-    instead of replaying it from a CUDA graph: for the card tests and
+    `draft=(draft_params, draft_cfg)` enables greedy speculative decoding
+    (ecfg.spec_k tokens drafted per round, verified by one target forward);
+    the draft shares the target's page tables and keeps its own KV pool.
+    `draft="ngram"` enables draft-free prompt-lookup speculation: proposals
+    come from matching the current suffix against the sequence's own token
+    history on the device, with no draft model or pool, and turns that do
+    not speculate keep chained decode (a model draft makes them single-step,
+    mirroring each step into its pool).  The tokens are plain greedy
+    decode's for any draft; only speed depends on the draft's agreement.
+
+    `eager_links=True` runs every decode link and round eagerly on the card
+    too, instead of replaying it from a CUDA graph: for the card tests and
     chip_smoke.py, which hold the graphs against it (the tokens are the
     same).  On the CPU links are always eager."""
 
     def __init__(self, params: M.Params, cfg: MistralConfig, ecfg: EngineConfig,
                  device=None, mesh=None, draft=None, eager_links: bool = False):
-        if draft is not None:
-            raise NotImplementedError("speculative decoding is not ported to usdm_tpu_torch")
+        self.ngram = isinstance(draft, str) and draft == "ngram"
+        if isinstance(draft, str) and not self.ngram:
+            raise ValueError(f"draft must be (params, cfg) or 'ngram', got {draft!r}")
+        if self.ngram:
+            draft = None
         if mesh is not None:
             raise NotImplementedError("tensor-parallel serving is not ported to usdm_tpu_torch")
         if ecfg.kv_dtype not in (None, "int8"):
@@ -137,6 +158,13 @@ class PagedEngine:
         n_pages = (ecfg.n_pages or ecfg.max_batch_size * ecfg.max_pages_per_seq) + 1
         self.n_pages = n_pages
         self.kv = PagedKV.create(cfg, n_pages, ps, self.device, ecfg.kv_dtype)
+        self.draft_params = self.draft_cfg = self.draft_kv = None
+        if draft is not None:
+            self.draft_params, self.draft_cfg = draft
+            if self.draft_cfg.vocab_size != cfg.vocab_size:
+                raise ValueError("draft vocab must match the target's")
+            # the draft's pool in its own dtype (not the target's int8), as usdm_tpu
+            self.draft_kv = PagedKV.create(self.draft_cfg, n_pages, ps, self.device)
         self.free_pages: List[int] = list(range(n_pages - 1))
         b = ecfg.max_batch_size
         self.page_table = np.zeros((b, ecfg.max_pages_per_seq), np.int32)
@@ -154,9 +182,13 @@ class PagedEngine:
         # graphs); a chain holds at most decode_horizon links, a mixed burst
         # at most its link budget
         self._burst_links = -(-ecfg.prefill_chunks_per_tick // max(1, ecfg.mixed_prefill_rows))
-        self.links = DecodeLinks(params, self.kv, cfg, self._allow_dev, ecfg.max_pages_per_seq,
-                                 ps, max(ecfg.decode_horizon, self._burst_links, 1),
-                                 graphs=not eager_links)
+        speculates = (self.ngram or draft is not None) and ecfg.spec_k > 0
+        self.links = DecodeLinks(
+            params, self.kv, cfg, self._allow_dev, ecfg.max_pages_per_seq, ps,
+            max(ecfg.decode_horizon, self._burst_links, 1), graphs=not eager_links,
+            draft=None if draft is None else (self.draft_params, self.draft_kv, self.draft_cfg),
+            spec_k=ecfg.spec_k if speculates else 0, ngram_max_n=ecfg.ngram_max_n,
+            max_rounds=max(1, ecfg.decode_horizon))
         # slot state mirrored in the links' buffers (table, eos, sampling
         # parameters) changes only at admission and window reclaim: it is
         # re-uploaded only when dirty
@@ -171,6 +203,10 @@ class PagedEngine:
         self._pending_first: Dict[int, torch.Tensor] = {}
         # depth-1 chain run-ahead: the dispatched but unsynced chain
         self._inflight: Optional[dict] = None
+        # ngram speculation's token history lives in the links' `hist`; it is
+        # rebuilt from host state when a path other than an ngram round
+        # emitted tokens or a slot was (re)admitted (_ensure_hist)
+        self._hist_dirty = True
         # per-slot admission generation: a chain dispatched for generation g
         # is never absorbed into a slot re-admitted at g + 1
         self.slot_gen = np.zeros(b, np.int64)
@@ -199,6 +235,8 @@ class PagedEngine:
         self.total_finished = 0
         self.total_cancelled = 0
         self.runahead_chains = 0  # chains dispatched before their predecessor's sync
+        self.spec_rounds = 0  # speculative rounds run, and the tokens they emitted
+        self.spec_emitted = 0
         self._ttfts: Deque[float] = deque(maxlen=200)  # recent times to first token
         # wall seconds per scheduler phase (stats()["perf_s"]): dispatch,
         # host sync, bookkeeping
@@ -276,6 +314,7 @@ class PagedEngine:
         self._allow_dev[slot] = mask_dev
         self._dev_dirty = True
         self._hot = False
+        self._hist_dirty = True
 
     def _try_admit(self) -> None:
         """FCFS with skip: assign waiting requests to free slots and pages;
@@ -346,10 +385,15 @@ class PagedEngine:
         n = min(c, len(req.prompt_ids) - start)
         ncp = _ctx_pages_bucket(self._pages_needed(start + c), self.ecfg.max_pages_per_seq)
         # every per-chunk input rides one host-to-device copy
-        packed = self._pack_rows([(slot, req, start, n)], 1)[0]
-        logits = paged_prefill_chunk_packed(self.params, self.kv, self.cfg,
-                                            to_device(packed, self.device),
+        packed = to_device(self._pack_rows([(slot, req, start, n)], 1)[0], self.device)
+        logits = paged_prefill_chunk_packed(self.params, self.kv, self.cfg, packed,
                                             self.ecfg.page_size, ncp, c)
+        if self.draft_params is not None:
+            # the draft prefills the same chunk into its pool: without a
+            # prompt-conditioned draft cache its proposals are garbage (the
+            # tokens stay right, acceptance collapses)
+            paged_prefill_chunk_packed(self.draft_params, self.draft_kv, self.draft_cfg, packed,
+                                       self.ecfg.page_size, ncp, c)
         self.prefill_pos[slot] = start + n
         if start + n < len(req.prompt_ids):
             return None
@@ -370,9 +414,11 @@ class PagedEngine:
         return slot
 
     def _multi_next(self) -> bool:
-        """The next tick's decode is a chain (the port has no speculation,
-        so this is the horizon alone)."""
-        return self.decode_horizon > 1
+        """The next tick's decode is multi-token: deferring a post-prefill
+        per-token step to it saves that step's sync.  Not with a draft or
+        ngram: the next tick is a speculative round (or a mirroring step),
+        which reads the host's tokens."""
+        return self.decode_horizon > 1 and self.draft_params is None and not self.ngram
 
     def _defer_first_ok(self, req: Request) -> bool:
         """First-token deferral gate: only a chain absorbs a pending device
@@ -404,6 +450,7 @@ class PagedEngine:
         self._ttfts.append(req.ttft_s)
         req.output_ids.append(first)
         self.tokens[slot] = first
+        self._hist_dirty = True
         if first == req.eos_id or len(req.output_ids) >= req.max_new_tokens:
             self._finish(slot)
 
@@ -560,9 +607,11 @@ class PagedEngine:
         if not dec.any():
             return self._occupied()
         # a chain of one link from the host's state: done = ~active gives
-        # paged_decode_step's tokens
+        # paged_decode_step's tokens; with a draft the link mirrors its step
+        # into the draft's pool
         self._hot = False
-        self._sync_chain(self._dispatch_chain(1, dec, "step"))
+        self._sync_chain(self._dispatch_chain(1, dec, "step",
+                                              mirror=self.draft_params is not None))
         self._hot = False
         return self._occupied()
 
@@ -669,7 +718,9 @@ class PagedEngine:
             if fl is not None:
                 self._sync_chain(fl)  # tail chain of a drained decode set
             return self._occupied()
-        quiet = self.ecfg.runahead and not self.waiting and not self.prefill_order
+        # no run-ahead with a draft: its rounds read the host's tokens
+        quiet = (self.ecfg.runahead and not self.waiting and not self.prefill_order
+                 and self.draft_params is None)
         if fl is not None:
             meta = None
             if quiet and self._hot:
@@ -708,9 +759,11 @@ class PagedEngine:
                     - (int(self.seq_lens[slot]) + fl["n_steps"] + 1))
         return n
 
-    def _dispatch_chain(self, n_steps: int, dec: np.ndarray, kind: str = "chain") -> dict:
+    def _dispatch_chain(self, n_steps: int, dec: np.ndarray, kind: str = "chain",
+                        mirror: bool = False) -> dict:
         """Dispatch one chain of `n_steps` links without a host sync ->
-        what _sync_chain needs to absorb it later."""
+        what _sync_chain needs to absorb it later.  `mirror`: each link also
+        runs the draft model's step (step() with a draft)."""
         t0 = time.perf_counter()
         lk = self.links
         sampled = self._sampled(dec)
@@ -733,7 +786,7 @@ class PagedEngine:
         for _ in range(n_steps):
             for s in sampled_slots:  # fresh noise every link, as the eager chain drew it
                 lk.noise[s].copy_(gumbel_noise((v,), self.slot_rng[s], self.device))
-            lk.run(lslice, sampled)
+            lk.run(lslice, sampled, mirror)
         self._hot = True
         handle = lk.fetch()
         self._acc(f"{kind}_dispatch", time.perf_counter() - t0)
@@ -883,9 +936,13 @@ class PagedEngine:
         return self._occupied()
 
     def _absorb_multi(self, dec: np.ndarray, toks: np.ndarray, n_emitted: np.ndarray,
-                      pend_slots=()) -> int:
+                      pend_slots=(), hist_synced: bool = False) -> int:
         """Append each decoding slot's emitted tokens; finish on EOS, budget
-        or page capacity; otherwise reclaim pages below the window."""
+        or page capacity; otherwise reclaim pages below the window.
+        `hist_synced`: ngram rounds appended these tokens to the device
+        history already."""
+        if not hist_synced:
+            self._hist_dirty = True
         cap = self.ecfg.max_pages_per_seq * self.ecfg.page_size
         for slot in np.flatnonzero(dec):
             n = int(n_emitted[slot])
@@ -910,13 +967,150 @@ class PagedEngine:
                 self._reclaim_window(slot)
         return self._occupied()
 
+    def _can_spec(self) -> bool:
+        """Speculate only when a draft (model or ngram) is configured,
+        spec_k > 0, no admission or prefill is pending, and every decoding
+        slot is greedy with room for a full K+1-token round (tails take plain
+        steps)."""
+        if ((self.draft_params is None and not self.ngram) or self.ecfg.spec_k < 1
+                or self.waiting or self.prefill_order):
+            return False
+        dec = self.status == DECODE
+        if not dec.any():
+            return False
+        k1 = self.ecfg.spec_k + 1
+        ps = self.ecfg.page_size
+        for slot in np.flatnonzero(dec):
+            req = self.slot_req[slot]
+            if req.sampled:
+                return False  # greedy-only speculation
+            if req.max_new_tokens - len(req.output_ids) < k1:
+                return False
+            if len(self.slot_pages[slot]) * ps - (int(self.seq_lens[slot]) + k1) < 0:
+                return False
+        return True
+
+    def _spec_rounds_cap(self, dec: np.ndarray) -> int:
+        """Full K+1-token rounds every decoding slot can run within its
+        token budget and page allocation."""
+        k1 = self.ecfg.spec_k + 1
+        ps = self.ecfg.page_size
+        cap = 1 << 30
+        for slot in np.flatnonzero(dec):
+            req = self.slot_req[slot]
+            cap = min(cap, (req.max_new_tokens - len(req.output_ids)) // k1)
+            cap = min(cap, (len(self.slot_pages[slot]) * ps - int(self.seq_lens[slot])) // k1)
+        return max(cap, 0)
+
+    def step_spec(self) -> int:
+        """R speculative rounds with a draft model and ONE host sync.  Each
+        round runs K+1 draft decode steps and one target verification over
+        K+1 positions with acceptance on the device (`paged_draft_round`):
+        the accepted count, the EOS freeze, the next input token and the
+        lengths stay on the device, so rounds chain like a chain's links.
+        The tokens are greedy decode's for any draft; tokens/s grows with the
+        draft's agreement, since the target runs once a round."""
+        if self._inflight is not None:  # absorb any run-ahead chain first
+            fl, self._inflight = self._inflight, None
+            self._sync_chain(fl)
+        self._flush_pending()  # rounds read self.tokens (a no-op: drafts never defer)
+        k = self.ecfg.spec_k
+        dec = self.status == DECODE
+        rounds = min(self._spec_rounds_cap(dec), max(1, self.decode_horizon // (k + 1)),
+                     1 << min(self._chain_streak, 5))
+        self._chain_streak += 1
+        if rounds < 1:
+            return self.step()
+        return self._spec_rounds("draft", rounds, dec)
+
+    def _ensure_hist(self) -> None:
+        """The device token history [B, S] of ngram proposals, rebuilt from
+        host state (prompt + output ids of each decoding slot) when stale:
+        one upload per transition into ngram rounds; consecutive rounds
+        append to it on the device."""
+        if not self._hist_dirty:
+            return
+        lk = self.links
+        hist = np.zeros(tuple(lk.hist.shape), np.int64)
+        s = hist.shape[1]
+        for slot in np.flatnonzero(self.status == DECODE):
+            req = self.slot_req[slot]
+            row = (req.prompt_ids + req.output_ids)[:s]
+            hist[slot, : len(row)] = row
+        lk.load(lk.hist, hist)
+        self._hist_dirty = False
+
+    def step_spec_ngram(self) -> int:
+        """R draft-free speculative rounds with ONE host sync: each round
+        proposes spec_k tokens by matching the current suffix against the
+        sequence's own history on the device (`ngram_propose`), verifies and
+        accepts them, and appends what it emitted to the history
+        (`paged_ngram_round`).  No draft model or pool; lookup accepts most
+        where the stream repeats, as the 50 Hz unit streams of stage C do."""
+        if self._inflight is not None:  # absorb any run-ahead chain first
+            fl, self._inflight = self._inflight, None
+            self._sync_chain(fl)
+        self._flush_pending()  # the history and lengths start from the host's tokens
+        k = self.ecfg.spec_k
+        dec = self.status == DECODE
+        # a round runs the target alone (no K+1 draft links): the rounds per
+        # sync ramp as step_chain's links do
+        rounds = min(self._spec_rounds_cap(dec), max(1, self.decode_horizon),
+                     2 << min(self._chain_streak, 5))
+        self._chain_streak += 1
+        if rounds < 1:
+            return self.step()
+        self._ensure_hist()
+        return self._spec_rounds("ngram", rounds, dec)
+
+    def _spec_rounds(self, kind: str, rounds: int, dec: np.ndarray) -> int:
+        """Dispatch `rounds` rounds of `kind` from the host's state (each a
+        graph replay on the card), sync their tokens once, absorb them."""
+        t0 = time.perf_counter()
+        k1 = self.ecfg.spec_k + 1
+        lk = self.links
+        lslice = self._active_slice(dec, False)
+        lk.load(lk.active, dec)
+        lk.load(lk.tok, self.tokens)
+        lk.load(lk.lens, self.seq_lens)
+        torch.logical_not(lk.active, out=lk.done)
+        self._slot_state_dev()
+        lk.begin_rounds()
+        for _ in range(rounds):
+            lk.round(kind, lslice)
+        handle = lk.fetch(rounds=True)
+        self._acc("spec_dispatch", time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        rows = lk.wait_rounds(handle, rounds)  # ONE sync: [B, R, K + 2]
+        self._acc("spec_sync", time.perf_counter() - t0)
+        self.steps += rounds
+        self.spec_rounds += rounds
+        b = self.ecfg.max_batch_size
+        flat = np.zeros((b, rounds * k1), np.int64)
+        total = np.zeros(b, np.int64)
+        for slot in np.flatnonzero(dec):
+            for r in range(rounds):
+                n = int(rows[slot, r, k1])
+                flat[slot, total[slot]: total[slot] + n] = rows[slot, r, :n]
+                total[slot] += n
+            self.spec_emitted += int(total[slot])
+        self._hot = False  # the links' tok/lens/done hold the rounds' state
+        t0 = time.perf_counter()
+        try:
+            return self._absorb_multi(dec, flat, total, hist_synced=kind == "ngram")
+        finally:
+            self._acc("absorb", time.perf_counter() - t0)
+
     def tick(self) -> int:
         """One scheduler turn: while prompts are pending, a mixed burst when
-        `ecfg.mixed_prefill` and at least `mixed_min_decode` slots decode,
-        else drain up to prefill_chunks_per_tick chunks (then one per-token
-        step unless the queue just drained); otherwise one per-token step
-        (decode_horizon 1), one decode chain or one fused multi-step
-        decode."""
+        `ecfg.mixed_prefill`, no draft model is loaded and at least
+        `mixed_min_decode` slots decode, else drain up to
+        prefill_chunks_per_tick chunks (then one per-token step unless the
+        queue just drained); otherwise speculative rounds when a draft is
+        configured and every decoding slot can take them, one per-token step
+        when a draft model is loaded but cannot (the step mirrors into its
+        pool), or one per-token step (decode_horizon 1), one decode chain or
+        one fused multi-step decode."""
         if self.waiting and self._inflight is not None:
             # the pending sync may free slots and pages (EOS or budget ends),
             # which admission below can only see after it
@@ -930,7 +1124,7 @@ class PagedEngine:
                 # instead of behind the newcomers' prefill chunks
                 self._flush_pending()
             self._try_admit()
-            if (self.prefill_order and self.ecfg.mixed_prefill
+            if (self.prefill_order and self.ecfg.mixed_prefill and self.draft_params is None
                     and int((self.status == DECODE).sum()) >= max(1, self.ecfg.mixed_min_decode)):
                 return self.step_mixed_burst()
             if self.prefill_order:
@@ -949,6 +1143,13 @@ class PagedEngine:
                 if deferred:
                     return self._occupied()
                 return self.step(_defer_chain=True)
+        if self._can_spec():
+            return self.step_spec_ngram() if self.ngram else self.step_spec()
+        if self.draft_params is not None:
+            # a draft is loaded but cannot speculate (a sampled slot, a budget
+            # tail): single-step, so the draft's pool mirrors the decode; a
+            # chain would leave holes in it that collapse later acceptance
+            return self.step()
         if self.decode_horizon == 1:
             return self.step()
         if self.multi_impl == "chain":
@@ -974,13 +1175,15 @@ class PagedEngine:
         return requests
 
     def stats(self) -> dict:
-        """Serving telemetry.  `steps`: decode and mixed links;
-        `mixed_links`: mixed prefill + decode links (eager), carrying
-        `mixed_rows` prefill chunk rows between them; `graph_replays`:
-        decode links run as CUDA-graph replays (on the card every decode
-        link: steps - mixed_links); `runahead_chains`: chains dispatched
-        before their predecessor's sync; `perf_s`: wall seconds by scheduler
-        phase (admit, prefill, chain/multi/step/mixed dispatch and sync,
+        """Serving telemetry.  `steps`: decode links, speculative rounds and
+        mixed links; `mixed_links`: mixed prefill + decode links (eager),
+        carrying `mixed_rows` prefill chunk rows between them;
+        `spec_rounds`: speculative rounds, which emitted `spec_emitted`
+        tokens (`spec_accept_per_round` a round); `graph_replays`: decode
+        links and rounds run as CUDA-graph replays (on the card every one:
+        steps - mixed_links); `runahead_chains`: chains dispatched before
+        their predecessor's sync; `perf_s`: wall seconds by scheduler phase
+        (admit, prefill, chain/multi/step/mixed/spec dispatch and sync,
         absorb, first_tok_sync)."""
         return {
             "steps": self.steps,
@@ -994,6 +1197,10 @@ class PagedEngine:
             "held_sessions": len(self.session_slots),
             "waiting": len(self.waiting),
             "free_pages": len(self.free_pages),
+            "spec_rounds": self.spec_rounds,
+            "spec_emitted": self.spec_emitted,
+            "spec_accept_per_round": (round(self.spec_emitted / self.spec_rounds, 3)
+                                      if self.spec_rounds else None),
             "graph_replays": self.links.replays,
             "runahead_chains": self.runahead_chains,
             "perf_s": {k: round(v, 4) for k, v in sorted(self.perf.items())},

@@ -1,12 +1,13 @@
 """Device side of the paged continuous-batching engine.
 
-Port of the parts of usdm_tpu/engine/paged_ops.py that the serving path
-runs: the paged KV pool, one decode step, one chained decode step, the
-packed prefill chunk, the mixed prefill + decode link, the multi-step
-decode, and first-token sampling; and `DecodeLinks`, the static inputs of a
-chained decode link, which on the card runs each decode link as one
-CUDA-graph replay (the counterpart of the JAX engine's one jitted dispatch
-per link) and each mixed link eagerly.  The host scheduler is
+Port of usdm_tpu/engine/paged_ops.py: the paged KV pool, one decode step,
+one chained decode step, the packed prefill chunk, the mixed prefill +
+decode link, the multi-step decode, first-token sampling, and speculative
+decoding's device side (verification, acceptance, ngram proposals, the
+ngram and draft-model rounds); and `DecodeLinks`, the static inputs of a
+chained decode link or round, which on the card runs each decode link and
+each round as one CUDA-graph replay (the counterpart of the JAX engine's
+one jitted dispatch) and each mixed link eagerly.  The host scheduler is
 engine/paged.py.
 
 The pool keeps the JAX layout [Hkv, L*N, P, hd]: layer li's page p lives at
@@ -27,7 +28,7 @@ come from the projections' widths, as in usdm_tpu.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,7 +38,7 @@ from usdm_tpu_torch.core.config import MistralConfig
 from usdm_tpu_torch.models import mistral as M
 from usdm_tpu_torch.models.quant import is_quantized, out_dim, qmm
 from usdm_tpu_torch.ops.attention import mha
-from usdm_tpu_torch.ops.paged_attention import paged_decode_attention
+from usdm_tpu_torch.ops.paged_attention import host_split_count, paged_decode_attention
 from usdm_tpu_torch.ops.stream_matvec import stream_qmv, symmetric_scale
 from usdm_tpu_torch.ops.sampling import NEG_INF, sample_batched
 
@@ -168,7 +169,9 @@ def paged_decode_step(
     page_ids = page_table.long()[rows, torch.clamp(pos // page_size, max=maxp - 1)]
     page_ids = torch.where(active, page_ids, n_pages - 1)  # inactive: trash page
     offs = pos % page_size
-    kv_len = (seq_lens + 1).to(torch.int32)
+    # a slot that is not live may hold a full table's length (a finished
+    # speculative round fills its last page): K1 must not read past the row
+    kv_len = torch.clamp(seq_lens + 1, max=maxp * page_size).to(torch.int32)
     bases = torch.arange(cfg.num_layers, device=tokens.device, dtype=torch.int32) * n_pages
     tables = (page_table[None] + bases[:, None, None]).contiguous()  # [L, B, maxp]
 
@@ -217,6 +220,280 @@ def paged_decode_step_chained(
     return nxt, new_done, new_lens
 
 
+# (device, dtype, weight shape, B, K+1) -> whether a float product's rows
+# keep their bits from B to B*(K+1) rows (`_rows_invariant`)
+_ROW_INVARIANT: Dict[tuple, bool] = {}
+
+
+def row_invariance() -> Dict[tuple, bool]:
+    """The decisions `_rows_invariant` has made so far: (device, dtype,
+    weight shape, B, K+1) -> whether a verify runs that float product as
+    one product over every column."""
+    return dict(_ROW_INVARIANT)
+
+
+def rows_probe(y: torch.Tensor, w: torch.Tensor, b: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """y [B*(K+1), 1, Din] @ w as one product, and one column of B rows at
+    a time -> (one product, the columns' products)."""
+    return y @ w, torch.cat([y[j:j + b] @ w for j in range(0, y.shape[0], b)])
+
+
+def _rows_invariant(w: torch.Tensor, b: int, k1: int) -> bool:
+    """Whether `y @ w` gives each row the same bits over B*(K+1) rows as
+    over B, decided once per (device, dtype, shape, B, K+1) from random
+    rows.  This assumes the library picks its GEMM (and with it the
+    summation order) from the shapes and dtype alone: not from the
+    operands' values, their pointers' alignment, or whether the call is
+    being captured into a CUDA graph.  The probe runs eagerly (a verify's
+    warm-up comes before its capture); tests/test_torch_cuda.py holds each
+    cached decision against a probe made under capture.  On an H100 bf16
+    rows at B 1 keep their bits at the 7B shapes and f32 rows at B 4 do
+    not (chip_smoke.py phase 9 logs the table)."""
+    key = (w.device, w.dtype, tuple(w.shape), b, k1)
+    if key not in _ROW_INVARIANT:
+        g = torch.Generator(device=w.device).manual_seed(0)
+        y = torch.randn(b * k1, 1, w.shape[0], generator=g, device=w.device).to(w.dtype)
+        _ROW_INVARIANT[key] = torch.equal(*rows_probe(y, w, b))
+    return _ROW_INVARIANT[key]
+
+
+def _qmm_cols(y: torch.Tensor, w, k1: int) -> torch.Tensor:
+    """qmm over a verify activation's K+1 columns of B rows: one product,
+    reading the weight once, where its rows do not depend on the row count
+    (W8A8: exact integer sums at any M; a float weight where
+    `_rows_invariant` finds so); else one product a column, at the decode
+    link's B rows."""
+    b = y.shape[0] // k1
+    if is_quantized(w) or _rows_invariant(w, b, k1):
+        return qmm(y, w)
+    return torch.cat([qmm(y[j * b:(j + 1) * b], w) for j in range(k1)])
+
+
+def _rms_norm_cols(x: torch.Tensor, w: torch.Tensor, eps: float, k1: int) -> torch.Tensor:
+    """M.rms_norm of a verify activation [K1*B, D] (rows j*B + b) one column
+    of B rows at a time, each as a decode link's [B, 1, D] call: a CUDA
+    reduction's summation order depends on how many rows share the call."""
+    xc = x.reshape(k1, -1, 1, x.shape[-1])
+    return torch.cat([M.rms_norm(xc[j], w, eps) for j in range(k1)]).reshape(x.shape)
+
+
+def paged_verify_step(
+    params: M.Params,
+    kv: PagedKV,
+    cfg: MistralConfig,
+    tokens: torch.Tensor,  # [B, K+1]: [current, draft_0, ..., draft_{K-1}]
+    seq_lens: torch.Tensor,  # [B] int32: position of tokens[:, 0]
+    page_table: torch.Tensor,  # [B, maxp] int32
+    active: torch.Tensor,  # [B] bool
+    allow_masks: torch.Tensor,  # [B, V] bool
+    page_size: int,
+    logits_slice: Optional[Tuple[int, int, int]] = None,
+) -> torch.Tensor:
+    """Speculative verification: one target forward over K+1 tokens per
+    slot -> the greedy token after each position [B, K+1] (0 for inactive
+    slots), with the K/V of all K+1 positions written in place first.
+
+    Column j of slot b is computed as the decode link that consumes
+    tokens[b, j] at position seq_lens[b] + j computes it: the activation
+    holds the K+1 columns of B rows one after another, norms and the logits
+    tail run per column at B rows, and attention is K1 over all B*(K+1)
+    rows (row j*B + b reads slot b's pages up to kv_len seq_lens[b] + j + 1)
+    with the split count K1 picks for B rows, so each row is cut as in the
+    decode link.  The seven projections take all B*(K+1) rows in one
+    product, reading each weight once, where that gives each row the link's
+    bits (W8A8 always; float weights as `_rows_invariant` finds), else one
+    product a column.  So the tokens are the decode links' by construction.
+    Rejected positions leave stale K/V that kv_len masking hides and the
+    next round overwrites (usdm_tpu's paged_verify_step; it gathers the
+    context and runs plain attention over it instead)."""
+    b, k1 = tokens.shape
+    n = b * k1
+    dev = tokens.device
+    hd = cfg.head_dim
+    h, hkv = out_dim(params["layers"][0]["wq"]) // hd, out_dim(params["layers"][0]["wk"]) // hd
+    maxp = page_table.shape[1]
+    n_pages = kv.total_pages // cfg.num_layers
+    pos = seq_lens.long()[None, :] + torch.arange(k1, device=dev)[:, None]  # [K1, B]
+    slots = torch.arange(b, device=dev)[None, :]
+    w_pages = page_table.long()[slots, torch.clamp(pos // page_size, max=maxp - 1)]
+    w_pages = torch.where(active[None, :], w_pages, n_pages - 1).reshape(-1)  # trash
+    w_offs = (pos % page_size).reshape(-1)
+    kv_len = torch.clamp(pos + 1, max=maxp * page_size).to(torch.int32).reshape(-1)
+    bases = torch.arange(cfg.num_layers, device=dev, dtype=torch.int32) * n_pages
+    tables = (page_table[None] + bases[:, None, None]).repeat(1, k1, 1)  # [L, K1*B, maxp]
+    n_splits = host_split_count(b, hkv, maxp, page_size, dev)
+    eps = cfg.rms_norm_eps
+
+    x = params["embed"][tokens.t().reshape(-1)][:, None, :]  # [K1*B, 1, D]
+    cos, sin = M.rope_tables(pos.reshape(-1, 1), hd, cfg.rope_theta)
+    for li, lp in enumerate(params["layers"]):
+        y = _rms_norm_cols(x, lp["ln1"], eps, k1)
+        q = M.apply_rope(_qmm_cols(y, lp["wq"], k1).reshape(n, 1, h, hd), cos, sin)
+        kk = M.apply_rope(_qmm_cols(y, lp["wk"], k1).reshape(n, 1, hkv, hd), cos, sin)
+        vv = _qmm_cols(y, lp["wv"], k1).reshape(n, hkv, hd)
+        _write_kv(kv, li * n_pages, w_pages, w_offs, kk[:, 0].transpose(0, 1),
+                  vv.transpose(0, 1))
+        attn = paged_decode_attention(q[:, 0].reshape(n, hkv, h // hkv, hd).contiguous(),
+                                      kv.k_pages, kv.v_pages, tables[li], kv_len,
+                                      sliding_window=cfg.sliding_window,
+                                      k_scales=kv.k_scales, v_scales=kv.v_scales,
+                                      n_splits=n_splits)
+        x = x + _qmm_cols(attn.reshape(n, 1, h * hd), lp["wo"], k1)
+        y = _rms_norm_cols(x, lp["ln2"], eps, k1)
+        gate = F.silu(_qmm_cols(y, lp["w_gate"], k1))
+        x = x + _qmm_cols(gate * _qmm_cols(y, lp["w_up"], k1), lp["w_down"], k1)
+    xn = _rms_norm_cols(x, params["final_norm"], eps, k1)[:, 0].reshape(k1, b, -1)
+    return torch.stack([_logits_tail(params, xn[j], allow_masks, active, logits_slice, None)
+                        for j in range(k1)], dim=1)
+
+
+def paged_spec_accept(
+    params: M.Params,
+    kv: PagedKV,
+    cfg: MistralConfig,
+    ver_in: torch.Tensor,  # [B, K+1]: [current, drafts...]
+    seq_lens: torch.Tensor,  # [B] int32
+    done: torch.Tensor,  # [B] bool: frozen (EOS'd earlier in these rounds)
+    eos_ids: torch.Tensor,  # [B]
+    page_table: torch.Tensor,
+    active: torch.Tensor,  # [B] bool
+    allow_masks: torch.Tensor,
+    page_size: int,
+    logits_slice: Optional[Tuple[int, int, int]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Verification and acceptance on the device -> (tokens [B, K+1],
+    n_emit [B], next_cur [B], done' [B], seq_lens' [B]): the drafts that
+    match the target's tokens as a prefix are accepted, plus the target's
+    token after them; the run ends at its first EOS.  Rounds chain with no
+    host sync between them."""
+    k1 = ver_in.shape[1]
+    live = active & ~done
+    out = paged_verify_step(params, kv, cfg, ver_in, seq_lens, page_table, live, allow_masks,
+                            page_size, logits_slice)
+    # accepted prefix: drafts d_j (= ver_in[:, j+1]) matching the target's out[:, j]
+    n_acc = torch.cumprod((ver_in[:, 1:] == out[:, :-1]).long(), dim=1).sum(dim=1)
+    cols = torch.arange(k1, device=ver_in.device)[None]
+    # emitted tokens are out[:, :n_acc + 1], cut after the first EOS inside
+    is_eos = (out == eos_ids[:, None]) & (cols <= n_acc[:, None])
+    has_eos = is_eos.any(dim=1)
+    n_emit = torch.where(has_eos, is_eos.long().argmax(dim=1) + 1, n_acc + 1)
+    n_emit = torch.where(live, n_emit, 0)
+    out = torch.where(cols < n_emit[:, None], out, 0)
+    last = torch.gather(out, 1, torch.clamp(n_emit - 1, min=0)[:, None])[:, 0]
+    next_cur = torch.where(live, last, ver_in[:, 0])
+    return out, n_emit, next_cur, done | has_eos, (seq_lens + n_emit).to(seq_lens.dtype)
+
+
+def ngram_propose(
+    history: torch.Tensor,  # [B, S] token history (prompt + emitted)
+    hist_len: torch.Tensor,  # [B] valid tokens; history[:, hist_len - 1] == cur
+    cur: torch.Tensor,  # [B] current token (the last emitted)
+    k: int,  # proposal length
+    max_n: int,  # longest suffix n-gram to match
+) -> torch.Tensor:
+    """Draft-free prompt-lookup proposal (vLLM's ngram method): the K tokens
+    that followed the most recent, longest (<= max_n) earlier occurrence of
+    the current suffix in the sequence's own history -> [B, K].  Falls back
+    to repeating `cur` where no suffix recurs or the continuation runs past
+    the history (50 Hz unit streams repeat: that is the right guess there).
+    Rows of inactive slots are garbage; verification masks them."""
+    b, s = history.shape
+    dev = history.device
+    hist_len = hist_len.long()
+    pos = torch.arange(s, device=dev)[None]  # candidate continuation start i
+    match_n = torch.zeros((b, s), dtype=torch.long, device=dev)
+    all_eq = torch.ones((b, s), dtype=torch.bool, device=dev)
+    for j in range(1, max_n + 1):
+        shifted = F.pad(history, (j, 0))[:, :s]  # history[:, i - j] at column i
+        suf_j = torch.gather(history, 1, torch.clamp(hist_len - j, min=0)[:, None])
+        all_eq = all_eq & (shifted == suf_j)
+        ok = all_eq & (pos >= j) & (hist_len > j)[:, None]
+        match_n = torch.where(ok, j, match_n)
+    # i < hist_len: at least one real continuation token, and the trivial
+    # self-match at i == hist_len excluded
+    valid = (pos < hist_len[:, None]) & (match_n >= 1)
+    # longest match wins; ties go to the most recent occurrence
+    score = torch.where(valid, match_n * s + pos, -1)
+    best = score.argmax(dim=1)
+    found = torch.gather(score, 1, best[:, None])[:, 0] >= 0
+    idx = best[:, None] + torch.arange(k, device=dev)[None]
+    cont = torch.gather(history, 1, torch.clamp(idx, max=s - 1))
+    take = (idx < hist_len[:, None]) & found[:, None]
+    return torch.where(take, cont, cur[:, None])
+
+
+def paged_ngram_round(
+    params: M.Params,
+    kv: PagedKV,
+    cfg: MistralConfig,
+    history: torch.Tensor,  # [B, S] int64, appended in place
+    cur: torch.Tensor,  # [B] current token
+    seq_lens: torch.Tensor,  # [B] int32
+    done: torch.Tensor,  # [B] bool
+    eos_ids: torch.Tensor,
+    page_table: torch.Tensor,
+    active: torch.Tensor,
+    allow_masks: torch.Tensor,
+    page_size: int,
+    k: int,
+    max_n: int,
+    logits_slice: Optional[Tuple[int, int, int]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One draft-free speculative round: propose K tokens from each
+    sequence's own history (`ngram_propose`), verify and accept them
+    (`paged_spec_accept`), and append the emitted tokens to `history` in
+    place -> (tokens [B, K+1], n_emit [B], next_cur [B], done', seq_lens').
+    A round runs one target forward over K+1 positions and emits 1 to K+1
+    tokens."""
+    b, s = history.shape
+    hist_len = seq_lens.long() + 1  # prompt + emitted tokens (cur is the last)
+    props = ngram_propose(history, hist_len, cur, k, max_n)
+    ver_in = torch.cat([cur[:, None], props], dim=1)
+    out, n_emit, next_cur, new_done, new_lens = paged_spec_accept(
+        params, kv, cfg, ver_in, seq_lens, done, eos_ids, page_table, active, allow_masks,
+        page_size, logits_slice)
+    cols = torch.arange(k + 1, device=history.device)[None]
+    # emitted tokens land at hist_len + j; the rest go to a dropped column s
+    w_idx = torch.where(cols < n_emit[:, None], hist_len[:, None] + cols, s)
+    padded = F.pad(history, (0, 1))
+    padded.scatter_(1, torch.clamp(w_idx, max=s), out)
+    history.copy_(padded[:, :s])
+    return out, n_emit, next_cur, new_done, new_lens
+
+
+def paged_draft_round(
+    params: M.Params,
+    kv: PagedKV,
+    cfg: MistralConfig,
+    draft: Tuple[M.Params, PagedKV, MistralConfig],  # the draft model and its pool
+    cur: torch.Tensor,  # [B] current token
+    seq_lens: torch.Tensor,  # [B] int32
+    done: torch.Tensor,  # [B] bool
+    eos_ids: torch.Tensor,
+    page_table: torch.Tensor,
+    active: torch.Tensor,
+    allow_masks: torch.Tensor,
+    page_size: int,
+    k: int,
+    logits_slice: Optional[Tuple[int, int, int]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One speculative round with a draft model (the body of usdm_tpu's
+    step_spec loop): K+1 greedy draft decode steps over the draft's pool,
+    sharing the target's page table (the last writes the draft K/V of the
+    final proposal, so full acceptance leaves no hole), then verification
+    and acceptance -> as `paged_spec_accept`."""
+    d_params, d_kv, d_cfg = draft
+    live = active & ~done
+    cols, d = [cur], cur
+    for i in range(k + 1):
+        d = paged_decode_step(d_params, d_kv, d_cfg, d, seq_lens + i, page_table, live,
+                              allow_masks, page_size, logits_slice)
+        if i < k:
+            cols.append(d)
+    return paged_spec_accept(params, kv, cfg, torch.stack(cols, dim=1), seq_lens, done, eos_ids,
+                             page_table, active, allow_masks, page_size, logits_slice)
+
+
 def _link_counters() -> List[Tuple[object, str]]:
     """Every launch counter of the kernels a decode link runs (K1, K6):
     each `*launches` attribute of their wrappers."""
@@ -237,28 +514,43 @@ class DecodeLinks:
     max_links + 2] (column 0 holds the chain's input, `begin`; a mixed burst's
     last column the first tokens of prompts it completed, `append`).  A
     mixed prefill + decode link (`mixed`) reads and writes the same buffers,
+    eagerly.  With a draft model (`draft` = its params, pool and config) a
+    link may also mirror its step into the draft's pool (`run(mirror=True)`,
+    token discarded), so the draft's K/V has no holes when rounds resume.
+
+    Speculative rounds (`spec_k` > 0, `round`) read and write the same tok
+    (the current token), lens and done: a "draft" round is
+    `paged_draft_round`, an "ngram" round `paged_ngram_round` over the
+    token history `hist` [B, S] int64, which it appends in place.  A round
+    writes its tokens and n_emit into the next row of `rounds_out` [B,
+    max_rounds, K + 2] (`begin_rounds` resets the row counter).
+
+    On the card each variant (a link's logits slice, sampled or greedy and
+    mirror; a round's kind and logits slice) is captured once in a CUDA
+    graph, after one eager warm-up, and every later link or round of that
+    variant is one replay; all the graphs share one memory pool.  A capture
+    that fails raises: there is no eager fallback.  A replay calls no kernel
+    wrapper, so it adds to the wrappers' launch counts what its capture
+    launched (`_link_counters`).  On the CPU, or with `graphs=False` (the
+    card tests and chip_smoke.py hold graphs against it), everything runs
     eagerly.
 
-    On the card each link variant (logits slice, sampled or greedy) is
-    captured once in a CUDA graph, after one eager warm-up link, and every
-    later link of that variant is one replay; all the graphs share one
-    memory pool.  A capture that fails raises: there is no eager fallback.
-    A replay calls no kernel wrapper, so it adds to the wrappers' launch
-    counts what its capture launched (`_link_counters`).  On the CPU, or
-    with `graphs=False` (the card tests and chip_smoke.py hold graphs
-    against it), every link runs eagerly.
-
-    `fetch` copies `stacked` to one of two pinned host buffers without
-    waiting and `wait` blocks on that copy alone, so a chain can be
-    dispatched while its predecessor's tokens are still on their way."""
+    `fetch` copies `stacked` (or `rounds_out`) to one of two pinned host
+    buffers without waiting and `wait` (`wait_rounds`) blocks on that copy
+    alone, so a chain can be dispatched while its predecessor's tokens are
+    still on their way."""
 
     def __init__(self, params: M.Params, kv: PagedKV, cfg: MistralConfig,
                  allow_masks: torch.Tensor, max_pages: int, page_size: int, max_links: int,
-                 graphs: bool = True):
+                 graphs: bool = True,
+                 draft: Optional[Tuple[M.Params, PagedKV, MistralConfig]] = None,
+                 spec_k: int = 0, ngram_max_n: int = 0, max_rounds: int = 0):
         self.params, self.kv, self.cfg = params, kv, cfg
         self.allow = allow_masks  # [B, V] bool, rewritten in place by the engine
         self.page_size = page_size
         self.max_links = max_links
+        self.draft = draft
+        self.spec_k, self.ngram_max_n = spec_k, ngram_max_n
         b, v = allow_masks.shape
         dev = self.device = allow_masks.device
 
@@ -274,14 +566,24 @@ class DecodeLinks:
         self.top_p, self.temperature = (torch.ones(b, device=dev) for _ in range(2))
         self.stacked = zeros(b, max_links + 2, dtype=torch.int64)
         self.col = zeros(1, dtype=torch.int64)  # the column the next link writes
-        self.graphed = graphs and dev.type == "cuda"
-        self.replays = 0
-        self._graphs: dict = {}  # (logits_slice, sampled) -> (graph, launches per replay)
-        self._pool = self._stream = None
         card = dev.type == "cuda"
         self._host = [torch.empty((b, max_links + 2), dtype=torch.int64, pin_memory=card)
                       for _ in range(2)]
+        self.hist = self.rounds_out = self.rcol = None
+        self._round_host: List[torch.Tensor] = []
+        if spec_k > 0:
+            if draft is None:  # ngram proposals read the token history
+                self.hist = zeros(b, max_pages * page_size, dtype=torch.int64)
+            self.rounds_out = zeros(b, max_rounds, spec_k + 2, dtype=torch.int64)
+            self.rcol = zeros(1, dtype=torch.int64)  # the row the next round writes
+            self._round_host = [torch.empty(tuple(self.rounds_out.shape), dtype=torch.int64,
+                                            pin_memory=card) for _ in range(2)]
+        self.graphed = graphs and card
+        self.replays = 0
+        self._graphs: dict = {}  # variant key -> (graph, launches per replay)
+        self._pool = self._stream = None
         self._events = [torch.cuda.Event() if card else None for _ in range(2)]
+        self._fetched: List[Optional[torch.Tensor]] = [None, None]
         self._flip = 0
 
     def load(self, dst: torch.Tensor, values: np.ndarray) -> None:
@@ -301,11 +603,23 @@ class DecodeLinks:
         self.stacked[:, 0].copy_(self.tok)
         self.col.fill_(1)
 
-    def run(self, logits_slice: Optional[Tuple[int, int, int]], sampled: bool) -> None:
+    def begin_rounds(self) -> None:
+        """Start a run of speculative rounds: the next round writes row 0."""
+        self.rcol.fill_(0)
+
+    def run(self, logits_slice: Optional[Tuple[int, int, int]], sampled: bool,
+            mirror: bool = False) -> None:
         """One link: a graph replay on the card, else the eager link."""
-        key = (logits_slice, sampled)
+        self._go(("link", logits_slice, sampled, mirror))
+
+    def round(self, kind: str, logits_slice: Optional[Tuple[int, int, int]]) -> None:
+        """One speculative round ("draft" or "ngram"): a graph replay on the
+        card, else the eager round."""
+        self._go(("round", kind, logits_slice))
+
+    def _go(self, key) -> None:
         if not self.graphed:
-            self._link(key)
+            self._eager(key)
             return
         entry = self._graphs.get(key)
         if entry is None:
@@ -316,13 +630,40 @@ class DecodeLinks:
             setattr(fn, name, getattr(fn, name) + n)
         self.replays += 1
 
+    def _eager(self, key) -> None:
+        if key[0] == "round":
+            self._round(key)
+        else:
+            self._link(key)
+
     def _link(self, key) -> None:
-        logits_slice, sampled = key
+        _, logits_slice, sampled, mirror = key
+        if mirror:  # the draft model's step on the same inputs, token discarded
+            d_params, d_kv, d_cfg = self.draft
+            paged_decode_step(d_params, d_kv, d_cfg, self.tok, self.lens, self.table,
+                              self.active & ~self.done, self.allow, self.page_size, logits_slice)
         sampling = (self.noise, self.top_k, self.top_p, self.temperature) if sampled else None
         tok, done, lens = paged_decode_step_chained(
             self.params, self.kv, self.cfg, self.tok, self.lens, self.table, self.active,
             self.done, self.eos, self.allow, self.page_size, logits_slice, sampling)
         self._advance(tok, done, lens)
+
+    def _round(self, key) -> None:
+        _, kind, logits_slice = key
+        common = (self.tok, self.lens, self.done, self.eos, self.table, self.active, self.allow,
+                  self.page_size, self.spec_k)
+        if kind == "ngram":
+            out, n_emit, cur, done, lens = paged_ngram_round(
+                self.params, self.kv, self.cfg, self.hist, *common, self.ngram_max_n,
+                logits_slice)
+        else:
+            out, n_emit, cur, done, lens = paged_draft_round(
+                self.params, self.kv, self.cfg, self.draft, *common, logits_slice)
+        self.tok.copy_(cur)
+        self.done.copy_(done)
+        self.lens.copy_(lens)
+        self.rounds_out.index_copy_(1, self.rcol, torch.cat([out, n_emit[:, None]], 1)[:, None])
+        self.rcol.add_(1)
 
     def _advance(self, tok: torch.Tensor, done: torch.Tensor, lens: torch.Tensor) -> None:
         """A link's outputs become the next link's inputs; its token goes to
@@ -353,47 +694,62 @@ class DecodeLinks:
         return logits
 
     def _capture(self, key) -> tuple:
-        """One eager warm-up link (libraries loaded, RoPE table made, nothing
-        built under capture) and one captured link, on a side stream, with
-        every row frozen (done: writes go to the trash page); the carried
-        state and the launch counts are restored afterwards."""
+        """One eager warm-up (libraries loaded, RoPE table made, nothing
+        built under capture) and one capture of the link or round, on a side
+        stream, with every row frozen (done: writes go to the trash pages,
+        rounds emit nothing); the carried state and the launch counts are
+        restored afterwards."""
         counters = _link_counters()
         counts = [getattr(fn, name) for fn, name in counters]
-        saved = [t.clone() for t in (self.tok, self.lens, self.done, self.stacked, self.col)]
+        carried = [t for t in (self.tok, self.lens, self.done, self.stacked, self.col,
+                               self.hist, self.rounds_out, self.rcol) if t is not None]
+        saved = [t.clone() for t in carried]
         self.done.fill_(True)
         if self._stream is None:
             self._stream = torch.cuda.Stream(self.device)
             self._pool = torch.cuda.graph_pool_handle()
         self._stream.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(self._stream):
-            self._link(key)
+            self._eager(key)
         torch.cuda.current_stream(self.device).wait_stream(self._stream)
         warm = [getattr(fn, name) for fn, name in counters]
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
                               capture_error_mode="thread_local"):
-            self._link(key)
+            self._eager(key)
         launches = [getattr(fn, name) - n for (fn, name), n in zip(counters, warm)]
         for (fn, name), n in zip(counters, counts):
             setattr(fn, name, n)
-        for t, s in zip((self.tok, self.lens, self.done, self.stacked, self.col), saved):
+        for t, s in zip(carried, saved):
             t.copy_(s)
         return graph, launches
 
-    def fetch(self) -> int:
-        """Start copying `stacked` to the host -> a handle for `wait`."""
+    def fetch(self, rounds: bool = False) -> int:
+        """Start copying `stacked` (`rounds_out` when `rounds`) to the host
+        -> a handle for `wait` (`wait_rounds`)."""
         i = self._flip
         self._flip ^= 1
-        self._host[i].copy_(self.stacked, non_blocking=True)
+        src, host = ((self.rounds_out, self._round_host[i]) if rounds
+                     else (self.stacked, self._host[i]))
+        host.copy_(src, non_blocking=True)
+        self._fetched[i] = host
         if self._events[i] is not None:
             self._events[i].record()
         return i
 
-    def wait(self, handle: int, n_links: int) -> np.ndarray:
-        """The tokens of a fetched chain, [B, n_links + 1] int64."""
+    def _synced(self, handle: int) -> torch.Tensor:
         if self._events[handle] is not None:
             self._events[handle].synchronize()
-        return self._host[handle][:, : n_links + 1].numpy().copy()
+        return self._fetched[handle]
+
+    def wait(self, handle: int, n_links: int) -> np.ndarray:
+        """The tokens of a fetched chain, [B, n_links + 1] int64."""
+        return self._synced(handle)[:, : n_links + 1].numpy().copy()
+
+    def wait_rounds(self, handle: int, rounds: int) -> np.ndarray:
+        """The rows of fetched rounds, [B, rounds, K + 2] int64: each
+        round's K+1 tokens, then its n_emit."""
+        return self._synced(handle)[:, :rounds].numpy().copy()
 
 
 def _host(values: np.ndarray, device) -> torch.Tensor:

@@ -1,10 +1,11 @@
 """W8A8 int8 quantization of the LLM and Voicebox projections.
 
-Port of usdm_tpu/models/quant.py (speculation's `early_exit_draft` is not
-ported).  A quantized leaf is {"q": int8 [Dout, Din], "s": bf16 [Dout]}:
-symmetric over the contraction axis with per-output-channel scales, kept in
-the "oi" layout of K6 (ops/stream_matvec.py), where usdm_tpu keeps q as
-[Din, Dout].  Plain leaves stay [Din, Dout] (`y @ w`).
+Port of usdm_tpu/models/quant.py.  A quantized leaf is {"q": int8 [Dout,
+Din], "s": bf16 [Dout]}: symmetric over the contraction axis with
+per-output-channel scales, kept in the "oi" layout of K6
+(ops/stream_matvec.py), where usdm_tpu keeps q as [Din, Dout].  Plain
+leaves stay [Din, Dout] (`y @ w`).  `early_exit_draft` is the
+self-speculation draft of the target's first layers.
 
 `qmm(y, w)` is y @ w for either: activations are quantized per row, the
 product runs int8 x int8 -> int32 exactly, and the result is
@@ -111,6 +112,16 @@ def quantize_voicebox_params(params: Params) -> Params:
             lp[k] = quantize_weight(lp[k])
     params["skip_w"] = [quantize_weight(w) for w in params["skip_w"]]
     return params
+
+
+def early_exit_draft(params: Params, n_layers: int) -> Params:
+    """Self-speculation draft: the target's first `n_layers` layers with the
+    target's own embed, final norm and lm_head, a draft that needs no
+    training or checkpoint (speculation is lossless for any draft, so this
+    moves speed, never tokens).  Every tensor is the target's own, W8A8
+    leaves too: nothing is copied."""
+    return {"embed": params["embed"], "layers": params["layers"][:n_layers],
+            "final_norm": params["final_norm"], "lm_head": params["lm_head"]}
 
 
 def quantized_bytes(params: Params) -> int:

@@ -163,6 +163,17 @@ def split_count(batch: int, hkv: int, maxp: int, page: int, n_sm: int) -> int:
     return max(1, min(want, MAX_AUTO_SPLITS, -(-maxp * page // ROW_ALIGN)))
 
 
+def host_split_count(batch: int, hkv: int, maxp: int, page: int,
+                     device: torch.device) -> Optional[int]:
+    """The n_splits `paged_decode_attention` picks for a call of `batch`
+    rows on `device` (None on the CPU, where the plain version runs): a
+    caller that launches more rows but must cut each row as a call of
+    `batch` rows cuts it passes this as `n_splits`."""
+    if device.type != "cuda":
+        return None
+    return split_count(batch, hkv, maxp, page, _sm_count(device.index or 0))
+
+
 def paged_decode_attention(
     q: torch.Tensor,
     k_pages: torch.Tensor,
@@ -225,7 +236,7 @@ def _launch(q, k_pages, v_pages, page_table, seq_lens, sliding_window, scale, k_
         raise ValueError(f"{name}: the pools must start on 16-byte boundaries")
     maxp, page = page_table.shape[1], k_pages.shape[2]
     if n_splits is None:
-        n_splits = split_count(b, hkv, maxp, page, _sm_count(q.device.index or 0))
+        n_splits = host_split_count(b, hkv, maxp, page, q.device)
     if not 1 <= n_splits <= MAX_SPLITS:
         raise ValueError(f"{name}: n_splits must be in 1..{MAX_SPLITS}, got {n_splits}")
     scale = d**-0.5 if scale is None else scale

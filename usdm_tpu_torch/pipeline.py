@@ -4,9 +4,11 @@ Port of usdm_tpu/pipeline.py `UsdmPipeline` (respond, respond_with_policy,
 the lazy single-caller serving engine, close, tiny_random): XLS-R unit
 extraction, the 3-stage unit->text->text->unit chain on the paged engine,
 Voicebox mel synthesis and BigVGAN vocoding, all on `device` (`cuda` unless
-the caller asks for the CPU).  `lm_int8` / `vb_int8` quantize the LLM
-projections and the Voicebox estimator's matmuls to W8A8 after init, as
-usdm_tpu's `from_pretrained` does after load (models/quant.py).
+the caller asks for the CPU); greedy speculative decoding through
+`make_server(draft=)` and `enable_speculation`.  `lm_int8` / `vb_int8`
+quantize the LLM projections and the Voicebox estimator's matmuls to W8A8
+after init, as usdm_tpu's `from_pretrained` does after load
+(models/quant.py).
 `from_pretrained` (checkpoint converters), speaker reference prompts and the
 dense dialog policy are not ported yet.
 """
@@ -36,7 +38,11 @@ from usdm_tpu_torch.models import bigvgan as BV
 from usdm_tpu_torch.models import mistral as LM
 from usdm_tpu_torch.models import voicebox as VB
 from usdm_tpu_torch.models import xlsr as XL
-from usdm_tpu_torch.models.quant import quantize_llm_params, quantize_voicebox_params
+from usdm_tpu_torch.models.quant import (
+    early_exit_draft,
+    quantize_llm_params,
+    quantize_voicebox_params,
+)
 
 
 def _check_device(device) -> torch.device:
@@ -58,6 +64,8 @@ class UsdmPipeline:
     # per-stage cap; None = tokenizer.model_max_length within the engine's pages
     max_new_tokens: Optional[int] = None
     _server: Optional[object] = dataclasses.field(default=None, repr=False, compare=False)
+    # respond()'s speculative draft (enable_speculation); None = plain decode
+    _draft: Optional[object] = dataclasses.field(default=None, repr=False, compare=False)
 
     def __post_init__(self):
         self.device = _check_device(self.device)
@@ -114,22 +122,41 @@ class UsdmPipeline:
 
     def make_server(self, ecfg: Optional[EngineConfig] = None, tp: int = 1, draft=None):
         """The continuous-batching serving engine over the LM, on its loop
-        thread (build one PagedDialogPolicy per conversation on top)."""
+        thread (build one PagedDialogPolicy per conversation on top).
+        `draft` enables greedy speculative decoding: `(params, cfg)` of a
+        separate small LM, `"early-exit:N"` for a self-draft of the target's
+        first N layers (sharing its tensors), or `"ngram"` for draft-free
+        prompt-lookup proposals.  The tokens are plain greedy's either way."""
         from usdm_tpu_torch.engine.paged import PagedEngine
         from usdm_tpu_torch.engine.server import EngineServer
 
         if tp != 1:
             raise NotImplementedError("tensor-parallel serving is not ported to usdm_tpu_torch")
+        if isinstance(draft, str) and draft != "ngram":
+            if not draft.startswith("early-exit:"):
+                raise ValueError(f"unknown draft spec {draft!r}")
+            n = int(draft.split(":", 1)[1])
+            draft = (early_exit_draft(self.lm_params, n), self.lm_cfg.replace(num_layers=n))
         return EngineServer(PagedEngine(self.lm_params, self.lm_cfg, ecfg or EngineConfig(),
                                         device=self.device, draft=draft))
 
+    def enable_speculation(self, draft) -> None:
+        """Attach a speculative-decoding draft to the respond() path:
+        `(params, cfg)`, `"early-exit:N"` or `"ngram"` (draft-free, the
+        stage-C lever: unit streams repeat).  The tokens do not change; only
+        speed depends on the draft's agreement.  Closes the lazy dialog
+        server, so the next turn builds one with the draft."""
+        self.close()
+        self._draft = draft
+
     def _dialog_server(self):
         """Lazy single-caller engine of respond(): one slot, 16-token decode
-        chains, 64-token pages (stage B/C prefix reuse), 512-token chunks."""
+        chains, 64-token pages (stage B/C prefix reuse), 512-token chunks,
+        and the draft of enable_speculation, if any."""
         if self._server is None:
             self._server = self.make_server(EngineConfig(
                 max_batch_size=1, decode_horizon=16, page_size=64, max_pages_per_seq=128,
-                prefill_chunk=512))
+                prefill_chunk=512), draft=self._draft)
         return self._server
 
     def close(self) -> None:
