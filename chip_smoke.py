@@ -20,14 +20,30 @@ Phases:
      beside torch._int_mm over rows padded to 17; K3 at the six BigVGAN
      stage shapes (f32 and bf16; its error against the f64 plain version
      logged; f32 without log-scale held to 1e-4 of each channel's scale
-     against it), then a turn's 109 launches from one graph;
+     against it), then a turn's 109 launches from one graph; the new paths'
+     shapes: K2 bf16 at the dense prefill_extend (256 queries at offset 320
+     against an 8,192-slot cache valid to 576), K2 f32 at the prompted
+     estimator (B 2, T+1 705 and 1857, ALiBi), K4's forward at [2, 1857,
+     1024] f32;
   4. slice: a full-width random UsdmPipeline (Mistral-7B bf16, XLS-R 1B,
      Voicebox, BigVGAN) runs two greedy respond() turns with stage budgets
      pinned at 48/32/256 tokens; every kernel of that path must have
      launched, every decode link must have been one CUDA-graph replay
      launching K1 once per layer, and chain run-ahead must have engaged;
      then one more turn on an engine with eager decode links
-     (eager_links=True) must give the graphed turn's tokens;
+     (eager_links=True) must give the graphed turn's tokens.  Before them,
+     on the small pipelines: (e) prepare_reference and a reference
+     synthesis (shared z and prompt noises, 1e-4 of the peak) and a dense
+     turn (use_paged=False: the CPU's and the paged turn's tokens) on the
+     card against the CPU.  After them: (f) a turn with a 3 s speaker
+     reference (the plain turn's dialog tokens, the estimator at the
+     extended frames, audio for the agent's units alone); (g) a synthesis
+     with a 16 s reference (K4's forward launches; the mel within 1e-3 of
+     its peak of the call with fused_ln off); (h) two dense turns
+     (respond(use_paged=False), budgets 48/32/256): every decode step one
+     graph replay, K2's bf16 route in prefill, K1 never, tokens equal to the
+     paged turn's or each divergence a tie-flip; then the same dialog with
+     eager steps must give the same tokens;
   5. int8 serving: a small W8A8 turn on the card against the CPU plain path
      (identical tokens); then (A) a full-width W8A8 turn,
      UsdmPipeline.full_random(lm_int8=True, vb_int8=True).respond(), budgets
@@ -46,7 +62,9 @@ Phases:
      have launched, every decode link of (A), (B) and (C) must have been
      one graph replay launching K1 once per layer and K6 224 times, and
      every (eager) mixed link K1 once per layer; (A) has its eager-link
-     turn as in phase 4;
+     turn as in phase 4, and one dense turn (use_paged=False) whose every
+     decode step is one graph replay launching K6 224 times, its tokens
+     the W8A8 paged turn's or each divergence a tie-flip;
   6. train: one CFM train step of a small Voicebox on the card against the
      CPU, then the trainer CLI (usdm_tpu_torch.cli.train_voicebox) runs ~10
      full-width steps (VoiceboxConfig(), batch 8 of 16 s crops, bf16 over f32
@@ -531,6 +549,23 @@ def kernel_checks(dev) -> dict:
     args_c = (q, k, v, seg, seg, pos, pos, False)
     errs32.append(check_flash("xlsr f32 T=2100 d=80", args_c, 1e-4))
     f32["c"] = f32_case(dev, args_c, None, None, 4 * 80 * 16 * t * t)
+    # (d) the prompted estimator: a speaker reference's frames before a
+    # 256-unit answer's, B 2 (CFG), T+1 705 (a 3 s reference) and 1857 (16 s),
+    # 16 heads d 64, ALiBi, non-causal, both rows of one length
+    for t1, n_valid in ((705, 700), (1857, 1820)):
+        q, k, v = (randn(2, t1, 16, 64) for _ in range(3))
+        pos = torch.arange(t1, device=dev, dtype=torch.int32)[None].expand(2, t1).contiguous()
+        seg = torch.where(pos < n_valid, 0, -1).to(torch.int32)
+        args_d = (q, k, v, seg, seg, pos, pos, False, None, 64**-0.5, True)
+        errs32.append(check_flash(f"prompted voicebox f32 B=2 T+1={t1} ALiBi", args_d, 1e-4))
+        valid_d = attn_mask(seg, seg, pos, pos, False, None)
+        dist = (pos[:, None, :, None] - pos[:, None, None, :]).abs().float()
+        bias_d = -slopes * dist * (pos[:, None, None, :] != 0)
+        bias_d = torch.where((seg >= 0)[:, None, None, :], bias_d,
+                             torch.finfo(torch.float32).min)
+        f32[f"d T+1={t1}"] = f32_case(dev, args_d, bias_d, (seg >= 0)[:, :, None, None],
+                                      4 * 64 * 16 * int(valid_d.sum()))
+        del dist, bias_d, q, k, v
     for key, r in f32.items():
         log(f"  K2 ({key}) f32, 3xTF32 route: kernel {r['ms']:.4f} ms eager, "
             f"{r['graph_ms']:.4f} ms from a CUDA graph ({r['tflops']:.1f} TFLOP/s of f32 "
@@ -548,6 +583,7 @@ def kernel_checks(dev) -> dict:
     km, pm = timings["a"]
     log(f"  K2 time (a): kernel {km:.4f} ms, plain {pm:.4f} ms")
     errs += [k2_mixed_case(dev, randn, *case) for case in MIXED_CASES]
+    errs.append(k2_dense_extend_case(dev, randn))
     results["flash_attention"] = {"max_abs_err": max(errs), "ms": km, "plain_ms": pm,
                                   **k2_bound, "library_ms": k2_lib, "case": "prefill (a) bf16"}
     rb = f32["b"]
@@ -621,6 +657,80 @@ def k2_mixed_case(dev, randn, starts, valid, s_ctx) -> float:
         f"{int(mask.sum())} of {npf * c * s_ctx} (query, key) pairs pass the masks (the "
         f"wrapper does not report its skipped tiles)")
     return err
+
+
+def k2_dense_extend_case(dev, randn) -> float:
+    """K2 (bf16) where the dense prefill_extend calls it: B 1, 256 queries at
+    offset 320 against an 8,192-slot cache whose keys from 576 on are
+    padding (segment -1), window 4096, GQA 32/8, d 128; the tiles must be
+    skipped by position (usdm_tpu's Pallas kernel skips by flat index, which
+    is wrong at this shape).  Against the plain version with round_operands
+    at the bf16 bound; logs eager, CUDA-graph, plain and SDPA (boolean mask)
+    ms and the bound, counted on the keys the masks pass -> the error."""
+    import torch
+
+    from usdm_tpu_torch.ops import flash_attention as FL
+
+    t, s, off = 256, 8192, 320
+    q = randn(1, t, 32, 128, dtype=torch.bfloat16)
+    k, v = (randn(1, s, 8, 128, dtype=torch.bfloat16) for _ in range(2))
+    qpos = (off + torch.arange(t, device=dev, dtype=torch.int32))[None]
+    qseg = torch.zeros(1, t, dtype=torch.int32, device=dev)
+    kpos = torch.arange(s, device=dev, dtype=torch.int32)[None]
+    kseg = torch.where(kpos < off + t, 0, -1).to(torch.int32)
+    args = (q, k, v, qseg, kseg, qpos, kpos, True, 4096, None, False)
+    got = FL.flash_attention(*args)
+    want, _ = FL.flash_attention_reference(*args, round_operands=True)
+    case = "dense prefill_extend B=1 T=256 at offset 320, S=8192, keys valid to 576"
+    err = check("K2", case, got, want, bf16_bound(want))
+    mask = attn_mask(qseg, kseg, qpos, kpos, True, 4096)
+    # the bytes the function needs: q and out, the 576 valid K and V rows
+    bound = least_time(2 * nbytes(q) + 2 * (off + t) * 8 * 128 * k.element_size()
+                       + nbytes(qseg, kseg, qpos, kpos), 4 * 128 * 32 * int(mask.sum()), "bf16")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask[:, None], enable_gqa=True)
+
+    ms = cuda_ms(lambda: FL.flash_attention(*args))
+    g_ms = graph_ms(lambda: [FL.flash_attention(*args) for _ in range(10)], dev) / 10
+    plain = cuda_ms(lambda: FL.flash_attention_reference(*args))
+    lib = cuda_ms(sdpa)
+    lib_g = graph_ms(lambda: [sdpa() for _ in range(10)], dev) / 10
+    log(f"  K2 [{case}]: kernel {ms:.4f} ms eager, {g_ms:.4f} ms from a CUDA graph; plain "
+        f"{plain:.4f} ms; scaled_dot_product_attention with the boolean mask {lib:.4f} ms, "
+        f"{lib_g:.4f} ms from a graph; bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+    return err
+
+
+def k4_prompt_case(dev) -> float:
+    """K4's forward where a 16 s speaker reference puts the estimator over
+    its gate: [2, 1857, 1024] f32, rows valid to 1820 (int32 lengths, as
+    the estimator passes them), post_mask off and on, against the plain
+    version at the f32 bound 1e-5; eager, CUDA-graph and plain ms and the
+    bound -> the error."""
+    import torch
+
+    from usdm_tpu_torch.ops import fused_ln as LN
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    x, r = (torch.randn(2, 1857, 1024, generator=gen, device=dev) for _ in range(2))
+    w = torch.randn(1024, generator=gen, device=dev) * 0.1 + 1.0
+    b = torch.randn(1024, generator=gen, device=dev) * 0.1
+    lens = torch.tensor([1820, 1820], dtype=torch.int32, device=dev)
+    errs = [check("K4", f"[2, 1857, 1024] f32 post_mask={post}",
+                  LN.add_mask_ln(x, r, lens, w, b, post),
+                  LN.add_mask_ln_reference(x, r, lens, w, b, post), 1e-5)
+            for post in (False, True)]
+    ms = cuda_ms(lambda: LN.add_mask_ln(x, r, lens, w, b, True))
+    g_ms = graph_ms(lambda: [LN.add_mask_ln(x, r, lens, w, b, True) for _ in range(10)], dev) / 10
+    plain = cuda_ms(lambda: LN.add_mask_ln_reference(x, r, lens, w, b, True))
+    bound = least_time(3 * nbytes(x) + nbytes(w, b, lens), 8 * x.numel(), "f32")
+    log(f"  K4 time [2, 1857, 1024] f32 post_mask (the 16 s prompted estimator): kernel "
+        f"{ms:.4f} ms eager, {g_ms:.4f} ms from a CUDA graph; plain {plain:.4f} ms; bound "
+        f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+    return max(errs)
 
 
 def k3_checks(dev, randn) -> dict:
@@ -1300,7 +1410,7 @@ def small_turn_check(dev, wav_in: str) -> None:
         decoder=dataclasses.replace(cpu.decoder,
                                     voicebox_params=_to(cpu.decoder.voicebox_params, dev),
                                     vocoder_params=_to(cpu.decoder.vocoder_params, dev)),
-        device=dev, _server=None)
+        device=dev, _server=None, _dense_loops={})
     counters = (paged_decode_attention, flash_attention, fused_activation1d)
     results = []
     for pipe in (cpu, card):
@@ -1332,6 +1442,71 @@ def small_turn_check(dev, wav_in: str) -> None:
         f"(bound 1e-3 of the peak)")
     if got_audio.shape != want_audio.shape or not peak > 0 or err > 1e-3 * peak:
         raise AssertionError(f"small synthesis differs on the card: {err} (peak {peak})")
+    small_reference_and_dense_checks(dev, cpu, card, wav_in, want, units)
+
+
+def small_reference_and_dense_checks(dev, cpu, card, wav_in: str, paged: dict,
+                                     units: list) -> None:
+    """Phase 4 (e), on the small f32 pipelines: prepare_reference on the card
+    against the CPU (the same units, the mel within 1e-4), the synthesis of
+    `units` with that reference from one shared z and prompt_noises within
+    1e-4 of the waveform's peak; then a dense turn (respond's use_paged=False
+    policy) on the CPU and on the card: the same tokens as each other and as
+    the paged turn `paged`, every dense decode step on the card one graph
+    replay, and K1 never launched."""
+    import dataclasses
+
+    import torch
+
+    from usdm_tpu_torch.audio.wav import write_wav
+    from usdm_tpu_torch.engine.synthesis import prepare_reference
+    from usdm_tpu_torch.ops.paged_attention import paged_decode_attention
+
+    ref_path = os.path.join(os.path.dirname(wav_in), "small_ref.wav")
+    write_wav(ref_path, (np.random.default_rng(4).standard_normal(3 * 22050) * 0.2)
+              .astype(np.float32), 22050)
+    mc = cpu.decoder.mel_cfg
+    want_u, want_m = prepare_reference(ref_path, cpu.xlsr_params, cpu.xlsr_cfg, mc, "cpu")
+    got_u, got_m = prepare_reference(ref_path, card.xlsr_params, card.xlsr_cfg, mc, dev)
+    mel_err = max_err(got_m.cpu(), want_m)
+    log(f"small prepare_reference, card vs CPU: {len(want_u)} units "
+        f"{'equal' if np.array_equal(got_u, want_u) else 'DIFFER'}, mel max_abs_err "
+        f"{mel_err:.3e} (bound 1e-4)")
+    if not np.array_equal(got_u, want_u) or mel_err > 1e-4:
+        raise AssertionError("prepare_reference differs on the card")
+    frames = -(-(len(want_u) + len(units) * 441 // 256) // 64) * 64
+    g = torch.Generator().manual_seed(5)
+    z = torch.randn(1, 80, frames, generator=g)
+    pn = torch.randn(3, 2, 1, 80, frames, generator=g)  # 6 timesteps: 3 Heun steps
+    want_audio = cpu.decoder.synthesize(units, reference=(want_u, want_m), z=z,
+                                        prompt_noises=pn, n_timesteps=6)
+    got_audio = card.decoder.synthesize(units, reference=(want_u, want_m.to(dev)),
+                                        z=z.to(dev), prompt_noises=pn.to(dev), n_timesteps=6)
+    peak = float(np.abs(want_audio).max())
+    err = float(np.abs(got_audio - want_audio).max())
+    log(f"small reference synthesis, card vs CPU: {len(want_u)} reference frames, audio "
+        f"max_abs_err={err:.3e}, peak {peak:.3e} (bound 1e-4 of the peak)")
+    if got_audio.shape != want_audio.shape or not peak > 0 or err > 1e-4 * peak:
+        raise AssertionError(f"small reference synthesis differs on the card: {err}")
+    results = []
+    for pipe in (cpu, card):
+        paged_decode_attention.launches = 0
+        try:
+            res = pipe.respond_with_policy(pipe.dense_policy(seed=2), wav_in, n_timesteps=6,
+                                           seed=2)
+            loops = list(pipe._dense_loops.values())
+            steps = sum(lp.steps for lp in loops)
+            replays = sum(lp.replays for lp in loops)
+        finally:
+            pipe.close()
+        results.append(dataclasses.asdict(res))
+    log(f"small dense turn: card vs CPU tokens {'equal' if results[1] == results[0] else 'DIFFER'},"
+        f" vs the paged turn {'equal' if results[1] == paged else 'DIFFER'}; card: {steps} "
+        f"dense decode steps, {replays} graph replays, K1 {paged_decode_attention.launches}")
+    if results[1] != results[0] or results[1] != paged:
+        raise AssertionError(f"the small dense turn differs: {results} vs paged {paged}")
+    if steps <= 0 or replays != steps or paged_decode_attention.launches:
+        raise AssertionError("the small dense turn's steps were not all graph replays, or K1 ran")
 
 
 BUDGETS = {"unit2text": 48, "text2text": 32, "text2unit": 256}
@@ -1435,6 +1610,272 @@ def _eager_link_turn(pipe, wav_in: str, want: dict, label: str) -> dict:
         raise AssertionError(f"{label}: the eager-link turn differs from the graphed turn: "
                              f"{got} vs {want}")
     return info
+
+
+def _dense_policy(pipe, seed: int, stages: dict, eager: bool = False):
+    """respond(use_paged=False)'s policy over the pipeline's dense loops,
+    the stage budgets pinned at 48/32/256 tokens; it records per stage the
+    prompt's ids and the stage mask in `stages`."""
+    from usdm_tpu_torch.engine.dialog import DialogPolicy
+    from usdm_tpu_torch.ops.sampling import stage_allow_mask
+
+    class BudgetedDense(DialogPolicy):
+        def _run_stage(self, stage, prompt, max_new=None):
+            stages[stage] = {"prompt": self.tok.encode(prompt),
+                             "allow": stage_allow_mask(stage, self.ts)}
+            return super()._run_stage(stage, prompt, max_new or BUDGETS[stage])
+
+    return BudgetedDense(pipe.lm_params, pipe.lm_cfg, pipe.tokenizer, seed=seed,
+                         loops=pipe._dense_loops, eager=eager)
+
+
+def dense_turns(pipe, wav_in: str, want: dict, plain: dict, label: str, w8a8: bool,
+                graphed_turns: int = 2, eager_twin: bool = True) -> dict:
+    """Phase 4 (h) / phase 5: full-width respond(use_paged=False) turns of
+    `pipe` (budgets 48/32/256), `graphed_turns` of them (the first captures
+    the three stages' graphs), then with `eager_twin` the same dialog with
+    eager steps.  Every dense decode step must be one graph replay, K1 must
+    not launch, K2's bf16 route must (prefill), W8A8 steps launch K6 7 times
+    a layer; tokens: the graphed turns equal each other and the eager run,
+    and against the paged turn `want` are equal or each divergence a
+    tie-flip (counted).  -> dialog_s (beside the paged turn's, `plain`),
+    wall ms a decode step (DenseLoop.run's wall over its steps), a step's
+    device ms replayed from a graph at the turn's cache, peak memory."""
+    import dataclasses
+
+    import torch
+
+    from usdm_tpu_torch.engine import generate as G
+    from usdm_tpu_torch.models import mistral as M
+    from usdm_tpu_torch.ops import attention as A
+
+    real_run = G.DenseLoop.run
+    run_s = []
+
+    def timed_run(self, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_run(self, *args, **kw)
+        torch.cuda.synchronize()
+        run_s.append(time.perf_counter() - t0)
+        return out
+
+    def loop_totals(eager):
+        loops = [lp for (_, _, e), lp in pipe._dense_loops.items() if e == eager]
+        return sum(lp.steps for lp in loops), sum(lp.replays for lp in loops)
+
+    turns, first = [], None
+    G.DenseLoop.run = timed_run
+    try:
+        for turn in range(graphed_turns + (1 if eager_twin else 0)):
+            eager = turn == graphed_turns
+            stages: dict = {}
+            steps0, replays0 = loop_totals(eager)
+            reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            run_s.clear()
+            trace = {}
+            policy = _dense_policy(pipe, 1, stages, eager)
+            t0 = time.perf_counter()
+            if eager:  # the dialog alone, on the graphed turns' user units
+                res = policy.respond_to_units(first["user_units"])
+                trace = {"user_units": first["user_units"]}
+            else:
+                res = pipe.respond_with_policy(policy, wav_in, n_timesteps=50, seed=1,
+                                               trace=trace)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = launch_counts()
+            mma = mma_counts()["flash_attention"]
+            steps1, replays1 = loop_totals(eager)
+            steps, replays = steps1 - steps0, replays1 - replays0
+            got = {**dataclasses.asdict(res), "user_units": list(trace["user_units"])}
+            info = {"run": "eager" if eager else f"graphed {turn}", "wall_s": wall,
+                    "dialog_s": wall if eager else trace["dialog_s"],
+                    "paged_dialog_s": plain["dialog_s"], "decode_steps": steps,
+                    "graph_replays": replays,
+                    "decode_ms_per_step": 1e3 * sum(run_s) / max(steps, 1),
+                    "stage_tokens": {k: len(v) for k, v in res.stage_tokens.items()},
+                    "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+                    "launches": counts, "flash_attention_mma_launches": mma}
+            if eager:
+                info["tokens_vs_graphed"] = "equal" if got == first else "DIFFER"
+                if got != first or replays:
+                    raise AssertionError(f"{label}, dense: the eager steps differ from the "
+                                         f"graphed turn's")
+            else:
+                if got["user_units"] != want["user_units"]:
+                    raise AssertionError(f"{label}, dense: the user units differ")
+                verdicts = _stage_verdicts(pipe, want, got, stages)
+                info["divergences"] = sum(v.get("divergences", 0) for v in verdicts.values())
+                info["verdicts"] = verdicts
+                info["synth_s"] = trace["synth_s"]
+                if any(v.get("divergences") and not v["tie_flip"] for v in verdicts.values()):
+                    raise AssertionError(f"{label}, dense: a divergence from the paged turn is "
+                                         f"not a tie-flip: {verdicts}")
+                if first is not None and got != first:
+                    raise AssertionError(f"{label}, dense: two graphed turns differ")
+                first = first or got
+                if steps <= 0 or replays != steps:
+                    raise AssertionError(f"{label}, dense: {replays} graph replays for {steps} "
+                                         f"decode steps")
+                if mma <= 0:
+                    raise AssertionError(f"{label}, dense: K2's bf16 route never launched")
+            if counts["paged_decode_attention"] or counts["paged_decode_attention_int8"]:
+                raise AssertionError(f"{label}, dense: K1 launched")
+            if counts["stream_qmv"] != (7 * pipe.lm_cfg.num_layers * steps if w8a8 else 0):
+                raise AssertionError(f"{label}, dense: K6 launched {counts['stream_qmv']} times "
+                                     f"over {steps} decode steps")
+            log(f"{label}, dense (use_paged=False): " + json.dumps(info))
+            turns.append(info)
+    finally:
+        G.DenseLoop.run = real_run
+    # a step's device time: decode_step at the turn's 8,192-slot cache,
+    # replayed from a graph (it rewrites one slot past the valid prefix)
+    loop = next(lp for (_, _, e), lp in pipe._dense_loops.items() if not e)
+    cfg, cache = pipe.lm_cfg, loop.cache
+    step_ms = graph_ms(lambda: M.decode_step(pipe.lm_params, cfg, loop.last, cache),
+                       pipe.device)
+    # its attention alone: decode_attention over the 32 layers' whole
+    # caches, against reading every slot's K and V once, and the valid ones
+    s = cache.k.shape[2]
+    pos = cache.length
+    slot_pos = pos[:, None] - (pos[:, None] - torch.arange(s, device=pipe.device)) % s
+    q = torch.randn(1, 1, cfg.num_heads, cfg.head_dim, device=pipe.device,
+                    dtype=cache.k.dtype)
+    attn_ms = graph_ms(lambda: [A.decode_attention(q, cache.k[li], cache.v[li], pos + 1,
+                                                   cfg.sliding_window, kv_positions=slot_pos)
+                                for li in range(cfg.num_layers)], pipe.device)
+    valid = int(pos.max()) + 1
+    full = least_time(2 * nbytes(cache.k), 0, "bf16")["bound_ms"]
+    prefix = least_time(2 * nbytes(cache.k) * valid / s, 0, "bf16")["bound_ms"]
+    log(f"{label}, dense: decode_step device time from a graph at S={s}: {step_ms:.4f} ms; its "
+        f"attention (decode_attention, {cfg.num_layers} layers) {attn_ms:.4f} ms, against "
+        f"{full:.4f} ms to read every slot's K and V once and {prefix:.4f} ms for the {valid} "
+        f"valid ones")
+    return {"turns": turns, "step_device_ms": step_ms, "attention_device_ms": attn_ms,
+            "attention_all_slots_bound_ms": full, "attention_valid_bound_ms": prefix,
+            "cache_len": s}
+
+
+def _recording_generate():
+    """Wrap VB.generate (not a kernel wrapper) so a run records each call's
+    frame count and mel -> (the list of records, the wrapper, a restore
+    function); setting the wrapper's `fused_ln` overrides the estimator's."""
+    from usdm_tpu_torch.models import voicebox as VB
+
+    real = VB.generate
+    calls = []
+
+    def recording(*args, **kw):
+        if getattr(recording, "fused_ln", None):
+            kw["fused_ln"] = recording.fused_ln
+        mel = real(*args, **kw)
+        calls.append({"frames": args[2].shape[1], "mel": mel})
+        return mel
+
+    VB.generate = recording
+
+    def restore():
+        VB.generate = real
+
+    return calls, recording, restore
+
+
+def reference_runs(pipe, tmp: str, wav_in: str, want: dict, plain: dict) -> dict:
+    """Phase 4 (f) and (g).  (f) a full-width bf16 turn with a 3 s noise
+    reference written at 22.05 kHz (budgets 48/32/256): the plain turn's
+    dialog tokens (`want`), the estimator at the reference's and answer's
+    bucketed frames, K2's f32 route and K3's 109 launches, K4 not (its gate
+    B·(T+1) >= 3072 is not met), audio for the agent's units alone; ref_s
+    and synth_s beside the plain turn's (`plain`).  (g) one synthesize of
+    those agent units with a 16 s reference: K4's forward launches (counted)
+    and the mel stays within 1e-3 of its peak of the same call with
+    fused_ln off."""
+    import dataclasses
+
+    import torch
+
+    from usdm_tpu_torch.audio.wav import write_wav
+    from usdm_tpu_torch.engine.synthesis import prepare_reference
+    from usdm_tpu_torch.ops.fused_ln import add_mask_ln
+
+    mc = pipe.decoder.mel_cfg
+    out = {}
+    calls, recording, restore = _recording_generate()
+    try:
+        ref3 = os.path.join(tmp, "ref3.wav")
+        write_wav(ref3, (np.random.default_rng(8).standard_normal(3 * 22050) * 0.2)
+                  .astype(np.float32), 22050)
+        wav_out = os.path.join(tmp, "agent_ref.wav")
+        reset_counts()
+        trace = {}
+        t0 = time.perf_counter()
+        res = pipe.respond_with_policy(_paged_policy(pipe, seed=1), wav_in, wav_out, ref3,
+                                       n_timesteps=50, seed=1, trace=trace)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        audio = trace["audio"]
+        n_agent = len(res.agent_units) * 441 // 256
+        frames = calls[-1]["frames"]
+        info = {"wall_s": wall, "dialog_s": trace["dialog_s"], "ref_s": trace["ref_s"],
+                "synth_s": trace["synth_s"], "plain_synth_s": plain["synth_s"],
+                "plain_dialog_s": plain["dialog_s"], "estimator_t_plus_1": frames + 1,
+                "agent_frames": n_agent, "audio_s": len(audio) / mc.sampling_rate,
+                "launches": counts}
+        log("(f) bf16 turn with a 3 s reference: " + json.dumps(info))
+        got = {**dataclasses.asdict(res), "user_units": list(trace["user_units"])}
+        if got != want:
+            raise AssertionError("(f) the reference changed the dialog tokens")
+        if not frames > n_agent + 64 or counts["flash_attention_f32"] <= 0:
+            raise AssertionError(f"(f) the estimator ran at {frames} frames for {n_agent} agent "
+                                 f"frames, K2 f32 {counts['flash_attention_f32']} launches")
+        if counts["fused_activation1d"] != K3_PER_TURN or counts["add_mask_ln"]:
+            raise AssertionError(f"(f) K3 {counts['fused_activation1d']}, K4 "
+                                 f"{counts['add_mask_ln']} launches")
+        if len(audio) != n_agent * 256 or not np.isfinite(audio).all():
+            raise AssertionError(f"(f) audio of {len(audio)} samples for {n_agent} agent frames")
+        out["f"] = info
+
+        ref16 = os.path.join(tmp, "ref16.wav")
+        write_wav(ref16, (np.random.default_rng(9).standard_normal(16 * 22050) * 0.2)
+                  .astype(np.float32), 22050)
+        t0 = time.perf_counter()
+        reference = prepare_reference(ref16, pipe.xlsr_params, pipe.xlsr_cfg, mc, pipe.device)
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t0
+        n_ref = len(reference[0])
+        frames = -(-(n_ref + n_agent) // 64) * 64
+        g = torch.Generator(device=pipe.device).manual_seed(7)
+        z = torch.randn(1, mc.num_mels, frames, generator=g, device=pipe.device)
+        pn = torch.randn(25, 2, 1, mc.num_mels, frames, generator=g, device=pipe.device)
+        runs = []
+        for fused in (None, "plain"):
+            recording.fused_ln = fused
+            reset_counts()
+            t0 = time.perf_counter()
+            wav = pipe.decoder.synthesize(res.agent_units, reference=reference, z=z,
+                                          prompt_noises=pn, n_timesteps=50)
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0, add_mask_ln.launches, calls[-1]["mel"], wav))
+        (s_fused, k4, mel, wav), (s_plain, k4_off, mel_off, wav_off) = runs
+        peak = mel_off.abs().max().item()
+        err = max_err(mel, mel_off)
+        info = {"reference_units": n_ref, "estimator_t_plus_1": frames + 1,
+                "b_t1": 2 * (frames + 1), "ref_s": ref_s, "synth_s": s_fused,
+                "synth_s_fused_ln_off": s_plain, "k4_launches": k4,
+                "k4_launches_fused_ln_off": k4_off, "mel_max_abs_err": err, "mel_peak": peak,
+                "audio_max_abs_err": float(np.abs(wav - wav_off).max())}
+        log("(g) synthesize with a 16 s reference, fused_ln auto vs off: " + json.dumps(info))
+        if k4 <= 0 or k4 % 49 or k4_off:  # 49 estimator calls: 25 Heun steps
+            raise AssertionError(f"(g) K4 launched {k4} times (fused_ln off: {k4_off})")
+        if err > 1e-3 * peak or not np.isfinite(wav).all():
+            raise AssertionError(f"(g) the mel with K4 is {err} from the plain one (peak {peak})")
+        out["g"] = info
+    finally:
+        restore()
+    return out
 
 
 def _device_busy(prof, wall: float) -> dict:
@@ -1545,11 +1986,17 @@ def slice_run(dev, profile: bool, tmp: str, out_dir: str) -> dict:
         t0 = time.perf_counter()
         spec = spec_turn(pipe, wav_in, graphed, "bf16 turn", False)
         log(f"phase time: speculation, bf16 turn {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        ref = reference_runs(pipe, tmp, wav_in, graphed, turns[-1])
+        log(f"phase time: speaker reference (f, g) {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        dense = dense_turns(pipe, wav_in, graphed, turns[-1], "bf16 turn", False)
+        log(f"phase time: dense turns (h) {time.perf_counter() - t0:.1f} s")
     finally:
         pipe.close()
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
-    return {"turns": turns, "eager": eager, "spec": spec}
+    return {"turns": turns, "eager": eager, "spec": spec, "ref": ref, "dense": dense}
 
 
 
@@ -1936,6 +2383,10 @@ def int8_run(dev, tmp: str, wav_in: str, profile: bool, out_dir: str) -> dict:
         t0 = time.perf_counter()
         out["A_spec"] = spec_turn(pipe, wav_in, graphed, "(A) W8A8 turn", True)
         log(f"phase time: speculation, W8A8 turn {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        out["A_dense"] = dense_turns(pipe, wav_in, graphed, out["A"], "(A) W8A8 turn", True,
+                                     graphed_turns=1, eager_twin=False)
+        log(f"phase time: dense W8A8 turn {time.perf_counter() - t0:.1f} s")
 
         # (B) eight clients over the same W8A8 7B with int8 KV pages
         n_clients, per_client, prompt_len, max_new = 8, 2, 384, 128
@@ -2429,8 +2880,6 @@ def spec_turn(pipe, wav_in: str, want: dict, label: str, w8a8: bool) -> dict:
 
     import torch
 
-    from usdm_tpu_torch.scripts.bench_ngram import classify_divergence
-
     pipe.enable_speculation("ngram")
     stages: dict = {}
     try:
@@ -2450,16 +2899,7 @@ def spec_turn(pipe, wav_in: str, want: dict, label: str, w8a8: bool) -> dict:
     got = dataclasses.asdict(res)
     if list(trace["user_units"]) != want["user_units"]:
         raise AssertionError(f"{label}: the user units differ from the plain turn's")
-    verdicts, compared = {}, True
-    for stage, toks in want["stage_tokens"].items():
-        if not compared:
-            verdicts[stage] = {"compared": False}
-            continue
-        rec = stages[stage]
-        verdicts[stage] = classify_divergence(pipe.lm_params, pipe.lm_cfg, rec["prompt"], toks,
-                                              got["stage_tokens"][stage], rec["allow"],
-                                              pipe.device)
-        compared = not verdicts[stage]["divergences"]
+    verdicts = _stage_verdicts(pipe, want, got, stages)
     n_div = sum(v.get("divergences", 0) for v in verdicts.values())
     rounds = sum(r["rounds"] for r in stages.values())
     info = {"wall_s": wall, "dialog_s": trace["dialog_s"], "synth_s": trace["synth_s"],
@@ -2479,6 +2919,27 @@ def spec_turn(pipe, wav_in: str, want: dict, label: str, w8a8: bool) -> dict:
     if any(v.get("divergences") and not v["tie_flip"] for v in verdicts.values()):
         raise AssertionError(f"{label}: a divergence is not a tie-flip: {verdicts}")
     return info
+
+
+def _stage_verdicts(pipe, want: dict, got: dict, stages: dict) -> dict:
+    """Stage by stage, `got`'s tokens against `want`'s (two DialogResults as
+    dicts) by bench_ngram's rule: equal, or the first divergence judged a
+    tie-flip or not from the dense forward's logits over the prompt
+    `stages[stage]["prompt"]` (a later stage then reads another prompt and
+    is not compared)."""
+    from usdm_tpu_torch.scripts.bench_ngram import classify_divergence
+
+    verdicts, compared = {}, True
+    for stage, toks in want["stage_tokens"].items():
+        if not compared:
+            verdicts[stage] = {"compared": False}
+            continue
+        rec = stages[stage]
+        verdicts[stage] = classify_divergence(pipe.lm_params, pipe.lm_cfg, rec["prompt"], toks,
+                                              got["stage_tokens"][stage], rec["allow"],
+                                              pipe.device)
+        compared = not verdicts[stage]["divergences"]
+    return verdicts
 
 
 # tiny engines of phase 9 (a): (dtype, draft, prompts, kv pool)
@@ -3071,6 +3532,8 @@ def main() -> int:
     kres = kernel_checks(dev)
     kres.update(train_kernel_checks(dev))
     kres.update(int8_kernel_checks(dev))
+    k4_prompt_err = k4_prompt_case(dev)
+    kres["add_mask_ln"]["max_abs_err"] = max(kres["add_mask_ln"]["max_abs_err"], k4_prompt_err)
     train_err = kres.pop("flash_attention_train_err")
     for key, err in zip(("flash_attention", "flash_attention_f32"), train_err):
         kres[key]["max_abs_err"] = max(kres[key]["max_abs_err"], err)
@@ -3117,6 +3580,14 @@ def main() -> int:
                 "paged_decode_attention_int8": b["paged_decode_attention_int8"],
                 **{k: probes[k] for k in ("mv_io_bf16", "mv_io_i8", "qmv4", "stream_probe")}}
     launches["paged_decode_attention"] += spec_k1
+    # the speaker reference's turn (f) and 16 s synthesis (g), and the dense
+    # turns (h) and phase 5's: each path's counts, reset just before it
+    ref_f, dense_h = bf16_run["ref"]["f"]["launches"], bf16_run["dense"]["turns"][-2]
+    launches["flash_attention"] += dense_h["flash_attention_mma_launches"]
+    launches["flash_attention_f32"] += ref_f["flash_attention_f32"]
+    launches["fused_activation1d"] += ref_f["fused_activation1d"]
+    launches["add_mask_ln"] += bf16_run["ref"]["g"]["k4_launches"]
+    launches["stream_qmv"] += int8["A_dense"]["turns"][-1]["launches"]["stream_qmv"]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", **KERNELS[k], "launches": launches[k],

@@ -1,7 +1,9 @@
 """K1-K6 and X1-X3 CUDA kernels against their plain PyTorch versions, on the card
-(K1 also at forced split counts and from a CUDA graph; K2 on both routes and
-at a mixed link's chunk rows); the engine's decode links from CUDA graphs
-against eager links, and its mixed prefill + decode links against the CPU.
+(K1 also at forced split counts and from a CUDA graph; K2 on both routes, at
+a mixed link's chunk rows and at the dense prefill_extend's shape); the
+engine's decode links from CUDA graphs against eager links, and its mixed
+prefill + decode links against the CPU; the dense decode steps from CUDA
+graphs against eager steps; prepare_reference on the card against the CPU.
 
 Marked `cuda`: each test skips without a CUDA device (a CUDA kernel has no
 CPU mode).  Imports no JAX, so it runs where the port runs; there, skip
@@ -1549,3 +1551,125 @@ def test_round_capture_failure_raises(cuda, monkeypatch):
     with pytest.raises(RuntimeError):
         eng.run(_spec_requests(1, True))
     assert eng.spec_rounds == 0
+
+
+# ------------------------------------------ the dense dialog path on the card
+def _dense_lm(cuda, kind):
+    """A tiny LM on the card (head_dim 32): f32, bf16, or bf16 with W8A8
+    projections (K6 inside the decode step)."""
+    from usdm_tpu_torch.core.config import MistralConfig
+    from usdm_tpu_torch.models import mistral as LM
+
+    cfg = MistralConfig.tiny().replace(head_dim=32, dtype="float32" if kind == "f32"
+                                       else "bfloat16")
+    params = LM.init_params(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    if kind == "w8a8":
+        Q.quantize_llm_params(params)
+    return params, cfg
+
+
+def _dense_run(cuda, params, cfg, graphs, top_k):
+    """Two ragged rows decoding 40 tokens with an EOS one row reaches ->
+    (tokens, lengths, the loop)."""
+    from usdm_tpu_torch.engine import generate as G
+    from usdm_tpu_torch.models import mistral as LM
+
+    g = torch.Generator(device=cuda).manual_seed(1)
+    ids = torch.randint(3, cfg.vocab_size, (2, 24), generator=g, device=cuda)
+    lens = torch.tensor([24, 11], device=cuda)
+    allow = torch.ones(cfg.vocab_size, dtype=torch.bool, device=cuda)
+    allow[:3] = False
+    loop = G.DenseLoop(params, cfg, LM.KVCache.create(cfg, 2, 80, cuda), graphs=graphs)
+    eos = int(LM.forward(params, cfg, ids[:1, :24])[0, -1, 3:].argmax()) + 3
+    tokens, lengths = G.generate(params, cfg, ids, lens, allow, eos, max_new_tokens=40,
+                                 cache_len=80, loop=loop, top_k=top_k, temperature=1.3,
+                                 generator=torch.Generator(device=cuda).manual_seed(2))
+    return tokens, lengths, loop
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f32", "bf16", "w8a8"])
+@pytest.mark.parametrize("top_k", [1, 8])
+def test_dense_graph_steps_match_eager(cuda, kind, top_k):
+    """Each dense decode step replayed from a CUDA graph equals the eager
+    step bit for bit: tokens, lengths and the whole cache; one replay a
+    step; W8A8 steps launch K6 7 times a layer from the graph."""
+    params, cfg = _dense_lm(cuda, kind)
+    before = SM.stream_qmv.launches
+    got = _dense_run(cuda, params, cfg, True, top_k)
+    k6 = SM.stream_qmv.launches - before
+    want = _dense_run(cuda, params, cfg, False, top_k)
+    (gt, gl, gloop), (wt, wl, wloop) = got, want
+    assert torch.equal(gt, wt) and torch.equal(gl, wl)
+    assert torch.equal(gloop.cache.k, wloop.cache.k) and torch.equal(gloop.cache.v, wloop.cache.v)
+    assert gloop.replays == gloop.steps > 0 and wloop.replays == 0
+    assert gloop.syncs <= -(-gloop.steps // 16) + 1
+    if kind == "w8a8":
+        assert k6 == 7 * cfg.num_layers * gloop.steps
+
+
+@pytest.mark.cuda
+def test_dense_capture_failure_raises(cuda, monkeypatch):
+    """A decode step that synchronizes cannot be captured, and the loop
+    raises instead of stepping eagerly."""
+    from usdm_tpu_torch.models import mistral as LM
+
+    real = LM.decode_step
+
+    def syncing(*args, **kw):
+        out = real(*args, **kw)
+        float(out[0].sum())  # a host sync: not legal under capture
+        return out
+
+    params, cfg = _dense_lm(cuda, "bf16")
+    monkeypatch.setattr(LM, "decode_step", syncing)
+    with pytest.raises(RuntimeError):
+        _dense_run(cuda, params, cfg, True, 1)
+
+
+@pytest.mark.cuda
+def test_flash_at_dense_prefill_extend_shape(cuda):
+    """K2 (bf16) where the dense prefill_extend calls it: B 1, 256 queries at
+    offset 320 against an 8,192-slot cache whose keys past 576 are padding
+    (segment -1), window 4096, GQA 32/8, d 128 -- the shape whose tiles a
+    flat-index skip would get wrong; against the plain version with
+    round_operands at the bf16 bound."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    t, s, off = 256, 8192, 320
+    q = torch.randn(1, t, 32, 128, generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn(1, s, 8, 128, generator=g, device=cuda).bfloat16() for _ in range(2))
+    qpos = (off + torch.arange(t, device=cuda))[None]
+    qseg = torch.zeros(1, t, dtype=torch.int32, device=cuda)
+    kpos = torch.arange(s, device=cuda)[None]
+    kseg = torch.where(kpos < off + t, 0, -1).to(torch.int32)
+    args = (q, k, v, qseg, kseg, qpos, kpos, True, 4096, None, False)
+    got = FL.flash_attention(*args)
+    want, _ = FL.flash_attention_reference(*args, round_operands=True)
+    assert (got.float() - want.float()).abs().max().item() <= _bf16_bound(want)
+
+
+@pytest.mark.cuda
+def test_prepare_reference_on_card_matches_cpu(cuda, tmp_path):
+    """prepare_reference on the card with TF32 off (the cuda fixture): the
+    CPU's units, and its normalized mel within 1e-4 (cuFFT against the
+    CPU's FFT, f32; the filterbank product in f64 on both)."""
+    import numpy as np
+
+    from usdm_tpu_torch.audio.wav import write_wav
+    from usdm_tpu_torch.core.config import MelConfig, XlsrConfig
+    from usdm_tpu_torch.core.tree import tree_map
+    from usdm_tpu_torch.engine.synthesis import prepare_reference
+    from usdm_tpu_torch.models import xlsr as XL
+
+    path = str(tmp_path / "ref.wav")
+    write_wav(path, (np.random.default_rng(0).standard_normal(3 * 22050) * 0.2)
+              .astype(np.float32), 22050)
+    # head dim 16, which K2's f32 route takes: a 3 s clip is past XLS-R's
+    # 2048-frame flash gate at the tiny extractor's 20x stride
+    xcfg = XlsrConfig.tiny().replace(num_clusters=32, hidden_size=64, intermediate_size=128)
+    xp = XL.init_params(xcfg, torch.Generator().manual_seed(0), "cpu")
+    want_u, want_m = prepare_reference(path, xp, xcfg, MelConfig(), device="cpu")
+    xp_card = tree_map(lambda a: a.to(cuda), xp)
+    got_u, got_m = prepare_reference(path, xp_card, xcfg, MelConfig(), device=cuda)
+    assert np.array_equal(got_u, want_u) and got_m.is_cuda
+    assert (got_m.cpu() - want_m).abs().max().item() <= 1e-4

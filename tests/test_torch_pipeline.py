@@ -178,9 +178,10 @@ def test_entry_points_default_to_cuda(pipes):
                                  tpipe.decoder.voicebox_cfg, tpipe.decoder.vocoder_cfg)
 
 
-def test_unported_paths_raise(pipes, user_wav):
+def test_unported_paths_raise(pipes):
+    """What is not ported raises by name: tensor-parallel serving.  Speaker
+    reference prompts and the dense dialog path run
+    (tests/test_torch_reference.py, tests/test_torch_dense.py)."""
     _, tpipe = pipes
-    with pytest.raises(NotImplementedError):
-        tpipe.respond(user_wav, reference_path=user_wav)
-    with pytest.raises(NotImplementedError):
-        tpipe.respond(user_wav, use_paged=False)
+    with pytest.raises(NotImplementedError, match="tensor-parallel"):
+        tpipe.make_server(tp=2)

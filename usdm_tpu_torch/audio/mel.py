@@ -5,6 +5,8 @@ conventions, so frame counts match exactly: reflect-pad by (n_fft - hop) / 2,
 frames at k * hop times a periodic Hann window, `torch.fft.rfft`, magnitude
 sqrt(re^2 + im^2 + 1e-9), the librosa slaney mel basis (numpy, float64 then
 float32), log(clamp(x, 1e-5)).  Runs on whatever device the waveform is on.
+`mel_for_config_bucketed` computes a host wav's mel at a 0.5 s bucket of
+its length, as usdm_tpu does for speaker reference clips.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from usdm_tpu_torch.audio.wav import ceil_to
 from usdm_tpu_torch.core.config import MelConfig
 
 _MIN_LOG_HZ = 1000.0
@@ -75,19 +78,45 @@ def stft_magnitude(y: torch.Tensor, n_fft: int, hop: int, win: int) -> torch.Ten
 
 def mel_spectrogram(y: torch.Tensor, n_fft: int = 1024, num_mels: int = 80,
                     sampling_rate: int = 22050, hop_size: int = 256, win_size: int = 1024,
-                    fmin: float = 0.0, fmax: float = 8000.0) -> torch.Tensor:
-    """[B, T] f32 waveform in [-1, 1] -> [B, num_mels, T // hop] log-mel."""
+                    fmin: float = 0.0, fmax: float = 8000.0,
+                    center_pad: bool = True) -> torch.Tensor:
+    """[B, T] f32 waveform in [-1, 1] -> [B, num_mels, T // hop] log-mel.
+    `center_pad=False` skips the reflect pad, for callers that applied it
+    on the host (mel_for_config_bucketed).  The filterbank product runs in
+    f64 and rounds to f32: usdm_tpu runs it at Precision.HIGHEST, and an f32
+    product on the card would follow the global TF32 flag."""
     basis = torch.from_numpy(mel_filterbank(sampling_rate, n_fft, num_mels, fmin, fmax))
-    pad = int((n_fft - hop_size) // 2)
-    y = F.pad(y.float()[:, None], (pad, pad), mode="reflect")[:, 0]
+    y = y.float()
+    if center_pad:
+        pad = int((n_fft - hop_size) // 2)
+        y = F.pad(y[:, None], (pad, pad), mode="reflect")[:, 0]
     mag = stft_magnitude(y, n_fft, hop_size, win_size)  # [B, n_freq, F]
-    mel = torch.einsum("mf,bft->bmt", basis.to(y.device), mag)
+    mel = torch.einsum("mf,bft->bmt", basis.to(y.device, torch.float64), mag.double()).float()
     return torch.log(torch.clamp(mel, min=1e-5))
 
 
 def mel_for_config(y: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
     return mel_spectrogram(y, cfg.n_fft, cfg.num_mels, cfg.sampling_rate, cfg.hop_size,
                            cfg.win_size, cfg.fmin, cfg.fmax)
+
+
+def mel_for_config_bucketed(wav: np.ndarray, cfg: MelConfig, bucket_s: float = 0.5,
+                            device="cpu") -> torch.Tensor:
+    """mel_for_config of a 1-D host wav, computed on `device` at its length
+    zero-extended to a `bucket_s` multiple -> [1, num_mels, n_frames] f32.
+    Equal to the exact-length mel on every frame: the reflect pad is made
+    here at the true length, and no kept frame's window reaches the zeros."""
+    pad = int((cfg.n_fft - cfg.hop_size) // 2)
+    n = len(wav)
+    y = np.pad(np.asarray(wav, np.float32), (pad, pad), mode="reflect")
+    full = np.zeros(ceil_to(n, max(int(cfg.sampling_rate * bucket_s), 1)) + 2 * pad,
+                    np.float32)
+    full[: len(y)] = y
+    n_frames = 1 + (n + 2 * pad - cfg.win_size) // cfg.hop_size
+    mel = mel_spectrogram(torch.from_numpy(full[None]).to(device), cfg.n_fft, cfg.num_mels,
+                          cfg.sampling_rate, cfg.hop_size, cfg.win_size, cfg.fmin, cfg.fmax,
+                          center_pad=False)
+    return mel[:, :, :n_frames]
 
 
 def normalize_mel(mel, cfg: MelConfig):

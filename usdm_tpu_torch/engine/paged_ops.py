@@ -501,6 +501,59 @@ def _link_counters() -> List[Tuple[object, str]]:
             for name in sorted(vars(fn)) if name.endswith("launches")]
 
 
+class GraphSet:
+    """CUDA graphs of one owner's step variants, each captured at its first
+    use and replayed after.  `run(key, fn, carried, done)` replays the graph
+    of `key`, capturing `fn` first if there is none: one eager warm-up (the
+    libraries loaded, tables made: nothing is built under capture) and one
+    capture on a side stream, with `done` set (every row frozen) while they
+    run; the `carried` tensors and the kernel wrappers' launch counts are
+    restored afterwards.  All graphs share one memory pool.  A capture that
+    fails raises: there is no eager fallback.  A replay calls no kernel
+    wrapper, so it adds to the wrappers' counts what its capture launched
+    (`_link_counters`); `replays` counts replays."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.replays = 0
+        self._graphs: dict = {}  # key -> (graph, launches per replay)
+        self._pool = self._stream = None
+
+    def run(self, key, fn, carried: List[torch.Tensor], done: torch.Tensor) -> None:
+        entry = self._graphs.get(key)
+        if entry is None:
+            entry = self._graphs[key] = self._capture(fn, carried, done)
+        graph, launches = entry
+        graph.replay()
+        for (f, name), n in zip(_link_counters(), launches):
+            setattr(f, name, getattr(f, name) + n)
+        self.replays += 1
+
+    def _capture(self, fn, carried: List[torch.Tensor], done: torch.Tensor) -> tuple:
+        counters = _link_counters()
+        counts = [getattr(f, name) for f, name in counters]
+        saved = [t.clone() for t in carried]
+        done.fill_(True)
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+            self._pool = torch.cuda.graph_pool_handle()
+        self._stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self._stream):
+            fn()
+        torch.cuda.current_stream(self.device).wait_stream(self._stream)
+        warm = [getattr(f, name) for f, name in counters]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
+                              capture_error_mode="thread_local"):
+            fn()
+        launches = [getattr(f, name) - n for (f, name), n in zip(counters, warm)]
+        for (f, name), n in zip(counters, counts):
+            setattr(f, name, n)
+        for t, v in zip(carried, saved):
+            t.copy_(v)
+        return graph, launches
+
+
 class DecodeLinks:
     """The static inputs of one chained decode link and the link itself.
 
@@ -527,11 +580,8 @@ class DecodeLinks:
 
     On the card each variant (a link's logits slice, sampled or greedy and
     mirror; a round's kind and logits slice) is captured once in a CUDA
-    graph, after one eager warm-up, and every later link or round of that
-    variant is one replay; all the graphs share one memory pool.  A capture
-    that fails raises: there is no eager fallback.  A replay calls no kernel
-    wrapper, so it adds to the wrappers' launch counts what its capture
-    launched (`_link_counters`).  On the CPU, or with `graphs=False` (the
+    graph (`GraphSet`), and every later link or round of that variant is
+    one replay.  On the CPU, or with `graphs=False` (the
     card tests and chip_smoke.py hold graphs against it), everything runs
     eagerly.
 
@@ -579,9 +629,7 @@ class DecodeLinks:
             self._round_host = [torch.empty(tuple(self.rounds_out.shape), dtype=torch.int64,
                                             pin_memory=card) for _ in range(2)]
         self.graphed = graphs and card
-        self.replays = 0
-        self._graphs: dict = {}  # variant key -> (graph, launches per replay)
-        self._pool = self._stream = None
+        self._graphs = GraphSet(dev)
         self._events = [torch.cuda.Event() if card else None for _ in range(2)]
         self._fetched: List[Optional[torch.Tensor]] = [None, None]
         self._flip = 0
@@ -617,18 +665,19 @@ class DecodeLinks:
         card, else the eager round."""
         self._go(("round", kind, logits_slice))
 
+    @property
+    def replays(self) -> int:
+        return self._graphs.replays
+
     def _go(self, key) -> None:
         if not self.graphed:
             self._eager(key)
             return
-        entry = self._graphs.get(key)
-        if entry is None:
-            entry = self._graphs[key] = self._capture(key)
-        graph, launches = entry
-        graph.replay()
-        for (fn, name), n in zip(_link_counters(), launches):
-            setattr(fn, name, getattr(fn, name) + n)
-        self.replays += 1
+        # the carried state: a capture's warm-up runs the link with every
+        # row frozen (writes go to the trash pages, rounds emit nothing)
+        carried = [t for t in (self.tok, self.lens, self.done, self.stacked, self.col,
+                               self.hist, self.rounds_out, self.rcol) if t is not None]
+        self._graphs.run(key, lambda: self._eager(key), carried, self.done)
 
     def _eager(self, key) -> None:
         if key[0] == "round":
@@ -692,37 +741,6 @@ class DecodeLinks:
             n_ctx_pages, c, sample_chunk, logits_slice, sampling)
         self._advance(tok, done, lens)
         return logits
-
-    def _capture(self, key) -> tuple:
-        """One eager warm-up (libraries loaded, RoPE table made, nothing
-        built under capture) and one capture of the link or round, on a side
-        stream, with every row frozen (done: writes go to the trash pages,
-        rounds emit nothing); the carried state and the launch counts are
-        restored afterwards."""
-        counters = _link_counters()
-        counts = [getattr(fn, name) for fn, name in counters]
-        carried = [t for t in (self.tok, self.lens, self.done, self.stacked, self.col,
-                               self.hist, self.rounds_out, self.rcol) if t is not None]
-        saved = [t.clone() for t in carried]
-        self.done.fill_(True)
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(self.device)
-            self._pool = torch.cuda.graph_pool_handle()
-        self._stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(self._stream):
-            self._eager(key)
-        torch.cuda.current_stream(self.device).wait_stream(self._stream)
-        warm = [getattr(fn, name) for fn, name in counters]
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
-                              capture_error_mode="thread_local"):
-            self._eager(key)
-        launches = [getattr(fn, name) - n for (fn, name), n in zip(counters, warm)]
-        for (fn, name), n in zip(counters, counts):
-            setattr(fn, name, n)
-        for t, s in zip(carried, saved):
-            t.copy_(s)
-        return graph, launches
 
     def fetch(self, rounds: bool = False) -> int:
         """Start copying `stacked` (`rounds_out` when `rounds`) to the host

@@ -5,7 +5,8 @@ Port of usdm_tpu/models/voicebox.py: the non-causal transformer estimator
 prepended as a pseudo-token; grouped-conv positional embeddings; symmetric
 ALiBi with column 0 exempt; post-LN layers with UNet skips), the OT-CFM
 training loss, and Heun/Euler ODE sampling with classifier-free guidance by
-batch doubling.  Parameters: a dict of tensors, positional convs in PyTorch's
+batch doubling and an optional speech prompt (a reference mel re-noised
+after every solver stage).  Parameters: a dict of tensors, positional convs in PyTorch's
 [Cout, Cin/g, K] layout, one dict per layer, one skip combiner per up layer.
 
 The estimator computes in the dtype of `params["proj_in_w"]` and casts every
@@ -19,8 +20,9 @@ the flash kernels (K2 forward, K5 backward; ALiBi in-kernel) on CUDA when
 T + 1 >= 128 and the head count is a power of 2, as usdm_tpu does on a TPU;
 otherwise the plain path with the bias materialized.  The residual + mask +
 LayerNorm steps take the fused kernel (K4) on CUDA when H % 128 == 0 and
-B * (T + 1) >= 3072, usdm_tpu's gate: training batches pass it, respond()'s
-batch of 2 does not.
+B * (T + 1) >= 3072, usdm_tpu's gate: training batches pass it, and so
+does respond()'s CFG batch of 2 once a speaker reference makes T + 1 >=
+1536 (a reference of about 12 s or more).
 """
 
 from __future__ import annotations
@@ -251,51 +253,82 @@ def cfm_loss(params: Params, cfg: VoiceboxConfig, x_units: torch.Tensor, mask: t
     return loss, {"loss": loss, "nframes": loss_mask.sum()}
 
 
-def _cfg_estimate(params, cfg, x, z, cond, lengths, t, gradient_scale):
+def _cfg_estimate(params, cfg, x, z, cond, lengths, t, gradient_scale, fused_ln="auto"):
     """CFG by batch doubling: rows [0, b) unconditional (null units, zero
     cond), rows [b, 2b) conditional; (1 + s) c - s u."""
     if gradient_scale <= 0:
-        return estimator(params, cfg, x, z, cond, t, lengths)
+        return estimator(params, cfg, x, z, cond, t, lengths, fused_ln=fused_ln)
     b = x.shape[0]
     d = estimator(params, cfg, torch.cat([torch.full_like(x, cfg.n_tokens), x]),
                   torch.cat([z, z]), torch.cat([torch.zeros_like(cond), cond]),
-                  torch.cat([t, t]), torch.cat([lengths, lengths]))
+                  torch.cat([t, t]), torch.cat([lengths, lengths]), fused_ln=fused_ln)
     d_un, d_cond = d[:b], d[b:]
     return d_cond + gradient_scale * (d_cond - d_un)
+
+
+def _renoise_prompt(z: torch.Tensor, cond: torch.Tensor, t, prompt_len: int, sigma_min: float,
+                    noise: torch.Tensor) -> torch.Tensor:
+    """Re-noise the prompt frames [0, prompt_len) of z to flow time t: (1 -
+    (1 - sigma_min) t) noise + t cond there, z elsewhere.  The coefficient
+    is computed in f32, as usdm_tpu computes it from its f32 time grid."""
+    t = np.float32(t)
+    coef = np.float32(1.0) - np.float32(1.0 - sigma_min) * t
+    prompt = float(coef) * noise + float(t) * cond
+    frame = torch.arange(z.shape[-1], device=z.device)[None, None, :]
+    return torch.where(frame < prompt_len, prompt, z)
 
 
 @torch.no_grad()
 def generate(params: Params, cfg: VoiceboxConfig, x_units: torch.Tensor, cond: torch.Tensor,
              lengths: torch.Tensor, n_timesteps: int = 50, solver: str = "heun",
              gradient_scale: float = 1.0, z: Optional[torch.Tensor] = None,
-             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+             generator: Optional[torch.Generator] = None, speech_prompt: bool = False,
+             prompt_len: int = 0, prompt_noises: Optional[torch.Tensor] = None,
+             fused_ln: str = "auto") -> torch.Tensor:
     """Sample mel [B, n_feats, T] by solving the probability-flow ODE from
-    z ~ N(0, I) (`z` given, or drawn from `generator`).  Heun takes
-    (n + 1) // 2 steps with no corrector on the last.  No speech prompt:
-    `cond` is zeroed, as usdm_tpu does without one."""
+    z ~ N(0, I).  Heun takes (n + 1) // 2 steps with no corrector on the
+    last.  Without a speech prompt `cond` is zeroed, as usdm_tpu does.
+
+    With `speech_prompt`, `cond` holds the reference mel in frames [0,
+    prompt_len) and is kept; the prompt frames are re-noised to the step's
+    end time after the predictor with prompt_noises[i, 0] and after the
+    corrector with prompt_noises[i, 1] (Euler: after each step with [i,
+    0]).  `prompt_noises` is [n_steps, 2, *cond.shape].
+
+    `z` and `prompt_noises` are given, or drawn from `generator` in this
+    order: z (cond's shape), then all of prompt_noises in one draw.
+    `fused_ln` is the estimator's."""
     if solver not in ("heun", "euler"):
         raise ValueError(f"unknown solver {solver!r}")
-    cond = torch.zeros_like(cond, dtype=torch.float32)
+    cond = cond.float() if speech_prompt else torch.zeros_like(cond, dtype=torch.float32)
     if z is None:
         z = torch.randn(cond.shape, generator=generator, device=cond.device)
     z = z.float()
     n_steps = (n_timesteps + 1) // 2 if solver == "heun" else n_timesteps
+    if speech_prompt and prompt_noises is None:
+        prompt_noises = torch.randn((n_steps, 2, *cond.shape), generator=generator,
+                                    device=cond.device)
     ts = torch.linspace(0.0, 1.0, n_steps + 1, dtype=torch.float32).tolist()
     b = z.shape[0]
 
     def est(zz, tt):
         tb = torch.full((b,), tt, dtype=torch.float32, device=zz.device)
-        return _cfg_estimate(params, cfg, x_units, zz, cond, lengths, tb, gradient_scale).float()
+        return _cfg_estimate(params, cfg, x_units, zz, cond, lengths, tb, gradient_scale,
+                             fused_ln).float()
+
+    def renoise(zz, t, i, j):
+        if not speech_prompt:
+            return zz
+        return _renoise_prompt(zz, cond, t, prompt_len, cfg.sigma_min,
+                               prompt_noises[i, j].float())
 
     for i in range(n_steps):
         t0, t1 = ts[i], ts[i + 1]
         dt = np.float32(t1) - np.float32(t0)
         dphi = est(z, t0)
-        if solver == "euler":
-            z = z + float(dt) * dphi
-        elif i < n_steps - 1:
-            z_hat = z + float(dt) * dphi
-            z = z + float(dt) * (dphi + est(z_hat, t1)) / 2.0
-        else:  # no corrector on the final step
-            z = z + float(dt) * dphi
+        z_hat = renoise(z + float(dt) * dphi, t1, i, 0)
+        if solver == "heun" and i < n_steps - 1:
+            z = renoise(z + float(dt) * (dphi + est(z_hat, t1)) / 2.0, t1, i, 1)
+        else:  # Euler, and Heun's final step, which skips the corrector
+            z = z_hat
     return z

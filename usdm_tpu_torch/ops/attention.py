@@ -7,7 +7,9 @@ sliding-window masks come from positions.  GQA contracts queries grouped as
 
 `mha(impl="auto")` takes the flash kernel (K2) for CUDA tensors with no
 additive bias and at least 128 queries, as the JAX package takes its Pallas
-kernel on a TPU; otherwise the plain path below.
+kernel on a TPU; otherwise the plain path below.  `decode_attention` is the
+dense decode loop's one-query attention over a whole (padded or ring) KV
+cache, plain PyTorch as usdm_tpu's is plain jnp.
 """
 
 from __future__ import annotations
@@ -101,3 +103,50 @@ def mha(
     mask = make_attention_mask(q_segment_ids, kv_segment_ids, q_positions, kv_positions,
                                causal, sliding_window)
     return plain_attention(q, k, v, mask, bias=bias, scale=scale)
+
+
+def _scores_f32(qg: torch.Tensor, kt: torch.Tensor) -> torch.Tensor:
+    """[N, G, d] x [N, d, S] -> f32 scores from operands of any float type:
+    usdm_tpu's preferred_element_type=f32.  bf16 on the card takes bmm's
+    out_dtype (f32 accumulation and output, no f32 copy of the cache); on
+    the CPU the operands are widened, exactly (bf16 products are exact in
+    f32)."""
+    if qg.dtype == torch.float32:
+        return torch.bmm(qg, kt)
+    if qg.is_cuda:
+        return torch.bmm(qg, kt, out_dtype=torch.float32)
+    return torch.bmm(qg.float(), kt.float())
+
+
+def decode_attention(
+    q: torch.Tensor,  # [B, 1, H, d] one query step
+    k_cache: torch.Tensor,  # [B, S, Hkv, d]
+    v_cache: torch.Tensor,  # [B, S, Hkv, d]
+    cache_len: torch.Tensor,  # [B] valid cache entries, this step's included
+    sliding_window: Optional[int] = None,
+    scale: Optional[float] = None,
+    kv_positions: Optional[torch.Tensor] = None,  # [B, S] absolute position per slot
+) -> torch.Tensor:
+    """One-token attention against a dense KV cache (usdm_tpu's
+    `decode_attention`).  Valid keys are positions [0, cache_len); with a
+    window also qpos - pos <= window, qpos = cache_len - 1.  With
+    `kv_positions` (a ring cache; negative = never written) validity is by
+    each slot's position rather than its index.  Scores and softmax in f32;
+    the probabilities are cast to V's type for the second product, as
+    usdm_tpu does.  Each batch row reads its K and V in place (one strided
+    batched product over the kv heads; nothing is copied)."""
+    b, _, h, d = q.shape
+    s, hkv = k_cache.shape[1], k_cache.shape[2]
+    g = h // hkv
+    scale = d**-0.5 if scale is None else scale
+    pos = torch.arange(s, device=q.device)[None] if kv_positions is None else kv_positions
+    valid = (pos < cache_len[:, None]) & (pos >= 0)
+    if sliding_window is not None:
+        valid = valid & (cache_len[:, None] - 1 - pos <= sliding_window)
+    qg = q.reshape(b, hkv, g, d)
+    scores = torch.stack([_scores_f32(qg[i], k_cache[i].permute(1, 2, 0))
+                          for i in range(b)]) * scale  # [B, Hkv, G, S]
+    scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(v_cache.dtype)
+    out = torch.stack([torch.bmm(probs[i], v_cache[i].transpose(0, 1)) for i in range(b)])
+    return out.reshape(b, 1, h, d)

@@ -7,10 +7,11 @@ allow-mask over the vocabulary plus a stage stop token:
   text2text : ban [unit_offset, vocab)         -> text + continue/correspond; EOS <|correspond|>
   text2unit : ban [0, unit_offset) except "▁"  -> units only; EOS "▁"
 
-`sample_batched` takes its randomness as explicit Gumbel noise, so a test
-can feed it the exact noise of the JAX sampler (jax.random.categorical is
-argmax(logits + gumbel)); the engine draws it from per-request
-torch.Generators.
+`sample_token` (the dense loop's, one set of hyper-parameters for every
+row) and `sample_batched` (the engine's, per row) take their randomness as
+explicit Gumbel noise, so a test can feed them the exact noise of the JAX
+sampler (jax.random.categorical is argmax(logits + gumbel)); the callers
+draw it from torch.Generators.
 """
 
 from __future__ import annotations
@@ -53,6 +54,39 @@ def stage_eos(stage: str, ts: TokenSpace = TokenSpace()) -> int:
         STAGE_TEXT2TEXT: ts.correspond_id,
         STAGE_TEXT2UNIT: ts.space_id,
     }[stage]
+
+
+def apply_mask(logits: torch.Tensor, allow: torch.Tensor) -> torch.Tensor:
+    return torch.where(allow, logits, NEG_INF)
+
+
+def sample_token(
+    logits: torch.Tensor,  # [B, V] f32, already masked
+    noise: Optional[torch.Tensor] = None,  # [B, V] f32 Gumbel noise
+    top_k: int = 1,
+    top_p: float = 1.0,
+    temperature: float = 1.0,
+) -> torch.Tensor:
+    """Greedy (top_k == 1) or temperature -> top-k -> top-p -> categorical
+    sampling, usdm_tpu's `sample_token`.  Divides by a 0-d tensor (IEEE
+    division on the card too) and makes it with a fill, so the call can be
+    captured in a CUDA graph."""
+    if top_k == 1:
+        return torch.argmax(logits, dim=-1)
+    if noise is None:
+        raise ValueError("non-greedy sampling needs its Gumbel noise")
+    temp = torch.full((), max(temperature, 1e-6), dtype=torch.float32, device=logits.device)
+    logits = logits / temp
+    if top_k > 1:
+        kth = torch.topk(logits, top_k, dim=-1).values[:, -1:]
+        logits = torch.where(logits < kth, NEG_INF, logits)
+    if top_p < 1.0:
+        sdesc = torch.sort(logits, dim=-1, descending=True).values
+        cum = torch.cumsum(torch.softmax(sdesc, dim=-1), dim=-1)
+        # the smallest prefix with cumulative probability >= top_p
+        cutoff = torch.clamp((cum < top_p).sum(dim=-1), max=logits.shape[-1] - 1)
+        logits = torch.where(logits < torch.gather(sdesc, 1, cutoff[:, None]), NEG_INF, logits)
+    return torch.argmax(logits + noise, dim=-1)
 
 
 def gumbel_noise(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:

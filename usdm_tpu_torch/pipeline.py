@@ -2,15 +2,16 @@
 
 Port of usdm_tpu/pipeline.py `UsdmPipeline` (respond, respond_with_policy,
 the lazy single-caller serving engine, close, tiny_random): XLS-R unit
-extraction, the 3-stage unit->text->text->unit chain on the paged engine,
-Voicebox mel synthesis and BigVGAN vocoding, all on `device` (`cuda` unless
-the caller asks for the CPU); greedy speculative decoding through
-`make_server(draft=)` and `enable_speculation`.  `lm_int8` / `vb_int8`
-quantize the LLM projections and the Voicebox estimator's matmuls to W8A8
-after init, as usdm_tpu's `from_pretrained` does after load
-(models/quant.py).
-`from_pretrained` (checkpoint converters), speaker reference prompts and the
-dense dialog policy are not ported yet.
+extraction, the 3-stage unit->text->text->unit chain on the paged engine
+(or, with use_paged=False, the dense prefix-reuse loop), Voicebox mel
+synthesis with an optional speaker reference prompt, and BigVGAN vocoding,
+all on `device` (`cuda` unless the caller asks for the CPU); greedy
+speculative decoding through `make_server(draft=)` and
+`enable_speculation`.  `lm_int8` / `vb_int8` quantize the LLM projections
+and the Voicebox estimator's matmuls to W8A8 after init, as usdm_tpu's
+`from_pretrained` does after load (models/quant.py).
+`from_pretrained` (checkpoint converters) and tensor-parallel serving are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -32,8 +33,8 @@ from usdm_tpu_torch.core.config import (
     XlsrConfig,
 )
 from usdm_tpu_torch.core.tokenizer import UsdmTokenizer
-from usdm_tpu_torch.engine.dialog import DialogResult
-from usdm_tpu_torch.engine.synthesis import SpeechDecoder
+from usdm_tpu_torch.engine.dialog import DialogPolicy, DialogResult
+from usdm_tpu_torch.engine.synthesis import SpeechDecoder, prepare_reference
 from usdm_tpu_torch.models import bigvgan as BV
 from usdm_tpu_torch.models import mistral as LM
 from usdm_tpu_torch.models import voicebox as VB
@@ -66,6 +67,9 @@ class UsdmPipeline:
     _server: Optional[object] = dataclasses.field(default=None, repr=False, compare=False)
     # respond()'s speculative draft (enable_speculation); None = plain decode
     _draft: Optional[object] = dataclasses.field(default=None, repr=False, compare=False)
+    # the dense policy's DenseLoops (caches and CUDA graphs), kept across
+    # respond(use_paged=False) turns
+    _dense_loops: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
 
     def __post_init__(self):
         self.device = _check_device(self.device)
@@ -160,9 +164,11 @@ class UsdmPipeline:
         return self._server
 
     def close(self) -> None:
+        """Stop the dialog engine's thread and free the dense loops' caches."""
         if self._server is not None:
             self._server.close()
             self._server = None
+        self._dense_loops.clear()
 
     def respond(self, input_path: str, output_path: Optional[str] = None,
                 reference_path: Optional[str] = None, n_timesteps: int = 50, seed: int = 0,
@@ -170,33 +176,48 @@ class UsdmPipeline:
                 use_paged: bool = True) -> DialogResult:
         """Full speech-to-speech turn; writes the agent waveform if
         `output_path` is given and returns the intermediate text/units.
-        Greedy by default."""
-        if not use_paged:
-            raise NotImplementedError("the dense DialogPolicy is not ported; use_paged=True")
-        from usdm_tpu_torch.engine.server import PagedDialogPolicy
+        Greedy by default.  `reference_path` adapts the agent's voice to a
+        speaker's clip (a renoised speech prompt); `use_paged=False` decodes
+        with the dense prefix-reuse DialogPolicy instead of the paged engine
+        (usdm_tpu's parity route for HF generate)."""
+        if use_paged:
+            from usdm_tpu_torch.engine.server import PagedDialogPolicy
 
-        policy = PagedDialogPolicy(self._dialog_server(), self.tokenizer,
-                                   max_new_tokens=self.max_new_tokens, top_k=top_k,
-                                   top_p=top_p, temperature=temperature, seed=seed)
+            policy = PagedDialogPolicy(self._dialog_server(), self.tokenizer,
+                                       max_new_tokens=self.max_new_tokens, top_k=top_k,
+                                       top_p=top_p, temperature=temperature, seed=seed)
+        else:
+            policy = self.dense_policy(top_k=top_k, top_p=top_p, temperature=temperature,
+                                       seed=seed)
         return self.respond_with_policy(policy, input_path, output_path, reference_path,
                                         n_timesteps, seed)
+
+    def dense_policy(self, **kw) -> DialogPolicy:
+        """respond(use_paged=False)'s DialogPolicy over the pipeline's LM,
+        sharing the pipeline's dense loops; `kw` as DialogPolicy takes."""
+        return DialogPolicy(self.lm_params, self.lm_cfg, self.tokenizer,
+                            max_new_tokens=self.max_new_tokens, loops=self._dense_loops, **kw)
 
     def respond_with_policy(self, policy, input_path: str, output_path: Optional[str] = None,
                             reference_path: Optional[str] = None, n_timesteps: int = 50,
                             seed: int = 0, trace: Optional[dict] = None) -> DialogResult:
         """Speech-to-speech turn with a caller-supplied dialog policy (any
         object with respond_to_units).  `trace`, when given, receives the
-        user units, the agent audio and the wall time of each phase."""
-        if reference_path:
-            raise NotImplementedError("speaker reference prompts are not ported yet")
+        user units, the agent audio and the wall time of each phase (`ref_s`:
+        the reference's units and mel, 0 without one)."""
         t0 = time.perf_counter()
         wav, _ = load_wav(input_path, sr=self.xlsr_cfg.sample_rate)
         user_units = self.extract_units(wav)
         t1 = time.perf_counter()
         result = policy.respond_to_units(user_units)
         t2 = time.perf_counter()
+        reference = None
+        if reference_path:
+            reference = prepare_reference(reference_path, self.xlsr_params, self.xlsr_cfg,
+                                          self.decoder.mel_cfg, device=self.device)
+        t_ref = time.perf_counter()
         if result.agent_units:
-            audio = self.decoder.synthesize(result.agent_units, seed=seed,
+            audio = self.decoder.synthesize(result.agent_units, seed=seed, reference=reference,
                                             n_timesteps=n_timesteps)
         else:
             audio = np.zeros(0, np.float32)
@@ -205,5 +226,5 @@ class UsdmPipeline:
             write_wav(output_path, audio, self.decoder.mel_cfg.sampling_rate)
         if trace is not None:
             trace.update(user_units=user_units, audio=audio, xlsr_s=t1 - t0, dialog_s=t2 - t1,
-                         synth_s=t3 - t2)
+                         ref_s=t_ref - t2, synth_s=t3 - t_ref)
         return result
