@@ -96,7 +96,29 @@ Phases:
      (counted); (d) every round one graph replay launching K1 once a
      target layer plus K+1 times a draft layer, K6 7 times each; then the
      stress port (usdm_tpu_torch.scripts.stress_engine) runs 2 rounds with
-     mixed links on, in bf16 and with draft="ngram".
+     mixed links on, in bf16 and with draft="ngram";
+ 10. load (run at the end of phase 4, on its pipeline): (a) the full-width
+     random pipeline is exported to the reference's checkpoint formats in a
+     temporary directory on local disk (~20 GB; the phase fails, naming the
+     free bytes, if there is no room): the LM with its tokenizer
+     (save_mistral_hf, one bf16 model.safetensors), the Voicebox
+     (save_voicebox_hub), BigVGAN (save_bigvgan_generator), XLS-R as a
+     fairseq2 .pt (save_xlsr below) and kmeans.npy; (b)
+     UsdmPipeline.from_pretrained(vb_int8=False) on the card runs phase 4's
+     turn (seed 1, budgets 48/32/256): the user units and every stage's
+     tokens equal phase 4's graphed turn, the mel and the wav within 1e-4 of
+     their peaks (the folded weight norms round each weight by about an
+     ulp), K1-K3 launched; (c) with (b)'s pipeline freed, from_pretrained's
+     defaults (vb_int8=True): the same tokens, the mel within nRMS 1e-2 of
+     (b)'s (usdm_tpu's gate) from the ODE noise of seed 1 and of seed 2;
+     then the port of scripts/bench_vb_int8.py
+     prints its JSON line, and (d) one JSON line of cold-start numbers
+     (bytes, seconds and GB/s of the export and each load, the host memory
+     each adds (the peak of VmRSS sampled every 2 ms less VmRSS before it;
+     the machine refuses /proc/self/clear_refs), which must stay within the
+     largest pickled file (the XLS-R .pt) plus 1 GB, device memory after each
+     load, the loaded turns' wall and RTF) beside the card's name and power
+     limit.
 
 Each kernel's bound_ms is the least time the card could take for the work
 of its timed case: the larger of its bytes (inputs read once, outputs
@@ -1896,7 +1918,7 @@ def _device_busy(prof, wall: float) -> dict:
             "kernel_launches": kernel_launches}
 
 
-def slice_run(dev, profile: bool, tmp: str, out_dir: str) -> dict:
+def slice_run(dev, profile: bool, tmp: str, out_dir: str, smi: str) -> dict:
     import dataclasses
 
     import torch
@@ -1982,6 +2004,7 @@ def slice_run(dev, profile: bool, tmp: str, out_dir: str) -> dict:
                 raise AssertionError("respond() wrote no output wav")
             turns.append(info)
             graphed = {**dataclasses.asdict(res), "user_units": list(trace["user_units"])}
+            graphed_audio = audio
         eager = _eager_link_turn(pipe, wav_in, graphed, "bf16 turn")
         t0 = time.perf_counter()
         spec = spec_turn(pipe, wav_in, graphed, "bf16 turn", False)
@@ -1992,11 +2015,15 @@ def slice_run(dev, profile: bool, tmp: str, out_dir: str) -> dict:
         t0 = time.perf_counter()
         dense = dense_turns(pipe, wav_in, graphed, turns[-1], "bf16 turn", False)
         log(f"phase time: dense turns (h) {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        load = load_run(dev, pipe, wav_in, graphed, graphed_audio, tmp, smi)
+        log(f"phase time: load (phase 10) {time.perf_counter() - t0:.1f} s")
     finally:
         pipe.close()
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
-    return {"turns": turns, "eager": eager, "spec": spec, "ref": ref, "dense": dense}
+    return {"turns": turns, "eager": eager, "spec": spec, "ref": ref, "dense": dense,
+            "load": load}
 
 
 
@@ -3105,6 +3132,345 @@ def spec_run(dev) -> dict:
     return out
 
 
+# --------------------------------------------------------------- phase 10
+LOAD_MEL_BOUND = 1e-4  # of the peak |mel|: phase 4's mel against the loaded pipeline's
+LOAD_WAV_BOUND = 1e-4  # of the peak |wav|
+VB_INT8_NRMS_GATE = 1e-2  # usdm_tpu's own gate (scripts/bench_vb_int8.py:72)
+LOAD_DISK_BYTES = 21e9  # the full stack's files: LM 14.5 GB, XLS-R 3.8, Voicebox, BigVGAN
+LOAD_HOST_SLACK = 1e9  # host bytes a step may add beyond the largest pickled file
+DRIFT_SEEDS = (1, 2)  # the ODE noises the W8A8 drift is read at (1: phase 4's turn)
+
+
+def save_xlsr(path: str, params, cfg, layout: str = "fairseq2") -> None:
+    """XLS-R params as a checkpoint both packages' load_xlsr read: fairseq2's
+    xlsr2_1b_v2 layout (a `.pt` of {"model": state_dict}, no config: the
+    layout the reference ships) or an HF Wav2Vec2Model directory
+    (config.json + model.safetensors).  The positional conv is written as
+    weight_norm's weight_g/weight_v (dim 2), split on the host in f32.
+    usdm_tpu has no XLS-R exporter; this is a check of the loaders, not a
+    package feature.  Phase 10 writes the fairseq2 layout; the HF layout is
+    for the tests, which import this helper (tests/test_torch_checkpoint.py,
+    test_torch_from_pretrained.py and test_torch_cuda.py write tiny XLS-R
+    directories with it, since a fairseq2 .pt carries no config): keep its
+    signature and both layouts.  The tensors stay on their
+    device until the writer copies them to the host one at a time (torch.save
+    records a card's tensors as cuda storages; the loaders map them to the
+    CPU)."""
+    import torch
+
+    from usdm_tpu_torch.core import safetensors as ST
+    from usdm_tpu_torch.core.checkpoint import _weight_norm_split
+
+    def host(t):
+        return t.detach().to(torch.float32).contiguous()
+
+    fs2 = layout == "fairseq2"
+    conv = ("encoder_frontend.feature_extractor.layers.{}" if fs2
+            else "feature_extractor.conv_layers.{}")
+    feat_ln = "encoder_frontend.post_extract_layer_norm" if fs2 else "feature_projection.layer_norm"
+    proj = "encoder_frontend.model_dim_proj" if fs2 else "feature_projection.projection"
+    pc = "encoder_frontend.pos_encoder.conv" if fs2 else "encoder.pos_conv_embed.conv"
+    names = (("self_attn_layer_norm", "self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj",
+              "self_attn.output_proj", "ffn_layer_norm", "ffn.inner_proj", "ffn.output_proj")
+             if fs2 else
+             ("layer_norm", "attention.q_proj", "attention.k_proj", "attention.v_proj",
+              "attention.out_proj", "final_layer_norm", "feed_forward.intermediate_dense",
+              "feed_forward.output_dense"))
+    sd = {}
+    for i, c in enumerate(params["convs"]):
+        p = conv.format(i)
+        sd.update({p + ".conv.weight": host(c["w"]), p + ".conv.bias": host(c["b"]),
+                   p + ".layer_norm.weight": host(c["ln_w"]),
+                   p + ".layer_norm.bias": host(c["ln_b"])})
+    g, v = _weight_norm_split(host(params["pos_conv_w"]).cpu(), dim=2)
+    sd.update({feat_ln + ".weight": host(params["feat_ln_w"]),
+               feat_ln + ".bias": host(params["feat_ln_b"]),
+               proj + ".weight": host(params["proj_w"].t()), proj + ".bias": host(params["proj_b"]),
+               pc + ".weight_g": g, pc + ".weight_v": v, pc + ".bias": host(params["pos_conv_b"])})
+    for i, lp in enumerate(params["layers"]):
+        ln1, q, k, v_, o, ln2, f1, f2 = (f"encoder.layers.{i}.{n}" for n in names)
+        for ln, w, b in ((ln1, "ln1_w", "ln1_b"), (ln2, "ln2_w", "ln2_b")):
+            sd[ln + ".weight"], sd[ln + ".bias"] = host(lp[w]), host(lp[b])
+        for n, w, b in ((q, "wq", "bq"), (k, "wk", "bk"), (v_, "wv", "bv"), (o, "wo", "bo"),
+                        (f1, "ffn_w1", "ffn_b1"), (f2, "ffn_w2", "ffn_b2")):
+            sd[n + ".weight"], sd[n + ".bias"] = host(lp[w].t()), host(lp[b])
+    if fs2:
+        torch.save({"model": sd}, path)
+        return
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({"conv_dim": [cfg.conv_channels] * len(cfg.conv_kernels),
+                   "conv_kernel": list(cfg.conv_kernels), "conv_stride": list(cfg.conv_strides),
+                   "hidden_size": cfg.hidden_size, "intermediate_size": cfg.intermediate_size,
+                   "num_attention_heads": cfg.num_heads, "num_hidden_layers": cfg.num_layers,
+                   "num_conv_pos_embeddings": cfg.conv_pos_width,
+                   "num_conv_pos_embedding_groups": cfg.conv_pos_groups}, f)
+    ST.save_file(sd, os.path.join(path, "model.safetensors"))
+
+
+def export_steps(pipe, root: str) -> tuple:
+    """Every component of `pipe` as the reference's checkpoint files under
+    `root`: the LM (with its tokenizer) by save_mistral_hf, XLS-R as a
+    fairseq2 .pt (save_xlsr), the centroids as kmeans.npy, the Voicebox by
+    save_voicebox_hub, BigVGAN by save_bigvgan_generator.  -> (from_pretrained's
+    paths, [(component, path, writer)])."""
+    from usdm_tpu_torch.core import checkpoint as CK
+
+    dirs = {"llm_dir": os.path.join(root, "llm"), "xlsr_dir": os.path.join(root, "xlsr2.pt"),
+            "kmeans_path": os.path.join(root, "kmeans.npy"),
+            "voicebox_dir": os.path.join(root, "voicebox"),
+            "bigvgan_dir": os.path.join(root, "bigvgan")}
+    d = pipe.decoder
+    steps = [
+        ("llm", dirs["llm_dir"], lambda: CK.save_mistral_hf(
+            dirs["llm_dir"], pipe.lm_params, pipe.lm_cfg, pipe.tokenizer)),
+        ("xlsr", dirs["xlsr_dir"], lambda: save_xlsr(
+            dirs["xlsr_dir"], pipe.xlsr_params, pipe.xlsr_cfg)),
+        ("kmeans", dirs["kmeans_path"], lambda: np.save(
+            dirs["kmeans_path"], pipe.xlsr_params["centroids"].cpu().numpy())),
+        ("voicebox", dirs["voicebox_dir"], lambda: CK.save_voicebox_hub(
+            dirs["voicebox_dir"], d.voicebox_params, d.voicebox_cfg)),
+        ("bigvgan", dirs["bigvgan_dir"], lambda: CK.save_bigvgan_generator(
+            dirs["bigvgan_dir"], d.vocoder_params, d.vocoder_cfg)),
+    ]
+    return dirs, steps
+
+
+def _file_bytes(path: str) -> int:
+    if os.path.isfile(path):
+        return os.path.getsize(path)
+    return sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(path) for f in fs)
+
+
+def _largest_pickle(root: str) -> int:
+    """Bytes of the largest .pt/.bin file under `root`: what torch.load holds
+    on the host at once (a safetensors file is mapped tensor by tensor)."""
+    return max((os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(root) for f in fs
+                if f.endswith((".pt", ".bin"))), default=0)
+
+
+def _rss() -> int:
+    """VmRSS of this process, bytes (/proc/self/statm)."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+def _host_step(fn) -> tuple:
+    """(fn(), wall seconds, VmRSS before the step, the largest VmRSS sampled
+    every 2 ms while it ran).  Sampled, since the card's machine refuses
+    /proc/self/clear_refs, which would reset VmHWM for the step."""
+    import threading
+
+    import torch
+
+    rss0 = _rss()
+    peak = [rss0]
+    stop = threading.Event()
+
+    def sample():
+        while not stop.wait(0.002):
+            peak[0] = max(peak[0], _rss())
+
+    thread = threading.Thread(target=sample, daemon=True)
+    thread.start()
+    t0 = time.perf_counter()
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        stop.set()
+        thread.join()
+    wall = time.perf_counter() - t0
+    return out, wall, rss0, max(peak[0], _rss())
+
+
+def _agent_mel(pipe, units, seed: int) -> tuple:
+    """(the normalized mel [1, n_mels, n] that pipe.decoder.synthesize(units,
+    seed=seed) vocodes (no reference): the same rows, bucket and generator;
+    the initial noise z the ODE started from, cut to the same frames)."""
+    import torch
+
+    from usdm_tpu_torch.audio.units import expand_and_pool
+    from usdm_tpu_torch.models import voicebox as VB
+
+    dec = pipe.decoder
+    mc, dev = dec.mel_cfg, dec.device
+    pooled, _ = expand_and_pool(np.asarray(units), mc.sampling_rate, mc.token_sr, mc.hop_size)
+    n, t = len(pooled), dec._bucket(len(pooled))
+    x = torch.zeros((1, t), dtype=torch.int64, device=dev)
+    x[0, :n] = torch.from_numpy(pooled.astype(np.int64)).to(dev)
+    cond = torch.zeros((1, mc.num_mels, t), device=dev)
+    z = torch.randn(cond.shape, generator=torch.Generator(device=dev).manual_seed(seed),
+                    device=dev)  # generate's own first draw from that generator
+    with torch.no_grad():
+        mel = VB.generate(dec.voicebox_params, dec.voicebox_cfg, x, cond,
+                          torch.tensor([n], device=dev), n_timesteps=50, z=z)
+    return mel[:, :, :n].float().cpu().numpy(), z[:, :, :n].cpu().numpy()
+
+
+def _loaded_turn(pipe, wav_in: str, want: dict, label: str) -> dict:
+    """One graphed respond() turn of a loaded pipeline as phase 4 runs it
+    (seed 1, budgets 48/32/256): the user units and every stage's tokens
+    must equal phase 4's (`want`), and K1, K2 and K3 must have launched."""
+    import dataclasses
+
+    import torch
+
+    reset_counts()
+    trace = {}
+    t0 = time.perf_counter()
+    res = pipe.respond_with_policy(_paged_policy(pipe, seed=1), wav_in, n_timesteps=50, seed=1,
+                                   trace=trace)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    mma = mma_counts()["flash_attention"]
+    got = {**dataclasses.asdict(res), "user_units": list(trace["user_units"])}
+    audio = trace["audio"]
+    audio_s = len(audio) / pipe.decoder.mel_cfg.sampling_rate
+    info = {"wall_s": wall, "xlsr_s": trace["xlsr_s"], "dialog_s": trace["dialog_s"],
+            "synth_s": trace["synth_s"], "audio_s": audio_s,
+            "rtf": wall / audio_s if audio_s else None,
+            "tokens": "equal" if got == want else "DIFFER", "launches": counts,
+            "flash_attention_mma_launches": mma}
+    log(f"phase 10, {label} turn: " + json.dumps(info))
+    if got != want:
+        raise AssertionError(f"phase 10 {label}: the loaded pipeline's turn differs from phase "
+                             f"4's: {got} vs {want}")
+    if not (counts["paged_decode_attention"] and mma and counts["flash_attention_f32"]
+            and counts["fused_activation1d"] == K3_PER_TURN):
+        raise AssertionError(f"phase 10 {label}: a kernel of the path did not launch: {counts}")
+    info["audio"] = audio
+    return info
+
+
+def load_run(dev, pipe, wav_in: str, want: dict, want_audio, tmp: str, smi: str) -> dict:
+    """Phase 10: export phase 4's full-width pipeline to the reference's
+    checkpoint formats, load it back with UsdmPipeline.from_pretrained
+    (vb_int8=False: phase 4's turn, the mel and wav within their bounds; then
+    the default vb_int8=True: the same dialog tokens, the mel within nRMS
+    1e-2 of the float one at each of DRIFT_SEEDS), run the port of
+    scripts/bench_vb_int8.py, and print the cold-start numbers as one JSON
+    line.  The export and each load may add at most the largest pickled
+    file plus LOAD_HOST_SLACK of host memory: the LM's safetensors never
+    sits there whole."""
+    import gc
+    import shutil
+
+    import torch
+
+    from usdm_tpu_torch.core.config import VoiceboxConfig
+    from usdm_tpu_torch.pipeline import UsdmPipeline
+    from usdm_tpu_torch.scripts import bench_vb_int8
+
+    pipe.close()  # phase 4's engine pools and dense caches
+    root = os.path.join(tmp, "checkpoints")
+    os.makedirs(root)
+    free = shutil.disk_usage(root).free
+    if free < LOAD_DISK_BYTES:
+        raise AssertionError(f"phase 10 needs {LOAD_DISK_BYTES:.0f} bytes of local disk under "
+                             f"{root} for the full stack's files; {free} bytes are free")
+    try:
+        mel4, _ = _agent_mel(pipe, want["agent_units"], seed=1)
+        dirs, steps = export_steps(pipe, root)
+        export, rss_start, rss_peak = {}, _rss(), 0
+        for name, path, write in steps:
+            gc.collect()
+            _, wall, rss0, peak = _host_step(write)
+            n = _file_bytes(path)
+            export[name] = {"wall_s": wall, "bytes_written": n, "gb_per_s": n / wall / 1e9,
+                            "host_bytes_added": peak - rss0}
+            rss_peak = max(rss_peak, peak)
+        files = {k: v["bytes_written"] for k, v in export.items()}
+        export_s = sum(v["wall_s"] for v in export.values())
+        export_host = rss_peak - rss_start
+        host_bound = _largest_pickle(root) + LOAD_HOST_SLACK
+        log(f"phase 10 export: {export_s:.1f} s, {sum(files.values())} bytes, host memory "
+            f"added {export_host} bytes (bound {host_bound:.0f}: the largest pickled file + "
+            f"{LOAD_HOST_SLACK:g}); by component {json.dumps(export)}")
+        if export_host > host_bound:
+            raise AssertionError(f"phase 10: the export added {export_host} bytes of host "
+                                 f"memory, more than {host_bound:.0f}")
+        loads, out = {}, {}
+        for label, vb_int8 in (("float", False), ("default", True)):
+            alloc0 = torch.cuda.memory_allocated()
+            loaded, load_s, rss0, peak = _host_step(
+                lambda: UsdmPipeline.from_pretrained(**dirs, vb_int8=vb_int8, device=dev))
+            load_host = peak - rss0
+            alloc = torch.cuda.memory_allocated()
+            try:
+                log(f"phase 10 {label} load: host memory added {load_host} bytes (bound "
+                    f"{host_bound:.0f})")
+                if load_host > host_bound:
+                    raise AssertionError(f"phase 10: the {label} load added {load_host} bytes "
+                                         f"of host memory, more than {host_bound:.0f}")
+                turn = _loaded_turn(loaded, wav_in, want, label)
+                mels = {seed: _agent_mel(loaded, want["agent_units"], seed=seed)
+                        for seed in DRIFT_SEEDS}
+            finally:
+                loaded.close()
+                del loaded
+                gc.collect()
+                torch.cuda.empty_cache()
+            audio = turn.pop("audio")
+            mel, z = mels[DRIFT_SEEDS[0]]
+            if label == "float":
+                mel_err = float(np.abs(mel - mel4).max())
+                wav_err = float(np.abs(audio - want_audio).max()) if len(audio) == len(
+                    want_audio) else float("inf")
+                mel_peak, wav_peak = float(np.abs(mel4).max()), float(np.abs(want_audio).max())
+                turn.update(mel_max_abs_err=mel_err, mel_peak=mel_peak, wav_max_abs_err=wav_err,
+                            wav_peak=wav_peak)
+                log(f"phase 10 float load against phase 4: mel max|d| {mel_err:.3e} (bound "
+                    f"{LOAD_MEL_BOUND:g} x peak {mel_peak:.3e}), wav max|d| {wav_err:.3e} (bound "
+                    f"{LOAD_WAV_BOUND:g} x peak {wav_peak:.3e})")
+                if not (mel_err <= LOAD_MEL_BOUND * mel_peak
+                        and wav_err <= LOAD_WAV_BOUND * wav_peak):
+                    raise AssertionError("phase 10: the loaded pipeline's mel or wav is out of "
+                                         "bounds of phase 4's")
+                mel_float = {seed: m for seed, (m, _) in mels.items()}
+                # how far the f32 estimator's velocity moved the mel from its
+                # initial noise: the part that W8A8 products can reach
+                turn["ode_share"] = float(np.sqrt(np.mean((mel - z) ** 2))
+                                          / np.sqrt(np.mean(mel ** 2)))
+            else:
+                nrms = {seed: float(np.sqrt(np.mean((m - mel_float[seed]) ** 2))
+                                    / np.sqrt(np.mean(mel_float[seed] ** 2)))
+                        for seed, (m, _) in mels.items()}
+                turn["mel_nrms_vs_float"] = nrms[DRIFT_SEEDS[0]]
+                turn["mel_nrms_vs_float_by_seed"] = nrms
+                log(f"phase 10 default (vb_int8) load: mel nRMS against the float load's, by "
+                    f"ODE seed, {nrms} (gate {VB_INT8_NRMS_GATE:g}); the float mel's "
+                    f"ode_share {out['float']['ode_share']:.4f}")
+                if not max(nrms.values()) < VB_INT8_NRMS_GATE:
+                    raise AssertionError(f"phase 10: the W8A8 Voicebox drifts {nrms}, not all "
+                                         f"< {VB_INT8_NRMS_GATE}")
+            read = sum(files.values())
+            loads[label] = {"load_s": load_s, "bytes_read": files,
+                            "gb_per_s": read / load_s / 1e9,
+                            "host_bytes_added": load_host, "host_bytes_bound": host_bound,
+                            "device_bytes_after_load": alloc, "device_bytes_added": alloc - alloc0}
+            out[label] = turn
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    bench = bench_vb_int8.run(VoiceboxConfig(), dev)
+    print(json.dumps({"bench_vb_int8": bench}), flush=True)
+    log(f"phase time: bench_vb_int8 {time.perf_counter() - t0:.1f} s")
+    cold = {"card": smi, "export": {"wall_s": export_s, "bytes_written": files,
+                                    "gb_per_s": sum(files.values()) / export_s / 1e9,
+                                    "host_bytes_added": export_host,
+                                    "host_bytes_bound": host_bound, "by_component": export},
+            "load": loads,
+            "turn": {k: {f: v[f] for f in ("wall_s", "rtf", "dialog_s", "synth_s")}
+                     for k, v in out.items()}}
+    print(json.dumps({"cold_start": cold}), flush=True)
+    if "jax" in sys.modules:
+        raise AssertionError("jax was imported")
+    return {"turns": out, "cold_start": cold, "bench_vb_int8": bench}
+
+
 # ------------------------------------------------------- parent vs change
 def _reply(obj: dict) -> None:
     print("RESULT " + json.dumps(obj), flush=True)
@@ -3543,7 +3909,7 @@ def main() -> int:
         # K1-K3 the bf16 turn, K6 the W8A8 turn (A) and the server (B) together,
         # K1's int8 branch (B), K4 and K5 the trainer, X1-X3 the probe entry
         # points (phase 7; eager calls and CUDA graph replays)
-        bf16_run = slice_run(dev, args.profile, tmp, args.out_dir)
+        bf16_run = slice_run(dev, args.profile, tmp, args.out_dir, smi.stdout.strip())
         bf16_turn = bf16_run["turns"][-1]
         bf16 = {**bf16_turn["launches"],
                 "flash_attention": bf16_turn["flash_attention_mma_launches"]}
@@ -3588,6 +3954,11 @@ def main() -> int:
     launches["fused_activation1d"] += ref_f["fused_activation1d"]
     launches["add_mask_ln"] += bf16_run["ref"]["g"]["k4_launches"]
     launches["stream_qmv"] += int8["A_dense"]["turns"][-1]["launches"]["stream_qmv"]
+    # phase 10's two loaded turns (float and default Voicebox): K1-K3
+    for turn in bf16_run["load"]["turns"].values():
+        for k in ("paged_decode_attention", "flash_attention_f32", "fused_activation1d"):
+            launches[k] += turn["launches"][k]
+        launches["flash_attention"] += turn["flash_attention_mma_launches"]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", **KERNELS[k], "launches": launches[k],

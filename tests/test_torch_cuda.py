@@ -3,7 +3,9 @@
 a mixed link's chunk rows and at the dense prefill_extend's shape); the
 engine's decode links from CUDA graphs against eager links, and its mixed
 prefill + decode links against the CPU; the dense decode steps from CUDA
-graphs against eager steps; prepare_reference on the card against the CPU.
+graphs against eager steps; prepare_reference on the card against the CPU;
+the safetensors reader's tensors moved to the card bit for bit, and
+from_pretrained on the card giving the CPU load's turn.
 
 Marked `cuda`: each test skips without a CUDA device (a CUDA kernel has no
 CPU mode).  Imports no JAX, so it runs where the port runs; there, skip
@@ -1673,3 +1675,109 @@ def test_prepare_reference_on_card_matches_cpu(cuda, tmp_path):
     got_u, got_m = prepare_reference(path, xp_card, xcfg, MelConfig(), device=cuda)
     assert np.array_equal(got_u, want_u) and got_m.is_cuda
     assert (got_m.cpu() - want_m).abs().max().item() <= 1e-4
+
+
+# ------------------------------------------------------------ checkpoint I/O
+@pytest.mark.cuda
+def test_safetensors_reader_to_card_bit_equal(cuda, tmp_path):
+    """bf16, f16 and int8 tensors written from the card by the port's
+    safetensors writer, read back by its reader (host tensors on the mapped
+    file) and moved to the card: bit-equal; a Mistral directory loads on
+    the card to the CPU load's tensors."""
+    from usdm_tpu_torch.core import checkpoint as CK
+    from usdm_tpu_torch.core import safetensors as ST
+    from usdm_tpu_torch.core.config import MistralConfig
+    from usdm_tpu_torch.core.tree import tree_leaves
+    from usdm_tpu_torch.models import mistral as LM
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    src = {"bf16": torch.randn(33, 65, generator=g, device=cuda).bfloat16(),
+           "f16": torch.randn(5, 129, generator=g, device=cuda).half(),
+           "i8": torch.randint(-128, 128, (7, 9), generator=g, device=cuda).to(torch.int8)}
+    path = str(tmp_path / "t.safetensors")
+    ST.save_file(src, path)
+    back = ST.load_file(path)
+    for k, t in src.items():
+        assert back[k].device.type == "cpu" and back[k].dtype == t.dtype
+        assert torch.equal(back[k].to(cuda), t), k
+    cfg = MistralConfig.tiny(vocab_size=300).replace(head_dim=32, dtype="bfloat16")
+    params = LM.init_params(cfg, torch.Generator(device=cuda).manual_seed(1), cuda)
+    CK.save_mistral_hf(str(tmp_path / "lm"), params, cfg)
+    on_card, _ = CK.load_mistral(str(tmp_path / "lm"), device=cuda)
+    on_cpu, _ = CK.load_mistral(str(tmp_path / "lm"), device="cpu")
+    for a, b, c in zip(tree_leaves(on_card), tree_leaves(on_cpu), tree_leaves(params)):
+        assert a.device.type == "cuda" and torch.equal(a, b.to(cuda)) and torch.equal(a, c)
+
+
+def _tiny_checkpoints(root):
+    """A small random pipeline on the CPU (tiny_random's configs at head
+    dims the kernels take, the full 10,000-unit token space) exported to the
+    reference's formats under `root` -> (source pipeline, from_pretrained's
+    paths)."""
+    import numpy as np
+
+    from chip_smoke import save_xlsr
+    from usdm_tpu_torch.core import checkpoint as CK
+    from usdm_tpu_torch.core.config import (BigVGANConfig, MistralConfig, VoiceboxConfig,
+                                            XlsrConfig)
+    from usdm_tpu_torch.core.tokenizer import UsdmTokenizer
+    from usdm_tpu_torch.pipeline import UsdmPipeline
+
+    tok = UsdmTokenizer.build_test(num_units=10000)
+    src = UsdmPipeline.random_init(
+        tok, MistralConfig.tiny(vocab_size=tok.vocab_size).replace(head_dim=32),
+        XlsrConfig.tiny().replace(num_clusters=32, hidden_size=64, intermediate_size=128),
+        VoiceboxConfig.tiny().replace(n_tokens=10000, n_feats=80, hidden_size=64,
+                                      intermediate_size=128),
+        BigVGANConfig.tiny().replace(num_mels=80), "cpu", seed=0, max_new_tokens=16)
+    CK.save_mistral_hf(str(root / "llm"), src.lm_params, src.lm_cfg, tok, save_dtype="float32")
+    save_xlsr(str(root / "xlsr"), src.xlsr_params, src.xlsr_cfg, layout="hf")
+    np.save(root / "kmeans.npy", src.xlsr_params["centroids"].numpy())
+    CK.save_voicebox_hub(str(root / "vb"), src.decoder.voicebox_params, src.decoder.voicebox_cfg)
+    CK.save_bigvgan_generator(str(root / "bv"), src.decoder.vocoder_params,
+                              src.decoder.vocoder_cfg)
+    return src, dict(llm_dir=str(root / "llm"), xlsr_dir=str(root / "xlsr"),
+                     kmeans_path=str(root / "kmeans.npy"), voicebox_dir=str(root / "vb"),
+                     bigvgan_dir=str(root / "bv"))
+
+
+@pytest.mark.cuda
+def test_from_pretrained_on_card_gives_cpu_tokens(cuda, tmp_path):
+    """from_pretrained of small exported directories on the card (f32 LM,
+    the float and the default W8A8 Voicebox) gives the CPU load's turn:
+    the same user units and stage tokens."""
+    import dataclasses
+
+    import numpy as np
+
+    from usdm_tpu_torch.audio.wav import write_wav
+    from usdm_tpu_torch.pipeline import UsdmPipeline
+
+    src, dirs = _tiny_checkpoints(tmp_path)
+    wav = str(tmp_path / "user.wav")
+    write_wav(wav, (np.random.default_rng(5).standard_normal(48000) * 0.1).astype(np.float32),
+              16000)
+    for vb_int8 in (False, True):
+        results = []
+        for dev in ("cpu", cuda):
+            pipe = UsdmPipeline.from_pretrained(**dirs, lm_dtype="float32", vb_int8=vb_int8,
+                                                device=dev)
+            pipe = dataclasses.replace(pipe, xlsr_cfg=pipe.xlsr_cfg.replace(
+                output_layer=src.xlsr_cfg.output_layer), max_new_tokens=16)
+            try:
+                results.append(dataclasses.asdict(pipe.respond(wav, n_timesteps=6, seed=2)))
+            finally:
+                pipe.close()
+        assert results[0] == results[1] and results[0]["agent_units"], vb_int8
+
+
+def test_from_pretrained_raises_without_card(tmp_path):
+    """from_pretrained's default device is the card: without one it raises
+    before reading anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from usdm_tpu_torch.pipeline import UsdmPipeline
+
+    missing = str(tmp_path / "none")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        UsdmPipeline.from_pretrained(missing, missing, missing, missing, missing)

@@ -96,12 +96,14 @@ def test_tiny_synthesis_matches_jax(pipes, rng):
 
 
 def test_port_runs_without_jax(tmp_path):
-    """With usdm_tpu made unimportable, every usdm_tpu_torch module imports,
+    """With usdm_tpu (and safetensors, tokenizers, transformers, ml_dtypes)
+    made unimportable, every usdm_tpu_torch module imports,
     chip_smoke.py and every port module it imports load, and a tiny turn
     (W8A8 LM and Voicebox) runs on the CPU; jax never enters sys.modules."""
     code = f"""
 import ast, importlib, os, pkgutil, sys
-sys.modules["usdm_tpu"] = None  # any import of usdm_tpu now fails
+for name in ("usdm_tpu", "safetensors", "tokenizers", "transformers", "ml_dtypes"):
+    sys.modules[name] = None  # any import of these now fails
 import numpy as np
 import usdm_tpu_torch
 for m in pkgutil.walk_packages(usdm_tpu_torch.__path__, "usdm_tpu_torch."):
@@ -132,7 +134,9 @@ print("OK")
 
 def test_port_sources_import_no_jax_package():
     """No .py under usdm_tpu_torch/ and not chip_smoke.py imports usdm_tpu or
-    jax, at any depth (imports inside functions included)."""
+    jax, at any depth (imports inside functions included), nor the packages
+    the card lacks and the port replaces: safetensors, tokenizers,
+    transformers, ml_dtypes."""
     files = sorted(pathlib.Path(REPO, "usdm_tpu_torch").rglob("*.py"))
     files.append(pathlib.Path(REPO, "chip_smoke.py"))
     bad = []
@@ -145,7 +149,8 @@ def test_port_sources_import_no_jax_package():
             else:
                 continue
             bad += [f"{path.name}: {n}" for n in names
-                    if n.split(".")[0] in ("usdm_tpu", "jax", "jaxlib")]
+                    if n.split(".")[0] in ("usdm_tpu", "jax", "jaxlib", "safetensors",
+                                           "tokenizers", "transformers", "ml_dtypes")]
     assert len(files) > 30 and not bad, bad
 
 

@@ -391,13 +391,68 @@ def test_cli_tiny_cpu_trains_and_resumes(tmp_path, rng):
 
 
 def test_cli_refuses_missing_cuda_and_unported_flags(tmp_path):
+    """Without a card the default device raises, with or without the flags
+    that were refused before their exporter and loader existed
+    (--export_hub, --bigvgan_dir: test_cli_exports_hub_and_vocodes_smoke)."""
     from usdm_tpu_torch.cli import train_voicebox as T
 
     base = ["--train_filelist", "x", "--output_dir", str(tmp_path)]
-    if not torch.cuda.is_available():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    for extra in ([], ["--export_hub", str(tmp_path / "hub")], ["--bigvgan_dir", str(tmp_path)]):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
-            T.main(base)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        T.main(base + ["--export_hub", str(tmp_path / "hub")])
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        T.main(base + ["--bigvgan_dir", str(tmp_path)])
+            T.main(base + extra)
+
+
+def _by_path(tree, prefix=""):
+    """{"a.0.b": leaf} of a params tree."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, list):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out = {}
+    for k, v in items:
+        out.update(_by_path(v, f"{prefix}.{k}" if prefix else str(k)))
+    return out
+
+
+def test_cli_exports_hub_and_vocodes_smoke(tmp_path, rng):
+    """--export_hub writes a HubMixin dir that load_voicebox (and
+    usdm_tpu's) reads back to the trained params; --bigvgan_dir vocodes the
+    epoch's synthesis smoke test into a finite wav through log_audio."""
+    from usdm_tpu.core import checkpoint as JCK
+    from usdm_tpu_torch.cli import train_voicebox as T
+    from usdm_tpu_torch.models import bigvgan as BV
+
+    bv_cfg = PC.BigVGANConfig.tiny().replace(num_mels=80)
+    CK.save_bigvgan_generator(str(tmp_path / "bv"), BV.init_generator(
+        bv_cfg, torch.Generator().manual_seed(0)), bv_cfg)
+    filelist = _filelist(tmp_path, rng, 4, (0.8, 1.5))
+    hub = str(tmp_path / "hub")
+    assert T.main(_cli_args(tmp_path, filelist, "--max_steps", "3", "--export_hub", hub,
+                            "--bigvgan_dir", str(tmp_path / "bv"))) == 0
+    trained = torch.load(tmp_path / "out" / "checkpoints" / "step_3" / "state.pt",
+                         weights_only=True)["params"]
+    back, cfg = CK.load_voicebox(hub, device="cpu")
+    assert cfg == PC.VoiceboxConfig.tiny().replace(n_feats=80)
+    # every leaf bit-equal but the positional convs, folded back from
+    # weight-norm's (g = ||w||, v = w): within 1e-6 of each weight
+    flat_t, flat_b = _by_path(trained), _by_path(back)
+    assert sorted(flat_t) == sorted(flat_b)
+    for k, a in flat_t.items():
+        if k.startswith("convpos_w"):
+            torch.testing.assert_close(flat_b[k], a, rtol=1e-6, atol=0)
+        else:
+            assert torch.equal(flat_b[k], a), k
+    jp, _ = JCK.load_voicebox(hub)
+    for k, a in _by_path(bridge.voicebox_from_jax(jax.device_get(jp))).items():
+        assert torch.equal(a, flat_b[k]), k
+    wavs = sorted(p for p in os.listdir(tmp_path / "out") if p.startswith("audio_smoke_audio_"))
+    assert wavs == ["audio_smoke_audio_2.wav"], wavs
+    from usdm_tpu_torch.audio.wav import load_wav
+
+    audio, sr = load_wav(str(tmp_path / "out" / wavs[0]), sr=None)
+    assert sr == 22050 and len(audio) and len(audio) % bv_cfg.total_upsample == 0
+    assert np.isfinite(audio).all()

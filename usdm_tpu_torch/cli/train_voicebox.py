@@ -17,9 +17,12 @@ the host prepares one batch while the device runs the previous step.
 Every checkpoint is named by the global step (`checkpoints/step_N`), and
 `--resume` continues the step count and the epoch from the newest one;
 `--max_steps` counts global steps.  (usdm_tpu names its per-epoch checkpoints
-by epoch and its last one by the run's own step count.)  Multi-process data
-parallelism, `--bigvgan_dir` and `--export_hub` are not ported yet (ROADMAP
-items 13 and 11).
+by epoch and its last one by the run's own step count.)  `--bigvgan_dir`
+vocodes each synthesis smoke test's mel into a wav
+(`MetricsLogger.log_audio`); `--export_hub DIR` writes the trained params
+as a HubMixin directory after training (`load_voicebox` and usdm_tpu's read
+it).  Multi-process data parallelism is not ported yet (ROADMAP Queue 1
+item 10).
 """
 
 from __future__ import annotations
@@ -53,13 +56,13 @@ def main(argv=None) -> int:
     p.add_argument("--tiny", action="store_true")
     p.add_argument("--synthesize_every", type=int, default=1,
                    help="epochs between mel synthesis smoke tests (0 = off)")
-    p.add_argument("--export_hub", default=None, help="not ported yet (ROADMAP item 11)")
-    p.add_argument("--bigvgan_dir", default=None, help="not ported yet (ROADMAP item 11)")
+    p.add_argument("--export_hub", default=None,
+                   help="after training, export the params as a HubMixin dir (read by "
+                        "load_voicebox)")
+    p.add_argument("--bigvgan_dir", default=None,
+                   help="BigVGAN checkpoint dir: vocode each smoke test's mel into a wav")
     p.add_argument("--device", default="cuda", help="torch device to train on")
     args = p.parse_args(argv)
-    if args.export_hub or args.bigvgan_dir:
-        raise NotImplementedError("--export_hub and --bigvgan_dir need the checkpoint "
-                                  "exporters and loaders, not ported yet (ROADMAP item 11)")
 
     import torch
 
@@ -67,6 +70,7 @@ def main(argv=None) -> int:
     from usdm_tpu_torch.core.config import CfmTrainConfig, MelConfig, VoiceboxConfig
     from usdm_tpu_torch.core.logging import MetricsLogger
     from usdm_tpu_torch.data.unit_mel import UnitMelCollate, UnitMelDataset
+    from usdm_tpu_torch.models import bigvgan as BV
     from usdm_tpu_torch.models import voicebox as VB
     from usdm_tpu_torch.train import cfm as C
 
@@ -102,6 +106,7 @@ def main(argv=None) -> int:
     step_fn = C.make_train_step(cfg, tc, opt)
     eval_fn = C.make_eval_step(cfg)
     logger = MetricsLogger(args.output_dir, use_tensorboard=False)
+    vocoder = ckpt.load_bigvgan(args.bigvgan_dir, device=device) if args.bigvgan_dir else None
 
     def to_device(batch):
         out = {}
@@ -157,12 +162,22 @@ def main(argv=None) -> int:
                                   solver="euler", gradient_scale=1.0,
                                   generator=torch.Generator(device=device).manual_seed(epoch))
             logger.log(gstep, {"synth_mel_mean": float(out.mean())}, prefix="smoke")
+            if vocoder is not None:
+                bv_params, bv_cfg = vocoder
+                with torch.no_grad():
+                    wav = BV.generator(bv_params, bv_cfg, out * mel_cfg.mel_std + mel_cfg.mel_mean)
+                logger.log_audio(gstep, "smoke/audio", wav[0, 0].float().cpu().numpy(),
+                                 mel_cfg.sampling_rate)
         if (epoch + 1) % args.save_every == 0:
             flush()
             ckpt.save_train_state(ckpt_dir, state, state.step)
     flush()
     if ckpt.latest_step(ckpt_dir) != state.step:
         ckpt.save_train_state(ckpt_dir, state, state.step)
+    if args.export_hub:
+        # the reference's training saves a HubMixin dir (decoder/scripts/train.py:305-318)
+        ckpt.save_voicebox_hub(args.export_hub, state.params, cfg)
+        print(f"exported HubMixin dir: {args.export_hub}")
     logger.close()
     print("done")
     return 0

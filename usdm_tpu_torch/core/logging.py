@@ -1,6 +1,6 @@
-"""Metrics logging: a JSONL stream, and TensorBoard through torch's
-SummaryWriter when it is installed and asked for (usdm_tpu's MetricsLogger
-without its audio logging, which nothing in the port calls)."""
+"""Metrics logging: a JSONL stream, TensorBoard through torch's
+SummaryWriter when it is installed and asked for, and audio smoke tests
+(usdm_tpu's MetricsLogger)."""
 
 from __future__ import annotations
 
@@ -37,6 +37,21 @@ class MetricsLogger:
             for k, v in rec.items():
                 if k not in ("step", "time"):
                     self._tb.add_scalar(k, v, step)
+
+    def log_audio(self, step: int, tag: str, wav, sample_rate: int) -> None:
+        """An audible smoke test: to TensorBoard when it is on, else a wav
+        file `audio_<tag>_<step>.wav` in the output directory."""
+        import numpy as np
+
+        if self._tb is not None:
+            import torch
+
+            self._tb.add_audio(tag, torch.from_numpy(np.asarray(wav))[None], step, sample_rate)
+        else:
+            from usdm_tpu_torch.audio.wav import write_wav
+
+            path = os.path.join(self.out_dir, f"audio_{tag.replace('/', '_')}_{step}.wav")
+            write_wav(path, np.asarray(wav), sample_rate)
 
     def close(self) -> None:
         self._jsonl.close()

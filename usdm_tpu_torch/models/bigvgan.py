@@ -108,3 +108,47 @@ def generator(params: Params, cfg: BigVGANConfig, mel: torch.Tensor) -> torch.Te
     x = activation1d(x, params["act_post"], cfg)
     x = F.conv1d(x, params["conv_post_w"], params["conv_post_b"], padding=3)
     return torch.tanh(x)
+
+
+def convert_reference_state_dict(state: Dict[str, torch.Tensor], cfg: BigVGANConfig,
+                                 device="cpu") -> Params:
+    """The nvidia/bigvgan `generator` state dict (host tensors, popped as
+    they are converted) -> the port's params on `device`, f32.  Every conv's
+    torch weight norm (dim 0) is folded over its other dims in the stored
+    dtype, as usdm_tpu folds it; Conv1d stays [Cout, Cin, K] and
+    ConvTranspose1d [Cin, Cout, K] (usdm_tpu flips the latter's kernel for
+    its dilated-conv form; the port runs conv_transpose1d and needs no
+    flip).  The anti-aliasing filters in the dict are fixed by the
+    architecture and not read."""
+    from usdm_tpu_torch.core.convert import fold_weight_norm, take
+
+    def conv(prefix):
+        w = fold_weight_norm(state, prefix, (1, 2)).to(device, torch.float32)
+        return {"w": w, "b": take(state, prefix + ".bias", device)}
+
+    def act(prefix):
+        a = {"alpha": take(state, prefix + ".act.alpha", device)}
+        if cfg.activation == "snakebeta":
+            a["beta"] = take(state, prefix + ".act.beta", device)
+        return a
+
+    pre = conv("conv_pre")
+    params: Params = {"conv_pre_w": pre["w"], "conv_pre_b": pre["b"], "ups": [],
+                      "resblocks": []}
+    nk = len(cfg.resblock_kernel_sizes)
+    for i in range(len(cfg.upsample_rates)):
+        params["ups"].append(conv(f"ups.{i}.0"))
+        for j in range(nk):
+            r = i * nk + j
+            n = len(cfg.resblock_dilation_sizes[j])
+            params["resblocks"].append({
+                "convs1": [conv(f"resblocks.{r}.convs1.{ci}") for ci in range(n)],
+                "convs2": ([conv(f"resblocks.{r}.convs2.{ci}") for ci in range(n)]
+                           if cfg.resblock == "1" else []),
+                "acts": [act(f"resblocks.{r}.activations.{ai}")
+                         for ai in range(2 * n if cfg.resblock == "1" else n)],
+            })
+    params["act_post"] = act("activation_post")
+    post = conv("conv_post")
+    params["conv_post_w"], params["conv_post_b"] = post["w"], post["b"]
+    return params

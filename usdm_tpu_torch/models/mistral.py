@@ -265,3 +265,35 @@ def prefill_extend(params: Params, cfg: MistralConfig, cache: KVCache, new_ids: 
                    sliding_window=cfg.sliding_window, impl=attn_impl)
         x = _finish_layer(cfg, x, attn, lp)
     return _last_logits(params, cfg, x, new_len), KVCache(cache.k, cache.v, off + new_len)
+
+
+def convert_hf_state_dict(state: Dict[str, torch.Tensor], cfg: MistralConfig, dtype=None,
+                          device="cpu", int8: bool = False) -> Params:
+    """A HF MistralForCausalLM state dict (host tensors) -> the port's
+    params on `device` in `dtype` (default cfg.dtype): nn.Linear's [out, in]
+    becomes [in, out], lm_head stays [V, D].  Each tensor is popped from
+    `state` as it is converted, and with `int8` each layer's projections are
+    quantized to W8A8 as the layer arrives, so the float and int8 copies of
+    the model never coexist (usdm_tpu quantizes after the load)."""
+    from usdm_tpu_torch.core.convert import take
+    from usdm_tpu_torch.models.quant import quantize_weight
+
+    dt = torch_dtype(dtype or cfg.dtype)
+
+    def proj(name):  # [out, in] -> [in, out], or its W8A8 leaf
+        w = take(state, name, device, dt).t()
+        return quantize_weight(w) if int8 else w.contiguous()
+
+    names = {"wq": "self_attn.q_proj", "wk": "self_attn.k_proj", "wv": "self_attn.v_proj",
+             "wo": "self_attn.o_proj", "w_gate": "mlp.gate_proj", "w_up": "mlp.up_proj",
+             "w_down": "mlp.down_proj"}
+    layers = []
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}."
+        lp = {"ln1": take(state, p + "input_layernorm.weight", device, dt),
+              "ln2": take(state, p + "post_attention_layernorm.weight", device, dt)}
+        lp.update({k: proj(p + v + ".weight") for k, v in names.items()})
+        layers.append(lp)
+    return {"embed": take(state, "model.embed_tokens.weight", device, dt), "layers": layers,
+            "final_norm": take(state, "model.norm.weight", device, dt),
+            "lm_head": take(state, "lm_head.weight", device, dt)}

@@ -332,3 +332,52 @@ def generate(params: Params, cfg: VoiceboxConfig, x_units: torch.Tensor, cond: t
         else:  # Euler, and Heun's final step, which skips the corrector
             z = z_hat
     return z
+
+
+def convert_reference_state_dict(state: Dict[str, torch.Tensor], cfg: VoiceboxConfig,
+                                 device="cpu") -> Params:
+    """The reference Voicebox state dict (HubMixin `estimator.*` keys; host
+    tensors, popped as they are converted) -> the port's params on `device`,
+    f32: nn.Linear [out, in] -> [in, out], the 1x1 convs proj_in/proj_out
+    [out, in, 1] -> dense [in, out], the positional convs kept as
+    [out, in/g, w] with torch's weight norm (dim 2) folded over dims (0, 1)
+    in the stored dtype, as usdm_tpu folds it."""
+    from usdm_tpu_torch.core.convert import fold_weight_norm, take, take_linear
+
+    pre = "estimator."
+
+    def f32(name):
+        return take(state, pre + name, device)
+
+    def lin(name):
+        return take_linear(state, pre + name + ".weight", device)
+
+    def conv1x1(name):
+        return take(state, pre + name + ".weight", device)[:, :, 0].t().contiguous()
+
+    out = {"embed": f32("embed.weight"),
+           "proj_in_w": conv1x1("proj_in"), "proj_in_b": f32("proj_in.bias"),
+           "proj_out_w": conv1x1("proj_out"), "proj_out_b": f32("proj_out.bias"),
+           "convpos_w": [fold_weight_norm(state, pre + f"pos_conv_embeds.{i}.conv", (0, 1))
+                         .to(device, torch.float32) for i in range(cfg.convpos_depth)],
+           "convpos_b": [f32(f"pos_conv_embeds.{i}.conv.bias")
+                         for i in range(cfg.convpos_depth)],
+           "ln0_w": f32("layer_norm.weight"), "ln0_b": f32("layer_norm.bias")}
+    layers = []
+    for i in range(cfg.num_layers):
+        p = f"layers.{i}."
+        lp = {}
+        for w, b, n in (("wq", "bq", "attention.q_proj"), ("wk", "bk", "attention.k_proj"),
+                        ("wv", "bv", "attention.v_proj"), ("wo", "bo", "attention.out_proj"),
+                        ("ffn_w1", "ffn_b1", "feed_forward.intermediate_dense"),
+                        ("ffn_w2", "ffn_b2", "feed_forward.output_dense")):
+            lp[w], lp[b] = lin(p + n), f32(p + n + ".bias")
+        lp.update(ln1_w=f32(p + "layer_norm.weight"), ln1_b=f32(p + "layer_norm.bias"),
+                  ln2_w=f32(p + "final_layer_norm.weight"),
+                  ln2_b=f32(p + "final_layer_norm.bias"))
+        layers.append(lp)
+    out["layers"] = layers
+    nh = cfg.num_layers // 2
+    out["skip_w"] = [lin(f"skip_connections_layers.{i}") for i in range(nh)]
+    out["skip_b"] = [f32(f"skip_connections_layers.{i}.bias") for i in range(nh)]
+    return out

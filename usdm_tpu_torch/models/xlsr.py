@@ -168,3 +168,98 @@ def extract_units_bucketed(params: Params, cfg: XlsrConfig, wav, bucket_s: float
     units, ulen = extract_units(params, cfg, torch.from_numpy(padded[None]).to(device),
                                 torch.tensor([n], device=device))
     return units[0, : max(int(ulen[0]), 0)].tolist()
+
+
+def load_kmeans(params: Params, npy_path: str) -> Params:
+    """Attach the k-means centroids of a .npy ([K, D]) on the params'
+    device, as f32."""
+    out = dict(params)
+    out["centroids"] = torch.from_numpy(np.load(npy_path).astype(np.float32)).to(
+        params["proj_w"].device)
+    return out
+
+
+# key names of the two checkpoint layouts: HF Wav2Vec2Model (XLS-R,
+# do_stable_layer_norm) and fairseq2's (seamless_communication's
+# xlsr2_1b_v2, the reference's tokenizer weights); a tuple lists the names
+# tried in turn
+_HF = {
+    "conv": "feature_extractor.conv_layers.{}", "feat_ln": ("feature_projection.layer_norm",),
+    "proj": "feature_projection.projection", "pos_conv": "encoder.pos_conv_embed.conv",
+    "layer": "encoder.layers.{}", "ln1": "layer_norm", "attn": "attention",
+    "out": "attention.out_proj", "ln2": "final_layer_norm",
+    "ffn1": "feed_forward.intermediate_dense", "ffn2": "feed_forward.output_dense",
+}
+_FAIRSEQ2 = {
+    "conv": "encoder_frontend.feature_extractor.layers.{}",
+    "feat_ln": ("encoder_frontend.post_extract_layer_norm", "encoder_frontend.layer_norm"),
+    "proj": "encoder_frontend.model_dim_proj", "pos_conv": "encoder_frontend.pos_encoder.conv",
+    "layer": "encoder.layers.{}", "ln1": "self_attn_layer_norm", "attn": "self_attn",
+    "out": "self_attn.output_proj", "ln2": "ffn_layer_norm", "ffn1": "ffn.inner_proj",
+    "ffn2": "ffn.output_proj",
+}
+
+
+def _convert(state: Dict[str, torch.Tensor], cfg: XlsrConfig, names: dict, device) -> Params:
+    from usdm_tpu_torch.core.convert import fold_weight_norm, take, take_linear
+
+    def pick(*keys):
+        for k in keys:
+            if k in state:
+                return k
+        raise KeyError(f"xlsr: none of {keys} found; checkpoint keys look like "
+                       + ", ".join(sorted(state)[:8]) + " ...")
+
+    def f32(key):
+        return take(state, pick(key), device)
+
+    convs = []
+    for i in range(len(cfg.conv_kernels)):
+        p = names["conv"].format(i)
+        convs.append({"w": f32(p + ".conv.weight"), "b": f32(p + ".conv.bias"),
+                      "ln_w": f32(p + ".layer_norm.weight"), "ln_b": f32(p + ".layer_norm.bias")})
+    feat_ln = pick(*(n + ".weight" for n in names["feat_ln"]))[: -len(".weight")]
+    pc = names["pos_conv"]
+    pick(pc + ".weight", pc + ".weight_g", pc + ".parametrizations.weight.original0")
+    out = {
+        "convs": convs,
+        "feat_ln_w": f32(feat_ln + ".weight"), "feat_ln_b": f32(feat_ln + ".bias"),
+        "proj_w": take_linear(state, pick(names["proj"] + ".weight"), device),
+        "proj_b": f32(names["proj"] + ".bias"),
+        # weight norm over dims (0, 1), folded in f32
+        "pos_conv_w": fold_weight_norm(state, pc, (0, 1), cast_f32=True).to(device,
+                                                                             torch.float32),
+        "pos_conv_b": f32(pc + ".bias"),
+    }
+    layers = []
+    for i in range(cfg.num_layers):
+        p = names["layer"].format(i) + "."
+        lp = {"ln1_w": f32(p + names["ln1"] + ".weight"), "ln1_b": f32(p + names["ln1"] + ".bias")}
+        for w, b, n in (("wq", "bq", names["attn"] + ".q_proj"),
+                        ("wk", "bk", names["attn"] + ".k_proj"),
+                        ("wv", "bv", names["attn"] + ".v_proj"), ("wo", "bo", names["out"]),
+                        ("ffn_w1", "ffn_b1", names["ffn1"]), ("ffn_w2", "ffn_b2", names["ffn2"])):
+            lp[w] = take_linear(state, pick(p + n + ".weight"), device)
+            lp[b] = f32(p + n + ".bias")
+        lp.update(ln2_w=f32(p + names["ln2"] + ".weight"), ln2_b=f32(p + names["ln2"] + ".bias"))
+        layers.append(lp)
+    out["layers"] = layers
+    out["centroids"] = torch.zeros(cfg.num_clusters, cfg.hidden_size, device=device)
+    return out
+
+
+def convert_hf_state_dict(state: Dict[str, torch.Tensor], cfg: XlsrConfig,
+                          device="cpu") -> Params:
+    """A HF Wav2Vec2Model state dict (XLS-R layout; host tensors, popped as
+    they are converted) -> the port's params on `device`, f32; the
+    centroids are zeros until load_kmeans."""
+    return _convert(state, cfg, _HF, device)
+
+
+def convert_fairseq2_state_dict(state: Dict[str, torch.Tensor], cfg: XlsrConfig,
+                                device="cpu") -> Params:
+    """A fairseq2 Wav2Vec2Model state dict (`encoder_frontend.*`,
+    `self_attn.output_proj`, `ffn.inner_proj`/`output_proj`) -> the port's
+    params, as convert_hf_state_dict; pretraining-only tensors (masker,
+    quantizer, final_proj) are ignored."""
+    return _convert(state, cfg, _FAIRSEQ2, device)

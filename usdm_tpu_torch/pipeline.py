@@ -7,10 +7,11 @@ extraction, the 3-stage unit->text->text->unit chain on the paged engine
 synthesis with an optional speaker reference prompt, and BigVGAN vocoding,
 all on `device` (`cuda` unless the caller asks for the CPU); greedy
 speculative decoding through `make_server(draft=)` and
-`enable_speculation`.  `lm_int8` / `vb_int8` quantize the LLM projections
-and the Voicebox estimator's matmuls to W8A8 after init, as usdm_tpu's
-`from_pretrained` does after load (models/quant.py).
-`from_pretrained` (checkpoint converters) and tensor-parallel serving are
+`enable_speculation`.  `from_pretrained` assembles the stack from the
+reference's local checkpoint directories (core/checkpoint.py);
+`random_init`, `tiny_random` and `full_random` draw random weights.
+`lm_int8` / `vb_int8` quantize the LLM projections and the Voicebox
+estimator's matmuls to W8A8 (models/quant.py).  Tensor-parallel serving is
 not ported yet.
 """
 
@@ -24,6 +25,8 @@ import numpy as np
 import torch
 
 from usdm_tpu_torch.audio.wav import load_wav, write_wav
+from usdm_tpu_torch.core import checkpoint as ckpt
+from usdm_tpu_torch.core.checkpoint import check_device as _check_device
 from usdm_tpu_torch.core.config import (
     BigVGANConfig,
     EngineConfig,
@@ -46,13 +49,6 @@ from usdm_tpu_torch.models.quant import (
 )
 
 
-def _check_device(device) -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device} requested but CUDA is not available")
-    return device
-
-
 @dataclasses.dataclass
 class UsdmPipeline:
     tokenizer: UsdmTokenizer
@@ -73,6 +69,32 @@ class UsdmPipeline:
 
     def __post_init__(self):
         self.device = _check_device(self.device)
+
+    @classmethod
+    def from_pretrained(cls, llm_dir: str, xlsr_dir: str, kmeans_path: str, voicebox_dir: str,
+                        bigvgan_dir: str, tokenizer_dir: Optional[str] = None,
+                        lm_dtype: str = "bfloat16", lm_int8: bool = False, vb_int8: bool = True,
+                        device="cuda") -> "UsdmPipeline":
+        """The full stack from local checkpoint directories, on `device`:
+        the HF LM (`llm_dir`, with its tokenizer unless `tokenizer_dir`),
+        XLS-R (an HF dir or fairseq2's .pt) with the k-means .npy, the
+        HubMixin Voicebox and BigVGAN.  usdm_tpu's arguments and defaults:
+        `lm_int8=True` quantizes the LLM projections to W8A8 as each layer
+        loads; `vb_int8=True` (the default) quantizes the Voicebox
+        estimator's projections, FFN and skips to W8A8, which usdm_tpu's
+        drift gate holds within nRMS 1e-2 of the float estimator
+        (scripts/bench_vb_int8.py)."""
+        device = _check_device(device)
+        lm_params, lm_cfg = ckpt.load_mistral(llm_dir, dtype=lm_dtype, device=device,
+                                              int8=lm_int8)
+        xlsr_params, xlsr_cfg = ckpt.load_xlsr(xlsr_dir, kmeans_path, device=device)
+        vb_params, vb_cfg = ckpt.load_voicebox(voicebox_dir, device=device)
+        if vb_int8:
+            quantize_voicebox_params(vb_params)
+        bv_params, bv_cfg = ckpt.load_bigvgan(bigvgan_dir, device=device)
+        tokenizer = UsdmTokenizer.load(tokenizer_dir or llm_dir)
+        decoder = SpeechDecoder(vb_params, vb_cfg, bv_params, bv_cfg)
+        return cls(tokenizer, lm_params, lm_cfg, xlsr_params, xlsr_cfg, decoder, device)
 
     @classmethod
     def random_init(cls, tok: UsdmTokenizer, lm_cfg: MistralConfig, xl_cfg: XlsrConfig,
@@ -110,8 +132,8 @@ class UsdmPipeline:
         """The full-width stack with random weights made on `device`:
         Mistral-7B (bf16, 42,003-id vocab), XLS-R 1B, Voicebox, BigVGAN
         22 kHz/80 band (f32); `lm_int8` / `vb_int8` as in random_init (the
-        names and meaning of usdm_tpu's from_pretrained flags).  Real
-        checkpoints load through converters that are not ported yet."""
+        names and meaning of usdm_tpu's from_pretrained flags; from_pretrained
+        loads real checkpoints)."""
         tok = UsdmTokenizer.build_synthetic_full()
         lm_cfg = MistralConfig()
         if tok.vocab_size != lm_cfg.vocab_size:
