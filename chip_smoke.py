@@ -43,7 +43,15 @@ Phases:
      (respond(use_paged=False), budgets 48/32/256): every decode step one
      graph replay, K2's bf16 route in prefill, K1 never, tokens equal to the
      paged turn's or each divergence a tie-flip; then the same dialog with
-     eager steps must give the same tokens;
+     eager steps must give the same tokens; (i) serve: cli.serve's handler
+     over this pipeline and its one-slot dialog server on a local port
+     takes three concurrent POSTs of the turn's wav (seed 1, 50 ODE steps,
+     budgets 48/32/256): plain JSON, ?stream=1 and multipart with a 3 s
+     speaker reference, then /health and /stats; every request's stage
+     tokens and
+     the plain POST's texts, unit count and wav bytes equal the graphed
+     turn's, the SSE result equals the plain JSON, every decode link is one
+     graph replay, K1-K3 launch;
   5. int8 serving: a small W8A8 turn on the card against the CPU plain path
      (identical tokens); then (A) a full-width W8A8 turn,
      UsdmPipeline.full_random(lm_int8=True, vb_int8=True).respond(), budgets
@@ -120,6 +128,31 @@ Phases:
      load, the loaded turns' wall and RTF) beside the card's name and power
      limit.
 
+ 11. LM training (runs last, on an emptied card): (a) K2 and K5 bf16 at the
+     7B training shape (B 1, T 8192, GQA 32/8, d 128, causal, window 4096,
+     segments 5000 + 2000 + 1192, so the window masks keys inside the first)
+     against their plain versions, with eager and CUDA-graph times, bounds,
+     and scaled_dot_product_attention's forward and backward with the same
+     boolean mask; (b) python -m usdm_tpu_torch.cli.train_pt --offload at
+     full width (MistralConfig(), 32 layers, random init, batch 1 of
+     8,192-token rows of those segments, 3 steps, all profiled, exported as
+     an HF dir): per step the wall, loss, grad norm and peak device memory,
+     device busy over the steps, peak device memory within memory_budget's
+     device_gb and the host memory added within its host_gb + 3 GiB, K2 64
+     and K5 32 + 32 launches a step (forward, remat recompute, backward),
+     layer 0's weights moved; (c) the offload step equals the resident step
+     bit for bit at full width and depth 2 over 3 steps; (d) cli.train_sft
+     --lora at full width and depth from (b)'s export, 3 steps of batch 2 of
+     ~1,536-token rows with the user half masked: the CLI's base after
+     training is (b)'s export bit for bit, the adapters moved, and
+     merge_lora's logits on one row (f32 compute) equal base + adapters
+     within 2^-10 of the adapters' effect (the merged export is not written:
+     the run keeps its disk writes within 45 GiB, and phases 6, 10 and (b)
+     write ~39 GB);
+     (e) cli.train_sft every parameter, resident, --tiny (for the same
+     reason): a run resumed from step 2 of 4 equals the uninterrupted run's
+     step 4 bit for bit.
+
 Each kernel's bound_ms is the least time the card could take for the work
 of its timed case: the larger of its bytes (inputs read once, outputs
 written once) over 3.35 TB/s and its operations over the H100's peak for
@@ -138,6 +171,7 @@ import argparse
 import hashlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1634,6 +1668,128 @@ def _eager_link_turn(pipe, wav_in: str, want: dict, label: str) -> dict:
     return info
 
 
+def serve_run(pipe, tmp: str, wav_in: str, want: dict, want_wav: str) -> dict:
+    """Phase 4 (i): cli.serve's handler over phase 4's full-width pipeline
+    and its dialog server (one slot: the engine the turn ran on; a wider
+    batch changes the GEMMs' shapes and so the greedy tokens' ties), on a
+    local port: three concurrent POSTs of phase 4's wav with seed 1 and 50
+    ODE steps (plain JSON, ?stream=1, and multipart with a 3 s speaker
+    reference), which queue for the slot, the stage budgets pinned at
+    48/32/256 as in phase 4's turns; then /health and /stats.  Every
+    request's stage tokens, the plain POST's texts, unit count and wav bytes
+    equal phase 4's graphed turn (`want`, written to `want_wav`), the SSE
+    result equals the plain JSON, every decode link is one graph replay
+    launching K1 once a layer, and K2 (both routes) and K3 (109 a synthesis)
+    launched.  -> wall time, the requests' verdicts, the path's launches."""
+    import base64
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    import torch
+
+    from usdm_tpu_torch.audio.wav import write_wav
+    from usdm_tpu_torch.cli import serve
+    from usdm_tpu_torch.engine import server as S
+
+    ref = os.path.join(tmp, "serve_ref.wav")  # 3 s of 16 kHz noise, another draw
+    write_wav(ref, (np.random.default_rng(5).standard_normal(48000) * 0.1).astype(np.float32),
+              16000)
+    wav_bytes = open(wav_in, "rb").read()
+    engine = pipe._dialog_server()  # phase 4's engine: one slot, as the turn ran
+    recorded, lock = {}, threading.Lock()
+    real_stage = S.PagedDialogPolicy._run_stage
+
+    def budgeted(self, stage, prompt):
+        self.max_new_tokens = BUDGETS[stage]
+        out = real_stage(self, stage, prompt)
+        with lock:
+            recorded.setdefault(id(self), {})[stage] = list(out)
+        return out
+
+    S.PagedDialogPolicy._run_stage = budgeted
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(pipe, engine, 50))
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    boundary = "usdmservephase"
+    multipart = b"".join(
+        (f"--{boundary}\r\nContent-Disposition: form-data; name=\"{n}\"; filename=\"{n}.wav\""
+         f"\r\nContent-Type: audio/wav\r\n\r\n").encode() + data + b"\r\n"
+        for n, data in (("wav", wav_bytes), ("reference", open(ref, "rb").read()))
+    ) + f"--{boundary}--\r\n".encode()
+    posts = {"plain": ("?seed=1", wav_bytes, {}),
+             "stream": ("?seed=1&stream=1", wav_bytes, {}),
+             "reference": ("?seed=1", multipart,
+                           {"Content-Type": f"multipart/form-data; boundary={boundary}"})}
+    replies, errors = {}, {}
+
+    def post(name):
+        qs, data, headers = posts[name]
+        req = urllib.request.Request(url + "/respond" + qs, data=data, method="POST",
+                                     headers=headers)
+        try:
+            with urllib.request.urlopen(req, timeout=600) as r:
+                replies[name] = r.read()
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors[name] = repr(e)
+
+    try:
+        before = engine.engine.stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=post, args=(n,)) for n in posts]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(900)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        mma = mma_counts()["flash_attention"]
+        links = _link_checks(engine.engine, before, counts, "serve", False, turn=False)
+        with urllib.request.urlopen(url + "/health", timeout=30) as r:
+            health = r.read()
+        with urllib.request.urlopen(url + "/stats", timeout=30) as r:
+            stats = json.loads(r.read())
+    finally:
+        S.PagedDialogPolicy._run_stage = real_stage
+        httpd.shutdown()
+        httpd.server_close()
+    if errors or any(th.is_alive() for th in threads):
+        raise AssertionError(f"phase 4 (i): requests failed or hung: {errors}")
+    plain = json.loads(replies["plain"])
+    events = []
+    for block in replies["stream"].decode().split("\n\n"):
+        lines = dict(x.split(": ", 1) for x in block.splitlines() if ": " in x)
+        if "event" in lines:
+            events.append((lines["event"], json.loads(lines["data"])))
+    with_ref = json.loads(replies["reference"])
+    tokens_equal = [toks == want["stage_tokens"] for toks in recorded.values()]
+    audio = base64.b64decode(plain["audio_b64"])
+    verdicts = {
+        "requests_recorded": len(recorded), "stage_tokens_equal": tokens_equal,
+        "plain_text_units_equal": (plain["user_text"], plain["agent_text"], plain["n_units"])
+        == (want["user_text"], want["agent_text"], len(want["agent_units"])),
+        "plain_wav_equal": audio == open(want_wav, "rb").read(),
+        "sse_result_equals_plain": bool(events) and events[-1] == ("result", plain),
+        "sse_stage_events": sum(k == "stage" for k, _ in events),
+        "reference_agent_text_equal": with_ref["agent_text"] == want["agent_text"],
+        "reference_wav_bytes": len(base64.b64decode(with_ref["audio_b64"])),
+    }
+    info = {"wall_s": wall, "verdicts": verdicts, "engine": links, "health": health.decode(),
+            "stats_total_finished": stats["total_finished"], "launches": counts,
+            "flash_attention_mma_launches": mma}
+    log("phase 4 (i) serve: " + json.dumps(info))
+    if not (len(recorded) == 3 and all(tokens_equal) and verdicts["plain_text_units_equal"]
+            and verdicts["plain_wav_equal"] and verdicts["sse_result_equals_plain"]
+            and verdicts["reference_agent_text_equal"] and health == b"ok"):
+        raise AssertionError(f"phase 4 (i): the served turns differ from phase 4's: {verdicts}")
+    if not (counts["paged_decode_attention"] and mma and counts["flash_attention_f32"]
+            and counts["fused_activation1d"] == 3 * K3_PER_TURN):
+        raise AssertionError(f"phase 4 (i): a kernel of the serve path did not launch: {counts}")
+    return info
+
+
 def _dense_policy(pipe, seed: int, stages: dict, eager: bool = False):
     """respond(use_paged=False)'s policy over the pipeline's dense loops,
     the stage budgets pinned at 48/32/256 tokens; it records per stage the
@@ -2007,6 +2163,9 @@ def slice_run(dev, profile: bool, tmp: str, out_dir: str, smi: str) -> dict:
             graphed_audio = audio
         eager = _eager_link_turn(pipe, wav_in, graphed, "bf16 turn")
         t0 = time.perf_counter()
+        served = serve_run(pipe, tmp, wav_in, graphed, wav_out)
+        log(f"phase time: serve (i) {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
         spec = spec_turn(pipe, wav_in, graphed, "bf16 turn", False)
         log(f"phase time: speculation, bf16 turn {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
@@ -2022,8 +2181,8 @@ def slice_run(dev, profile: bool, tmp: str, out_dir: str, smi: str) -> dict:
         pipe.close()
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
-    return {"turns": turns, "eager": eager, "spec": spec, "ref": ref, "dense": dense,
-            "load": load}
+    return {"turns": turns, "eager": eager, "serve": served, "spec": spec, "ref": ref,
+            "dense": dense, "load": load}
 
 
 
@@ -3471,6 +3630,483 @@ def load_run(dev, pipe, wav_in: str, want: dict, want_audio, tmp: str, smi: str)
     return {"turns": out, "cold_start": cold, "bench_vb_int8": bench}
 
 
+# --------------------------------------------------------------- phase 11
+LM_SEGMENTS = (5000, 2000, 1192)  # one packed 8,192-token row; the first segment is longer
+# than the 4,096-token window, so the window masks keys inside it
+LM_T = sum(LM_SEGMENTS)
+LM_WRITE_BYTES = 15e9  # (b)'s bf16 export of the 7B, 14.6 GB; (d) and (e) write ~0.1 GB
+TRAIN_LR = 1e-3  # large enough that one AdamW step moves a weight by more than its bf16 ulp
+# host memory (b) may add beyond the budget's moments: the profiler's event
+# buffers of its traced step, the export's host copy of one tensor at a
+# time, the page tables that pin the 54.6 GiB registered buffer
+LM_HOST_SLACK_GB = 3.0
+
+
+def _lm_rows(n: int, vocab: int, seed: int) -> list:
+    """`n` packed rows of LM_SEGMENTS, each segment BOS (1)-led, random ids."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        row = rng.integers(3, vocab, LM_T)
+        row[np.cumsum((0,) + LM_SEGMENTS[:-1])] = 1
+        out.append(row.tolist())
+    return out
+
+
+def _lm_seg_pos(dev):
+    """The segment ids and positions pack_collate gives one LM_SEGMENTS row."""
+    import torch
+
+    from usdm_tpu_torch.data.collators import pack_collate
+
+    b = pack_collate(_lm_rows(1, 100, 0), pad_id=99)
+    return (torch.from_numpy(b["segment_ids"]).to(dev),
+            torch.from_numpy(b["positions"]).to(dev))
+
+
+def row_ratio(got, want, rows: slice) -> float:
+    """The largest err / bound over `rows` (dim 1 of [B, T, H, d]), each row
+    held to its own bf16_bound: 2^-7 * max|want[row]| + 1e-4."""
+    g, w = got[:, rows].float(), want[:, rows].float()
+    err = (g - w).abs().amax(dim=(0, 2, 3))
+    return float((err / (2.0**-7 * w.abs().amax(dim=(0, 2, 3)) + 1e-4)).max())
+
+
+def window_rows_check(name: str, got, want, rows: slice, nowin) -> dict:
+    """The rows where the window masks keys of their own segment, each held
+    to its own bound (the whole tensor's bound comes from its largest rows,
+    the early ones, and lets a kernel that ignores the window pass there).
+    Negative control: `nowin`, the same kernel run without the window, must
+    fail the same check."""
+    import torch
+
+    ratio, control = row_ratio(got, want, rows), row_ratio(nowin, want, rows)
+    ok = bool(torch.isfinite(got.float()).all()) and ratio <= 1.0 < control
+    log(f"  {name} [rows {rows.start}-{rows.stop - 1}, each to its own bound] err/bound "
+        f"{ratio:.3f}; without the window {control:.3f} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: the window rows' err/bound {ratio} (must be <= 1), "
+                             f"the negative control's {control} (must be > 1)")
+    return {"err_over_bound": ratio, "nowindow_err_over_bound": control}
+
+
+def lm_kernel_checks(dev) -> dict:
+    """Phase 11 (a): K2 and K5 at the 7B training shape (bf16, B 1, T 8192,
+    GQA 32/8, d 128, causal, window 4096, segments 5000 + 2000 + 1192)
+    against their plain versions with round_operands=True (bound 2^-7 *
+    max|want| + 1e-4 per output; the log-sum-exp 1e-4; the rows where the
+    window bites, each to its own bound, against the same kernels run
+    without the window as a negative control), then eager and
+    CUDA-graph times, each bound, the plain versions' times and
+    scaled_dot_product_attention's with the same boolean mask (K/V repeated
+    to 32 heads outside the timed call), forward and backward."""
+    import torch
+
+    from usdm_tpu_torch.ops import flash_attention as FL
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    h, hkv, d, window = 32, 8, 128, 4096
+    seg, pos = _lm_seg_pos(dev)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    q, do = randn(1, LM_T, h, d), randn(1, LM_T, h, d)
+    k, v = randn(1, LM_T, hkv, d), randn(1, LM_T, hkv, d)
+    mask = attn_mask(seg, seg, pos, pos, True, window)
+    by_window = int((attn_mask(seg, seg, pos, pos, True, None) & ~mask).sum())
+    if not by_window:
+        raise AssertionError("phase 11 (a): the window masks no key")
+    case = "LM bf16 B=1 T=8192 GQA 32/8 d=128 causal window 4096 segments 5000+2000+1192"
+    log(f"phase 11 (a) K2 / K5 at the 7B training shape: {case}; the window masks {by_window} "
+        f"(query, key) pairs of the causal segments")
+    # segment 0 holds positions 0-4999: queries 4097-4999 lose keys 0 to
+    # (pos - 4097) to the window (attn_mask keeps pos_q - pos_k <= window)
+    win_q, win_k = slice(window + 1, LM_SEGMENTS[0]), slice(0, LM_SEGMENTS[0] - window - 1)
+    o, lse = FL.flash_attention(q, k, v, seg, seg, pos, pos, True, window, return_lse=True)
+    o_nw, lse_nw = FL.flash_attention(q, k, v, seg, seg, pos, pos, True, None, return_lse=True)
+    want_o, want_lse = FL.flash_attention_reference(q, k, v, seg, seg, pos, pos, True, window,
+                                                    None, False, True)
+    errs = {"fwd": check("K2", f"{case} o", o, want_o, bf16_bound(want_o))}
+    check("K2 lse", case, lse, want_lse, 1e-4)
+    rows = {"K2 o": window_rows_check("K2 o", o, want_o, win_q, o_nw)}
+    del want_o, want_lse
+    ref_args = (q, k, v, o, lse, do, seg, seg, pos, pos, True, window, None, False)
+    want = FL.flash_attention_bwd_reference(*ref_args, True)
+    got = FL.flash_attention_bwd(*ref_args)
+    nowin = FL.flash_attention_bwd(q, k, v, o_nw, lse_nw, do, seg, seg, pos, pos, True, None,
+                                   None, False)
+    out = [check("K5", f"{case} {n}", g, w, bf16_bound(w))
+           for n, g, w in zip(("dq", "dk (summed over the GQA group)", "dv"), got, want)]
+    errs["dq"], errs["dkv"] = out[0], max(out[1:])
+    for n, g, w, c, r in zip(("K5 dq", "K5 dk", "K5 dv"), got, want, nowin,
+                             (win_q, win_k, win_k)):
+        rows[n] = window_rows_check(n, g, w, r, c)
+    del want, got, nowin, o_nw, lse_nw
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse, delta, seg, seg, pos, pos, True, window, None, False)
+    calls = {"fwd": lambda: FL.flash_attention(q, k, v, seg, seg, pos, pos, True, window),
+             "dq": lambda: FL.flash_attention_bwd_dq(*args),
+             "dkv": lambda: FL.flash_attention_bwd_dkv(*args)}
+    eager = {n: cuda_ms(fn) for n, fn in calls.items()}
+    graph = {n: graph_ms(lambda fn=fn: [fn() for _ in range(10)], dev) / 10
+             for n, fn in calls.items()}
+    plain = {"fwd": cuda_ms(lambda: FL.flash_attention_reference(
+                 q, k, v, seg, seg, pos, pos, True, window, None, False, True)),
+             "bwd": cuda_ms(lambda: FL.flash_attention_bwd_reference(*ref_args, True))}
+    pairs = h * int(mask.sum())
+    ins = nbytes(q, k, v, do, lse, delta, seg, pos)
+    bounds = {"fwd": least_time(2 * nbytes(q) + nbytes(k, v, seg, pos), 4 * d * pairs, "bf16"),
+              "dq": least_time(ins + nbytes(q), 6 * d * pairs, "bf16"),
+              "dkv": least_time(ins + nbytes(k, v), 8 * d * pairs, "bf16")}
+    qt = q.transpose(1, 2).detach().requires_grad_()
+    kt, vt = (x.repeat_interleave(h // hkv, dim=2).transpose(1, 2).detach().requires_grad_()
+              for x in (k, v))
+    sdpa_mask = mask[:, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    with torch.no_grad():
+        library_fwd = cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=sdpa_mask))
+    ot = sdpa(qt, kt, vt, attn_mask=sdpa_mask)
+    dot = do.transpose(1, 2)
+    library_bwd = cuda_ms(lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True))
+    info = {"case": case, "pairs": pairs, "window_masked_pairs": by_window, "max_abs_err": errs,
+            "window_rows": rows,
+            "ms": eager, "graph_ms": graph, "plain_ms": plain,
+            "bound_ms": {n: b["bound_ms"] for n, b in bounds.items()},
+            "bound_by": {n: b["bound_by"] for n, b in bounds.items()},
+            "library_ms": {"sdpa_fwd": library_fwd, "sdpa_bwd": library_bwd},
+            "tflops_graph": {n: {"fwd": 4, "dq": 6, "dkv": 8}[n] * d * pairs / ms / 1e9
+                             for n, ms in graph.items()}}
+    log("phase 11 (a) lm_train_kernels: " + json.dumps(info))
+    del q, k, v, do, o, lse, delta, qt, kt, vt, ot, mask, sdpa_mask
+    return info
+
+
+def _train_metrics(out: str) -> list:
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        return [r for r in map(json.loads, f) if "train/loss" in r]
+
+
+def _free_device() -> None:
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _pt_run(dev, root: str, smi: str) -> dict:
+    """Phase 11 (b): python -m usdm_tpu_torch.cli.train_pt --offload at full
+    width (MistralConfig(), 32 layers, random init), batch 1 of 8,192-token
+    rows, 3 steps, exported as an HF dir.  Step 1 runs under the profiler
+    (the device's busy share); steps 2 and 3 run without it and give the
+    step time and tokens/s."""
+    import torch
+
+    from usdm_tpu_torch.cli import train_pt
+    from usdm_tpu_torch.core import safetensors as ST
+    from usdm_tpu_torch.core.config import MistralConfig
+    from usdm_tpu_torch.models import mistral as M
+    from usdm_tpu_torch.train import lm as T
+
+    cfg = MistralConfig()
+    steps, seed = 3, 42
+    rows = os.path.join(root, "rows")
+    os.makedirs(rows)
+    with open(os.path.join(rows, "part0.txt"), "w") as f:
+        for row in _lm_rows(steps, cfg.vocab_size, 1):
+            f.write(" ".join(map(str, row)) + "\n")
+    out, hf = os.path.join(root, "pt"), os.path.join(root, "pt_hf")
+    hbm = torch.cuda.get_device_properties(dev).total_memory / 2**30
+    budget = T.memory_budget(cfg, dp=1, tp=1, seq_len=LM_T, batch_per_chip=1, offload=True,
+                             hbm_gb=hbm)
+    _free_device()
+    reset_counts()
+    rc, wall, rss0, rss_peak = _host_step(lambda: train_pt.main([
+        "--data_path", rows, "--output_dir", out, "--max_steps", str(steps),
+        "--train_batch_size", "1", "--max_input_length", str(LM_T), "--offload",
+        "--logging_steps", "1", "--save_steps", "0", "--profile_steps", "1",
+        "--learning_rate", str(TRAIN_LR), "--seed", str(seed), "--export_hf", hf,
+        "--device", str(dev)]))
+    counts = launch_counts()
+    mma = mma_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    metrics = _train_metrics(out)
+    with open(os.path.join(out, "trace", "summary.json")) as f:
+        prof = json.load(f)
+    launches = {k: counts[k] for k in ("flash_attention", "flash_attention_bwd_dq",
+                                        "flash_attention_bwd_dkv")}
+    want = {"flash_attention": 2 * steps * cfg.num_layers,  # forward and remat recompute
+            "flash_attention_bwd_dq": steps * cfg.num_layers,
+            "flash_attention_bwd_dkv": steps * cfg.num_layers}
+    host_gb = (rss_peak - rss0) / 2**30
+    info = {"rc": rc, "wall_s": wall, "steps": [
+        {k.split("/")[-1]: r[k] for k in ("step", "train/loss", "train/grad_norm",
+                                            "train/step_s", "train/max_memory_gib")}
+        for r in metrics],
+        "profiled_step_1": prof, "max_memory_allocated_gib": peak,
+        "budget_device_gb": budget["device_gb"], "budget_host_gb": budget["host_gb"],
+        "host_memory_added_gib": host_gb, "host_memory_after_gib": (_rss() - rss0) / 2**30,
+        "launches": launches,
+        "mma_launches": {k: mma[k] for k in launches}, "card": smi,
+        "tokens_per_s": LM_T / statistics.median(r["train/step_s"] for r in metrics[1:])}
+    log("phase 11 (b) train_pt --offload, full width: " + json.dumps(info))
+    with open(os.path.join(out, "trace", "kernels.txt")) as f:
+        lines = f.read().splitlines()
+    log("phase 11 (b) the profiled step's device time by name:\n"
+        + "\n".join(lines[:20] + lines[-3:]))
+    if rc != 0 or len(metrics) != steps or not np.isfinite([r["train/loss"] for r in metrics]).all():
+        raise AssertionError(f"phase 11 (b): {len(metrics)} steps logged, rc {rc}")
+    if launches != want or any(mma[k] != n for k, n in launches.items()):
+        raise AssertionError(f"phase 11 (b): K2/K5 launched {launches} ({mma} on the bf16 route), "
+                             f"want {want}")
+    if peak > budget["device_gb"]:
+        raise AssertionError(f"phase 11 (b): {peak:.2f} GiB of device memory over the budget's "
+                             f"{budget['device_gb']:.2f}")
+    if host_gb > budget["host_gb"] + LM_HOST_SLACK_GB:
+        raise AssertionError(f"phase 11 (b): {host_gb:.2f} GiB of host memory added, the budget "
+                             f"says {budget['host_gb']:.2f} + {LM_HOST_SLACK_GB}")
+    # the parameters moved once lr > 0: layer 0 of the init (init_params draws layer by
+    # layer, so depth 1 from the same seed draws the CLI's layer 0) against the export
+    init = M.init_params(cfg.replace(num_layers=1), torch.Generator(device=dev).manual_seed(seed),
+                         dev, dtype="float32")["layers"][0]
+    f = ST.SafeOpen(os.path.join(hf, "model.safetensors"))
+    moved = {}
+    for name, key in (("wq", "self_attn.q_proj"), ("w_down", "mlp.down_proj")):
+        exported = f.get_tensor(f"model.layers.0.{key}.weight").to(dev).float().t()
+        moved[name] = float((exported != init[name].to(torch.bfloat16).float()).float().mean())
+    del init
+    log(f"phase 11 (b) share of layer 0's weights the 3 steps moved (bf16 export against the "
+        f"bf16 init): {moved}")
+    if not all(x > 0.5 for x in moved.values()):
+        raise AssertionError(f"phase 11 (b): the parameters did not move: {moved}")
+    return {"info": info, "hf": hf, "launches": launches}
+
+
+def _offload_equals_resident(dev) -> dict:
+    """Phase 11 (c): make_train_step on an init_offload_state state against
+    it on an init_state state at full width and depth 2, 3 steps on the same 8,192-token rows from the same
+    f32 masters: the same arithmetic with the moments on the host, so the
+    params and moments must come out bit for bit (bound 0: both run the
+    same deterministic kernels in the same order on one stream)."""
+    import torch
+
+    from usdm_tpu_torch.core.config import MistralConfig, TrainConfig
+    from usdm_tpu_torch.core.tree import tree_leaves
+    from usdm_tpu_torch.data.collators import pack_collate
+    from usdm_tpu_torch.models import mistral as M
+    from usdm_tpu_torch.train import lm as T
+
+    cfg = MistralConfig().replace(num_layers=2)
+    tc = TrainConfig(batch_size=1, max_steps=3, learning_rate=TRAIN_LR)
+    init = M.init_params(cfg, torch.Generator(device=dev).manual_seed(5), dev, dtype="float32")
+    res = T.init_state(cfg, tc, dev, params=init)
+    off = T.init_offload_state(cfg, tc, dev, params={**init, "layers": [
+        {k: w.clone() for k, w in lp.items()} for lp in init["layers"]],
+        "embed": init["embed"].clone(), "lm_head": init["lm_head"].clone(),
+        "final_norm": init["final_norm"].clone()})
+    del init
+    step = T.make_train_step(cfg, tc)
+    times = {"resident": [], "offload": []}
+    losses = {"resident": [], "offload": []}
+    for row in _lm_rows(3, cfg.vocab_size, 2):
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in pack_collate([row], 42002).items()}
+        for name, state in (("resident", res), ("offload", off)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses[name].append(float(step(state, batch)["loss"]))
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t0)
+    pairs = list(zip(tree_leaves(res.params) + res.opt_state.m + res.opt_state.v,
+                     tree_leaves(off.params) + off.opt_state.m + off.opt_state.v))
+    diff = max(float((a.detach() - b.detach().to(dev)).abs().max()) for a, b in pairs)
+    info = {"max_abs_diff": diff, "losses": losses, "step_s": times}
+    log("phase 11 (c) offload step against the resident step (full width, 2 layers, 3 steps): "
+        + json.dumps(info))
+    if diff != 0.0 or losses["resident"] != losses["offload"]:
+        raise AssertionError(f"phase 11 (c): the offload step leaves the resident one by {diff}")
+    del res, off, pairs
+    return info
+
+
+def _sft_rows(path: str, vocab: int, n: int, seed: int) -> None:
+    """`n` ids|labels lines of ~1,536 tokens, the first (user) half masked."""
+    rng = np.random.default_rng(seed)
+    with open(path, "w") as f:
+        for _ in range(n):
+            t = int(rng.integers(1400, 1600))
+            ids = [1] + rng.integers(3, vocab, t - 1).tolist()
+            labels = [-100] * (t // 2) + ids[t // 2:]
+            f.write(" ".join(map(str, ids)) + "|" + " ".join(map(str, labels)) + "\n")
+
+
+def _captured_trainer(run):
+    """run() with cli.lm_trainer.make_trainer recording the Trainer it
+    builds -> (run()'s result, that Trainer: its base and trained state)."""
+    from usdm_tpu_torch.cli import lm_trainer as LT
+
+    made, real = [], LT.make_trainer
+    LT.make_trainer = lambda *a, **kw: made.append(real(*a, **kw)) or made[-1]
+    try:
+        return run(), made[0]
+    finally:
+        LT.make_trainer = real
+
+
+def _sft_lora_run(dev, root: str, hf: str) -> dict:
+    """Phase 11 (d): cli.train_sft --lora at full width and depth from (b)'s
+    export, 3 steps of batch 2 of ~1,536-token rows, the user half masked.
+    The CLI's base after training equals (b)'s export bit for bit, the
+    adapters moved, and merge_lora (what --export_hf writes, less its bf16
+    rounding) gives the logits of base + adapters on one row within 2^-10
+    of the adapters' own effect on them (f32 compute on both sides; only
+    the order of the sums differs).  The merged export is not written on
+    the card (see lm_train_run)."""
+    import torch
+
+    from usdm_tpu_torch.cli import train_sft
+    from usdm_tpu_torch.core import checkpoint as ckpt
+    from usdm_tpu_torch.core.tree import tree_leaves
+    from usdm_tpu_torch.data.collators import sft_collate
+    from usdm_tpu_torch.models import mistral as M
+    from usdm_tpu_torch.train import lora as LO
+
+    data, out = os.path.join(root, "sft.txt"), os.path.join(root, "sft_lora")
+    _sft_rows(data, 42003, 6, 3)
+    _free_device()
+    reset_counts()
+    t0 = time.perf_counter()
+    rc, trainer = _captured_trainer(lambda: train_sft.main([
+        "--model_dir", hf, "--train_path", data, "--output_dir", out, "--max_steps", "3",
+        "--train_batch_size", "2", "--lora", "--logging_steps", "1",
+        "--learning_rate", str(TRAIN_LR), "--device", str(dev)]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k2 = launch_counts()["flash_attention"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    metrics = _train_metrics(out)
+    base, lora = trainer.base, trainer.state.params
+    exported, cfg = ckpt.load_mistral(hf, dtype="bfloat16", device=dev)
+    same_base = all(torch.equal(a, b.float()) for a, b in zip(tree_leaves(base),
+                                                              tree_leaves(exported)))
+    del exported
+    b_moved = max(float(lw[k]["b"].detach().abs().max()) for lw in lora for k in lw)
+    ids = torch.from_numpy(sft_collate(_sft_line(data), 42002)["input_ids"]).to(dev)
+    f32 = cfg.replace(dtype="float32")
+    with torch.no_grad():
+        side = M.forward(base, f32, ids, lora=lora)
+        merged = M.forward(LO.merge_lora(base, lora), f32, ids)
+        effect = float((side - M.forward(base, f32, ids)).abs().max())
+    err = float((side - merged).abs().max())
+    info = {"rc": rc, "wall_s": wall, "loss": [r["train/loss"] for r in metrics],
+            "step_s": [r["train/step_s"] for r in metrics], "max_memory_allocated_gib": peak,
+            "k2_launches": k2, "base_bit_unchanged": bool(same_base), "adapter_b_max": b_moved,
+            "logits_max_abs_err": err, "adapters_effect_max_abs": effect,
+            "logits_peak": float(side.abs().max()),
+            "argmax_agree": float((side.argmax(-1) == merged.argmax(-1)).float().mean())}
+    log("phase 11 (d) train_sft --lora, full width and depth: " + json.dumps(info))
+    del base, lora, trainer, side, merged
+    if rc != 0 or len(metrics) != 3 or k2 != 2 * 3 * 32:
+        raise AssertionError(f"phase 11 (d): rc {rc}, {len(metrics)} steps, {k2} K2 launches")
+    if not (same_base and b_moved > 0):
+        raise AssertionError(f"phase 11 (d): base unchanged {same_base}, adapters moved {b_moved}")
+    if not err <= 2.0**-10 * effect:
+        raise AssertionError(f"phase 11 (d): merged logits leave base + adapters by {err}, "
+                             f"against the adapters' own effect {effect}")
+    return info
+
+
+def _sft_line(path: str):
+    from usdm_tpu_torch.cli.train_sft import read_sft_file
+
+    return read_sft_file(path)[:1]
+
+
+def _sft_resume_run(dev, root: str) -> dict:
+    """Phase 11 (e): cli.train_sft every parameter, resident, --tiny on the
+    card (see lm_train_run): 4 steps of batch 2 saving at 2 and 4, then a
+    run resumed from the first run's step 2 must reach its step 4 bit for
+    bit (params, moments, count)."""
+    import torch
+
+    from usdm_tpu_torch.cli import train_sft
+    from usdm_tpu_torch.core.tree import tree_leaves
+
+    data = os.path.join(root, "sft_tiny.txt")
+    _sft_rows(data, 512, 8, 4)
+    runs = {}
+    for name in ("a", "b"):
+        out = os.path.join(root, f"sft_full_{name}")
+        if name == "b":
+            os.makedirs(os.path.join(out, "checkpoints", "step_2"))
+            shutil.copy(os.path.join(runs["a"]["out"], "checkpoints", "step_2", "state.pt"),
+                        os.path.join(out, "checkpoints", "step_2", "state.pt"))
+        reset_counts()
+        t0 = time.perf_counter()
+        rc = train_sft.main(["--tiny", "--train_path", data, "--output_dir", out,
+                             "--max_steps", "4", "--train_batch_size", "2", "--save_steps", "2",
+                             "--logging_steps", "1", "--learning_rate", str(TRAIN_LR),
+                             "--device", str(dev)] + (["--resume"] if name == "b" else []))
+        torch.cuda.synchronize()
+        runs[name] = {"out": out, "rc": rc, "wall_s": time.perf_counter() - t0,
+                      "k5_dkv_launches": launch_counts()["flash_attention_bwd_dkv"],
+                      "loss": [r["train/loss"] for r in _train_metrics(out)]}
+    states = [torch.load(os.path.join(runs[n]["out"], "checkpoints", "step_4", "state.pt"),
+                         map_location="cpu", weights_only=True) for n in "ab"]
+    ta, tb = ([*tree_leaves(s["params"]), *s["opt_state"]["m"], *s["opt_state"]["v"]]
+              for s in states)
+    equal = (states[0]["step"] == states[1]["step"] == 4
+             and all(torch.equal(x, y) for x, y in zip(ta, tb)))
+    info = {n: {k: v for k, v in r.items() if k != "out"} for n, r in runs.items()}
+    info["resumed_equals_uninterrupted"] = bool(equal)
+    log("phase 11 (e) train_sft every parameter, resident, --tiny, resumed at step 2 of 4: "
+        + json.dumps(info))
+    if not equal or any(r["rc"] for r in runs.values()):
+        raise AssertionError("phase 11 (e): the resumed run's step 4 differs from the "
+                             "uninterrupted run's")
+    if not all(r["k5_dkv_launches"] for r in runs.values()):
+        raise AssertionError("phase 11 (e): K5 did not launch")
+    return info
+
+
+def lm_train_run(dev, smi: str) -> dict:
+    """Phase 11: (a) K2/K5 at the 7B training shape, (b) train_pt --offload
+    at full width, (c) the offload step against the resident step, (d)
+    train_sft --lora from (b)'s export, (e) train_sft with --resume.  Runs
+    last, on an empty card.  The whole run keeps its disk writes, deleted
+    files included, within 45 GiB: phases 6 and 10 write ~24.5 GB and
+    (b)'s export 14.6 GB, so (d) checks the merge in process rather than
+    writing the merged 14.6 GB export, and (e) runs --tiny rather than
+    writing three 14.6 GB depth-4 train states (the CPU tests run both CLI
+    paths whole).  -> the results; "launches": (b)'s K2/K5."""
+    _free_device()
+    t0 = time.perf_counter()
+    kernels = lm_kernel_checks(dev)
+    _free_device()
+    log(f"phase time: 11 (a) {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as root:
+        free = shutil.disk_usage(root).free
+        log(f"phase 11: {free} bytes of local disk free under {root}")
+        if free < LM_WRITE_BYTES:
+            raise AssertionError(f"phase 11 needs {LM_WRITE_BYTES:.0f} bytes of local disk under "
+                                 f"{root}; {free} bytes are free")
+        out = {"kernels": kernels}
+        for key, fn in (("pt", lambda: _pt_run(dev, root, smi)),
+                        ("offload", lambda: _offload_equals_resident(dev)),
+                        ("lora", lambda: _sft_lora_run(dev, root, out["pt"]["hf"])),
+                        ("resume", lambda: _sft_resume_run(dev, root))):
+            t0 = time.perf_counter()
+            out[key] = fn()
+            _free_device()
+            log(f"phase time: 11 {key} {time.perf_counter() - t0:.1f} s")
+    if "jax" in sys.modules:
+        raise AssertionError("jax was imported")
+    out["launches"] = out["pt"]["launches"]
+    return out
+
+
 # ------------------------------------------------------- parent vs change
 def _reply(obj: dict) -> None:
     print("RESULT " + json.dumps(obj), flush=True)
@@ -3932,6 +4568,9 @@ def main() -> int:
     spec = spec_run(dev)["launches"]
     log(f"phase time: speculation {time.perf_counter() - t_phase:.1f} s (its two turns: "
         f"phases 4 and 5)")
+    t_phase = time.perf_counter()
+    lm = lm_train_run(dev, smi.stdout.strip())
+    log(f"phase time: LM training (phase 11) {time.perf_counter() - t_phase:.1f} s")
     a, b = int8["A"]["launches"], int8["B"]["launches"]
     # K1 and K6 add the speculative paths: the ngram turns (c) and the
     # bench ports' engines (b)
@@ -3954,6 +4593,19 @@ def main() -> int:
     launches["fused_activation1d"] += ref_f["fused_activation1d"]
     launches["add_mask_ln"] += bf16_run["ref"]["g"]["k4_launches"]
     launches["stream_qmv"] += int8["A_dense"]["turns"][-1]["launches"]["stream_qmv"]
+    # phase 4 (i)'s three served turns: K1-K3
+    served = bf16_run["serve"]
+    for k in ("paged_decode_attention", "flash_attention_f32", "fused_activation1d"):
+        launches[k] += served["launches"][k]
+    launches["flash_attention"] += served["flash_attention_mma_launches"]
+    # phase 11 (b)'s three full-width LM train steps: K2 (forward and remat
+    # recompute) and K5, all on the bf16 route
+    for k, n in lm["launches"].items():
+        launches[k] += n
+    lmk = lm["kernels"]["max_abs_err"]
+    for key, err in (("flash_attention", lmk["fwd"]), ("flash_attention_bwd_dq", lmk["dq"]),
+                     ("flash_attention_bwd_dkv", lmk["dkv"])):
+        kres[key]["max_abs_err"] = max(kres[key]["max_abs_err"], err)
     # phase 10's two loaded turns (float and default Voicebox): K1-K3
     for turn in bf16_run["load"]["turns"].values():
         for k in ("paged_decode_attention", "flash_attention_f32", "fused_activation1d"):

@@ -4,8 +4,10 @@ a mixed link's chunk rows and at the dense prefill_extend's shape); the
 engine's decode links from CUDA graphs against eager links, and its mixed
 prefill + decode links against the CPU; the dense decode steps from CUDA
 graphs against eager steps; prepare_reference on the card against the CPU;
-the safetensors reader's tensors moved to the card bit for bit, and
-from_pretrained on the card giving the CPU load's turn.
+the safetensors reader's tensors moved to the card bit for bit,
+from_pretrained on the card giving the CPU load's turn; the LM training
+path's loss and gradients against the CPU, and the offload step against
+the resident one.
 
 Marked `cuda`: each test skips without a CUDA device (a CUDA kernel has no
 CPU mode).  Imports no JAX, so it runs where the port runs; there, skip
@@ -1781,3 +1783,80 @@ def test_from_pretrained_raises_without_card(tmp_path):
     missing = str(tmp_path / "none")
     with pytest.raises(RuntimeError, match="CUDA"):
         UsdmPipeline.from_pretrained(missing, missing, missing, missing, missing)
+
+
+def _lm_batch(vocab, device, t=320, seed=0):
+    """One packed row of three BOS-led segments (the window of 64 masks keys
+    inside the first) and a shorter padded row."""
+    import numpy as np
+
+    from usdm_tpu_torch.data.collators import pack_collate
+
+    rng = np.random.default_rng(seed)
+    rows = []
+    for n, cuts in ((t, (0, 150, 240)), (t - 40, (0, 100))):
+        row = rng.integers(3, vocab, n)
+        row[list(cuts)] = 1
+        rows.append(row.tolist())
+    return {k: torch.from_numpy(v).to(device) for k, v in pack_collate(rows, vocab - 1).items()}
+
+
+@pytest.mark.cuda
+def test_lm_loss_and_grads_on_card_match_cpu(cuda):
+    """The LM training path on the card (K2's f32 route forward and in the
+    remat recompute, K5's f32 backward, chunked CE) against the CPU's plain
+    versions, f32 at tiny widths with head_dim 16, GQA 4/2, packed segments
+    and a window that bites: the loss within 1e-5, every gradient within
+    1e-4 + 1e-3 rel (3xTF32 ~2^-22 per product, f32 sums in other
+    orders)."""
+    from usdm_tpu_torch.core.config import MistralConfig
+    from usdm_tpu_torch.core.tree import tree_leaves, tree_map
+    from usdm_tpu_torch.models import mistral as M
+
+    cfg = MistralConfig.tiny(vocab_size=300).replace(sliding_window=64)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    out = {}
+    for dev in ("cpu", cuda):
+        p = tree_map(lambda a: a.to(dev).requires_grad_(True), params)
+        b = _lm_batch(cfg.vocab_size, dev)
+        k2 = FL.flash_attention.launches
+        loss, _ = M.loss_fn(p, cfg, b["input_ids"], b["labels"], b["segment_ids"],
+                            b["positions"], remat=True, ce_chunk=128)
+        grads = torch.autograd.grad(loss, tree_leaves(p))
+        out[str(dev)] = (float(loss.detach()), [g.cpu() for g in grads],
+                         FL.flash_attention.launches - k2)
+    (l_cpu, g_cpu, _), (l_gpu, g_gpu, launched) = out["cpu"], out[str(cuda)]
+    assert launched == 2 * cfg.num_layers  # forward and the remat recompute
+    assert abs(l_gpu - l_cpu) < 1e-5
+    for a, b in zip(g_gpu, g_cpu):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_lm_offload_step_equals_resident_on_card(cuda):
+    """make_train_step on an init_offload_state state (moments in one
+    registered host buffer, staged leaf by leaf on two side streams) against
+    it on an init_state state at bf16 compute over f32 masters: params and
+    moments bit for bit over three steps."""
+    from usdm_tpu_torch.core.config import MistralConfig, TrainConfig
+    from usdm_tpu_torch.core.tree import tree_leaves
+    from usdm_tpu_torch.models import mistral as M
+    from usdm_tpu_torch.train import lm as T
+
+    cfg = MistralConfig.tiny(vocab_size=300).replace(sliding_window=64, dtype="bfloat16")
+    tc = TrainConfig(max_steps=4, learning_rate=1e-3)
+    init = M.init_params(cfg, torch.Generator(device=cuda).manual_seed(1), cuda, "float32")
+    res = T.init_state(cfg, tc, cuda, params=init)
+    off = T.init_offload_state(cfg, tc, cuda, params={k: [dict((n, w.clone()) for n, w in
+                                                               lp.items()) for lp in v]
+                                                      if k == "layers" else v.clone()
+                                                      for k, v in init.items()})
+    assert all(t.is_pinned() for t in off.opt_state.m + off.opt_state.v)
+    step = T.make_train_step(cfg, tc)
+    b = _lm_batch(cfg.vocab_size, cuda, seed=1)
+    for _ in range(3):
+        assert float(step(res, b)["loss"]) == float(step(off, b)["loss"])
+    torch.cuda.synchronize()
+    for a, c in zip(tree_leaves(res.params) + res.opt_state.m + res.opt_state.v,
+                    tree_leaves(off.params) + off.opt_state.m + off.opt_state.v):
+        assert torch.equal(a.detach(), c.detach().to(cuda))

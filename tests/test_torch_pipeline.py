@@ -102,7 +102,7 @@ def test_port_runs_without_jax(tmp_path):
     (W8A8 LM and Voicebox) runs on the CPU; jax never enters sys.modules."""
     code = f"""
 import ast, importlib, os, pkgutil, sys
-for name in ("usdm_tpu", "safetensors", "tokenizers", "transformers", "ml_dtypes"):
+for name in ("usdm_tpu", "optax", "safetensors", "tokenizers", "transformers", "ml_dtypes"):
     sys.modules[name] = None  # any import of these now fails
 import numpy as np
 import usdm_tpu_torch
@@ -134,8 +134,8 @@ print("OK")
 
 def test_port_sources_import_no_jax_package():
     """No .py under usdm_tpu_torch/ and not chip_smoke.py imports usdm_tpu or
-    jax, at any depth (imports inside functions included), nor the packages
-    the card lacks and the port replaces: safetensors, tokenizers,
+    jax or optax, at any depth (imports inside functions included), nor the
+    packages the card lacks and the port replaces: safetensors, tokenizers,
     transformers, ml_dtypes."""
     files = sorted(pathlib.Path(REPO, "usdm_tpu_torch").rglob("*.py"))
     files.append(pathlib.Path(REPO, "chip_smoke.py"))
@@ -149,7 +149,7 @@ def test_port_sources_import_no_jax_package():
             else:
                 continue
             bad += [f"{path.name}: {n}" for n in names
-                    if n.split(".")[0] in ("usdm_tpu", "jax", "jaxlib", "safetensors",
+                    if n.split(".")[0] in ("usdm_tpu", "jax", "jaxlib", "optax", "safetensors",
                                            "tokenizers", "transformers", "ml_dtypes")]
     assert len(files) > 30 and not bad, bad
 

@@ -9,7 +9,12 @@ so both packages compute the same function of the same weights.
     flipped, become ConvTranspose1d's [Cin, Cout, K];
   * quantized leaves {"q": int8 [in, out], "s": bf16 [out]} (usdm_tpu's
     models/quant.py) become the port's "oi" {"q": int8 [out, in]
-    contiguous, "s": bf16 [out]}.
+    contiguous, "s": bf16 [out]};
+  * LoRA adapters {target: {a: [L, in, r], b: [L, r, out], scale: [L]}}
+    become one dict per layer with a 0-d scale;
+  * an LM train state's Adam moments (optax's ScaleByAdamState mu/nu, or
+    usdm_tpu's offload AdamWState m/v) become the port's AdamWState, one
+    tensor per leaf in the port's tree_leaves order.
 
 Imports no JAX: bf16 leaves (ml_dtypes) are widened through float32.
 """
@@ -104,3 +109,44 @@ def bigvgan_from_jax(jp: Tree, device="cpu") -> Tree:
         "conv_post_w": _conv(jp["conv_post_w"], device),
         "conv_post_b": tensor(jp["conv_post_b"], device=device),
     }
+
+
+def lora_from_jax(jl: Tree, dtype: torch.dtype = torch.float32, device="cpu") -> list:
+    """usdm_tpu's stacked adapters -> the port's per-layer adapters (no
+    requires_grad)."""
+    n = len(np.asarray(next(iter(jl.values()))["scale"]))
+    return [{name: {"a": tensor(w["a"][i], dtype, device), "b": tensor(w["b"][i], dtype, device),
+                    "scale": tensor(np.asarray(w["scale"])[i], dtype, device)}
+             for name, w in jl.items()} for i in range(n)]
+
+
+def _find_moments(opt_state):
+    """(first moments, second moments, count) of an optax chain state or of
+    usdm_tpu's AdamWState."""
+    if hasattr(opt_state, "mu") and hasattr(opt_state, "nu"):
+        return opt_state.mu, opt_state.nu, opt_state.count
+    if hasattr(opt_state, "m") and hasattr(opt_state, "v"):
+        return opt_state.m, opt_state.v, opt_state.count
+    if isinstance(opt_state, (tuple, list)):
+        for sub in opt_state:
+            found = _find_moments(sub)
+            if found is not None:
+                return found
+    return None
+
+
+def lm_train_state_from_jax(jstate, device="cpu"):
+    """usdm_tpu's LM TrainState (host arrays: params, opt_state, step) ->
+    the port's train/lm.py TrainState: f32 masters with requires_grad and
+    the Adam moments in the port's leaf order and layouts."""
+    from usdm_tpu_torch.core.tree import tree_leaves
+    from usdm_tpu_torch.train.lm import AdamWState, TrainState
+
+    params = mistral_from_jax(jstate.params, torch.float32, device)
+    for t in tree_leaves(params):
+        t.requires_grad_(True)
+    mu, nu, count = _find_moments(jstate.opt_state)
+    m = tree_leaves(mistral_from_jax(mu, torch.float32, device))
+    v = tree_leaves(mistral_from_jax(nu, torch.float32, device))
+    return TrainState(params, AdamWState(m, v, int(np.asarray(count))),
+                      int(np.asarray(jstate.step)))

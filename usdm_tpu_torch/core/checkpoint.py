@@ -21,11 +21,15 @@ Loaders move one tensor at a time to the device and release its host pages
 as they go, so a 7B checkpoint never sits in host memory.
 
 Train state: each checkpoint is a directory `step_N` holding `state.pt` (the
-params tree on the CPU, the Adam state dict and the step), written under a
-temporary name and renamed into place, so a reader never sees half a
+params tree on the CPU, the optimizer's state dict and the step), written
+under a temporary name and renamed into place, so a reader never sees half a
 checkpoint (`save_train_state`, `latest_step`, `restore_train_state`,
-keep=2).  These are not orbax checkpoints: usdm_tpu's train states cannot be
-read here, nor the port's there.
+keep=2).  A state is any object with `params` (a tree of tensors),
+`opt_state` (with state_dict / load_state_dict) and `step`: the CFM
+trainer's (train/cfm.py, a torch Adam), the LM's and LoRA's (train/lm.py
+TrainState, AdamW moments on the device or pinned on the host).  These are
+not orbax checkpoints: usdm_tpu's train states cannot be read here, nor the
+port's there (core/bridge.py converts usdm_tpu's arrays for the tests).
 """
 
 from __future__ import annotations
@@ -44,7 +48,6 @@ from usdm_tpu_torch.core import safetensors as st
 from usdm_tpu_torch.core.config import BigVGANConfig, MistralConfig, VoiceboxConfig, XlsrConfig
 
 from usdm_tpu_torch.core.tree import tree_leaves, tree_map
-from usdm_tpu_torch.train.cfm import CfmTrainState
 
 def check_device(device) -> torch.device:
     """`device` as a torch.device; raises if it is a CUDA device and there
@@ -449,7 +452,7 @@ def _steps(path: str):
                   if m and os.path.exists(os.path.join(path, m.group(0), _FILE)))
 
 
-def save_train_state(path: str, state: CfmTrainState, step: int, keep: int = 2) -> None:
+def save_train_state(path: str, state, step: int, keep: int = 2) -> None:
     """Write `state` as `path/step_<step>`, then drop all but the newest
     `keep` checkpoints."""
     path = os.path.abspath(path)
@@ -472,10 +475,10 @@ def latest_step(path: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def restore_train_state(path: str, state: CfmTrainState,
-                        step: Optional[int] = None) -> CfmTrainState:
+def restore_train_state(path: str, state, step: Optional[int] = None):
     """Load `path/step_<step>` (the latest when None) into `state` in place:
-    parameters copied into its tensors, on their device."""
+    parameters copied into its tensors, on their device, the optimizer
+    state through its load_state_dict."""
     path = os.path.abspath(path)
     step = latest_step(path) if step is None else step
     if step is None:

@@ -184,6 +184,32 @@ class XlsrConfig(_Base):
 
 
 @dataclass(frozen=True)
+class TrainConfig(_Base):
+    """LM training (train/lm.py, train/lora.py): AdamW over f32 masters with
+    a clipped global norm and a warmup-cosine (or linear) schedule."""
+
+    learning_rate: float = 2e-5
+    lr_schedule: str = "cosine"
+    warmup_ratio: float = 0.03
+    adam_b1: float = 0.9
+    adam_b2: float = 0.95
+    weight_decay: float = 0.01
+    grad_clip: float = 1.0
+    batch_size: int = 2
+    grad_accum: int = 1
+    max_steps: int = 1000
+    seed: int = 42
+    dp: int = 1  # data-parallel degree (one GPU: 1)
+    tp: int = 1  # tensor-parallel degree (one GPU: 1)
+    remat: bool = True  # recompute each decoder layer in backward
+    # lm_head + CE per ce_chunk tokens, recomputed in backward, so the full
+    # [T, vocab] f32 logits never exist; 0 = unchunked
+    ce_chunk: int = 1024
+    save_every: int = 1000
+    keep_checkpoints: int = 2
+
+
+@dataclass(frozen=True)
 class CfmTrainConfig(_Base):
     """token-Voicebox training."""
 

@@ -13,7 +13,14 @@ The seven projections of a layer may be W8A8 quantized leaves
 (models/quant.py); every product with them goes through `qmm`.
 
 `forward` is the dense packed forward, the parity anchor of the paged
-engine (engine/paged_ops.py), which is the serving path.  `KVCache`,
+engine (engine/paged_ops.py), which is the serving path.  The training
+half (usdm_tpu's): `forward_hidden` with segments, positions, per-layer
+remat and LoRA adapters, `loss_fn` (the shifted mean cross-entropy, its
+lm_head product chunked and recomputed in backward) and
+`extend_embeddings`.  One layer function serves both: it computes in
+cfg.dtype, casting a layer's f32 master weights at use, so training from
+f32 masters computes in bf16 (usdm_tpu, given an f32 cfg.dtype by its
+trainers' checkpoint loads, computes in f32 there).  `KVCache`,
 `prefill`, `decode_step` and `prefill_extend` are the dense KV-cache path
 of engine/generate.py (respond(use_paged=False)): one [L, B, S, Hkv, d]
 tensor each for K and V, written in place, a ring over S in decode.
@@ -28,6 +35,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from usdm_tpu_torch.core.config import MistralConfig
 from usdm_tpu_torch.models.quant import qmm
@@ -101,50 +109,162 @@ def mlp(y: torch.Tensor, lp: Params) -> torch.Tensor:
     return qmm(F.silu(qmm(y, lp["w_gate"])) * qmm(y, lp["w_up"]), lp["w_down"])
 
 
-def _qkv(cfg: MistralConfig, x: torch.Tensor, lp: Params, cos, sin):
+def _lora_delta(y: torch.Tensor, lw: Optional[Params], name: str) -> Optional[torch.Tensor]:
+    """The low-rank side path y @ A @ B * (alpha / r) of projection `name`,
+    its f32 adapters cast to y's (the compute) dtype at use; None when the
+    projection is not adapted."""
+    if lw is None or name not in lw:
+        return None
+    a = lw[name]
+    return ((y @ a["a"].to(y.dtype)) @ a["b"].to(y.dtype)) * a["scale"].to(y.dtype)
+
+
+def _proj(y: torch.Tensor, lp: Params, name: str, lw: Optional[Params]) -> torch.Tensor:
+    out = qmm(y, lp[name])
+    delta = _lora_delta(y, lw, name)
+    return out if delta is None else out + delta
+
+
+def _qkv(cfg: MistralConfig, x: torch.Tensor, lp: Params, cos, sin, lw: Optional[Params] = None):
     """A layer's normed, projected and rotated q [B, T, H, hd], k and v
-    [B, T, Hkv, hd]."""
+    [B, T, Hkv, hd]; `lw` the layer's LoRA adapters, if any."""
     b, t, _ = x.shape
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     y = rms_norm(x, lp["ln1"], cfg.rms_norm_eps)
-    q = apply_rope(qmm(y, lp["wq"]).reshape(b, t, h, hd), cos, sin)
-    kk = apply_rope(qmm(y, lp["wk"]).reshape(b, t, hkv, hd), cos, sin)
-    return q, kk, qmm(y, lp["wv"]).reshape(b, t, hkv, hd)
+    q = apply_rope(_proj(y, lp, "wq", lw).reshape(b, t, h, hd), cos, sin)
+    kk = apply_rope(_proj(y, lp, "wk", lw).reshape(b, t, hkv, hd), cos, sin)
+    return q, kk, _proj(y, lp, "wv", lw).reshape(b, t, hkv, hd)
 
 
-def _finish_layer(cfg: MistralConfig, x: torch.Tensor, attn: torch.Tensor, lp: Params):
+def _finish_layer(cfg: MistralConfig, x: torch.Tensor, attn: torch.Tensor, lp: Params,
+                  lw: Optional[Params] = None):
     """The attention output's projection and residual, then the MLP block."""
     b, t = x.shape[:2]
-    x = x + qmm(attn.reshape(b, t, -1), lp["wo"])
+    x = x + _proj(attn.reshape(b, t, -1), lp, "wo", lw)
     return x + mlp(rms_norm(x, lp["ln2"], cfg.rms_norm_eps), lp)
 
 
 def _layer(cfg: MistralConfig, x: torch.Tensor, lp: Params, cos, sin,
-           segment_ids: torch.Tensor, positions: torch.Tensor, attn_impl: str) -> torch.Tensor:
-    q, kk, vv = _qkv(cfg, x, lp, cos, sin)
+           segment_ids: torch.Tensor, positions: torch.Tensor, attn_impl: str,
+           lw: Optional[Params] = None) -> torch.Tensor:
+    q, kk, vv = _qkv(cfg, x, lp, cos, sin, lw)
     attn = mha(q, kk, vv, q_segment_ids=segment_ids, kv_segment_ids=segment_ids,
                q_positions=positions, kv_positions=positions, causal=True,
                sliding_window=cfg.sliding_window, impl=attn_impl)
-    return _finish_layer(cfg, x, attn, lp)
+    return _finish_layer(cfg, x, attn, lp, lw)
+
+
+def _compute_leaves(lp: Params, dt: torch.dtype) -> Params:
+    """A layer's weights of two or more dimensions in the compute dtype `dt`
+    (the norms stay as they are: rms_norm computes in f32; W8A8 leaves stay
+    quantized).  No copy where a weight already has that dtype."""
+    return {k: v.to(dt) if torch.is_tensor(v) and v.ndim >= 2 else v for k, v in lp.items()}
+
+
+def forward_hidden(params: Params, cfg: MistralConfig, input_ids: torch.Tensor,
+                   segment_ids: Optional[torch.Tensor] = None,
+                   positions: Optional[torch.Tensor] = None, attn_impl: str = "auto",
+                   remat: bool = False, lora: Optional[list] = None) -> torch.Tensor:
+    """The packed forward up to and including the final norm -> [B, T, D]
+    in the compute dtype cfg.dtype.  Weights of another dtype (f32 masters)
+    are cast layer by layer inside the layer function, so with `remat`
+    (each layer under torch.utils.checkpoint, recomputed in backward) only
+    one layer's compute copy exists at a time; `lora` holds each layer's
+    adapters (train/lora.py), None for a layer or a projection without.
+    `positions` restart at each packed subsample and `segment_ids` (< 0:
+    padding) isolate the subsamples."""
+    b, t = input_ids.shape
+    dev = input_ids.device
+    dt = torch_dtype(cfg.dtype)
+    if segment_ids is None:
+        segment_ids = torch.zeros((b, t), dtype=torch.int32, device=dev)
+    if positions is None:
+        positions = torch.arange(t, device=dev)[None].expand(b, t)
+    # F.embedding: its CUDA backward sums repeated ids in a fixed order
+    x = F.embedding(input_ids, params["embed"]).to(dt)
+    cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+
+    def layer(x, lp, lw):
+        return _layer(cfg, x, _compute_leaves(lp, dt), cos, sin, segment_ids, positions,
+                      attn_impl, lw)
+
+    for i, lp in enumerate(params["layers"]):
+        lw = None if lora is None else lora[i]
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(layer, x, lp, lw, use_reentrant=False)
+        else:
+            x = layer(x, lp, lw)
+    return rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
 
 
 def forward(params: Params, cfg: MistralConfig, input_ids: torch.Tensor,
             segment_ids: Optional[torch.Tensor] = None,
             positions: Optional[torch.Tensor] = None,
-            attn_impl: str = "auto") -> torch.Tensor:
+            attn_impl: str = "auto", lora: Optional[list] = None) -> torch.Tensor:
     """Packed full-sequence forward -> logits [B, T, V] f32."""
-    b, t = input_ids.shape
-    dev = input_ids.device
-    if segment_ids is None:
-        segment_ids = torch.zeros((b, t), dtype=torch.int32, device=dev)
-    if positions is None:
-        positions = torch.arange(t, device=dev)[None].expand(b, t)
-    x = params["embed"][input_ids]
-    cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-    for lp in params["layers"]:
-        x = _layer(cfg, x, lp, cos, sin, segment_ids, positions, attn_impl)
-    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    return F.linear(x, params["lm_head"]).float()
+    x = forward_hidden(params, cfg, input_ids, segment_ids, positions, attn_impl, lora=lora)
+    return F.linear(x, params["lm_head"].to(x.dtype)).float()
+
+
+def _token_ll(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
+              valid: torch.Tensor) -> torch.Tensor:
+    """Sum of the log-likelihoods of `labels` under lm_head `w` [V, D] at
+    the valid positions of hidden `h` [B, T, D] (logits and log-softmax f32)."""
+    logp = torch.log_softmax(F.linear(h, w).float(), dim=-1)
+    return (logp.gather(-1, labels[..., None])[..., 0] * valid).sum()
+
+
+def loss_fn(params: Params, cfg: MistralConfig, input_ids: torch.Tensor, labels: torch.Tensor,
+            segment_ids: Optional[torch.Tensor] = None,
+            positions: Optional[torch.Tensor] = None, attn_impl: str = "auto",
+            remat: bool = True, lora: Optional[list] = None,
+            ce_chunk: int = 1024) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Shifted mean cross-entropy over the labels that are not -100 ->
+    (loss, {"loss", "ntokens"}), computed in cfg.dtype as forward_hidden.
+    The lm_head product and the log-softmax run per `ce_chunk` positions,
+    each chunk recomputed in backward (torch.utils.checkpoint), so the full
+    [B, T, V] f32 logits never exist; 0 (or T - 1 <= ce_chunk) is one
+    chunk, not recomputed.  The same per-token numbers either way."""
+    hidden = forward_hidden(params, cfg, input_ids, segment_ids, positions, attn_impl, remat,
+                            lora)
+    sh = hidden[:, :-1]
+    shift_labels = labels[:, 1:].long()
+    valid = shift_labels != -100
+    safe = torch.where(valid, shift_labels, 0)
+    n = valid.sum().clamp(min=1)
+    w = params["lm_head"].to(sh.dtype)
+    t1 = sh.shape[1]
+    if not ce_chunk or t1 <= ce_chunk:
+        total = _token_ll(sh, w, safe, valid)
+    else:
+        total = sum(torch.utils.checkpoint.checkpoint(
+            _token_ll, sh[:, c:c + ce_chunk], w, safe[:, c:c + ce_chunk],
+            valid[:, c:c + ce_chunk], use_reentrant=False) for c in range(0, t1, ce_chunk))
+    loss = -total / n
+    return loss, {"loss": loss.detach(), "ntokens": valid.sum()}
+
+
+def extend_embeddings(params: Params, cfg: MistralConfig, new_vocab: int,
+                      generator: Optional[torch.Generator] = None,
+                      new_rows: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> Params:
+    """Resize embed and lm_head (both [V, D]) to `new_vocab` rows: the new
+    rows N(0, initializer_range^2) drawn from `generator` (on the params'
+    device), or `new_rows` = (embed rows, lm_head rows), each [n_new, D],
+    as given (usdm_tpu draws its rows with jax.random).  Returns a new dict
+    sharing the layers."""
+    embed, head = params["embed"], params["lm_head"]
+    n_new = new_vocab - embed.shape[0]
+    if n_new <= 0:
+        return params
+    if new_rows is None:
+        std = cfg.initializer_range
+        new_rows = tuple(torch.randn(n_new, embed.shape[1], generator=generator,
+                                     device=embed.device) * std for _ in range(2))
+    rows_in, rows_out = (r.to(embed.device, embed.dtype) for r in new_rows)
+    if rows_in.shape != (n_new, embed.shape[1]) or rows_out.shape != rows_in.shape:
+        raise ValueError(f"extend_embeddings: new rows must be [{n_new}, {embed.shape[1]}]")
+    return {**params, "embed": torch.cat([embed.detach(), rows_in]),
+            "lm_head": torch.cat([head.detach(), rows_out])}
 
 
 # ---------------------------------------------------------------------------
