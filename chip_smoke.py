@@ -4,7 +4,9 @@
     python3 chip_smoke.py            # every phase, one card
 
 Phases:
-  1. device: card name, power limit (nvidia-smi) and the TF32 flags set here;
+  1. device: card name, power limit (nvidia-smi) and the TF32 flags, PyTorch's
+     defaults (the port's f32 convolutions turn cuDNN's TF32 off themselves,
+     usdm_tpu_torch/ops/conv.py);
   2. build: nvcc builds every kernel from usdm_tpu_torch/csrc/;
   3. kernels: each hand-written kernel against its plain PyTorch version on
      the card, at the shapes the main paths give it, with the stated bound,
@@ -51,7 +53,12 @@ Phases:
      tokens and
      the plain POST's texts, unit count and wav bytes equal the graphed
      turn's, the SSE result equals the plain JSON, every decode link is one
-     graph replay, K1-K3 launch;
+     graph replay, K1-K3 launch; (j) TF32: one f32 conv through
+     ops/conv.py within 1e-5 of the f64 conv's peak (bypassed under the
+     default flag: beyond it), the turn under allow_tf32=False (the old
+     process-wide setting) equal to the graphed turn (units, tokens, the
+     wav within 1e-4 of its peak), and, logged, the user units and the
+     vocoded wav's nRMS with the helper bypassed (what TF32 would change);
   5. int8 serving: a small W8A8 turn on the card against the CPU plain path
      (identical tokens); then (A) a full-width W8A8 turn,
      UsdmPipeline.full_random(lm_int8=True, vb_int8=True).respond(), budgets
@@ -152,6 +159,38 @@ Phases:
      (e) cli.train_sft every parameter, resident, --tiny (for the same
      reason): a run resumed from step 2 of 4 equals the uninterrupted run's
      step 4 bit for bit.
+ 12. GAN and distillation training (after phase 11, on an emptied card):
+     (a) K3's autograd Function at the six stage shapes of a full-width
+     generator (B 32, an 8,192-sample crop, f32, snake-beta, log-scale): the
+     forward within 1e-4 of the plain version, dx, dalpha and dbeta within
+     1e-5 of each gradient's peak of autograd through the plain version,
+     the bare launch's output without grad_fn (negative control), forward
+     and backward times; (b) python -m usdm_tpu_torch.cli.train_vocoder at
+     full width (BigVGANConfig(), MPD periods 2-11, MRD at three
+     resolutions, batch 32 of 8,192-sample crops of 96 synthetic chirp
+     clips, 3 steps, --export): per step wall, losses, mel L1, peak memory,
+     K3 218 launches a step, the export loaded by load_bigvgan within 2^-21
+     of each weight's peak (biases and snake parameters bit for bit), then
+     one profiled iteration (busy share, top device ops, the K3 backward
+     recompute's span); (c) the distill step at full width in process: K2
+     and K5 at one of its layers (B 2 x 4,096, GQA 32/8, d 128, segments
+     2500 + 1000 + 596) against their plain versions (bf16 bound; negative
+     control: the kernels without the segments fail it on the rows the
+     segments separate), the
+     random bf16 7B target as its own draft (agree >= 0.95, loss < 0.05),
+     then an 8-layer early-exit draft (f32 masters, resident AdamW) for 3
+     steps of 2 packed 4,096-token rows against the bf16 target and 3
+     against the W8A8 one: per step wall, tokens/s, loss, agree, peak
+     memory; K2 48 and K5 8 + 8 launches a step; (d) K1 at head_dim 32
+     (B 1, 2 and the verify step's 8 rows, contexts 1-256, window 64)
+     against its plain version (bf16 bound; negative control: without the
+     window, or with half of it, it fails), then cli.train_draft --tiny
+     from a target dir on the card: resumed from step 2 of 4 equal to the
+     uninterrupted run bit for bit, and its --export_hf dir, loaded as
+     --draft_dir loads it, drafts for a PagedEngine with plain greedy's
+     tokens (K1 launches).  The whole run writes ~41.5 GB to local disk
+     (phase 10 20.4, phase 11 14.6, phase 6 4.1, phase 12 2.4), within 45
+     GiB.
 
 Each kernel's bound_ms is the least time the card could take for the work
 of its timed case: the larger of its bytes (inputs read once, outputs
@@ -168,6 +207,7 @@ is absent or any phase fails.  Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import json
 import os
@@ -1668,6 +1708,108 @@ def _eager_link_turn(pipe, wav_in: str, want: dict, label: str) -> dict:
     return info
 
 
+# of the peak |wav|: the turn under the old process-wide flag against the graphed turn
+TF32_WAV_BOUND = 1e-4
+
+
+@contextlib.contextmanager
+def tf32_convs():
+    """ops/conv.py's conv replaced, for the enclosed calls, by the plain
+    F.conv1d / conv2d / conv_transpose1d call, which follows cuDNN's TF32
+    flag (every call site looks CV.conv up when it runs)."""
+    import torch.nn.functional as F
+
+    from usdm_tpu_torch.ops import conv as CV
+
+    def plain(x, w, b=None, stride=1, padding=0, dilation=1, groups=1, transposed=False):
+        fn = {(3, False): F.conv1d, (4, False): F.conv2d, (3, True): F.conv_transpose1d,
+              (4, True): F.conv_transpose2d}[x.dim(), transposed]
+        return fn(x, w, b, stride=stride, padding=padding, dilation=dilation, groups=groups)
+
+    helper, CV.conv = CV.conv, plain
+    try:
+        yield
+    finally:
+        CV.conv = helper
+
+
+def tf32_check(pipe, wav_in: str, want: dict, want_audio) -> dict:
+    """Phase 4 (j): the port's f32 convolutions ignore cuDNN's TF32 flag
+    (ops/conv.py).  (1) One f32 conv at BigVGAN's stage-0 resblock shape
+    against the f64 conv: within 1e-5 of the output's peak through the
+    helper, and beyond it with the helper bypassed under PyTorch's default
+    flag (the negative control: the flag bites).  (2) The graphed turn ran
+    under PyTorch's default flags; the same turn under
+    torch.backends.cudnn.allow_tf32 = False (what chip_smoke set for the
+    whole process before) gives its user units and stage tokens exactly and
+    its wav within 1e-4 of the peak.  (3) What TF32 would have changed,
+    with the helper bypassed (tf32_convs) under the default flag: the user
+    units of the input wav that differ, and the nRMS of the wav vocoded
+    from the graphed turn's agent units (seed 1), against the graphed
+    turn's; logged, not gated."""
+    import dataclasses
+
+    import torch
+
+    from usdm_tpu_torch.audio.wav import load_wav
+    from usdm_tpu_torch.ops import conv as CV
+
+    if not torch.backends.cudnn.allow_tf32:
+        raise AssertionError("phase 4 (j) needs PyTorch's default cuDNN TF32 flag (True)")
+    gen = torch.Generator(device=pipe.device).manual_seed(12)
+    x = torch.randn(4, 768, 1792, generator=gen, device=pipe.device)
+    w = torch.randn(768, 768, 3, generator=gen, device=pipe.device) * 0.02
+    exact = torch.nn.functional.conv1d(x.double(), w.double(), padding=1)
+    peak = float(exact.abs().max())
+    full = max_err(CV.conv(x, w, padding=1).double(), exact) / peak
+    with tf32_convs():
+        tf32 = max_err(CV.conv(x, w, padding=1).double(), exact) / peak
+    conv_info = {"shape": "x [4, 768, 1792] w [768, 768, 3] f32", "rel_err_helper": full,
+                 "rel_err_tf32": tf32}
+    log("phase 4 (j) one f32 conv against the f64 conv, error / peak: " + json.dumps(conv_info))
+    if not (full <= 1e-5 < tf32):
+        raise AssertionError(f"phase 4 (j): the helper's conv is off by {full} of the peak, "
+                             f"the TF32 conv by {tf32}")
+    del x, w, exact
+
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        trace = {}
+        res = pipe.respond_with_policy(_paged_policy(pipe, seed=1), wav_in, n_timesteps=50,
+                                       seed=1, trace=trace)
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    got = {**dataclasses.asdict(res), "user_units": list(trace["user_units"])}
+    audio = trace["audio"]
+    wav_peak = float(np.abs(want_audio).max())
+    wav_err = (float(np.abs(audio - want_audio).max()) if audio.shape == want_audio.shape
+               else float("inf"))
+    same = got == want and wav_err <= TF32_WAV_BOUND * wav_peak
+
+    wav16, _ = load_wav(wav_in, sr=16000)
+    with tf32_convs():
+        units = pipe.extract_units(wav16)
+        audio_tf32 = pipe.decoder.synthesize(want["agent_units"], seed=1)
+    base = want["user_units"]
+    n = min(len(units), len(base))
+    info = {"old_flag_turn": {"tokens_and_units": "equal" if got == want else "DIFFER",
+                              "wav_max_abs_err": wav_err, "wav_peak": wav_peak,
+                              "bound": TF32_WAV_BOUND * wav_peak},
+            "tf32_route": {"user_units": len(units), "graphed_user_units": len(base),
+                           "units_differing": int(sum(a != b for a, b in zip(units[:n], base[:n])))
+                           + abs(len(units) - len(base)),
+                           "wav_nrms": _nrms(audio_tf32, want_audio)
+                           if audio_tf32.shape == want_audio.shape else None,
+                           "wav_max_abs_err": float(np.abs(audio_tf32 - want_audio).max())
+                           if audio_tf32.shape == want_audio.shape else None},
+            "conv": conv_info}
+    log("phase 4 (j) TF32: " + json.dumps(info))
+    if not same:
+        raise AssertionError(f"phase 4 (j): the turn under allow_tf32=False differs from the "
+                             f"turn under the default flags: {info['old_flag_turn']}")
+    return info
+
+
 def serve_run(pipe, tmp: str, wav_in: str, want: dict, want_wav: str) -> dict:
     """Phase 4 (i): cli.serve's handler over phase 4's full-width pipeline
     and its dialog server (one slot: the engine the turn ran on; a wider
@@ -2163,6 +2305,9 @@ def slice_run(dev, profile: bool, tmp: str, out_dir: str, smi: str) -> dict:
             graphed_audio = audio
         eager = _eager_link_turn(pipe, wav_in, graphed, "bf16 turn")
         t0 = time.perf_counter()
+        tf32 = tf32_check(pipe, wav_in, graphed, graphed_audio)
+        log(f"phase time: TF32 (j) {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
         served = serve_run(pipe, tmp, wav_in, graphed, wav_out)
         log(f"phase time: serve (i) {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
@@ -2181,8 +2326,8 @@ def slice_run(dev, profile: bool, tmp: str, out_dir: str, smi: str) -> dict:
         pipe.close()
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
-    return {"turns": turns, "eager": eager, "serve": served, "spec": spec, "ref": ref,
-            "dense": dense, "load": load}
+    return {"turns": turns, "eager": eager, "tf32": tf32, "serve": served, "spec": spec,
+            "ref": ref, "dense": dense, "load": load}
 
 
 
@@ -3672,22 +3817,23 @@ def row_ratio(got, want, rows: slice) -> float:
     return float((err / (2.0**-7 * w.abs().amax(dim=(0, 2, 3)) + 1e-4)).max())
 
 
-def window_rows_check(name: str, got, want, rows: slice, nowin) -> dict:
+def window_rows_check(name: str, got, want, rows: slice, nowin,
+                      without: str = "the window") -> dict:
     """The rows where the window masks keys of their own segment, each held
     to its own bound (the whole tensor's bound comes from its largest rows,
     the early ones, and lets a kernel that ignores the window pass there).
-    Negative control: `nowin`, the same kernel run without the window, must
-    fail the same check."""
+    Negative control: `nowin`, the same kernel run without the window (or
+    without what `without` names), must fail the same check."""
     import torch
 
     ratio, control = row_ratio(got, want, rows), row_ratio(nowin, want, rows)
     ok = bool(torch.isfinite(got.float()).all()) and ratio <= 1.0 < control
     log(f"  {name} [rows {rows.start}-{rows.stop - 1}, each to its own bound] err/bound "
-        f"{ratio:.3f}; without the window {control:.3f} {'ok' if ok else 'FAIL'}")
+        f"{ratio:.3f}; without {without} {control:.3f} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name}: the window rows' err/bound {ratio} (must be <= 1), "
                              f"the negative control's {control} (must be > 1)")
-    return {"err_over_bound": ratio, "nowindow_err_over_bound": control}
+    return {"err_over_bound": ratio, "control_err_over_bound": control}
 
 
 def lm_kernel_checks(dev) -> dict:
@@ -4107,6 +4253,550 @@ def lm_train_run(dev, smi: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------- phase 12
+GAN_B, GAN_SEG = 32, 8192  # usdm_tpu's train_vocoder defaults: batch 32 of 8,192-sample crops
+# the activations' (channels, samples) for one 8,192-sample crop (32 mel frames)
+GAN_STAGES = ((768, 128), (384, 512), (192, 1024), (96, 2048), (48, 4096), (24, 8192))
+K3_PER_GAN_STEP = 2 * K3_PER_TURN  # the disc step's generator forward and the gen step's
+GAN_STEPS = 3
+K3_GRAD_BOUND = 1e-5  # of each gradient's peak: the Function's backward against autograd
+DISTILL_B, DISTILL_SEGMENTS = 2, (2500, 1000, 596)  # two packed 4,096-token rows
+DISTILL_T = sum(DISTILL_SEGMENTS)
+DISTILL_LAYERS = 8  # cli.train_draft's default --draft_layers
+
+
+def k3_grad_checks(dev) -> dict:
+    """Phase 12 (a): K3's autograd Function at the six stage shapes of a
+    full-width generator, at (b)'s batch (32 of an 8,192-sample crop), f32,
+    snake-beta, log-scale: its forward within K3's bound (1e-4) of the plain version,
+    and its dx, dalpha, dbeta within 1e-5 of each gradient's peak of
+    autograd through activation1d_reference on the card (the Function's
+    backward recomputes that composition, so they agree to the last bits
+    or exactly).  Negative control: the bare launch's output carries no
+    grad_fn, so a gradient cannot reach alpha, beta or x through it, and
+    the check can tell.  Times: the forward (K3), the backward (the
+    recompute) and the plain forward + backward, per stage."""
+    import torch
+
+    from usdm_tpu_torch.ops import fused_act as FA
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    stages, errs = [], {"fwd": 0.0, "dx": 0.0, "dalpha": 0.0, "dbeta": 0.0}
+    for ch, tlen in GAN_STAGES:
+        x = torch.randn(GAN_B, ch, tlen, generator=gen, device=dev).requires_grad_()
+        a = (torch.randn(ch, generator=gen, device=dev) * 0.3).requires_grad_()
+        b = (torch.randn(ch, generator=gen, device=dev) * 0.3).requires_grad_()
+        g = torch.randn(GAN_B, ch, tlen, generator=gen, device=dev)
+        y = FA.fused_activation1d(x, a, b, True)
+        want = FA.activation1d_reference(x, a, b, True)
+        errs["fwd"] = max(errs["fwd"], check("K3 Function forward",
+                                             f"B={GAN_B} C={ch} T={tlen} f32", y, want, 1e-4))
+        got = torch.autograd.grad(y, (x, a, b), g, retain_graph=True)
+        ref = torch.autograd.grad(want, (x, a, b), g, retain_graph=True)
+        for name, gv, rv in zip(("dx", "dalpha", "dbeta"), got, ref):
+            bound = K3_GRAD_BOUND * float(rv.abs().max())
+            errs[name] = max(errs[name], check(f"K3 Function {name}",
+                                               f"B={GAN_B} C={ch} T={tlen}", gv, rv, bound)
+                             / float(rv.abs().max()))
+        bare = FA._launch(x.detach(), a.detach(), b.detach(), True)
+        if y.grad_fn is None or bare.grad_fn is not None or bare.requires_grad:
+            raise AssertionError("phase 12 (a): the Function's output has no grad_fn, or the "
+                                 "bare launch's has one")
+        st = {"C": ch, "T": tlen,
+              "fwd_ms": cuda_ms(lambda: FA.fused_activation1d(x, a, b, True)),
+              "bwd_ms": cuda_ms(lambda: torch.autograd.grad(y, (x, a, b), g, retain_graph=True)),
+              "plain_fwd_bwd_ms": cuda_ms(lambda: torch.autograd.grad(
+                  FA.activation1d_reference(x, a, b, True), (x, a, b), g))}
+        stages.append(st)
+        del x, a, b, g, y, want, got, ref, bare
+    info = {"batch": GAN_B, "fwd_max_abs_err": errs.pop("fwd"), "grad_max_err_over_peak": errs,
+            "stages": stages,
+            "negative_control": "the bare launch's output has no grad_fn"}
+    log("phase 12 (a) K3 autograd Function: " + json.dumps(info))
+    return info
+
+
+def _write_gan_corpus(root: str, n: int) -> tuple:
+    """`n` 22,050 Hz clips of 2-4 s, each a linear chirp plus noise, and a
+    filelist of their names."""
+    from usdm_tpu_torch.audio.wav import write_wav
+
+    rng = np.random.default_rng(12)
+    wavs = os.path.join(root, "gan_wavs")
+    os.makedirs(wavs)
+    names = []
+    for i in range(n):
+        sec = float(rng.uniform(2.0, 4.0))
+        tt = np.arange(int(22050 * sec)) / 22050
+        f0, f1 = rng.uniform(80, 400), rng.uniform(1000, 6000)
+        wav = 0.5 * np.sin(2 * np.pi * (f0 * tt + (f1 - f0) * tt**2 / (2 * sec)))
+        wav = wav + 0.05 * rng.standard_normal(len(tt))
+        write_wav(os.path.join(wavs, f"clip{i}.wav"), wav.astype(np.float32), 22050)
+        names.append(f"clip{i}")
+    filelist = os.path.join(root, "gan_train.txt")
+    with open(filelist, "w") as f:
+        f.write("\n".join(f"{n}|chirp" for n in names))
+    return wavs, filelist
+
+
+def _gan_profile(dev, wavs: str, filelist: str, out_dir: str) -> dict:
+    """One GAN iteration (disc step, gen step) of a fresh full-width state
+    on a batch of the corpus, after one warm-up iteration, under
+    profile_trace: wall, busy share, the top device ops by self time, the
+    K3 backward recompute's span (fused_activation1d.backward) and K3's
+    forward launches."""
+    import torch
+
+    from usdm_tpu_torch.core.config import BigVGANConfig, MelConfig
+    from usdm_tpu_torch.core.logging import profile_trace, union_seconds
+    from usdm_tpu_torch.data.mel_dataset import (MelAudioDataset, collate_mel_batch,
+                                                 loss_mel_config, read_vocoder_filelist)
+    from usdm_tpu_torch.ops import fused_act as FA
+    from usdm_tpu_torch.train import vocoder as V
+
+    cfg, mc = BigVGANConfig(), MelConfig()
+    state, gopt, dopt = V.init_state(cfg, torch.Generator(device=dev).manual_seed(1), device=dev)
+    disc_step, gen_step = V.make_train_steps(cfg, gopt, dopt, loss_mel_config(mc))
+    ds = MelAudioDataset(read_vocoder_filelist(filelist, wavs), GAN_SEG, mc)
+    rng = np.random.default_rng(0)
+    batch = collate_mel_batch([ds.__getitem__(i, rng) for i in range(GAN_B)], mc, dev)
+    disc_step(state, batch)
+    gen_step(state, batch)
+    reset_counts()
+    trace = os.path.join(out_dir, "gan_trace")
+    spans = []
+    with profile_trace(trace):
+        with torch.profiler.record_function("gan_iteration"):
+            disc_step(state, batch)
+            gen_step(state, batch)
+    with open(os.path.join(trace, "summary.json")) as f:
+        summary = json.load(f)
+    with open(os.path.join(trace, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [(e["ts"], e["ts"] + e["dur"]) for e in events
+               if e.get("cat") == "kernel" and "dur" in e]
+    for e in events:
+        if e.get("name") == FA.BACKWARD_SPAN and e.get("cat") == "gpu_user_annotation":
+            spans.append((e["ts"], e["ts"] + e["dur"]))
+    recompute_s = union_seconds([(max(a, s), min(b, t)) for a, b in kernels for s, t in spans
+                           if min(b, t) > max(a, s)])
+    with open(os.path.join(trace, "kernels.txt")) as f:
+        table = f.read().splitlines()
+    info = {**summary, "k3_launches": launch_counts()["fused_activation1d"],
+            "k3_backward_spans_on_device": len(spans), "k3_backward_recompute_s": recompute_s,
+            "k3_backward_recompute_share_of_busy": recompute_s / summary["busy_s"]
+            if spans else None}
+    log("phase 12 (b) one profiled GAN iteration: " + json.dumps(info))
+    log("phase 12 (b) its device time by name:\n" + "\n".join(table[:24] + table[-3:]))
+    del state, batch
+    return info
+
+
+def vocoder_train_run(dev, root: str, out_dir: str, smi: str) -> dict:
+    """Phase 12 (b): python -m usdm_tpu_torch.cli.train_vocoder at full
+    width (BigVGANConfig(), MPD periods 2-11, MRD at the three default
+    resolutions), batch 32 of 8,192-sample crops from 96 synthetic chirp
+    clips, 3 steps, --export: per step the wall, losses, mel L1 and peak
+    device memory; K3 218 launches a step; the export loaded by
+    load_bigvgan equals the trained generator (every weight within 2^-21
+    of its peak |w|: the reference layout's weight-norm split and fold
+    round a weight by about an ulp; biases and snake parameters bit for
+    bit); then one profiled iteration (_gan_profile)."""
+    import torch
+
+    from usdm_tpu_torch.cli import train_vocoder
+    from usdm_tpu_torch.core import checkpoint as ckpt
+    from usdm_tpu_torch.core.tree import tree_leaves
+
+    wavs, filelist = _write_gan_corpus(root, GAN_STEPS * GAN_B)
+    out, exp = os.path.join(root, "gan"), os.path.join(root, "gan_export")
+    _free_device()
+    reset_counts()
+    t0 = time.perf_counter()
+    rc = train_vocoder.main(["--output_dir", out, "--input_wavs_dir", wavs,
+                             "--input_training_file", filelist, "--max_steps", str(GAN_STEPS),
+                             "--batch_size", str(GAN_B), "--segment_size", str(GAN_SEG),
+                             "--export", exp, "--device", str(dev)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k3 = launch_counts()["fused_activation1d"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        metrics = [r for r in map(json.loads, f) if "train/gen_loss" in r]
+    saved = torch.load(os.path.join(out, "checkpoints", f"step_{GAN_STEPS}", "state.pt"),
+                       map_location="cpu", weights_only=True)
+    loaded, _ = ckpt.load_bigvgan(exp, device="cpu")
+    worst, exact = 0.0, True
+    for (key, got), want in zip(_named_leaves(loaded), tree_leaves(saved["params"]["gen"])):
+        if key.endswith("w"):
+            worst = max(worst, float((got - want).abs().max()) / float(want.abs().max()))
+        else:
+            exact = exact and torch.equal(got, want)
+    n_gen = sum(t.numel() for t in tree_leaves(saved["params"]["gen"]))
+    n_disc = sum(t.numel() for k in ("mpd", "mrd") for t in tree_leaves(saved["params"][k]))
+    state_bytes = _file_bytes(os.path.join(out, "checkpoints", f"step_{GAN_STEPS}"))
+    del saved, loaded
+    info = {"rc": rc, "wall_s": wall, "card": smi, "generator_params": n_gen,
+            "discriminator_params": n_disc, "batch": GAN_B, "segment": GAN_SEG,
+            "steps": [{k.split("/")[-1]: r.get(k) for k in
+                       ("step", "train/disc_loss", "train/gen_loss", "train/gen_adv",
+                        "train/gen_fm", "train/gen_mel_l1", "train/step_s",
+                        "train/max_memory_gib")} for r in metrics],
+            "max_memory_allocated_gib": peak, "k3_launches": k3,
+            "export_weight_err_over_peak": worst, "export_other_leaves_bit_equal": exact,
+            "train_state_bytes": state_bytes, "export_bytes": _file_bytes(exp)}
+    log("phase 12 (b) train_vocoder, full width: " + json.dumps(info))
+    if rc != 0 or len(metrics) != GAN_STEPS or not all(
+            np.isfinite([r["train/gen_loss"], r["train/disc_loss"]]).all() for r in metrics):
+        raise AssertionError(f"phase 12 (b): rc {rc}, {len(metrics)} steps logged")
+    if k3 != GAN_STEPS * K3_PER_GAN_STEP:
+        raise AssertionError(f"phase 12 (b): K3 launched {k3} times in {GAN_STEPS} steps, want "
+                             f"{GAN_STEPS * K3_PER_GAN_STEP}")
+    if not (worst <= 2.0**-21 and exact):
+        raise AssertionError(f"phase 12 (b): the export loads back {worst} of a weight's peak "
+                             f"off, other leaves equal: {exact}")
+    _free_device()
+    info["profile"] = _gan_profile(dev, wavs, filelist, out_dir)
+    return info
+
+
+def _named_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items() for x in _named_leaves(v, f"{prefix}/{k}")]
+    if isinstance(tree, list):
+        return [x for i, v in enumerate(tree) for x in _named_leaves(v, f"{prefix}/{i}")]
+    return [(prefix, tree)]
+
+
+def _distill_batch(vocab: int, seed: int, dev) -> dict:
+    """DISTILL_B packed rows of DISTILL_SEGMENTS, each segment BOS-led."""
+    import torch
+
+    from usdm_tpu_torch.data.collators import pack_collate
+
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(DISTILL_B):
+        row = rng.integers(3, vocab, DISTILL_T)
+        row[np.cumsum((0,) + DISTILL_SEGMENTS[:-1])] = 1
+        rows.append(row.tolist())
+    return {k: torch.from_numpy(v).to(dev) for k, v in pack_collate(rows, vocab - 1).items()}
+
+
+def distill_kernel_checks(dev) -> dict:
+    """Phase 12 (c)'s K2 and K5 at one layer of the distill step (bf16, B 2,
+    T 4096, GQA 32/8, d 128, causal, window 4096, segments 2500 + 1000 +
+    596 as _distill_batch packs them) against their plain versions with
+    round_operands=True: o, dq, dk (summed over the GQA group) and dv
+    within 2^-7 * max|want| + 1e-4, the log-sum-exp within 1e-4.  Negative
+    control: the same kernels run with one segment id for the whole row
+    (the positions still restart) must fail, each row held to its own
+    bound, on the rows the segments separate: the queries of segments 2-3
+    (o, dq) and the keys of segments 1-2 (dk, dv)."""
+    import torch
+
+    from usdm_tpu_torch.core.config import MistralConfig
+    from usdm_tpu_torch.ops import flash_attention as FL
+
+    cfg = MistralConfig()
+    h, hkv, d, window = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.sliding_window
+    batch = _distill_batch(cfg.vocab_size, 19, dev)
+    seg, pos = batch["segment_ids"], batch["positions"]
+    one = torch.zeros_like(seg)
+    gen = torch.Generator(device=dev).manual_seed(15)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    q, do = randn(DISTILL_B, DISTILL_T, h, d), randn(DISTILL_B, DISTILL_T, h, d)
+    k, v = randn(DISTILL_B, DISTILL_T, hkv, d), randn(DISTILL_B, DISTILL_T, hkv, d)
+    case = (f"distill bf16 B={DISTILL_B} T={DISTILL_T} GQA {h}/{hkv} d={d} causal window "
+            f"{window} segments {'+'.join(map(str, DISTILL_SEGMENTS))}")
+    log(f"phase 12 (c) K2 / K5 at the distill step's shape: {case}")
+    later_q = slice(DISTILL_SEGMENTS[0], DISTILL_T)
+    early_k = slice(0, DISTILL_SEGMENTS[0] + DISTILL_SEGMENTS[1])
+    o, lse = FL.flash_attention(q, k, v, seg, seg, pos, pos, True, window, return_lse=True)
+    o1, lse1 = FL.flash_attention(q, k, v, one, one, pos, pos, True, window, return_lse=True)
+    want_o, want_lse = FL.flash_attention_reference(q, k, v, seg, seg, pos, pos, True, window,
+                                                    None, False, True)
+    errs = {"fwd": check("K2", f"{case} o", o, want_o, bf16_bound(want_o))}
+    check("K2 lse", case, lse, want_lse, 1e-4)
+    rows = {"K2 o": window_rows_check("K2 o", o, want_o, later_q, o1, "the segments")}
+    del want_o, want_lse
+    ref_args = (q, k, v, o, lse, do, seg, seg, pos, pos, True, window, None, False)
+    want = FL.flash_attention_bwd_reference(*ref_args, True)
+    got = FL.flash_attention_bwd(*ref_args)
+    control = FL.flash_attention_bwd(q, k, v, o1, lse1, do, one, one, pos, pos, True, window,
+                                     None, False)
+    out = [check("K5", f"{case} {n}", g, w, bf16_bound(w))
+           for n, g, w in zip(("dq", "dk (summed over the GQA group)", "dv"), got, want)]
+    errs["dq"], errs["dkv"] = out[0], max(out[1:])
+    for n, g, w, c, r in zip(("K5 dq", "K5 dk", "K5 dv"), got, want, control,
+                             (later_q, early_k, early_k)):
+        rows[n] = window_rows_check(n, g, w, r, c, "the segments")
+    info = {"case": case, "max_abs_err": errs, "segment_rows": rows}
+    log("phase 12 (c) distill_kernels: " + json.dumps(info))
+    del q, k, v, do, o, lse, o1, lse1, want, got, control
+    return info
+
+
+def _distill_steps(dev, step, state, target, label: str) -> dict:
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out = []
+    for i in range(3):
+        batch = _distill_batch(state.params["embed"].shape[0], 20 + i, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(state, target, batch)
+        vals = {k: float(v) for k, v in m.items()}
+        wall = time.perf_counter() - t0
+        out.append({**vals, "step_s": wall, "tokens_per_s": DISTILL_B * DISTILL_T / wall,
+                    "max_memory_gib": torch.cuda.max_memory_allocated() / 2**30})
+    counts, mma = launch_counts(), mma_counts()
+    launches = {k: counts[k] for k in ("flash_attention", "flash_attention_bwd_dq",
+                                        "flash_attention_bwd_dkv")}
+    want = {"flash_attention": 3 * (32 + 2 * DISTILL_LAYERS),
+            "flash_attention_bwd_dq": 3 * DISTILL_LAYERS,
+            "flash_attention_bwd_dkv": 3 * DISTILL_LAYERS}
+    info = {"steps": out, "launches": launches, "mma_launches": {k: mma[k] for k in launches},
+            "stream_qmv": counts["stream_qmv"]}
+    log(f"phase 12 (c) distill steps, {label} target: " + json.dumps(info))
+    if launches != want or any(mma[k] != n for k, n in launches.items()):
+        raise AssertionError(f"phase 12 (c) {label}: K2/K5 launched {launches} ({mma}), "
+                             f"want {want}")
+    if not all(np.isfinite(s["loss"]) and s["ntokens"] > 0 for s in out):
+        raise AssertionError(f"phase 12 (c) {label}: {out}")
+    return info
+
+
+def distill_run(dev, smi: str) -> dict:
+    """Phase 12 (c): the distill step at full width, in process: K2 and K5
+    at one of its layers against their plain versions
+    (distill_kernel_checks), a random
+    MistralConfig() target in bf16 (7.24 B parameters), the oracle (the
+    whole target as its own draft: agree >= 0.95, loss < 0.05, usdm_tpu's
+    own check), then an 8-layer early-exit draft (f32 masters, resident
+    AdamW, remat) for 3 steps of 2 packed 4,096-token rows against the
+    bf16 target and 3 against the W8A8 target (quantize_llm_params; a
+    fresh draft from it, as --quantize_target makes one): per step wall,
+    tokens/s, loss, agree and peak memory; K2 48 and K5 8 + 8 launches a
+    step, all on the bf16 route.  The train state is not written (the
+    run's disk budget)."""
+    import torch
+
+    from usdm_tpu_torch.core.config import MistralConfig, TrainConfig
+    from usdm_tpu_torch.core.tree import tree_leaves
+    from usdm_tpu_torch.models import mistral as M
+    from usdm_tpu_torch.models.quant import quantize_llm_params
+    from usdm_tpu_torch.train import distill as DI
+    from usdm_tpu_torch.train import lm as T
+
+    _free_device()
+    kernels = distill_kernel_checks(dev)
+    _free_device()
+    cfg = MistralConfig()
+    target = M.init_params(cfg, torch.Generator(device=dev).manual_seed(7), dev)
+    target_gb = sum(t.numel() * t.element_size() for t in tree_leaves(target)) / 1e9
+    with torch.no_grad():
+        _, oracle = DI.distill_loss_fn(target, target, cfg, cfg, _distill_batch(cfg.vocab_size,
+                                                                                 19, dev))
+    oracle = {k: float(v) for k, v in oracle.items()}
+    log(f"phase 12 (c) oracle, the whole target as its own draft: {json.dumps(oracle)}")
+    if not (oracle["agree"] >= 0.95 and oracle["loss"] < 0.05):
+        raise AssertionError(f"phase 12 (c): the oracle gives {oracle}")
+    tc = TrainConfig(batch_size=DISTILL_B, max_steps=1000, learning_rate=1e-4)
+    out = {"kernels": kernels, "oracle": oracle, "target_gb": target_gb, "card": smi}
+    for label in ("bf16", "w8a8"):
+        if label == "w8a8":
+            quantize_llm_params(target)
+            _free_device()
+        draft, cfg_d = DI.init_draft_from_target(target, cfg, DISTILL_LAYERS)
+        state = T.init_state(cfg_d, tc, dev, params=draft)
+        del draft
+        masters = sum(t.numel() for t in tree_leaves(state.params))
+        step = DI.make_distill_step(cfg_d, cfg, tc)
+        res = _distill_steps(dev, step, state, target, label)
+        res.update({"draft_params": masters, "draft_masters_gb": 4 * masters / 1e9,
+                    "moments_gb": 8 * masters / 1e9,
+                    "target_gb": sum(t.numel() * t.element_size()
+                                     for t in tree_leaves(target)) / 1e9})
+        out[label] = res
+        del state, step
+        _free_device()
+    del target
+    _free_device()
+    if "jax" in sys.modules:
+        raise AssertionError("jax was imported")
+    return out
+
+
+# phase 12 (d)'s K1 geometry: MistralConfig.tiny() at head_dim 32 (K1's
+# least), its bf16 pools in 16-token pages, 16 pages a sequence, window 64
+K1_TINY = {"hkv": 2, "group": 2, "d": 32, "page": 16, "max_pages": 16, "window": 64}
+
+
+def k1_tiny_checks(dev) -> float:
+    """K1 at phase 12 (d)'s shapes against its plain version: B 1 and 2 (the
+    decode links of a 2-slot engine) and 8 (the verify step's B x (K + 1)
+    rows at spec_k 3), contexts 1-256 across page edges and the window,
+    shuffled page tables, bound 2^-7 * max|want| + 1e-4.  Negative control:
+    the kernel run without the window (or with half of it) must exceed the
+    bound where the window cuts most of a 200-token context.
+    -> the largest error."""
+    import torch
+
+    from usdm_tpu_torch.ops import paged_attention as PA
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    c = K1_TINY
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    errs = []
+    for b in (1, 2, 8):
+        n_pages = b * c["max_pages"] + 1
+        kp, vp = (randn(c["hkv"], n_pages, c["page"], c["d"]) for _ in range(2))
+        perm = torch.randperm(n_pages - 1, generator=gen, device=dev).to(torch.int32)
+        table = perm[: b * c["max_pages"]].reshape(b, c["max_pages"]).contiguous()
+        for seq in (1, 15, 16, 17, 64, 65, 200, 256):
+            lens = torch.full((b,), seq, dtype=torch.int32, device=dev)
+            lens[1:] = torch.randint(1, seq + 1, (b - 1,), generator=gen, device=dev)
+            q = randn(b, c["hkv"], c["group"], c["d"])
+            want = PA.paged_decode_attention_reference(q, kp, vp, table, lens, c["window"])
+            bound = bf16_bound(want)
+            errs.append(check("K1", f"d=32 B={b} seq={seq} window={c['window']}",
+                              PA.paged_decode_attention(q, kp, vp, table, lens, c["window"]),
+                              want, bound))
+            if seq == 200:
+                for wrong in (None, c["window"] // 2):
+                    err = max_err(PA.paged_decode_attention(q, kp, vp, table, lens, wrong), want)
+                    log(f"  K1 [d=32 B={b} seq={seq}] kernel with window {wrong} against the "
+                        f"plain version with {c['window']}: max_abs_err={err:.3e}, must exceed "
+                        f"{bound:.3e}")
+                    if err <= bound:
+                        raise AssertionError(f"phase 12 (d): the K1 bound cannot tell window "
+                                             f"{wrong} from {c['window']}")
+    return max(errs)
+
+
+def draft_cli_run(dev, root: str) -> dict:
+    """Phase 12 (d): cli.train_draft at tiny width on the card from a tiny
+    target dir (MistralConfig.tiny() at head_dim 32, the least K1 takes;
+    save_mistral_hf; loaded in bf16 as --model_dir loads it),
+    a 1-layer draft, 4 steps saving at 2 and 4, then a run resumed from
+    step 2 reaches step 4 bit for bit (params, moments, count); the
+    --export_hf dir, loaded by load_mistral as --draft_dir loads it, drafts
+    for a PagedEngine over the target (spec_k 3): its greedy tokens equal
+    plain greedy's, and K1 launches; before it, K1 at those shapes against
+    its plain version (k1_tiny_checks)."""
+    import torch
+
+    from usdm_tpu_torch.cli import train_draft
+    from usdm_tpu_torch.core import checkpoint as ckpt
+    from usdm_tpu_torch.core.config import EngineConfig, MistralConfig
+    from usdm_tpu_torch.core.tree import tree_leaves
+    from usdm_tpu_torch.engine.paged import PagedEngine, Request
+    from usdm_tpu_torch.models import mistral as M
+
+    k1_err = k1_tiny_checks(dev)
+    rng = np.random.default_rng(13)
+    rows = os.path.join(root, "draft_rows")
+    os.makedirs(rows)
+    with open(os.path.join(rows, "part0.txt"), "w") as f:
+        for _ in range(8):
+            segs = [[1] + rng.integers(3, 500, int(rng.integers(40, 120))).tolist()
+                    for _ in range(3)]
+            f.write(" ".join(str(t) for s in segs for t in s) + "\n")
+    cfg = MistralConfig.tiny(vocab_size=512).replace(head_dim=K1_TINY["d"])  # K1: d 32-128
+    tdir = os.path.join(root, "draft_target")
+    ckpt.save_mistral_hf(tdir, M.init_params(cfg, torch.Generator().manual_seed(3), "cpu",
+                                             dtype="float32"), cfg)
+    common = ["--model_dir", tdir, "--data_path", rows, "--device", str(dev),
+              "--draft_layers", "1", "--max_steps", "4", "--save_steps", "2",
+              "--logging_steps", "1", "--chunk", "64", "--learning_rate", "1e-3"]
+    a, b, hf = (os.path.join(root, n) for n in ("draft_a", "draft_b", "draft_hf"))
+    rc_a = train_draft.main(common + ["--output_dir", a, "--export_hf", hf])
+    os.makedirs(os.path.join(b, "checkpoints"))
+    shutil.copytree(os.path.join(a, "checkpoints", "step_2"),
+                    os.path.join(b, "checkpoints", "step_2"))
+    rc_b = train_draft.main(common + ["--output_dir", b, "--resume"])
+    sa, sb = (torch.load(os.path.join(p, "checkpoints", "step_4", "state.pt"),
+                         map_location="cpu", weights_only=True) for p in (a, b))
+    ta = tree_leaves(sa["params"]) + sa["opt_state"]["m"] + sa["opt_state"]["v"]
+    tb = tree_leaves(sb["params"]) + sb["opt_state"]["m"] + sb["opt_state"]["v"]
+    resumed = sa["step"] == sb["step"] == 4 and all(torch.equal(x, y) for x, y in zip(ta, tb))
+    tparams, tcfg = ckpt.load_mistral(tdir, dtype="bfloat16", device=dev)
+    dparams, dcfg = ckpt.load_mistral(hf, dtype="bfloat16", device=dev)
+    ecfg = EngineConfig(page_size=16, max_pages_per_seq=16, max_batch_size=2, prefill_chunk=16)
+    allow = np.ones(tcfg.vocab_size, bool)
+    prompts = [rng.integers(3, 500, 40).tolist(), rng.integers(3, 500, 23).tolist()]
+
+    def reqs():
+        return [Request(i, list(p), allow, eos_id=2, max_new_tokens=32)
+                for i, p in enumerate(prompts)]
+
+    reset_counts()
+    spec = PagedEngine(tparams, tcfg, ecfg.replace(spec_k=3), device=dev, draft=(dparams, dcfg))
+    got = [r.output_ids for r in spec.run(reqs())]
+    k1 = launch_counts()["paged_decode_attention"]
+    want = [r.output_ids for r in PagedEngine(tparams, tcfg, ecfg, device=dev).run(reqs())]
+    info = {"rc": [rc_a, rc_b], "resumed_equals_uninterrupted": bool(resumed),
+            "spec_rounds": spec.spec_rounds, "tokens": "equal" if got == want else "DIFFER",
+            "k1_launches": k1, "new_tokens": [len(x) for x in got]}
+    log("phase 12 (d) train_draft --tiny, resume and the exported draft served: "
+        + json.dumps(info))
+    if rc_a or rc_b or not resumed:
+        raise AssertionError(f"phase 12 (d): the resumed run differs from the uninterrupted "
+                             f"one: {info}")
+    if got != want or not spec.spec_rounds or not k1:
+        raise AssertionError(f"phase 12 (d): the distilled draft's speculative tokens differ "
+                             f"from plain greedy's, or nothing speculated: {info}")
+    del spec, tparams, dparams
+    return {**info, "launches": {"paged_decode_attention": k1}, "k1_max_abs_err": k1_err}
+
+
+def gan_distill_run(dev, out_dir: str, smi: str) -> dict:
+    """Phase 12: (a) K3's autograd Function, (b) cli.train_vocoder at full
+    width, (c) the distill step at full width, (d) cli.train_draft at tiny
+    width with resume and its draft served.  Runs after phase 11, on an
+    emptied card; writes ~2.4 GB ((b)'s train state and export).
+    -> the results; "launches": K3 of (b), K2/K5 of (c), K1 of (d);
+    "max_abs_err": each of those kernels' largest error against its plain
+    version at the shapes these paths give it ((a), and the checks that
+    open (c) and (d))."""
+    out = {}
+    _free_device()
+    t0 = time.perf_counter()
+    out["k3_grad"] = k3_grad_checks(dev)
+    log(f"phase time: 12 (a) {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as root:
+        for key, fn in (("gan", lambda: vocoder_train_run(dev, root, out_dir, smi)),
+                        ("distill", lambda: distill_run(dev, smi)),
+                        ("draft_cli", lambda: draft_cli_run(dev, root))):
+            t0 = time.perf_counter()
+            out[key] = fn()
+            _free_device()
+            log(f"phase time: 12 {key} {time.perf_counter() - t0:.1f} s")
+    if "jax" in sys.modules:
+        raise AssertionError("jax was imported")
+    d = out["distill"]
+    out["launches"] = {"fused_activation1d": out["gan"]["k3_launches"],
+                       **{k: d["bf16"]["launches"][k] + d["w8a8"]["launches"][k]
+                          for k in d["bf16"]["launches"]},
+                       "paged_decode_attention": out["draft_cli"]["launches"][
+                           "paged_decode_attention"]}
+    dk = d["kernels"]["max_abs_err"]
+    out["max_abs_err"] = {"fused_activation1d": out["k3_grad"]["fwd_max_abs_err"],
+                          "flash_attention": dk["fwd"], "flash_attention_bwd_dq": dk["dq"],
+                          "flash_attention_bwd_dkv": dk["dkv"],
+                          "paged_decode_attention": out["draft_cli"]["k1_max_abs_err"]}
+    return out
+
+
 # ------------------------------------------------------- parent vs change
 def _reply(obj: dict) -> None:
     print("RESULT " + json.dumps(obj), flush=True)
@@ -4290,7 +4980,8 @@ def turn_worker(root: str) -> int:
     if os.path.dirname(pkg) != os.path.abspath(root):
         raise AssertionError(f"usdm_tpu_torch came from {pkg}, not {root}")
     dev = torch.device("cuda", 0)
-    torch.backends.cuda.matmul.allow_tf32 = False
+    # both trees' f32 convolutions at full f32: a parent tree from before
+    # usdm_tpu_torch/ops/conv.py follows the process's cuDNN flag
     torch.backends.cudnn.allow_tf32 = False
     _build.library()
     _reply({"package": pkg, "nvcc_s": _build.build_seconds})
@@ -4505,8 +5196,8 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True)
     log(f"device: {name} (torch {torch.__version__}, CUDA {torch.version.cuda})")
     log(f"nvidia-smi: {smi.stdout.strip() or smi.stderr.strip()}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    # PyTorch's default flags, as the CLIs run: the port's f32 convolutions
+    # turn cuDNN's TF32 off themselves (usdm_tpu_torch/ops/conv.py)
     log(f"tf32: torch.backends.cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
 
@@ -4571,6 +5262,10 @@ def main() -> int:
     t_phase = time.perf_counter()
     lm = lm_train_run(dev, smi.stdout.strip())
     log(f"phase time: LM training (phase 11) {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    gan = gan_distill_run(dev, args.out_dir, smi.stdout.strip())
+    log(f"phase time: GAN and distillation training (phase 12) "
+        f"{time.perf_counter() - t_phase:.1f} s")
     a, b = int8["A"]["launches"], int8["B"]["launches"]
     # K1 and K6 add the speculative paths: the ngram turns (c) and the
     # bench ports' engines (b)
@@ -4606,6 +5301,13 @@ def main() -> int:
     for key, err in (("flash_attention", lmk["fwd"]), ("flash_attention_bwd_dq", lmk["dq"]),
                      ("flash_attention_bwd_dkv", lmk["dkv"])):
         kres[key]["max_abs_err"] = max(kres[key]["max_abs_err"], err)
+    # phase 12: (b)'s three GAN steps (K3), (c)'s six distill steps (K2, K5,
+    # bf16 route), (d)'s served draft (K1)
+    for k, n in gan["launches"].items():
+        launches[k] += n
+    # and its checks of each kernel at the shapes those paths give it
+    for k, err in gan["max_abs_err"].items():
+        kres[k]["max_abs_err"] = max(kres[k]["max_abs_err"], err)
     # phase 10's two loaded turns (float and default Voicebox): K1-K3
     for turn in bf16_run["load"]["turns"].values():
         for k in ("paged_decode_attention", "flash_attention_f32", "fused_activation1d"):

@@ -63,7 +63,7 @@ def iter_packed_rows(data_path: str):
         yield [int(t) for t in ids.split()] if isinstance(ids, str) else ids
 
 
-def _rows_forever(data_path: str):
+def rows_forever(data_path: str):
     """iter_packed_rows over and over (one pass an epoch)."""
     while True:
         n = 0
@@ -199,7 +199,7 @@ def main(argv=None) -> int:
             logger.log(step, {"loss": float(np.mean(losses)), "ntokens": toks}, prefix="eval")
             print(f"eval @ {step}: loss={np.mean(losses):.4f}")
 
-    rows = _rows_forever(args.data_path)
+    rows = rows_forever(args.data_path)
     for _ in range(start_step * tc.batch_size):  # the rows the resumed steps consumed
         next(rows)
 

@@ -14,7 +14,10 @@ so both packages compute the same function of the same weights.
     become one dict per layer with a 0-d scale;
   * an LM train state's Adam moments (optax's ScaleByAdamState mu/nu, or
     usdm_tpu's offload AdamWState m/v) become the port's AdamWState, one
-    tensor per leaf in the port's tree_leaves order.
+    tensor per leaf in the port's tree_leaves order;
+  * BigVGAN's discriminators' 2-D convs [KH, KW, Cin, Cout] (HWIO) become
+    OIHW, and a GAN train state (generator, MPD, MRD, both optimizers'
+    moments, step) the port's train/vocoder.py GanTrainState.
 
 Imports no JAX: bf16 leaves (ml_dtypes) are widened through float32.
 """
@@ -150,3 +153,47 @@ def lm_train_state_from_jax(jstate, device="cpu"):
     v = tree_leaves(mistral_from_jax(nu, torch.float32, device))
     return TrainState(params, AdamWState(m, v, int(np.asarray(count))),
                       int(np.asarray(jstate.step)))
+
+
+def _conv2d(c: Tree, device) -> Tree:
+    return {"w": tensor(np.asarray(c["w"], np.float32).transpose(3, 2, 0, 1), device=device),
+            "b": tensor(c["b"], device=device)}
+
+
+def _disc(d: Tree, device) -> Tree:
+    return {"convs": [_conv2d(c, device) for c in d["convs"]], "post": _conv2d(d["post"], device)}
+
+
+def mpd_from_jax(jmpd, device="cpu") -> list:
+    """usdm_tpu's period discriminators (HWIO) -> the port's (OIHW)."""
+    return [_disc(d, device) for d in jmpd]
+
+
+def mrd_from_jax(jmrd, device="cpu") -> list:
+    """usdm_tpu's resolution discriminators (HWIO) -> the port's (OIHW)."""
+    return [_disc(d, device) for d in jmrd]
+
+
+def gan_train_state_from_jax(jstate, device="cpu"):
+    """usdm_tpu's GanTrainState (host arrays) -> the port's: f32 params with
+    requires_grad, each optimizer's Adam moments in the port's leaf order
+    and layouts (the discriminators' over {"mpd", "mrd"}), counts and step."""
+    from usdm_tpu_torch.core.tree import tree_leaves
+    from usdm_tpu_torch.train.lm import AdamWState
+    from usdm_tpu_torch.train.vocoder import GanTrainState
+
+    def discs(pair):
+        return {"mpd": mpd_from_jax(pair[0], device), "mrd": mrd_from_jax(pair[1], device)}
+
+    def moments(opt_state, convert):
+        mu, nu, count = _find_moments(opt_state)
+        return AdamWState(tree_leaves(convert(mu)), tree_leaves(convert(nu)),
+                          int(np.asarray(count)))
+
+    gen = bigvgan_from_jax(jstate.gen_params, device)
+    d = discs((jstate.mpd, jstate.mrd))
+    for t in tree_leaves(gen) + tree_leaves(d):
+        t.requires_grad_(True)
+    return GanTrainState(gen, d["mpd"], d["mrd"],
+                         moments(jstate.gen_opt, lambda t: bigvgan_from_jax(t, device)),
+                         moments(jstate.disc_opt, discs), int(np.asarray(jstate.step)))

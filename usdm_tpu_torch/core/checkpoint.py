@@ -443,6 +443,7 @@ def load_xlsr(path: str, kmeans_path: Optional[str] = None, cfg: Optional[XlsrCo
 
 _STEP_RE = re.compile(r"^step_(\d+)$")
 _FILE = "state.pt"
+_EXTRA = "extra.json"
 
 
 def _steps(path: str):
@@ -452,9 +453,11 @@ def _steps(path: str):
                   if m and os.path.exists(os.path.join(path, m.group(0), _FILE)))
 
 
-def save_train_state(path: str, state, step: int, keep: int = 2) -> None:
-    """Write `state` as `path/step_<step>`, then drop all but the newest
-    `keep` checkpoints."""
+def save_train_state(path: str, state, step: int, keep: int = 2,
+                     extra: Optional[dict] = None) -> None:
+    """Write `state` as `path/step_<step>` (and `extra`, a JSON-able dict such
+    as a data loader's position, as its extra.json), then drop all but the
+    newest `keep` checkpoints."""
     path = os.path.abspath(path)
     os.makedirs(path, exist_ok=True)
     final = os.path.join(path, f"step_{step}")
@@ -464,6 +467,8 @@ def save_train_state(path: str, state, step: int, keep: int = 2) -> None:
     torch.save({"params": tree_map(lambda a: a.detach().cpu(), state.params),
                 "opt_state": state.opt_state.state_dict(), "step": int(state.step)},
                os.path.join(tmp, _FILE))
+    if extra is not None:
+        _write_json(os.path.join(tmp, _EXTRA), extra)
     shutil.rmtree(final, ignore_errors=True)
     os.replace(tmp, final)
     for old in _steps(path)[:-keep]:
@@ -473,6 +478,12 @@ def save_train_state(path: str, state, step: int, keep: int = 2) -> None:
 def latest_step(path: str) -> Optional[int]:
     steps = _steps(os.path.abspath(path))
     return steps[-1] if steps else None
+
+
+def read_train_extra(path: str, step: int) -> Optional[dict]:
+    """The `extra` dict saved with `path/step_<step>`, or None."""
+    f = os.path.join(os.path.abspath(path), f"step_{step}", _EXTRA)
+    return _read_json(f) if os.path.exists(f) else None
 
 
 def restore_train_state(path: str, state, step: Optional[int] = None):

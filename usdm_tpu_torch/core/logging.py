@@ -60,7 +60,7 @@ class MetricsLogger:
             self._tb.close()
 
 
-def _busy_s(intervals) -> float:
+def union_seconds(intervals) -> float:
     """Seconds covered by the union of (start, end) intervals in µs."""
     busy, end = 0.0, float("-inf")
     for a, b in sorted(intervals):
@@ -109,9 +109,9 @@ def profile_trace(out_dir: str):
     with open(trace) as f:
         spans = [(e.get("cat"), e["ts"], e["ts"] + e["dur"]) for e in json.load(f)["traceEvents"]
                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
-    busy = _busy_s((a, b) for _, a, b in spans)
+    busy = union_seconds((a, b) for _, a, b in spans)
     with open(os.path.join(out_dir, "summary.json"), "w") as f:
         json.dump({"wall_s": wall, "device_sum_s": device_s, "copy_sum_s": copy_s,
                    "kernel_sum_s": device_s - copy_s, "busy_s": busy,
-                   "kernel_busy_s": _busy_s((a, b) for c, a, b in spans if c == "kernel"),
+                   "kernel_busy_s": union_seconds((a, b) for c, a, b in spans if c == "kernel"),
                    "device_busy": busy / wall}, f)

@@ -40,6 +40,7 @@ from usdm_tpu_torch.core.config import VoiceboxConfig
 from usdm_tpu_torch.core.tree import tree_map
 from usdm_tpu_torch.models.quant import is_quantized, qmm
 from usdm_tpu_torch.models.xlsr import layer_norm
+from usdm_tpu_torch.ops import conv as CV
 from usdm_tpu_torch.ops.attention import plain_attention
 from usdm_tpu_torch.ops.flash_attention import flash_attention
 from usdm_tpu_torch.ops.fused_ln import add_mask_ln
@@ -145,7 +146,7 @@ def _encoder_layer(cfg, lp, x, y_mask, bias, flash_ctx, ln_lengths=None):
 def _conv_pos_embed(w, b, x, y_mask, groups, width):
     """Grouped same-conv + GELU + mask on [B, T, H]."""
     pad = (width // 2, width // 2 - (1 if width % 2 == 0 else 0))
-    out = F.conv1d(F.pad(x.transpose(1, 2), pad), w, b, groups=groups).transpose(1, 2)
+    out = CV.conv(F.pad(x.transpose(1, 2), pad), w, b, groups=groups).transpose(1, 2)
     return F.gelu(out) * y_mask
 
 

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 
 from usdm_tpu_torch.audio.wav import pad_to_bucket
 from usdm_tpu_torch.core.config import XlsrConfig
+from usdm_tpu_torch.ops import conv as CV
 from usdm_tpu_torch.ops.attention import mha
 
 Params = Dict[str, Any]
@@ -77,7 +78,7 @@ def feature_extractor(params: Params, cfg: XlsrConfig, wav: torch.Tensor) -> tor
     """[B, T] waveform -> [B, T', C] (conv -> LayerNorm -> GELU per stage)."""
     x = wav[:, None, :]
     for conv, stride in zip(params["convs"], cfg.conv_strides):
-        x = F.conv1d(x, conv["w"], conv["b"], stride=stride)
+        x = CV.conv(x, conv["w"], conv["b"], stride=stride)
         x = F.gelu(layer_norm(x.transpose(1, 2), conv["ln_w"], conv["ln_b"])).transpose(1, 2)
     return x.transpose(1, 2)
 
@@ -85,8 +86,8 @@ def feature_extractor(params: Params, cfg: XlsrConfig, wav: torch.Tensor) -> tor
 def _pos_conv(params: Params, cfg: XlsrConfig, x: torch.Tensor) -> torch.Tensor:
     """Grouped positional conv (SamePad: an even kernel drops the last step)."""
     width = cfg.conv_pos_width
-    y = F.conv1d(x.transpose(1, 2), params["pos_conv_w"], params["pos_conv_b"],
-                 padding=width // 2, groups=cfg.conv_pos_groups)
+    y = CV.conv(x.transpose(1, 2), params["pos_conv_w"], params["pos_conv_b"],
+                padding=width // 2, groups=cfg.conv_pos_groups)
     if width % 2 == 0:
         y = y[..., :-1]
     return F.gelu(y.transpose(1, 2))

@@ -7,7 +7,10 @@ both resamplers' replicate padding.  The port keeps BigVGAN channels-first:
 x [B, C, T], alpha/beta [C].
 
 `fused_activation1d` launches the CUDA kernel for CUDA tensors and runs
-`activation1d_reference` (the plain three-op composition) for CPU tensors.
+`activation1d_reference` (the plain three-op composition) for CPU tensors;
+its gradient, on either, is the vjp of that composition recomputed from the
+saved inputs (`_FusedActivation1d`, usdm_tpu's custom_vjp).  The launch
+count counts forward launches.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from usdm_tpu_torch.ops import _build
+from usdm_tpu_torch.ops import conv as CV
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
@@ -64,16 +68,16 @@ def upsample2(x: torch.Tensor) -> torch.Tensor:
     """Anti-aliased 2x upsample of [B, C, T] (replicate pad 5, zero-stuffed
     12-tap transposed conv with gain 2, crop 15 per side)."""
     f = _resample_filter()
-    y = F.conv_transpose1d(F.pad(x, (5, 5), mode="replicate"), _depthwise(2.0 * f, x),
-                           stride=2, groups=x.shape[1])
+    y = CV.conv(F.pad(x, (5, 5), mode="replicate"), _depthwise(2.0 * f, x), stride=2,
+                groups=x.shape[1], transposed=True)
     return y[..., 15:-15]
 
 
 def downsample2(x: torch.Tensor) -> torch.Tensor:
     """Anti-aliased 2x downsample of [B, C, T] (replicate pad 5/6, strided
     12-tap conv)."""
-    return F.conv1d(F.pad(x, (5, 6), mode="replicate"), _depthwise(_resample_filter(), x),
-                    stride=2, groups=x.shape[1])
+    return CV.conv(F.pad(x, (5, 6), mode="replicate"), _depthwise(_resample_filter(), x),
+                   stride=2, groups=x.shape[1])
 
 
 def snake(x: torch.Tensor, alpha: torch.Tensor, beta: Optional[torch.Tensor],
@@ -145,13 +149,42 @@ def vector_bytes(x: torch.Tensor, y: torch.Tensor) -> int:
     return esize
 
 
+BACKWARD_SPAN = "fused_activation1d.backward"  # the recompute's span in a profiler trace
+
+
+class _FusedActivation1d(torch.autograd.Function):
+    """usdm_tpu's custom_vjp (usdm_tpu/ops/fused_act.py:164-195): the
+    forward is K3 on a CUDA tensor (the plain version on a CPU tensor); it
+    saves (x, alpha, beta), and the backward is the vjp of the plain
+    composition recomputed from them, as usdm_tpu's _vjp_bwd takes it (no
+    backward kernel: usdm_tpu has none)."""
+
+    @staticmethod
+    def forward(ctx, x, alpha, beta, logscale):
+        ctx.save_for_backward(x, alpha, beta)
+        ctx.logscale = logscale
+        if x.device.type == "cpu":
+            return activation1d_reference(x, alpha, beta, logscale)
+        return _launch(x, alpha, beta, logscale)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        with torch.enable_grad(), torch.profiler.record_function(BACKWARD_SPAN):
+            x, alpha, beta = (None if t is None else t.detach().requires_grad_(need)
+                              for t, need in zip(saved, ctx.needs_input_grad))
+            y = activation1d_reference(x, alpha, beta, ctx.logscale)
+            wrt = [t for t in (x, alpha, beta) if t is not None and t.requires_grad]
+            grads = iter(torch.autograd.grad(y, wrt, g) if wrt else ())
+        return (*(next(grads) if t is not None and t.requires_grad else None
+                  for t in (x, alpha, beta)), None)
+
+
 def fused_activation1d(x: torch.Tensor, alpha: torch.Tensor, beta: Optional[torch.Tensor],
                        logscale: bool) -> torch.Tensor:
     """[B, C, T] -> [B, C, T]: BigVGAN Activation1d (snake-beta when `beta`
-    is given, snake otherwise)."""
-    if x.device.type == "cpu":
-        return activation1d_reference(x, alpha, beta, logscale)
-    return _launch(x, alpha, beta, logscale)
+    is given, snake otherwise), differentiable in x, alpha and beta."""
+    return _FusedActivation1d.apply(x, alpha, beta, logscale)
 
 
 fused_activation1d.launches = 0

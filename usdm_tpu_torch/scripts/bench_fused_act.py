@@ -127,9 +127,6 @@ def main(argv=None) -> dict:
     ap.add_argument("--tiny", action="store_true", help="BigVGANConfig.tiny() (CPU checks)")
     args = ap.parse_args(argv)
     dev = device(args.device)
-    if dev.type == "cuda":  # the plain activation's f32 convs in full f32, not TF32
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
     cfg = BigVGANConfig.tiny() if args.tiny else BigVGANConfig()
     out = run(cfg, dev, args.seconds)
     out["config"] = "tiny" if args.tiny else "22khz_80band"

@@ -128,6 +128,10 @@ def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
 
 
 def _adamw_leaf(p, g, m, v, scale, lr: float, bc1: float, bc2: float, tc: TrainConfig) -> None:
+    """One AdamW update of leaf `p` in place, as optax computes it: the
+    gradient times `scale` (the clip), the moments `m`, `v` (b1, b2 of
+    `tc`), the update m / bc1 / (sqrt(v / bc2) + eps) plus tc.weight_decay *
+    p, then p - lr * update."""
     g = g * scale
     m.mul_(tc.adam_b1).add_(g, alpha=1.0 - tc.adam_b1)
     v.mul_(tc.adam_b2).addcmul_(g, g, value=1.0 - tc.adam_b2)
@@ -200,16 +204,19 @@ class HostMoments:
 
 @torch.no_grad()
 def manual_adamw_update(leaves: List[torch.Tensor], grads: List[torch.Tensor], st: AdamWState,
-                        sched: Callable[[int], float], tc: TrainConfig) -> torch.Tensor:
+                        sched: Callable[[int], float], tc: TrainConfig,
+                        clip: bool = True) -> Optional[torch.Tensor]:
     """One clipped AdamW step over `leaves` in place, leaf by leaf, as
     usdm_tpu's manual_adamw_update (and its make_optimizer) computes it:
     g * min(1, clip / max(norm, 1e-12)), the moments, the bias-corrected
     update plus weight decay, p - lr * update, lr = sched(count before the
     increment).  Moments on the host (`st.host`) are staged leaf by leaf.
-    Each gradient is released after its leaf.
-    -> the global norm of the unclipped gradients."""
-    gnorm = global_norm(grads)
-    scale = torch.clamp(tc.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
+    Each gradient is released after its leaf.  `clip` False: optax's plain
+    adamw, the gradients unscaled.
+    -> the global norm of the unclipped gradients (None without `clip`)."""
+    gnorm = global_norm(grads) if clip else None
+    scale = (torch.clamp(tc.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0) if clip
+             else 1.0)
     lr = sched(st.count)
     c1 = st.count + 1
     bc1, bc2 = 1.0 - tc.adam_b1 ** c1, 1.0 - tc.adam_b2 ** c1
@@ -230,11 +237,15 @@ def manual_adamw_update(leaves: List[torch.Tensor], grads: List[torch.Tensor], s
 class ClipAdamW:
     """make_optimizer's transformation: optax.chain(clip_by_global_norm,
     adamw(schedule)) over a params tree, updating it in place from the
-    gradients its leaves hold in `.grad` (which it clears)."""
+    gradients its leaves hold in `.grad` (which it clears; a leaf without
+    one takes a zero gradient).  `schedule` (count -> lr) defaults to
+    lr_schedule(tc); `clip` False leaves out the clipping (the GAN
+    trainer's optax.adamw)."""
 
-    def __init__(self, tc: TrainConfig):
-        self.tc = tc
-        self.schedule = lr_schedule(tc)
+    def __init__(self, tc: TrainConfig, schedule: Optional[Callable[[int], float]] = None,
+                 clip: bool = True):
+        self.tc, self.clip = tc, clip
+        self.schedule = schedule or lr_schedule(tc)
 
     def init(self, params, host: bool = False) -> AdamWState:
         """Zero moments beside each leaf, or (`host`) in one host buffer,
@@ -255,7 +266,7 @@ class ClipAdamW:
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in leaves]
         for p in leaves:
             p.grad = None
-        return manual_adamw_update(leaves, grads, st, self.schedule, self.tc)
+        return manual_adamw_update(leaves, grads, st, self.schedule, self.tc, self.clip)
 
 
 def make_optimizer(tc: TrainConfig) -> ClipAdamW:
