@@ -26,7 +26,10 @@ Phases:
      shapes: K2 bf16 at the dense prefill_extend (256 queries at offset 320
      against an 8,192-slot cache valid to 576), K2 f32 at the prompted
      estimator (B 2, T+1 705 and 1857, ALiBi), K4's forward at [2, 1857,
-     1024] f32;
+     1024] f32; the tiny models' head dims: K1 at 16 (bf16, f32 and int8
+     pools, B 1 and 2, window None and 64), K2 at 8 (f32 with ALiBi as the
+     tiny estimator calls it, f32 at tiny XLS-R's 2,400 frames, bf16 causal
+     over packed segments) and K5 bf16 at 8;
   4. slice: a full-width random UsdmPipeline (Mistral-7B bf16, XLS-R 1B,
      Voicebox, BigVGAN) runs two greedy respond() turns with stage budgets
      pinned at 48/32/256 tokens; every kernel of that path must have
@@ -191,6 +194,29 @@ Phases:
      tokens (K1 launches).  The whole run writes ~41.5 GB to local disk
      (phase 10 20.4, phase 11 14.6, phase 6 4.1, phase 12 2.4), within 45
      GiB.
+ 13. tiny entry points (run first, after phase 3): the tiny models' own
+     head dims (LM 16, XLS-R and Voicebox 8), unwidened:
+     UsdmPipeline.tiny_random(device="cpu") against its copy on the card
+     (the same dialog tokens, K1-K3 launched, the wav within 1e-3 of its
+     peak from shared noise, also 100 units past the estimator's flash
+     gate); python -m usdm_tpu_torch.cli.infer --demo and cli.serve --demo
+     (one POST) in subprocesses on the card; cli.demo_streamlit's --demo
+     pipeline (tiny_random drawn on the card) answers one respond().
+ 14. preprocessing (inside phase 10, on its export): the preprocessing CLI
+     on eight noise clips of 2-12 s and one of 45 s with transcripts, word
+     TextGrids and DailyTalk metadata the phase writes: stage1 at full width
+     (the exported XLS-R and its 10,000 centroids; K2 must launch on the
+     45 s clip, whose units must equal the plain-attention route's or each
+     differing frame be a near tie within 1e-5; audio seconds per second
+     logged), stage2, stage3 (8,192-token bins, efficiency logged),
+     dailytalk, decoder-filelist; then the same CLI over a tiny XLS-R (32
+     centroids, head_dim 8) whose outputs the --tiny trainers can index:
+     cli.train_pt, cli.train_sft and cli.train_voicebox, two steps each on
+     the card (K2 and K5 bf16 must launch).
+ 15. profilers: usdm_tpu_torch.scripts.profile_decode_step on phase 4's
+     bf16 and phase 5's W8A8 pipelines (the b = 1 link at ctx 1,219 against
+     its parts, from CUDA-graph replays) and scripts.profile_respond on
+     phase 5's (the pinned-budget turn by phase); each prints its JSON line.
 
 Each kernel's bound_ms is the least time the card could take for the work
 of its timed case: the larger of its bytes (inputs read once, outputs
@@ -370,6 +396,22 @@ def reset_counts() -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+class _Tee:
+    """A stdout that writes to every stream it holds."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text: str) -> int:
+        for st in self.streams:
+            st.write(text)
+        return len(text)
+
+    def flush(self) -> None:
+        for st in self.streams:
+            st.flush()
 
 
 def cuda_ms(fn) -> float:
@@ -926,6 +968,144 @@ def k3_linear_scale(randn) -> float:
     return worst
 
 
+def tiny_kernel_checks(dev) -> dict:
+    """Phase 3, the tiny models' head dims (ROADMAP F5): K1 at head_dim 16
+    (the tiny LM: GQA 4/2, page 16, two layer regions; bf16, f32 and int8
+    pools; B 1 and 2; window None and 64), K2 at head_dim 8 (f32 with ALiBi
+    as the tiny Voicebox's estimator calls it, B 2 x T+1 174, 4 heads; f32
+    as tiny XLS-R calls it, T 2400; bf16 causal over three packed segments,
+    B 2 x 300, GQA 4/2) and K5 bf16 at that last case, each against its
+    plain version (bf16: bf16_bound; f32: 1e-4; int8 pools: bf16_bound of
+    the plain version on f32 queries plus the measured effect of rounding
+    the dequantized K/V, as phase 3's int8 case); logged with eager, graph
+    and plain ms, the bound and, for K2 without ALiBi, one SDPA call's ms.
+    -> the largest error per kernel name."""
+    import torch
+
+    from usdm_tpu_torch.engine.paged_ops import quant_kv_token
+    from usdm_tpu_torch.ops import flash_attention as FL
+    from usdm_tpu_torch.ops import paged_attention as PA
+
+    gen = torch.Generator(device=dev).manual_seed(16)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    errs = {"paged_decode_attention": 0.0, "paged_decode_attention_int8": 0.0,
+            "flash_attention": 0.0, "flash_attention_f32": 0.0, "flash_attention_bwd_dq": 0.0,
+            "flash_attention_bwd_dkv": 0.0}
+
+    def keep(name, err):
+        errs[name] = max(errs[name], err)
+
+    def timed(label, fn, plain, n_bytes, ops, kind, library=None):
+        t = {"ms": cuda_ms(fn), "graph_ms": graph_ms(fn, dev), "plain_ms": cuda_ms(plain),
+             **least_time(n_bytes, ops, kind),
+             "library_ms": cuda_ms(library) if library is not None else None}
+        log(f"  {label} times: " + json.dumps(t))
+
+    hkv, grp, d, page, maxp = 2, 2, 16, 16, 8
+    for kind in ("bf16", "f32", "int8"):
+        dt = torch.float32 if kind == "f32" else torch.bfloat16
+        for b in (1, 2):
+            nt = 2 * (b * maxp + 1)  # two layer regions
+            table = torch.randperm(nt - 1, generator=gen, device=dev)[: b * maxp]
+            table = table.reshape(b, maxp).to(torch.int32).contiguous()
+            lens = torch.tensor([100, 7][:b], dtype=torch.int32, device=dev)
+            q = randn(b, hkv, grp, d, dtype=dt)
+            scales = {}
+            if kind == "int8":
+                pools = []
+                for key in ("k_scales", "v_scales"):
+                    qv, sv = quant_kv_token(randn(hkv, nt, page, d))
+                    pools.append(qv)
+                    scales[key] = sv.transpose(0, 1).contiguous()  # [NT, Hkv, P]
+            else:
+                pools = [randn(hkv, nt, page, d, dtype=dt) for _ in range(2)]
+            for window in (None, 64):
+                args = (q, *pools, table, lens, window)
+                got = PA.paged_decode_attention(*args, **scales)
+                want = PA.paged_decode_attention_reference(*args, **scales)
+                case = f"d=16 {kind} B={b} window={window}"
+                if kind == "f32":
+                    err = check("K1", case, got, want, 1e-4)
+                elif kind == "bf16":
+                    err = check("K1", case, got, want, bf16_bound(want))
+                else:
+                    fold = PA.paged_decode_attention_reference(q.float(), *pools, table, lens,
+                                                               window, **scales)
+                    err = check("K1", case, got, want,
+                                bf16_bound(fold) + max_err(want, fold))
+                keep("paged_decode_attention_int8" if scales else "paged_decode_attention", err)
+                if b == 2 and window == 64:
+                    rows = torch.clamp(lens, max=window + 1)  # the in-window rows read
+                    kv_row = hkv * d * pools[0].element_size() + (8 * hkv if scales else 0)
+                    timed(f"K1 [{case}]", lambda: PA.paged_decode_attention(*args, **scales),
+                          lambda: PA.paged_decode_attention_reference(*args, **scales),
+                          2 * nbytes(q) + 2 * kv_row * int(rows.sum()),
+                          4 * hkv * grp * d * int(rows.sum()), "f32")
+
+    def rows(b, t, n_seg):
+        pos = torch.arange(t, device=dev)[None].expand(b, t)
+        if n_seg > 1:  # packed segments, positions restart in each
+            bounds = torch.tensor([0, t // 3, 2 * t // 3, t], device=dev)
+            seg = torch.bucketize(pos, bounds[1:-1], right=True).contiguous()
+            pos = (pos - bounds[seg]).contiguous()
+        else:  # the second row shorter
+            seg = torch.where(pos < torch.tensor([[t], [2 * t // 3]], device=dev)[:b], 0, -1)
+        return seg, seg, pos, pos
+
+    cases = (("Voicebox estimator f32 ALiBi", 2, 174, 4, 4, torch.float32, 1,
+              dict(causal=False, sliding_window=None, alibi=True)),
+             ("XLS-R f32", 1, 2400, 4, 4, torch.float32, 1,
+              dict(causal=False, sliding_window=None, alibi=False)),
+             ("bf16 causal segments", 2, 300, 4, 2, torch.bfloat16, 3,
+              dict(causal=True, sliding_window=None, alibi=False)))
+    for label, b, t, h, h_kv, dt, n_seg, flags in cases:
+        q, do = randn(b, t, h, 8, dtype=dt), randn(b, t, h, 8, dtype=dt)
+        k, v = randn(b, t, h_kv, 8, dtype=dt), randn(b, t, h_kv, 8, dtype=dt)
+        rr = rows(b, t, n_seg)
+        bf = dt == torch.bfloat16
+        o, lse = FL.flash_attention(q, k, v, *rr, return_lse=True, **flags)
+        want_o, want_lse = FL.flash_attention_reference(q, k, v, *rr, **flags,
+                                                        round_operands=bf)
+        case = f"d=8 {label} B={b} T={t}"
+        keep("flash_attention" if bf else "flash_attention_f32",
+             check("K2", case, o, want_o, bf16_bound(want_o) if bf else 1e-4))
+        check("K2 lse", case, lse, want_lse, 1e-4)
+        mask = attn_mask(rr[0], rr[1], rr[2], rr[3], flags["causal"], flags["sliding_window"])
+        pairs = int(mask.sum()) * h
+        library = None
+        if not flags["alibi"]:  # one SDPA call, K/V repeated over the group
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k.repeat_interleave(h // h_kv, 2),
+                                                       v.repeat_interleave(h // h_kv, 2)))
+
+            def library():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask[:, None])
+        timed(f"K2 [{case}]", lambda: FL.flash_attention(q, k, v, *rr, **flags),
+              lambda: FL.flash_attention_reference(q, k, v, *rr, **flags, round_operands=bf),
+              2 * nbytes(q) + nbytes(k, v, lse), 4 * pairs * 8, "bf16" if bf else "3xtf32",
+              library)
+        if not bf:
+            continue
+        got = FL.flash_attention_bwd(q, k, v, o, lse, do, *rr, flags["causal"],
+                                     flags["sliding_window"], None, flags["alibi"])
+        want = FL.flash_attention_bwd_reference(q, k, v, o, lse, do, *rr, flags["causal"],
+                                                flags["sliding_window"], None, flags["alibi"],
+                                                round_operands=True)
+        for name, gg, ww in zip(("dq", "dk", "dv"), got, want):
+            keep("flash_attention_bwd_dq" if name == "dq" else "flash_attention_bwd_dkv",
+                 check(f"K5 {name}", case, gg, ww, bf16_bound(ww)))
+        timed(f"K5 [{case}]", lambda: FL.flash_attention_bwd(
+            q, k, v, o, lse, do, *rr, flags["causal"], flags["sliding_window"], None,
+            flags["alibi"]), lambda: FL.flash_attention_bwd_reference(
+            q, k, v, o, lse, do, *rr, flags["causal"], flags["sliding_window"], None,
+            flags["alibi"], round_operands=True),
+            2 * nbytes(q, k, v) + nbytes(do, o, lse), 10 * pairs * 8, "bf16")
+    return errs
+
+
 def k1_split_checks(dev) -> None:
     """K1 at forced split counts (1, 2) and the host's choice, B 1 and 8, page
     64 and 256, and B 16 at page 256 with 3 pages a slot (part (C)'s server),
@@ -1475,43 +1655,40 @@ def _to(tree, dev):
     return tree_map(lambda a: a.to(dev) if isinstance(a, torch.Tensor) else a, tree)
 
 
-def small_turn_check(dev, wav_in: str) -> None:
-    """The same small random pipeline runs one turn on the CPU (plain
-    PyTorch paths) and on the card (the kernels): identical dialog tokens;
-    then both synthesize those units from one shared initial noise, within
-    1e-3 of the waveform's peak (f32 both sides, TF32 off)."""
+def card_copy(cpu, dev):
+    """The CPU pipeline `cpu` with its weights moved to `dev` (the same
+    weights: torch draws other numbers on the card for the same seed)."""
     import dataclasses
 
-    import torch
-
-    from usdm_tpu_torch.core.config import BigVGANConfig, MistralConfig, VoiceboxConfig, XlsrConfig
-    from usdm_tpu_torch.core.tokenizer import UsdmTokenizer
-    from usdm_tpu_torch.ops.flash_attention import flash_attention
-    from usdm_tpu_torch.ops.fused_act import fused_activation1d
-    from usdm_tpu_torch.ops.paged_attention import paged_decode_attention
-    from usdm_tpu_torch.pipeline import UsdmPipeline
-
-    # tiny_random's configs, widened to head dims the kernels take (32 in the
-    # LM, 16 in XLS-R, whose 20x tiny extractor puts a 3 s clip past the
-    # 2048-frame flash gate, and in Voicebox)
-    tok = UsdmTokenizer.build_test(num_units=32)
-    cpu = UsdmPipeline.random_init(
-        tok, MistralConfig.tiny(vocab_size=tok.vocab_size).replace(head_dim=32),
-        XlsrConfig.tiny().replace(num_clusters=32, hidden_size=64, intermediate_size=128),
-        VoiceboxConfig.tiny().replace(n_tokens=32, n_feats=80, hidden_size=64,
-                                      intermediate_size=128),
-        BigVGANConfig.tiny().replace(num_mels=80), "cpu", seed=0, max_new_tokens=16)
-    card = dataclasses.replace(
+    return dataclasses.replace(
         cpu, lm_params=_to(cpu.lm_params, dev), xlsr_params=_to(cpu.xlsr_params, dev),
         decoder=dataclasses.replace(cpu.decoder,
                                     voicebox_params=_to(cpu.decoder.voicebox_params, dev),
                                     vocoder_params=_to(cpu.decoder.vocoder_params, dev)),
         device=dev, _server=None, _dense_loops={})
+
+
+def turn_on_card_check(dev, wav_in: str, cpu, label: str, long_units: int = 0) -> tuple:
+    """One turn of the f32 pipeline `cpu` on the CPU (plain PyTorch paths)
+    and of its copy on the card (the kernels): identical dialog tokens, K1,
+    K2 and K3 launched on the card; then both synthesize the agent's units
+    (and, with `long_units`, that many units more: past the estimator's
+    flash gate of 128 frames) from one shared initial noise, within 1e-3 of
+    the waveform's peak (f32 both sides, TF32 off).  -> (card pipeline, the
+    turn's result as a dict, the card's launches in the turn)."""
+    import dataclasses
+
+    import torch
+
+    from usdm_tpu_torch.ops.flash_attention import flash_attention
+    from usdm_tpu_torch.ops.fused_act import fused_activation1d
+    from usdm_tpu_torch.ops.paged_attention import paged_decode_attention
+
+    card = card_copy(cpu, dev)
     counters = (paged_decode_attention, flash_attention, fused_activation1d)
     results = []
     for pipe in (cpu, card):
-        for fn in counters:
-            fn.launches = 0
+        reset_counts()
         try:
             res = pipe.respond_with_policy(_paged_policy(pipe, seed=2), wav_in,
                                            n_timesteps=6, seed=2)
@@ -1519,26 +1696,160 @@ def small_turn_check(dev, wav_in: str) -> None:
             pipe.close()
         results.append((dataclasses.asdict(res), {fn.__name__: fn.launches for fn in counters}))
     (want, _), (got, counts) = results
-    log(f"small turn, card vs CPU: tokens {'equal' if got == want else 'DIFFER'}, "
+    log(f"{label} turn, card vs CPU: tokens {'equal' if got == want else 'DIFFER'}, "
         f"{len(got['agent_units'])} agent units, launches {counts}")
     if got != want:
-        raise AssertionError(f"small turn differs on the card: {got} vs {want}")
+        raise AssertionError(f"{label} turn differs on the card: {got} vs {want}")
     if not all(counts.values()):
-        raise AssertionError(f"a kernel did not run in the small turn: {counts}")
+        raise AssertionError(f"a kernel did not run in the {label} turn: {counts}")
     # the synthesis of those units from one initial noise (torch draws other
     # numbers on the card than on the CPU for the same seed, so z is shared)
     units = got["agent_units"]
-    n = len(units) * 441 // 256
-    z = torch.randn(1, 80, -(-n // 64) * 64, generator=torch.Generator().manual_seed(3))
-    want_audio = cpu.decoder.synthesize(units, z=z, n_timesteps=6)
-    got_audio = card.decoder.synthesize(units, z=z.to(dev), n_timesteps=6)
-    peak = float(np.abs(want_audio).max())
-    err = float(np.abs(got_audio - want_audio).max())
-    log(f"small synthesis, card vs CPU: audio max_abs_err={err:.3e}, peak {peak:.3e} "
-        f"(bound 1e-3 of the peak)")
-    if got_audio.shape != want_audio.shape or not peak > 0 or err > 1e-3 * peak:
-        raise AssertionError(f"small synthesis differs on the card: {err} (peak {peak})")
-    small_reference_and_dense_checks(dev, cpu, card, wav_in, want, units)
+    unit_sets = [units]
+    if long_units:
+        unit_sets.append(units + np.random.default_rng(6).integers(
+            0, cpu.decoder.voicebox_cfg.n_tokens, long_units).tolist())
+    for us in unit_sets:
+        n = len(us) * 441 // 256
+        z = torch.randn(1, 80, -(-n // 64) * 64, generator=torch.Generator().manual_seed(3))
+        k2 = flash_attention.launches
+        want_audio = cpu.decoder.synthesize(us, z=z, n_timesteps=6)
+        got_audio = card.decoder.synthesize(us, z=z.to(dev), n_timesteps=6)
+        peak = float(np.abs(want_audio).max())
+        err = float(np.abs(got_audio - want_audio).max())
+        log(f"{label} synthesis of {len(us)} units, card vs CPU: audio max_abs_err={err:.3e}, "
+            f"peak {peak:.3e} (bound 1e-3 of the peak), K2 launches "
+            f"{flash_attention.launches - k2}")
+        if got_audio.shape != want_audio.shape or not peak > 0 or err > 1e-3 * peak:
+            raise AssertionError(f"{label} synthesis differs on the card: {err} (peak {peak})")
+    if long_units and flash_attention.launches == k2:
+        raise AssertionError(f"{label}: the estimator past its flash gate did not launch K2")
+    return card, got, counts
+
+
+def small_turn_check(dev, wav_in: str) -> None:
+    """turn_on_card_check on tiny_random's configs widened to the head dims
+    the kernels took before they took the tiny ones (32 in the LM, 16 in
+    XLS-R, whose 20x tiny extractor puts a 3 s clip past the 2048-frame
+    flash gate, and in Voicebox), then the reference and dense checks on
+    the same pair of pipelines."""
+    from usdm_tpu_torch.core.config import BigVGANConfig, MistralConfig, VoiceboxConfig, XlsrConfig
+    from usdm_tpu_torch.core.tokenizer import UsdmTokenizer
+    from usdm_tpu_torch.pipeline import UsdmPipeline
+
+    tok = UsdmTokenizer.build_test(num_units=32)
+    cpu = UsdmPipeline.random_init(
+        tok, MistralConfig.tiny(vocab_size=tok.vocab_size).replace(head_dim=32),
+        XlsrConfig.tiny().replace(num_clusters=32, hidden_size=64, intermediate_size=128),
+        VoiceboxConfig.tiny().replace(n_tokens=32, n_feats=80, hidden_size=64,
+                                      intermediate_size=128),
+        BigVGANConfig.tiny().replace(num_mels=80), "cpu", seed=0, max_new_tokens=16)
+    card, want, _ = turn_on_card_check(dev, wav_in, cpu, "small")
+    small_reference_and_dense_checks(dev, cpu, card, wav_in, want, want["agent_units"])
+
+
+def run_module(module: str, *args: str, timeout: float = 300) -> str:
+    """python -m `module` `args` in a subprocess from the repo root; raises
+    with the tail of its output unless it exits 0 -> its stdout."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    r = subprocess.run([sys.executable, "-m", module, *args], cwd=root, capture_output=True,
+                       text=True, timeout=timeout)
+    if r.returncode:
+        raise AssertionError(f"python -m {module} exited {r.returncode}:\n"
+                             f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    return r.stdout
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def serve_demo_post(wav_in: str, timeout: float = 300) -> dict:
+    """python -m usdm_tpu_torch.cli.serve --demo on a free local port in a
+    subprocess: /health answers, one POST of `wav_in` returns the turn's
+    JSON; the server is stopped in any case -> the reply's JSON."""
+    import urllib.request
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    port = _free_port()
+    proc = subprocess.Popen([sys.executable, "-m", "usdm_tpu_torch.cli.serve", "--demo",
+                             "--port", str(port), "--n_timesteps", "4"], cwd=root,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    url = f"http://127.0.0.1:{port}"
+    try:
+        t0 = time.perf_counter()
+        while True:
+            if proc.poll() is not None:
+                raise AssertionError(f"cli.serve --demo exited {proc.returncode}:\n"
+                                     f"{proc.stdout.read()[-3000:]}")
+            try:
+                with urllib.request.urlopen(url + "/health", timeout=5) as r:
+                    if r.status == 200:
+                        break
+            except OSError:
+                if time.perf_counter() - t0 > timeout:
+                    raise
+                time.sleep(0.5)
+        req = urllib.request.Request(url + "/respond?seed=1", data=open(wav_in, "rb").read(),
+                                     method="POST")
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return json.loads(r.read())
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
+def tiny_entry_points_run(dev, tmp: str, wav_in: str) -> dict:
+    """Phase 13: the tiny models' head dims on the card, unwidened
+    (ROADMAP F5: the LM's 16 reaches K1 and K2's f32 route, XLS-R's and
+    Voicebox's 8 K2's f32 route): (a) UsdmPipeline.tiny_random(device="cpu")
+    against its copy on the card (turn_on_card_check, with 100 more units
+    synthesized so the estimator passes its flash gate); (b) cli.infer
+    --demo and (c) cli.serve --demo with one POST, each in a subprocess on
+    the card; (d) cli.demo_streamlit's --demo pipeline (tiny_random drawn on
+    the card, no config replaced) answers one respond().  -> the launches
+    of (a)'s card turn."""
+    import argparse
+
+    from usdm_tpu_torch.cli import demo_streamlit
+    from usdm_tpu_torch.ops.flash_attention import flash_attention
+    from usdm_tpu_torch.ops.paged_attention import paged_decode_attention
+    from usdm_tpu_torch.pipeline import UsdmPipeline
+
+    cpu = UsdmPipeline.tiny_random(device="cpu")
+    t0 = time.perf_counter()
+    _, _, counts = turn_on_card_check(dev, wav_in, cpu, "tiny (head_dim 16 / 8)",
+                                      long_units=100)
+    counts = {**counts, "flash_attention_f32": flash_attention.tf32_launches}
+    out = os.path.join(tmp, "tiny_infer.wav")
+    stdout = run_module("usdm_tpu_torch.cli.infer", "--demo", "--input_path", wav_in,
+                        "--output_path", out, "--n_timesteps", "4")
+    if not os.path.getsize(out):
+        raise AssertionError("cli.infer --demo wrote no wav")
+    served = serve_demo_post(wav_in)
+    if not served.get("audio_b64") or "agent_text" not in served:
+        raise AssertionError(f"cli.serve --demo answered {sorted(served)}")
+    pipe = demo_streamlit._build_pipeline(argparse.Namespace(demo=True, device="cuda"))
+    reset_counts()
+    try:
+        res = pipe.respond(wav_in, os.path.join(tmp, "tiny_streamlit.wav"), n_timesteps=4)
+    finally:
+        pipe.close()
+    if not paged_decode_attention.launches or not res.agent_units:
+        raise AssertionError("the demo pipeline on the card ran no decode link")
+    info = {"turn_launches": counts, "infer_stdout": stdout.strip().splitlines()[-2:],
+            "serve_units": served["n_units"], "streamlit_units": len(res.agent_units),
+            "s": time.perf_counter() - t0}
+    log("phase 13 tiny entry points: " + json.dumps(info))
+    return info
 
 
 def small_reference_and_dense_checks(dev, cpu, card, wav_in: str, paged: dict,
@@ -2216,21 +2527,47 @@ def _device_busy(prof, wall: float) -> dict:
             "kernel_launches": kernel_launches}
 
 
+def profilers_run(pipe, wav_in: str, label: str, respond: bool) -> dict:
+    """Phase 15, on phase 4's or 5's full-width pipeline: the port of
+    scripts/profile_decode_step.py (its b = 1 link at ctx 1,219 against its
+    parts, every part from CUDA-graph replays, 30 a part) and, with
+    `respond`, of scripts/profile_respond.py (the pinned-budget turn by
+    phase).  Each prints its JSON line."""
+    from usdm_tpu_torch.scripts import profile_decode_step, profile_respond
+
+    t0 = time.perf_counter()
+    out = {"decode_step": profile_decode_step.run(pipe.lm_params, pipe.lm_cfg, pipe.device)}
+    print(json.dumps({"profile_decode_step": out["decode_step"], "pipeline": label}), flush=True)
+    if respond:
+        out["respond"] = profile_respond.run(pipe, wav_in)
+        print(json.dumps({"profile_respond": out["respond"], "pipeline": label}), flush=True)
+    log(f"phase time: profilers ({label}) {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def user_wav(tmp: str) -> str:
+    """The turns' user speech: 3 s of 16 kHz noise -> its path in `tmp`."""
+    from usdm_tpu_torch.audio.wav import write_wav
+
+    wav_in = os.path.join(tmp, "user.wav")
+    if not os.path.exists(wav_in):
+        write_wav(wav_in, (np.random.default_rng(0).standard_normal(48000) * 0.1)
+                  .astype(np.float32), 16000)
+    return wav_in
+
+
 def slice_run(dev, profile: bool, tmp: str, out_dir: str, smi: str) -> dict:
     import dataclasses
 
     import torch
 
-    from usdm_tpu_torch.audio.wav import write_wav
     from usdm_tpu_torch.ops.flash_attention import flash_attention
     from usdm_tpu_torch.ops.fused_act import fused_activation1d
     from usdm_tpu_torch.ops.fused_ln import add_mask_ln
     from usdm_tpu_torch.ops.paged_attention import paged_decode_attention
     from usdm_tpu_torch.pipeline import UsdmPipeline
 
-    wav_in = os.path.join(tmp, "user.wav")  # 3 s of 16 kHz noise
-    write_wav(wav_in, (np.random.default_rng(0).standard_normal(48000) * 0.1)
-              .astype(np.float32), 16000)
+    wav_in = user_wav(tmp)
     small_turn_check(dev, wav_in)
 
     t0 = time.perf_counter()
@@ -2319,6 +2656,7 @@ def slice_run(dev, profile: bool, tmp: str, out_dir: str, smi: str) -> dict:
         t0 = time.perf_counter()
         dense = dense_turns(pipe, wav_in, graphed, turns[-1], "bf16 turn", False)
         log(f"phase time: dense turns (h) {time.perf_counter() - t0:.1f} s")
+        profiles = profilers_run(pipe, wav_in, "phase 4 bf16", respond=False)
         t0 = time.perf_counter()
         load = load_run(dev, pipe, wav_in, graphed, graphed_audio, tmp, smi)
         log(f"phase time: load (phase 10) {time.perf_counter() - t0:.1f} s")
@@ -2327,7 +2665,7 @@ def slice_run(dev, profile: bool, tmp: str, out_dir: str, smi: str) -> dict:
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     return {"turns": turns, "eager": eager, "tf32": tf32, "serve": served, "spec": spec,
-            "ref": ref, "dense": dense, "load": load}
+            "ref": ref, "dense": dense, "load": load, "profiles": profiles}
 
 
 
@@ -2718,6 +3056,7 @@ def int8_run(dev, tmp: str, wav_in: str, profile: bool, out_dir: str) -> dict:
         out["A_dense"] = dense_turns(pipe, wav_in, graphed, out["A"], "(A) W8A8 turn", True,
                                      graphed_turns=1, eager_twin=False)
         log(f"phase time: dense W8A8 turn {time.perf_counter() - t0:.1f} s")
+        out["profiles"] = profilers_run(pipe, wav_in, "phase 5 W8A8", respond=True)
 
         # (B) eight clients over the same W8A8 7B with int8 KV pages
         n_clients, per_client, prompt_len, max_new = 8, 2, 384, 128
@@ -3512,6 +3851,247 @@ def save_xlsr(path: str, params, cfg, layout: str = "fairseq2") -> None:
     ST.save_file(sd, os.path.join(path, "model.safetensors"))
 
 
+WORDS = ("hello", "there", "friend", "how", "are", "you", "today", "it's", "fine", "thanks")
+PREP_CLIPS_S = (2.0, 3.5, 5.0, 6.5, 8.0, 9.5, 11.0, 12.0, 45.0)  # the last: past K2's gate
+
+
+def word_textgrid(rng, seconds: float, zero_width: bool = False) -> str:
+    """A long-format TextGrid whose 'words' tier covers `seconds` with words
+    and blanks (a leading one, some in the middle, never two in a row, as
+    MFA writes them; with `zero_width` a word of no width between two
+    others), plus a 'phones' tier the parser must skip."""
+    marks, t, bounds = [], 0.0, [0.0]
+    while t < seconds - 0.3:
+        t = min(round(t + float(rng.uniform(0.15, 0.6)), 2), seconds)
+        bounds.append(t)
+        blank = not marks or (marks[-1] != "" and rng.random() < 0.2)
+        marks.append("" if blank else str(rng.choice(WORDS)))
+    if bounds[-1] < seconds and marks[-1] != "":
+        bounds.append(seconds)
+        marks.append("")
+    if zero_width and len(marks) > 4:
+        bounds.insert(3, bounds[3])
+        marks.insert(3, "uh")
+    items = "".join(
+        f"        intervals [{i + 1}]:\n            xmin = {a}\n            xmax = {b}\n"
+        f"            text = \"{m}\"\n"
+        for i, (m, a, b) in enumerate(zip(marks, bounds[:-1], bounds[1:])))
+    return (f"File type = \"ooTextFile\"\nObject class = \"TextGrid\"\n\nxmin = 0\n"
+            f"xmax = {seconds}\ntiers? <exists>\nsize = 2\nitem []:\n    item [1]:\n"
+            f"        class = \"IntervalTier\"\n        name = \"words\"\n        xmin = 0\n"
+            f"        xmax = {seconds}\n        intervals: size = {len(marks)}\n{items}"
+            f"    item [2]:\n        class = \"IntervalTier\"\n        name = \"phones\"\n"
+            f"        xmin = 0\n        xmax = {seconds}\n        intervals: size = 1\n"
+            f"        intervals [1]:\n            xmin = 0\n            xmax = {seconds}\n"
+            f"            text = \"x\"\n")
+
+
+def dailytalk_metadata(rng, n_dialogs: int) -> list:
+    """DailyTalk metadata lines `{turn}_{speaker}_d{dialog}|wav|text|speaker`,
+    shuffled: speakers alternate, except in dialog 1, whose same-speaker
+    run drops it."""
+    lines = []
+    for d in range(n_dialogs):
+        for t in range(int(rng.integers(2, 6))):
+            spk = t % 2 if d != 1 else 0
+            text = " ".join(str(w) for w in rng.choice(WORDS, int(rng.integers(2, 6))))
+            lines.append(f"{t}_{spk}_d{d}|{t}_{spk}_d{d}.wav|{text.capitalize()}.|{spk}")
+    rng.shuffle(lines)
+    return lines
+
+
+def write_corpus(root: str, seed: int = 0, clips=PREP_CLIPS_S) -> dict:
+    """Noise clips at 16 kHz with transcripts (`wavs/`), a word TextGrid over
+    each (`tg/`), and DailyTalk metadata over 2-4 s turns laid out as
+    `dailytalk/<dialog>/<id>.wav` (dialog 3 the test split) -> their paths."""
+    from usdm_tpu_torch.audio.wav import write_wav
+
+    rng = np.random.default_rng(seed)
+    paths = {k: os.path.join(root, k) for k in ("wavs", "tg", "dailytalk")}
+    for d in paths.values():
+        os.makedirs(d, exist_ok=True)
+    for i, sec in enumerate(clips):
+        write_wav(os.path.join(paths["wavs"], f"utt{i}.wav"),
+                  (rng.standard_normal(int(16000 * sec)) * 0.1).astype(np.float32), 16000)
+        with open(os.path.join(paths["wavs"], f"utt{i}.txt"), "w") as f:
+            f.write("Hello, there! It's " + " ".join(rng.choice(WORDS, 3)) + ".")
+        with open(os.path.join(paths["tg"], f"utt{i}.TextGrid"), "w") as f:
+            f.write(word_textgrid(rng, sec))
+    meta = dailytalk_metadata(rng, 4)
+    for line in meta:
+        did = line.split("|")[0]
+        d = os.path.join(paths["dailytalk"], did.split("_")[-1][1:])
+        os.makedirs(d, exist_ok=True)
+        write_wav(os.path.join(d, f"{did}.wav"), (rng.standard_normal(
+            int(16000 * rng.uniform(2, 4))) * 0.1).astype(np.float32), 16000)
+    test = [m for m in meta if m.split("|")[0].endswith("_d3")]  # whole dialogs a split
+    for split, lines in (("train", [m for m in meta if m not in test]), ("test", test)):
+        paths[split] = os.path.join(root, f"{split}.txt")
+        with open(paths[split], "w") as f:
+            f.write("\n".join(lines))
+    return paths
+
+
+def _near_tie_units(params, cfg, wav, got: list) -> dict:
+    """`got` (the units of the card's default route) against the same
+    extractor with plain attention on the card: equal, or every differing
+    frame a near tie, its two centroids' squared distances from the plain
+    route's feature within 1e-5 relative -> the counts and the worst gap."""
+    import torch
+
+    from usdm_tpu_torch.audio.wav import pad_to_bucket
+    from usdm_tpu_torch.models import xlsr as XL
+
+    padded, n = pad_to_bucket(wav, cfg.sample_rate, 0.5)
+    dev = params["proj_w"].device
+    with torch.no_grad():
+        feats, flen = XL.encode(params, cfg, torch.from_numpy(padded[None]).to(dev),
+                                torch.tensor([n], device=dev), attn_impl="plain")
+        feats = feats[0, : int(flen[0])]
+        want = XL.kmeans_assign(feats, params["centroids"]).tolist()
+        diff = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+        gap = 0.0
+        c = params["centroids"]
+        for i in diff:
+            da, db = ((feats[i] - c[got[i]]) ** 2).sum(), ((feats[i] - c[want[i]]) ** 2).sum()
+            gap = max(gap, float((da - db).abs() / db))
+    if len(got) != len(want) or gap > 1e-5:
+        raise AssertionError(f"phase 14: stage1's units leave the plain route's: "
+                             f"{len(diff)} of {len(want)} differ, gap {gap}")
+    return {"frames": len(want), "differ": len(diff), "worst_gap": gap}
+
+
+def preprocess_run(dev, xlsr_path: str, kmeans_path: str, tmp: str) -> dict:
+    """Phase 14 (inside phase 10, on its export): the preprocessing CLI on
+    the card over write_corpus's clips.  (a) stage1 at full width (the
+    exported XLS-R, 10,000 centroids): every clip's units equal the same
+    params' extract_units_bucketed, K2's f32 route launched on the 45 s clip
+    and its units held to the plain-attention route's (_near_tie_units);
+    extraction's audio seconds per second logged; (b) stage2 over the
+    TextGrids (build_test(num_units=10000)), stage3 to 8,192-token bins with
+    the g++ FFD core (efficiency logged), dailytalk, then decoder-filelist;
+    (c) the same CLI over a tiny XLS-R (32 centroids, head_dim 8: K2 at d 8
+    on clips past 2.56 s), whose outputs the --tiny trainers can index
+    (their models have 512 LM ids and 32 Voicebox units): two steps each of
+    cli.train_pt on stage3's parts, cli.train_sft on the dailytalk files and
+    cli.train_voicebox on the decoder filelist (bf16: K2 and K5 at d 8 and
+    16).  -> the phase's numbers and launches."""
+    import torch
+
+    from usdm_tpu_torch.audio.wav import load_wav
+    from usdm_tpu_torch.cli import preprocess as PP
+    from usdm_tpu_torch.cli import train_pt, train_sft, train_voicebox
+    from usdm_tpu_torch.core import checkpoint as CK
+    from usdm_tpu_torch.core.config import XlsrConfig
+    from usdm_tpu_torch.models import xlsr as XL
+    from usdm_tpu_torch.ops.flash_attention import flash_attention
+
+    root = os.path.join(tmp, "prep")
+    c = write_corpus(root, clips=PREP_CLIPS_S)
+    on = ["--device", str(dev)]
+    xl = ["--xlsr_dir", xlsr_path, "--kmeans", kmeans_path, *on]
+    out = {}
+
+    def cli(name, argv):
+        t0 = time.perf_counter()
+        if PP.main(argv) != 0:
+            raise AssertionError(f"phase 14: preprocess {argv[0]} failed")
+        out.setdefault("cli_s", {})[name] = time.perf_counter() - t0
+
+    # (a) full-width stage1
+    s1 = os.path.join(root, "s1")
+    reset_counts()
+    cli("stage1", ["stage1", "--data_path", c["wavs"], "--output_path", s1, *xl])
+    k2_stage1 = flash_attention.tf32_launches
+    if not k2_stage1:
+        raise AssertionError("phase 14: full-width stage1 launched no K2 on the 45 s clip")
+    params, cfg = CK.load_xlsr(xlsr_path, kmeans_path, device=dev)
+    wavs = [load_wav(os.path.join(c["wavs"], f"utt{i}.wav"), sr=16000)[0]
+            for i in range(len(PREP_CLIPS_S))]
+    t0 = time.perf_counter()
+    units = [XL.extract_units_bucketed(params, cfg, w) for w in wavs]  # .tolist() syncs
+    extract_s = time.perf_counter() - t0
+    for i, u in enumerate(units):
+        with open(os.path.join(s1, f"utt{i}_unit.txt")) as f:
+            if f.read() != " ".join(map(str, u)):
+                raise AssertionError(f"phase 14: stage1's utt{i} units are not the extractor's")
+    out["stage1"] = {"clips_s": list(PREP_CLIPS_S), "k2_launches": k2_stage1,
+                     "extract_s": extract_s, "audio_s_per_s": sum(PREP_CLIPS_S) / extract_s,
+                     "units_45s_vs_plain": _near_tie_units(params, cfg, wavs[-1], units[-1])}
+    del params
+    # (b) the rest of the pipeline at full width
+    for tg in os.listdir(c["tg"]):
+        shutil.copy(os.path.join(c["tg"], tg), s1)
+    s2, s3 = os.path.join(root, "s2"), os.path.join(root, "s3")
+    cli("stage2", ["stage2", "--data_path", s1, "--output_path", s2])
+    cli("stage3", ["stage3", "--data_path", s2, "--output_path", s3])
+    with open(os.path.join(s2, "data_epoch1.json")) as f:
+        lengths = json.load(f)
+    with open(os.path.join(s3, "part0.txt")) as f:
+        bins = [len(line.split()) for line in f if line.strip()]
+    out["stage3"] = {"rows": len(lengths), "tokens": sum(lengths), "bins": len(bins),
+                     "efficiency": sum(bins) / (8192 * len(bins))}
+    dt_out, flist = os.path.join(root, "dt"), os.path.join(root, "decoder.txt")
+    cli("dailytalk", ["dailytalk", "--train_metadata_path", c["train"], "--test_metadata_path",
+                      c["test"], "--data_dir", c["dailytalk"], "--output_path", dt_out, *xl])
+    cli("decoder-filelist", ["decoder-filelist", "--wav_dir", c["wavs"], "--output_path", flist,
+                             *xl])
+    with open(flist) as f:
+        if len(f.read().splitlines()) != len(PREP_CLIPS_S):
+            raise AssertionError("phase 14: the decoder filelist lacks clips")
+    # (c) a tiny extractor's outputs, read by the --tiny trainers
+    tcfg = XlsrConfig.tiny().replace(num_clusters=32)
+    tx = os.path.join(root, "tiny_xlsr")
+    save_xlsr(tx, XL.init_params(tcfg, torch.Generator().manual_seed(3)), tcfg, layout="hf")
+    np.save(os.path.join(root, "tiny_kmeans.npy"), np.random.default_rng(1).standard_normal(
+        (32, tcfg.hidden_size)).astype(np.float32))
+    txl = ["--xlsr_dir", tx, "--kmeans", os.path.join(root, "tiny_kmeans.npy"), *on]
+    t1, t2, t3 = (os.path.join(root, f"tiny_s{i}") for i in (1, 2, 3))
+    reset_counts()
+    cli("tiny stage1", ["stage1", "--data_path", c["wavs"], "--output_path", t1, *txl])
+    if not flash_attention.tf32_launches:
+        raise AssertionError("phase 14: the tiny extractor launched no K2 at head_dim 8")
+    for tg in os.listdir(c["tg"]):
+        shutil.copy(os.path.join(c["tg"], tg), t1)
+    cli("tiny stage2", ["stage2", "--data_path", t1, "--output_path", t2,
+                        "--num_unit_tokens", "32"])
+    cli("tiny stage3", ["stage3", "--data_path", t2, "--output_path", t3])
+    tdt, tlist = os.path.join(root, "tiny_dt"), os.path.join(root, "tiny_decoder.txt")
+    cli("tiny dailytalk", ["dailytalk", "--train_metadata_path", c["train"],
+                           "--test_metadata_path", c["test"], "--data_dir", c["dailytalk"],
+                           "--output_path", tdt, "--num_unit_tokens", "32", *txl])
+    cli("tiny decoder-filelist", ["decoder-filelist", "--wav_dir", c["wavs"], "--output_path",
+                                  tlist, *txl])
+    trainers = {
+        "train_pt": lambda d: train_pt.main(["--tiny", "--data_path", t3, "--output_dir", d,
+                                             "--max_steps", "2", "--save_steps", "0",
+                                             "--logging_steps", "1", *on]),
+        "train_sft": lambda d: train_sft.main(["--tiny", "--train_path",
+                                               os.path.join(tdt, "train.txt"), "--output_dir",
+                                               d, "--max_steps", "2", "--train_batch_size",
+                                               "1", "--logging_steps", "1", *on]),
+        "train_voicebox": lambda d: train_voicebox.main([
+            "--tiny", "--train_filelist", tlist, "--output_dir", d, "--batch_size", "2",
+            "--max_steps", "2", "--out_size_second", "2", "--synthesize_every", "0", *on]),
+    }
+    out["trainers"] = {}
+    for name, run in trainers.items():
+        reset_counts()
+        t0 = time.perf_counter()
+        if run(os.path.join(root, name)) not in (0, None):
+            raise AssertionError(f"phase 14: {name} failed")
+        counts = {**launch_counts(), **{f"{k}_mma": v for k, v in mma_counts().items()}}
+        rows = _train_metrics(os.path.join(root, name))
+        out["trainers"][name] = {"s": time.perf_counter() - t0, "steps": len(rows),
+                                 "loss": [r.get("train/loss", r.get("loss")) for r in rows],
+                                 "launches": {k: v for k, v in counts.items() if v}}
+        if not (counts["flash_attention_mma"] and counts["flash_attention_bwd_dq_mma"]
+                and counts["flash_attention_bwd_dkv_mma"]):
+            raise AssertionError(f"phase 14: {name} did not run K2 and K5 bf16: {counts}")
+    log("phase 14 preprocessing: " + json.dumps(out))
+    return out
+
+
 def export_steps(pipe, root: str) -> tuple:
     """Every component of `pipe` as the reference's checkpoint files under
     `root`: the LM (with its tokenizer) by save_mistral_hf, XLS-R as a
@@ -3755,6 +4335,9 @@ def load_run(dev, pipe, wav_in: str, want: dict, want_audio, tmp: str, smi: str)
                             "host_bytes_added": load_host, "host_bytes_bound": host_bound,
                             "device_bytes_after_load": alloc, "device_bytes_added": alloc - alloc0}
             out[label] = turn
+        t0 = time.perf_counter()
+        prep = preprocess_run(dev, dirs["xlsr_dir"], dirs["kmeans_path"], tmp)
+        log(f"phase time: preprocessing (phase 14) {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     reset_counts()
@@ -3772,7 +4355,7 @@ def load_run(dev, pipe, wav_in: str, want: dict, want_audio, tmp: str, smi: str)
     print(json.dumps({"cold_start": cold}), flush=True)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
-    return {"turns": out, "cold_start": cold, "bench_vb_int8": bench}
+    return {"turns": out, "cold_start": cold, "bench_vb_int8": bench, "preprocess": prep}
 
 
 # --------------------------------------------------------------- phase 11
@@ -4685,7 +5268,7 @@ def k1_tiny_checks(dev) -> float:
 
 def draft_cli_run(dev, root: str) -> dict:
     """Phase 12 (d): cli.train_draft at tiny width on the card from a tiny
-    target dir (MistralConfig.tiny() at head_dim 32, the least K1 takes;
+    target dir (MistralConfig.tiny() at head_dim 32;
     save_mistral_hf; loaded in bf16 as --model_dir loads it),
     a 1-layer draft, 4 steps saving at 2 and 4, then a run resumed from
     step 2 reaches step 4 bit for bit (params, moments, count); the
@@ -5169,7 +5752,8 @@ def main() -> int:
                     help="run a third bf16 and a third W8A8 turn, a second server load and "
                          "one train step under torch.profiler")
     ap.add_argument("--out-dir", default="chip_smoke_out",
-                    help="where the nvcc log and the profile table are written")
+                    help="where the run's log (chip_smoke.log), the nvcc log and the profile "
+                         "table are written")
     ap.add_argument("--compare-with", metavar="PARENT",
                     help="instead of the phases: time kernels, bf16 and W8A8 turns, int8 "
                          "server loads and CFM train steps of the usdm_tpu_torch in PARENT (a "
@@ -5211,11 +5795,13 @@ def main() -> int:
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                                  "count": torch.cuda.device_count()}}))
         return 0
+    os.makedirs(args.out_dir, exist_ok=True)
+    # everything printed from here on also goes to <out-dir>/chip_smoke.log
+    sys.stdout = _Tee(sys.stdout, open(os.path.join(args.out_dir, "chip_smoke.log"), "w"))
     t0 = time.perf_counter()
     _build.library()
     log(f"build: {time.perf_counter() - t0:.1f} s (nvcc {_build.build_seconds:.1f} s)")
     t_start = t0
-    os.makedirs(args.out_dir, exist_ok=True)
     with open(os.path.join(args.out_dir, "nvcc_build.log"), "w") as f:
         f.write(_build.build_log)
     for line in _build.build_log.splitlines():
@@ -5225,6 +5811,8 @@ def main() -> int:
     kres = kernel_checks(dev)
     kres.update(train_kernel_checks(dev))
     kres.update(int8_kernel_checks(dev))
+    for k, err in tiny_kernel_checks(dev).items():
+        kres[k]["max_abs_err"] = max(kres[k]["max_abs_err"], err)
     k4_prompt_err = k4_prompt_case(dev)
     kres["add_mask_ln"]["max_abs_err"] = max(kres["add_mask_ln"]["max_abs_err"], k4_prompt_err)
     train_err = kres.pop("flash_attention_train_err")
@@ -5236,6 +5824,10 @@ def main() -> int:
         # K1-K3 the bf16 turn, K6 the W8A8 turn (A) and the server (B) together,
         # K1's int8 branch (B), K4 and K5 the trainer, X1-X3 the probe entry
         # points (phase 7; eager calls and CUDA graph replays)
+        t_phase = time.perf_counter()
+        tiny = tiny_entry_points_run(dev, tmp, user_wav(tmp))
+        log(f"phase time: tiny entry points (phase 13) {time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
         bf16_run = slice_run(dev, args.profile, tmp, args.out_dir, smi.stdout.strip())
         bf16_turn = bf16_run["turns"][-1]
         bf16 = {**bf16_turn["launches"],
@@ -5308,6 +5900,9 @@ def main() -> int:
     # and its checks of each kernel at the shapes those paths give it
     for k, err in gan["max_abs_err"].items():
         kres[k]["max_abs_err"] = max(kres[k]["max_abs_err"], err)
+    # phase 13's tiny turn on the card (f32: K1, K2's f32 route, K3)
+    for k in ("paged_decode_attention", "flash_attention_f32", "fused_activation1d"):
+        launches[k] += tiny["turn_launches"][k]
     # phase 10's two loaded turns (float and default Voicebox): K1-K3
     for turn in bf16_run["load"]["turns"].values():
         for k in ("paged_decode_attention", "flash_attention_f32", "fused_activation1d"):

@@ -190,10 +190,11 @@ def test_fused_act_kernel_rejects_non_contiguous(cuda):
 def _bwd_case(cuda, case, dtype, t_len):
     """Inputs of a K5 case: (a) the Voicebox training shape (16 heads, d 64,
     non-causal ALiBi, second row ragged); (b) an LM training shape (GQA 32/8,
-    d 128, causal, window, three packed segments); (d) d 80, f32."""
+    d 128, causal, window, three packed segments); (d) d 80, f32; (e) the
+    tiny Voicebox's head dim 8 (4 heads, ALiBi)."""
     g = torch.Generator(device=cuda).manual_seed(7)
     b = 2
-    h, hkv, d = {"a": (16, 16, 64), "b": (32, 8, 128), "d": (16, 16, 80)}[case]
+    h, hkv, d = {"a": (16, 16, 64), "b": (32, 8, 128), "d": (16, 16, 80), "e": (4, 4, 8)}[case]
 
     def rnd(*shape):
         return torch.randn(*shape, generator=g, device=cuda).to(dtype)
@@ -207,7 +208,7 @@ def _bwd_case(cuda, case, dtype, t_len):
         flags = dict(causal=True, sliding_window=t_len // 4, alibi=False)
     else:
         seg = torch.where(pos < torch.tensor([[t_len], [2 * t_len // 3]], device=cuda), 0, -1)
-        flags = dict(causal=False, sliding_window=None, alibi=case == "a")
+        flags = dict(causal=False, sliding_window=None, alibi=case in "ae")
     return q, k, v, do, seg, pos, flags
 
 
@@ -230,7 +231,8 @@ def _bwd_pair(q, k, v, do, seg, pos, flags, kernel_flags=None):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case,dtype", [("a", torch.bfloat16), ("a", torch.float32),
-                                        ("b", torch.bfloat16), ("d", torch.float32)])
+                                        ("b", torch.bfloat16), ("d", torch.float32),
+                                        ("e", torch.bfloat16), ("e", torch.float32)])
 def test_flash_bwd_kernels_match_plain(cuda, case, dtype):
     """dq, dk, dv of the K5 kernels against the plain backward on the same
     saved forward, after K2's forward, which K5 consumes in training, against
@@ -300,6 +302,9 @@ MMA_CASES = {
     "d96 ragged": (2, 300, 300, 4, 4, 96, False, None, False, 1),
     "d32 causal": (2, 130, 130, 4, 2, 32, True, None, False, 1),
     "d16 one row": (1, 1, 1, 2, 2, 16, True, None, False, 1),
+    # the tiny models' head dim 8 (Voicebox, XLS-R), run at the 32-wide tiles
+    "d8 alibi ragged": (2, 174, 174, 4, 4, 8, False, None, True, 1),
+    "d8 gqa causal segments": (2, 300, 300, 4, 2, 8, True, None, False, 3),
     "lm gqa d128 causal window segments": (2, 500, 500, 32, 8, 128, True, 100, False, 3),
     "prefill chunk Tq != Tk": (1, 192, 700, 8, 2, 128, True, 4096, False, 1),
 }
@@ -1062,15 +1067,16 @@ def test_probe_kernels_raise_on_what_they_do_not_take(cuda):
 
 
 # --------------------------------------------- decode links from CUDA graphs
-def _link_engine(cuda, w8a8, batch, window, eager):
-    """A tiny engine on the card (head_dim 32 for K1; prefill chunks of 32
-    rows, so K6 runs in the decode links alone): bf16 weights and pools, or
-    W8A8 projections over int8 pools."""
+def _link_engine(cuda, w8a8, batch, window, eager, head_dim=32):
+    """A tiny engine on the card (head_dim 32, or the tiny LM's own 16;
+    prefill chunks of 32 rows, so K6 runs in the decode links alone): bf16
+    weights and pools, or W8A8 projections over int8 pools."""
     from usdm_tpu_torch.core.config import EngineConfig, MistralConfig
     from usdm_tpu_torch.engine.paged import PagedEngine
     from usdm_tpu_torch.models import mistral as LM
 
-    cfg = MistralConfig.tiny().replace(head_dim=32, dtype="bfloat16", sliding_window=window)
+    cfg = MistralConfig.tiny().replace(head_dim=head_dim, dtype="bfloat16",
+                                       sliding_window=window)
     params = LM.init_params(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
     if w8a8:
         Q.quantize_llm_params(params)
@@ -1105,9 +1111,21 @@ def test_graphed_links_match_eager(cuda, w8a8, sampled, batch, window):
     window reclaim on and off, bf16 pools or W8A8 with int8 pools.  Every
     link is one replay, and each replay adds its K1 and K6 launches to
     the wrappers' counts, as the eager links count them."""
+    _graphed_vs_eager_links(cuda, w8a8, sampled, batch, window, 32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w8a8,sampled,batch,window", [
+    (False, False, 1, None), (False, True, 4, 24), (True, False, 4, None)])
+def test_graphed_links_match_eager_head_dim_16(cuda, w8a8, sampled, batch, window):
+    """test_graphed_links_match_eager at the tiny LM's own head_dim 16."""
+    _graphed_vs_eager_links(cuda, w8a8, sampled, batch, window, 16)
+
+
+def _graphed_vs_eager_links(cuda, w8a8, sampled, batch, window, head_dim):
     runs = []
     for eager in (False, True):
-        eng = _link_engine(cuda, w8a8, batch, window, eager)
+        eng = _link_engine(cuda, w8a8, batch, window, eager, head_dim)
         k1 = "int8_launches" if w8a8 else "launches"
         PA.paged_decode_attention.launches = PA.paged_decode_attention.int8_launches = 0
         SM.stream_qmv.launches = 0
@@ -1958,3 +1976,141 @@ def test_gan_steps_on_card_match_cpu(cuda):
     diffs = np.concatenate([(a.detach().cpu() - b.detach()).abs().flatten().numpy()
                             for a, b in zip(tree_leaves(s_gpu.params), tree_leaves(s_cpu.params))])
     assert diffs.max() <= 2 * 2e-4 and np.quantile(diffs, 0.99) <= 2e-4 / 100
+
+
+# ------------------------------------------- the tiny models' head dims (F5)
+def _tiny_paged_case(cuda, kind, b):
+    """The tiny LM's K1 geometry: GQA 4/2, head_dim 16, page 16, pools of
+    two layer regions, shuffled tables, slots of 100 and 7 tokens; bf16 or
+    f32 pools and queries, or bf16 queries over int8 pools with page-major
+    f32 scales."""
+    g = torch.Generator(device=cuda).manual_seed(16 + b)
+    hkv, grp, d, page, maxp = 2, 2, 16, 16, 8
+    nt = 2 * (b * maxp + 1)
+    table = torch.randperm(nt - 1, generator=g, device=cuda)[: b * maxp]
+    table = table.reshape(b, maxp).to(torch.int32).contiguous()
+    lens = torch.tensor([100, 7][:b], dtype=torch.int32, device=cuda)
+    dt = torch.float32 if kind == "f32" else torch.bfloat16
+    q = torch.randn(b, hkv, grp, d, generator=g, device=cuda).to(dt)
+    if kind != "int8":
+        pools = [torch.randn(hkv, nt, page, d, generator=g, device=cuda).to(dt) for _ in range(2)]
+        return q, pools, {}, table, lens
+    pools, scales = [], []
+    for _ in range(2):
+        qv, sv = quant_kv_token(torch.randn(hkv, nt, page, d, generator=g, device=cuda))
+        pools.append(qv)
+        scales.append(sv.transpose(0, 1).contiguous())  # [NT, Hkv, P]
+    return q, pools, {"k_scales": scales[0], "v_scales": scales[1]}, table, lens
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bf16", "f32", "int8"])
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("window", [None, 64])
+def test_paged_kernel_head_dim_16(cuda, kind, b, window):
+    """K1 at the tiny LM's head_dim 16 against its plain version: bf16 one
+    bf16 ulp of the largest output + 1e-4; f32 1e-4; int8 pools that bound
+    on f32 queries plus the measured effect of rounding the dequantized K/V
+    (as test_paged_int8_kernel_matches_plain states it).  Captured in a
+    CUDA graph, the call replays the eager result bit for bit."""
+    q, (kp, vp), scales, table, lens = _tiny_paged_case(cuda, kind, b)
+    got = PA.paged_decode_attention(q, kp, vp, table, lens, window, **scales)
+    want = PA.paged_decode_attention_reference(q, kp, vp, table, lens, window, **scales)
+    assert torch.isfinite(got.float()).all()
+    err = (got.float() - want.float()).abs().max().item()
+    if kind == "f32":
+        assert err <= 1e-4
+    elif kind == "bf16":
+        assert err <= _bf16_bound(want)
+    else:
+        fold = PA.paged_decode_attention_reference(q.float(), kp, vp, table, lens, window,
+                                                   **scales)
+        assert err <= _bf16_bound(fold) + (want.float() - fold).abs().max().item()
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        PA.paged_decode_attention(q, kp, vp, table, lens, window, **scales)  # warm-up
+        with torch.cuda.graph(graph, stream=stream):
+            out = PA.paged_decode_attention(q, kp, vp, table, lens, window, **scales)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, got)
+
+
+@pytest.mark.cuda
+def test_kernels_raise_on_head_dims_they_do_not_take(cuda):
+    """K1 takes multiples of 16 up to 128, K2 and K5 multiples of 8: any
+    other head dim raises by name on the card (no plain fallback)."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    for d in (8, 24, 144):
+        q = torch.randn(1, 2, 2, d, generator=g, device=cuda).bfloat16()
+        pool = torch.randn(2, 3, 16, d, generator=g, device=cuda).bfloat16()
+        table = torch.zeros(1, 2, dtype=torch.int32, device=cuda)
+        lens = torch.ones(1, dtype=torch.int32, device=cuda)
+        with pytest.raises(ValueError, match="head_dim"):
+            PA.paged_decode_attention(q, pool, pool, table, lens)
+    for d in (4, 12, 136):
+        x = torch.randn(1, 5, 2, d, generator=g, device=cuda).bfloat16()
+        rows = torch.zeros(1, 5, dtype=torch.int32, device=cuda)
+        with pytest.raises(ValueError, match="head_dim"):
+            FL.flash_attention(x, x, x, rows, rows, rows, rows)
+
+
+@pytest.mark.cuda
+def test_tiny_pipeline_on_card_matches_cpu(cuda, tmp_path):
+    """UsdmPipeline.tiny_random's configs unwidened (LM head_dim 16, XLS-R
+    and Voicebox 8) on the card against the CPU, as chip_smoke's phase 13
+    runs it: the same dialog tokens, K1-K3 launched, the wavs within 1e-3
+    of the peak from shared noise, also past the estimator's flash gate."""
+    import numpy as np
+
+    import chip_smoke
+    from usdm_tpu_torch.audio.wav import write_wav
+    from usdm_tpu_torch.pipeline import UsdmPipeline
+
+    wav = str(tmp_path / "user.wav")
+    write_wav(wav, (np.random.default_rng(0).standard_normal(48000) * 0.1).astype(np.float32),
+              16000)
+    _, got, counts = chip_smoke.turn_on_card_check(cuda, wav, UsdmPipeline.tiny_random(
+        device="cpu"), "tiny", long_units=100)
+    assert got["agent_units"] and all(counts.values())
+
+
+@pytest.mark.cuda
+def test_tiny_clis_on_card(cuda, tmp_path):
+    """The tiny entry points in subprocesses on the card: cli.infer --demo
+    writes a wav, cli.serve --demo answers one POST, cli.train_voicebox
+    --tiny (bf16 over f32 masters: K2 and K5 at head_dim 8) and
+    cli.train_pt --tiny (K2 and K5 at 16) take two steps."""
+    import numpy as np
+
+    import chip_smoke
+    from usdm_tpu_torch.audio.wav import write_wav
+
+    rng = np.random.default_rng(0)
+    wav = str(tmp_path / "user.wav")
+    write_wav(wav, (rng.standard_normal(48000) * 0.1).astype(np.float32), 16000)
+    chip_smoke.run_module("usdm_tpu_torch.cli.infer", "--demo", "--input_path", wav,
+                          "--output_path", str(tmp_path / "out.wav"), "--n_timesteps", "4")
+    assert (tmp_path / "out.wav").stat().st_size > 44
+    assert chip_smoke.serve_demo_post(wav)["audio_b64"]
+    lines = []
+    for i in range(4):
+        path = str(tmp_path / f"clip{i}.wav")
+        n = int(22050 * rng.uniform(1.0, 2.0))
+        write_wav(path, (rng.standard_normal(n) * 0.1).astype(np.float32), 22050)
+        units = rng.integers(0, 32, -(-n // 441)).tolist()
+        lines.append(f"{path}|{' '.join(map(str, units))}|{' '.join('1' for _ in units)}")
+    (tmp_path / "list.txt").write_text("\n".join(lines))
+    chip_smoke.run_module("usdm_tpu_torch.cli.train_voicebox", "--tiny", "--train_filelist",
+                          str(tmp_path / "list.txt"), "--output_dir", str(tmp_path / "vb"),
+                          "--batch_size", "2", "--max_steps", "2", "--out_size_second", "2")
+    rows = tmp_path / "rows"
+    rows.mkdir()
+    (rows / "part0.txt").write_text("\n".join(" ".join(map(str, rng.integers(3, 500, 200)))
+                                              for _ in range(4)))
+    chip_smoke.run_module("usdm_tpu_torch.cli.train_pt", "--tiny", "--data_path", str(rows),
+                          "--output_dir", str(tmp_path / "pt"), "--max_steps", "2",
+                          "--max_input_length", "256", "--save_steps", "0")

@@ -60,3 +60,24 @@ def expand_durations_and_pool(units: Sequence[int], durations: Sequence[int],
     expanded = np.repeat(np.asarray(units, dtype=np.int32), durations)
     new_length = len(expanded) // hop * hop
     return rowwise_mode(expanded[:new_length].reshape(-1, hop)), new_length
+
+
+def dedup_units(units: Sequence[int]) -> Tuple[List[int], List[int]]:
+    """Run-length encode a unit stream -> (unique-run units, durations).
+
+    The decoder filelists keep every unit with duration 1 (as usdm_tpu's
+    preprocess does); this produces the (units, durations) form for
+    duration-aware decoder training data and compact unit transport.
+    `expand_durations_and_pool` inverts it."""
+    units = [int(u) for u in units]
+    if not units:
+        return [], []
+    out_u = [units[0]]
+    out_d = [1]
+    for u in units[1:]:
+        if u == out_u[-1]:
+            out_d[-1] += 1
+        else:
+            out_u.append(u)
+            out_d.append(1)
+    return out_u, out_d

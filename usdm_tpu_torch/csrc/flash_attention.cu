@@ -61,8 +61,9 @@
 //     conversion into compares and selects for the special values (FSETP and
 //     SEL led the SASS), and on an H100 that form took 0.79-0.80 ms at XLS-R's
 //     shape (chip_smoke.py case (c)) against 0.54-0.55 ms.
-// Head dims that are not 32, 64, 96 or 128 run at the next of those widths
-// with zero-filled columns (XLS-R's d 80 at 96), as the bf16 route does.
+// Head dims (multiples of 8) that are not 32, 64, 96 or 128 run at the next
+// of those widths with zero-filled columns (XLS-R's d 80 at 96, the tiny
+// models' d 8 and 16 at 32), as the bf16 route does.
 
 #include "mma.cuh"
 

@@ -33,6 +33,8 @@
 // below f32.  The backward does 3.5x the forward's multiply-adds (5 products
 // of [T, T, d] per head against 2) and is bound by operations, here against
 // the 67 TFLOP/s f32 peak off the tensor cores.
+// Head dims are multiples of 8 up to 128: column lane tc owns the output
+// dims tc + 16 j < d (at d 8 lanes 8-15 accumulate nothing).
 
 #include <limits.h>
 
@@ -43,7 +45,7 @@ namespace {
 constexpr int kThreads = 256;  // 16 row groups x 16 column lanes
 constexpr int kBig = 64;       // rows a block owns (queries for dq, keys for dkv)
 constexpr int kStep = 32;      // rows of the other side per inner step
-constexpr int kMaxDJ = 8;      // head_dim / 16: head_dim <= 128
+constexpr int kMaxDJ = 8;      // dims a lane owns: tc + 16 j < d <= 128
 constexpr int kPs = kStep + 1; // row stride of the [kBig][kStep] score tiles
 
 using usdm::Strides;
@@ -99,7 +101,6 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
   const int tid = threadIdx.x;
   const int tr = tid >> 4;  // query rows tr*4 .. tr*4+3
   const int tc = tid & 15;  // key cols tc, tc+16; dq dims tc + 16*j
-  const int dj = d >> 4;
   const int rs = d + 1;     // odd row stride: lanes reading 16 rows hit 16 banks
 
   extern __shared__ float smem[];
@@ -195,7 +196,7 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
       for (int i = 0; i < 4; ++i) dsv[i] = s_ds[(tr * 4 + i) * kPs + kk];
 #pragma unroll
       for (int j = 0; j < kMaxDJ; ++j) {
-        if (j < dj) {
+        if (tc + 16 * j < d) {
           const float kv = s_k[kk * rs + tc + 16 * j];
 #pragma unroll
           for (int i = 0; i < 4; ++i) acc[i][j] += dsv[i] * kv;
@@ -211,7 +212,7 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
     if (t >= tq) continue;
 #pragma unroll
     for (int j = 0; j < kMaxDJ; ++j)
-      if (j < dj) dq[b * sdq.b + t * sdq.t + h * sdq.h + tc + 16 * j] = acc[i][j];
+      if (tc + 16 * j < d) dq[b * sdq.b + t * sdq.t + h * sdq.h + tc + 16 * j] = acc[i][j];
   }
 }
 
@@ -232,7 +233,6 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
   const int tid = threadIdx.x;
   const int tr = tid >> 4;  // key rows tr*4 .. tr*4+3
   const int tc = tid & 15;  // query cols tc, tc+16; dk/dv dims tc + 16*j
-  const int dj = d >> 4;
   const int rs = d + 1;
 
   extern __shared__ float smem[];
@@ -335,7 +335,7 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
         }
 #pragma unroll
         for (int j = 0; j < kMaxDJ; ++j) {
-          if (j < dj) {
+          if (tc + 16 * j < d) {
             const float dov = s_do[qq * rs + tc + 16 * j];
             const float qv = s_q[qq * rs + tc + 16 * j];
 #pragma unroll
@@ -356,7 +356,7 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
     if (t >= tk) continue;
 #pragma unroll
     for (int j = 0; j < kMaxDJ; ++j) {
-      if (j < dj) {
+      if (tc + 16 * j < d) {
         dk[b * sdk.b + t * sdk.t + hk * sdk.h + tc + 16 * j] = adk[i][j];
         dv[b * sdv.b + t * sdv.t + hk * sdv.h + tc + 16 * j] = adv[i][j];
       }

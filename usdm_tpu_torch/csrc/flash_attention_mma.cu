@@ -30,8 +30,10 @@
 //     ALiBi slope, so a probability costs one multiply-add and one ex2.
 // Ragged Tq/Tk are zero-filled and masked in-kernel; operands are strided
 // [B, T, H, d] views whose rows start on 16-byte boundaries (the wrapper
-// checks); head dims that are not 32, 64, 96 or 128 run at the next of those
-// widths with zero-filled columns.
+// checks); head dims (multiples of 8) that are not 32, 64, 96 or 128 run at
+// the next of those widths with zero-filled columns: the tiny test models'
+// d 8 and d 16 at 32, whose zero columns add nothing to Q.K^T and whose
+// output columns past d are not stored.
 
 #include "mma.cuh"
 

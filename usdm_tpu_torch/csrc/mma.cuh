@@ -33,7 +33,7 @@ struct FlashShape {
 };
 
 static inline bool flash_bad_shape(const FlashShape& s) {
-  return s.d % 16 != 0 || s.d > 128 || s.n_kv_heads < 1 || s.n_heads % s.n_kv_heads != 0 ||
+  return s.d % 8 != 0 || s.d > 128 || s.n_kv_heads < 1 || s.n_heads % s.n_kv_heads != 0 ||
          s.tq < 1 || s.tk < 1 || s.batch < 1;
 }
 

@@ -28,12 +28,16 @@
 //     int8, 32 of f32): a 128-dim row is 16 lanes wide, so a warp holds 2
 //     rows and a score needs a 4-level shuffle reduction within the row's
 //     lanes (GQA's G heads share it).  Rows are dealt to the block's row
-//     streams (16-lane groups) in turn, 4 per stream in flight: a block pass
-//     reads 32 consecutive rows, coalesced within each page, and each lane
-//     issues 4 K and 4 V loads before it uses one.  Page 256 is no special
+//     streams (d/8-lane groups, rounded up to a power of two) in turn, 4 per
+//     stream in flight: at d 128 a block pass reads 32 consecutive rows,
+//     coalesced within each page, and each lane issues 4 K and 4 V loads
+//     before it uses one.  Page 256 is no special
 //     case: rows, not pages, are dealt to the warps.  (mma.sync with G padded
 //     to 16 rows would waste 3/4 of each product at G 4, and the products are
-//     not what bounds the kernel.)
+//     not what bounds the kernel.)  A head dim is any multiple of 16 up to
+//     128: a 16-dim row (the tiny test models') is 2 lanes wide, so a block
+//     holds 64 streams, a pass reads 256 rows, and a score takes one
+//     shuffle; the streams' states in shared memory stay under 48 KiB.
 //   - each stream keeps its own online softmax (base 2, log2(e) folded into
 //     the scale); the block merges its streams in shared memory and writes
 //     the split's partial state (acc[G][d], m, l) to f32 scratch
@@ -364,7 +368,7 @@ extern "C" int usdm_paged_decode(const void* q, const void* k_pool, const void* 
                                  int g, int d, int n_total_pages, int page, int maxp, int window,
                                  float scale, int n_splits, int dtype, int kv_dtype,
                                  void* stream) {
-  if (d % 32 != 0 || d > 128 || g < 1 || g > 8 || page < 1 || batch < 1 || n_splits < 1 ||
+  if (d % 16 != 0 || d > 128 || g < 1 || g > 8 || page < 1 || batch < 1 || n_splits < 1 ||
       n_splits > kMaxSplits)
     return (int)cudaErrorInvalidValue;
   const bool quant = kv_dtype == usdm::kI8;

@@ -12,6 +12,7 @@ gives the same batch in both packages.
 
 from __future__ import annotations
 
+import os
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
@@ -109,3 +110,24 @@ class UnitMelCollate:
                 mask[i, 0, off: off + nonmask] = 1
 
         return {"x": x, "mask": mask, "y": y, "y_lengths": y_lengths}
+
+
+def build_filelist(wav_dir: str, unit_extractor, out_path: str,
+                   exts=(".wav", ".flac", ".mp3")) -> int:
+    """Decoder preprocessing: the `exts` files under `wav_dir` (sorted) ->
+    units with all durations 1 -> `path|units|durations` lines in
+    `out_path`; `unit_extractor(wav16k: np.ndarray) -> List[int]`.  A file
+    audio/wav.py cannot decode raises naming its format.  -> line count."""
+    import glob
+
+    lines = []
+    files = sorted(f for ext in exts
+                   for f in glob.glob(os.path.join(wav_dir, "**", f"*{ext}"), recursive=True))
+    for fp in files:
+        wav, _ = load_wav(fp, sr=16000)
+        units = unit_extractor(wav)
+        durs = " ".join("1" for _ in units)
+        lines.append(f"{fp}|{' '.join(str(u) for u in units)}|{durs}")
+    with open(out_path, "w") as f:
+        f.write("\n".join(lines))
+    return len(lines)

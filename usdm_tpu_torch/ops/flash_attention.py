@@ -331,8 +331,8 @@ def _check_qkv(name, q, k, v, *extra):
     if q.dtype not in _build.DTYPE_CODES or any(t.dtype != q.dtype for t in (k, v, *extra)):
         raise TypeError(f"{name}: q/k/v{'/dO' if extra else ''} must share dtype float32 or "
                         f"bfloat16, got {[t.dtype for t in (q, k, v, *extra)]}")
-    if d % 16 or d > 128:
-        raise ValueError(f"{name}: head_dim must be a multiple of 16 up to 128, got {d}")
+    if d % 8 or d > 128:
+        raise ValueError(f"{name}: head_dim must be a multiple of 8 up to 128, got {d}")
     for t in (q, k, v, *extra):
         if t.stride(3) != 1:
             raise ValueError(f"{name}: the head_dim axis must be contiguous")

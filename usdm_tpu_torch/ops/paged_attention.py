@@ -226,8 +226,8 @@ def _launch(q, k_pages, v_pages, page_table, seq_lens, sliding_window, scale, k_
     if page_table.dim() != 2 or page_table.shape[0] != b or seq_lens.shape != (b,):
         raise ValueError(f"{name}: page_table {tuple(page_table.shape)} / seq_lens "
                          f"{tuple(seq_lens.shape)} do not match batch {b}")
-    if d % 32 or d > 128 or g > 8:
-        raise ValueError(f"{name}: head_dim must be a multiple of 32 up to 128 and the group "
+    if d % 16 or d > 128 or g > 8:
+        raise ValueError(f"{name}: head_dim must be a multiple of 16 up to 128 and the group "
                          f"size at most 8; got d={d} G={g}")
     for t in (q, k_pages, v_pages, page_table, seq_lens, *scales):
         if not t.is_contiguous():
