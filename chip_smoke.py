@@ -217,6 +217,26 @@ Phases:
      bf16 and phase 5's W8A8 pipelines (the b = 1 link at ctx 1,219 against
      its parts, from CUDA-graph replays) and scripts.profile_respond on
      phase 5's (the pinned-budget turn by phase); each prints its JSON line.
+ 16. measuring scripts, the ports of scripts/' exp_decode2, exp_decode,
+     bench_batch_decode, bench_runahead, trace_estimator, exp_stream_qmv and
+     validate_memory_budget (usdm_tpu_torch.scripts.*), each printing its
+     JSON lines: (a) after phase 15 on phase 4's pipeline, the eight decode
+     step ablations over its bf16 7B and the estimator's trace over its f32
+     Voicebox; (b) after phase 15 on phase 5's, the ablations, exp_decode
+     and the batched decode (b 8/16/32, bf16 and int8 pools; K6's and
+     torch._int_mm's launches a step by b) over a zero W8A8 7B, the
+     ablations over the pipeline's W8A8 7B (the fused variants' tokens
+     equal the unfused ones' on both), the run-ahead sweep (horizons 8-64,
+     every configuration the same tokens, no graph captured inside a timed
+     rep) and its EOS check over it, the estimator's trace over zero bf16
+     weights and the W8A8 Voicebox (Chrome traces to --out-dir); (c) last,
+     on an emptied card, K1 at b 32 (page 256, 6 pages a slot, bf16 and
+     int8 pools), K6 at M 1 at Dout 6144, 28672 and 42003 (f32 bit for
+     bit), K2/K5 bf16 at GQA 8/2 d 128 T 8,192, K2 bf16 with ALiBi at the
+     estimator's shape and K5's f32 route at the small train step's, each
+     against its plain version with times, then exp_stream_qmv and
+     validate_memory_budget's three train steps (measured peak against
+     memory_budget).
 
 Each kernel's bound_ms is the least time the card could take for the work
 of its timed case: the larger of its bytes (inputs read once, outputs
@@ -978,7 +998,8 @@ def tiny_kernel_checks(dev) -> dict:
     plain version (bf16: bf16_bound; f32: 1e-4; int8 pools: bf16_bound of
     the plain version on f32 queries plus the measured effect of rounding
     the dequantized K/V, as phase 3's int8 case); logged with eager, graph
-    and plain ms, the bound and, for K2 without ALiBi, one SDPA call's ms.
+    and plain ms, the bound and one SDPA call's ms (K2: the forward with the
+    boolean mask or the additive ALiBi bias; K5: the backward).
     -> the largest error per kernel name."""
     import torch
 
@@ -1075,18 +1096,28 @@ def tiny_kernel_checks(dev) -> dict:
         check("K2 lse", case, lse, want_lse, 1e-4)
         mask = attn_mask(rr[0], rr[1], rr[2], rr[3], flags["causal"], flags["sliding_window"])
         pairs = int(mask.sum()) * h
-        library = None
-        if not flags["alibi"]:  # one SDPA call, K/V repeated over the group
-            qt, kt, vt = (x.transpose(1, 2) for x in (q, k.repeat_interleave(h // h_kv, 2),
-                                                       v.repeat_interleave(h // h_kv, 2)))
+        # one SDPA call, K/V repeated over the group, with the boolean mask
+        # or, for ALiBi, the additive bias (key column 0 exempt, padding at
+        # the dtype's least value)
+        sdpa_mask = mask[:, None]
+        if flags["alibi"]:
+            slopes = FL.alibi_slopes_pow2(h).to(dev)[None, :, None, None]
+            dist = (rr[2][:, None, :, None] - rr[3][:, None, None, :]).abs().float()
+            sdpa_mask = torch.where(sdpa_mask, -slopes * dist * (rr[3][:, None, None, :] != 0),
+                                    torch.finfo(dt).min).to(dt)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k.repeat_interleave(h // h_kv, 2),
+                                v.repeat_interleave(h // h_kv, 2)))
 
-            def library():
-                return torch.nn.functional.scaled_dot_product_attention(
-                    qt, kt, vt, attn_mask=mask[:, None])
-        timed(f"K2 [{case}]", lambda: FL.flash_attention(q, k, v, *rr, **flags),
-              lambda: FL.flash_attention_reference(q, k, v, *rr, **flags, round_operands=bf),
-              2 * nbytes(q) + nbytes(k, v, lse), 4 * pairs * 8, "bf16" if bf else "3xtf32",
-              library)
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt,
+                                                                    attn_mask=sdpa_mask)
+        with torch.no_grad():
+            timed(f"K2 [{case}]", lambda: FL.flash_attention(q, k, v, *rr, **flags),
+                  lambda: FL.flash_attention_reference(q, k, v, *rr, **flags,
+                                                       round_operands=bf),
+                  2 * nbytes(q) + nbytes(k, v, lse), 4 * pairs * 8, "bf16" if bf else "3xtf32",
+                  library)
         if not bf:
             continue
         got = FL.flash_attention_bwd(q, k, v, o, lse, do, *rr, flags["causal"],
@@ -1097,12 +1128,15 @@ def tiny_kernel_checks(dev) -> dict:
         for name, gg, ww in zip(("dq", "dk", "dv"), got, want):
             keep("flash_attention_bwd_dq" if name == "dq" else "flash_attention_bwd_dkv",
                  check(f"K5 {name}", case, gg, ww, bf16_bound(ww)))
+        ot = library()  # SDPA's backward with the same boolean mask, dq, dk and dv
+        dot = do.transpose(1, 2)
         timed(f"K5 [{case}]", lambda: FL.flash_attention_bwd(
             q, k, v, o, lse, do, *rr, flags["causal"], flags["sliding_window"], None,
             flags["alibi"]), lambda: FL.flash_attention_bwd_reference(
             q, k, v, o, lse, do, *rr, flags["causal"], flags["sliding_window"], None,
             flags["alibi"], round_operands=True),
-            2 * nbytes(q, k, v) + nbytes(do, o, lse), 10 * pairs * 8, "bf16")
+            2 * nbytes(q, k, v) + nbytes(do, o, lse), 10 * pairs * 8, "bf16",
+            lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True))
     return errs
 
 
@@ -2545,6 +2579,435 @@ def profilers_run(pipe, wav_in: str, label: str, respond: bool) -> dict:
     return out
 
 
+# --------------------------------------------------------------- phase 16
+def _measured(label: str, fn, launches: dict):
+    """fn() with every launch count set to 0 just before it and read just
+    after; its launches are added to `launches` under the kernels line's
+    names (flash_attention: K2's bf16 route; flash_attention_f32 its f32
+    route) -> fn's result."""
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    counts = launch_counts()
+    counts["flash_attention"] = mma_counts()["flash_attention"]
+    log(f"phase 16 {label}: {time.perf_counter() - t0:.1f} s, launches "
+        + json.dumps({k: n for k, n in counts.items() if n}))
+    for k, n in counts.items():
+        launches[k] = launches.get(k, 0) + n
+    return out
+
+
+def _emit(module: str, line, label: str) -> None:
+    print(json.dumps({module: line, "pipeline": label}), flush=True)
+
+
+def _ablation_checks(line: dict, layers: int) -> None:
+    """exp_decode2's line: K6 launches a step by variant (W8A8: 7 products a
+    layer, 4 fused; the W8A8 lm_head one more), and (W8A8) the fused
+    variants' tokens equal the unfused ones'."""
+    from usdm_tpu_torch.scripts.exp_decode2 import VARIANTS
+
+    w8a8 = line["weights"] == "w8a8"
+    want = {name: ((4 if kw.get("fuse") else 7) * layers if w8a8 else 0)
+            + int(kw.get("head") == "int8") for name, kw in VARIANTS.items()}
+    if line["k6_launches"] != want:
+        raise AssertionError(f"phase 16 exp_decode2 ({line['weights']}): K6 launches "
+                             f"{line['k6_launches']}, want {want}")
+    if w8a8 and not line["fused_tokens_equal"]:
+        raise AssertionError(f"phase 16 exp_decode2: the fused W8A8 variants' tokens differ "
+                             f"from the unfused ones': {line['tokens']}")
+
+
+def _estimator_check(line: dict, counts_before: dict, launches: dict, route: str) -> None:
+    """trace_estimator's line: every group took device time, K2 launched on
+    `route` (flash_attention: bf16, flash_attention_f32) once a layer a
+    call (24 x 6 calls)."""
+    n = launches.get(route, 0) - counts_before.get(route, 0)
+    if n != 24 * 6 or not all(line["groups_ms"][g] > 0 for g in
+                              ("products", "layer_norm", "attention", "convpos")):
+        raise AssertionError(f"phase 16 trace_estimator {line['weights']}: {n} {route} "
+                             f"launches (want 144), groups {line['groups_ms']}")
+
+
+def measure_bf16_run(pipe, out_dir: str) -> dict:
+    """Phase 16 (a), on phase 4's bf16 pipeline: exp_decode2's eight
+    ablations over its bf16 7B (tokens of the fused variants logged: cuBLAS
+    may sum a fused product in another order) and trace_estimator over its
+    f32 Voicebox."""
+    from usdm_tpu_torch.scripts import exp_decode2, trace_estimator
+
+    t0 = time.perf_counter()
+    launches = {}
+    ed2 = _measured("exp_decode2 (bf16 7B)", lambda: exp_decode2.run(
+        pipe.lm_params, pipe.lm_cfg, pipe.device), launches)
+    _emit("exp_decode2", ed2, "phase 4 bf16")
+    _ablation_checks(ed2, pipe.lm_cfg.num_layers)
+    before = dict(launches)
+    te = _measured("trace_estimator (float Voicebox)", lambda: trace_estimator.run(
+        pipe.decoder.voicebox_params, pipe.decoder.voicebox_cfg, pipe.device, "float", out_dir),
+        launches)
+    _emit("trace_estimator", te, "phase 4 bf16")
+    _estimator_check(te, before, launches, "flash_attention_f32")
+    return {"launches": launches, "exp_decode2": ed2, "trace_estimator": te,
+            "seconds": time.perf_counter() - t0}
+
+
+def measure_w8a8_run(pipe, out_dir: str) -> dict:
+    """Phase 16 (b), on phase 5's W8A8 pipeline and on zero weights where
+    the TPU scripts use them: exp_decode2, exp_decode and bench_batch_decode
+    over a zero W8A8 7B (scales 1e-8), exp_decode2 over the pipeline's W8A8
+    7B, bench_runahead's sweep and EOS check over it (its own engines,
+    bf16 pools), trace_estimator over zero bf16 weights and over the
+    pipeline's W8A8 Voicebox."""
+    import gc
+
+    import torch
+
+    from usdm_tpu_torch.core.config import VoiceboxConfig
+    from usdm_tpu_torch.scripts import (bench_batch_decode, bench_runahead, exp_decode,
+                                        exp_decode2, trace_estimator)
+    from usdm_tpu_torch.scripts.profile_decode_step import zero_params
+
+    t0 = time.perf_counter()
+    dev, cfg = pipe.device, pipe.lm_cfg
+    launches, out = {}, {}
+    zero = zero_params(cfg, dev, True)
+    out["exp_decode2_zero"] = _measured("exp_decode2 (zero W8A8 7B)", lambda: exp_decode2.run(
+        zero, cfg, dev), launches)
+    _emit("exp_decode2", out["exp_decode2_zero"], "zero W8A8")
+    _ablation_checks(out["exp_decode2_zero"], cfg.num_layers)
+    out["exp_decode"] = _measured("exp_decode (zero W8A8 7B)", lambda: exp_decode.run(
+        zero, cfg, dev), launches)
+    _emit("exp_decode", out["exp_decode"], "zero W8A8")
+    out["bench_batch_decode"] = _measured("bench_batch_decode (zero W8A8 7B)",
+                                          lambda: bench_batch_decode.run(zero, cfg, dev),
+                                          launches)
+    del zero
+    gc.collect()
+    torch.cuda.empty_cache()
+    for line in out["bench_batch_decode"]:
+        if "failed" in line:
+            raise AssertionError(f"phase 16 bench_batch_decode: {line}")
+        want = ({"stream_qmv": 7 * cfg.num_layers, "torch_int_mm": 0} if line["b"] <= 16 else
+                {"stream_qmv": 0, "torch_int_mm": 7 * cfg.num_layers})
+        got = line["launches_per_step"]
+        k1 = got["paged_decode_attention"] == (0 if line["kv"] == "int8" else cfg.num_layers)
+        if any(got[k] != n for k, n in want.items()) or not k1:
+            raise AssertionError(f"phase 16 bench_batch_decode b {line['b']} {line['kv']}: "
+                                 f"routes {got}, want {want} and K1 once a layer")
+    out["exp_decode2"] = _measured("exp_decode2 (the pipeline's W8A8 7B)", lambda: exp_decode2.run(
+        pipe.lm_params, cfg, dev), launches)
+    _emit("exp_decode2", out["exp_decode2"], "phase 5 W8A8")
+    _ablation_checks(out["exp_decode2"], cfg.num_layers)
+    out["bench_runahead"] = _measured("bench_runahead sweep", lambda: bench_runahead.sweep(
+        pipe.lm_params, cfg, dev), launches)
+    out["bench_runahead_eos"] = _measured("bench_runahead EOS", lambda: bench_runahead.eos_overshoot(
+        pipe.lm_params, cfg, dev), launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    vcfg = VoiceboxConfig()
+    before = dict(launches)
+    zero_vb = trace_estimator.weights(vcfg, dev, "zero_bf16")
+    out["trace_estimator_zero"] = _measured("trace_estimator (zero bf16 Voicebox)",
+                                            lambda: trace_estimator.run(
+                                                zero_vb, vcfg, dev, "zero_bf16", out_dir),
+                                            launches)
+    del zero_vb
+    _emit("trace_estimator", out["trace_estimator_zero"], "zero bf16")
+    _estimator_check(out["trace_estimator_zero"], before, launches, "flash_attention")
+    before = dict(launches)
+    out["trace_estimator"] = _measured("trace_estimator (W8A8 Voicebox)", lambda: trace_estimator.run(
+        pipe.decoder.voicebox_params, pipe.decoder.voicebox_cfg, dev, "w8a8", out_dir), launches)
+    _emit("trace_estimator", out["trace_estimator"], "phase 5 W8A8")
+    _estimator_check(out["trace_estimator"], before, launches, "flash_attention_f32")
+    out["launches"], out["seconds"] = launches, time.perf_counter() - t0
+    return out
+
+
+def _k1_b32_checks(dev, randn) -> tuple:
+    """K1 at bench_batch_decode's b 32: page 256, 6 pages a slot, 1,220
+    tokens a slot (one slot 700), bf16 and int8 pools, window 4096, against
+    its plain version (phase 3's bounds), with times and bounds -> (the
+    bf16 and the int8 errors, the times)."""
+    import torch
+
+    from usdm_tpu_torch.engine.paged_ops import quant_kv_token
+    from usdm_tpu_torch.ops import paged_attention as PA
+
+    b, hkv, g, d, page, maxp = 32, 8, 4, 128, 256, 6
+    nt = b * maxp + 1
+    gen = torch.Generator(device=dev).manual_seed(17)
+    table = torch.randperm(nt - 1, generator=gen, device=dev)[: b * maxp]
+    table = table.reshape(b, maxp).to(torch.int32).contiguous()
+    lens = torch.full((b,), 1220, dtype=torch.int32, device=dev)
+    lens[5] = 700
+    q = randn(b, hkv, g, d).bfloat16()
+    rows = int(lens.sum())
+    errs, times = {}, {}
+    for kind in ("bf16", "int8"):
+        scales = {}
+        if kind == "int8":
+            pools = []
+            for key in ("k_scales", "v_scales"):
+                qv, sv = quant_kv_token(randn(hkv, nt, page, d))
+                pools.append(qv)
+                scales[key] = sv.transpose(0, 1).contiguous()
+        else:
+            pools = [randn(hkv, nt, page, d).bfloat16() for _ in range(2)]
+        args = (q, *pools, table, lens, 4096)
+        got = PA.paged_decode_attention(*args, **scales)
+        want = PA.paged_decode_attention_reference(*args, **scales)
+        case = f"B=32 page 256, 6 pages a slot, 1,220 tokens, {kind} pools"
+        if kind == "bf16":
+            errs[kind] = check("K1", case, got, want, bf16_bound(want))
+        else:
+            fold = PA.paged_decode_attention_reference(q.float(), *pools, table, lens, 4096,
+                                                       **scales)
+            errs[kind] = check("K1 int8", case, got, want, bf16_bound(fold) + max_err(want, fold))
+        row = hkv * d * pools[0].element_size() + (4 * hkv if scales else 0)
+        times[kind] = {"ms": cuda_ms(lambda: PA.paged_decode_attention(*args, **scales)),
+                       "graph_ms": graph_ms(lambda: PA.paged_decode_attention(*args, **scales),
+                                            dev),
+                       "plain_ms": cuda_ms(lambda: PA.paged_decode_attention_reference(
+                           *args, **scales)),
+                       **least_time(2 * nbytes(q) + nbytes(table, lens) + 2 * row * rows,
+                                    4 * g * hkv * d * rows, "bf16"),
+                       "n_splits": PA.split_count(b, hkv, maxp, page, PA._sm_count(0))}
+        log(f"  K1 [{case}] times: " + json.dumps(times[kind]))
+        del pools
+    return errs, times
+
+
+def _k6_width_checks(dev) -> tuple:
+    """K6 at M 1 at the fused and int8-head widths (Dout 6144, 28672, 42003;
+    Din 4096) against its plain version: f32 bit for bit, bf16 within one
+    ulp of each value; times over 8 weights in turn (none stays in the L2)
+    from a CUDA graph, beside the torch._int_mm route's (Dout % 8 == 0) and
+    the bf16 matvec's of the dequantized weights -> (the largest error,
+    the times)."""
+    import torch
+
+    from usdm_tpu_torch.models import quant as Q
+    from usdm_tpu_torch.ops import stream_matvec as SM
+    from usdm_tpu_torch.scripts.common import int_mm
+
+    gen = torch.Generator(device=dev).manual_seed(18)
+    errs, times = [], {}
+
+    def library(yy, w):
+        qy, ys = SM.quantize_rows(yy)
+        return SM.epilogue(int_mm(qy, w["q"].t()), ys, w["s"], yy.dtype)
+
+    for dout in (6144, 28672, 42003):
+        ws = [Q.quantize_weight(torch.randn(4096, dout, generator=gen, device=dev) * 0.02)
+              for _ in range(8)]
+        y = torch.randn(1, 4096, generator=gen, device=dev) * 2.0
+        got, want = SM.stream_qmv(y, ws[0], torch.float32), SM.stream_qmv_reference(
+            y, ws[0], torch.float32)
+        errs.append(check("K6", f"M=1 [{dout}, 4096] f32", got, want, 0.0))
+        yb = y.bfloat16()
+        got, want = (fn(yb, ws[0], torch.bfloat16).float()
+                     for fn in (SM.stream_qmv, SM.stream_qmv_reference))
+        ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp(min=1e-30))) - 7)
+        worst = ((got - want).abs() / ulp).max().item()
+        log(f"  K6 [M=1 [{dout}, 4096] bf16] max error {worst:.2f} bf16 ulps "
+            f"{'ok' if worst <= 1 else 'FAIL'}")
+        if worst > 1:
+            raise AssertionError(f"K6 bf16 M=1 [{dout}, 4096] off by {worst} ulps")
+        errs.append(max_err(got, want))
+        t = {"ms": cuda_ms(lambda: [SM.stream_qmv(yb, w) for w in ws]) / 8,
+             "graph_ms": graph_ms(lambda: [SM.stream_qmv(yb, w) for w in ws], dev) / 8,
+             "plain_ms": cuda_ms(lambda: [SM.stream_qmv_reference(yb, w) for w in ws]) / 8,
+             # torch._int_mm takes Dout in multiples of 8 only (not the head's 42,003)
+             "library_graph_ms": (graph_ms(lambda: [library(yb, w) for w in ws], dev) / 8
+                                  if dout % 8 == 0 else None),
+             **least_time(nbytes(yb, ws[0]["q"], ws[0]["s"]) + dout * 2, 2 * dout * 4096,
+                          "int8")}
+        deq = [Q.dequantize_weight(w).t().contiguous() for w in ws]  # bf16 [Dout, Din]
+        # what the W8A8 product replaces: the bf16 matvec of the dequantized weight
+        t["bf16_graph_ms"] = graph_ms(lambda: [torch.nn.functional.linear(yb, w) for w in deq],
+                                      dev) / 8
+        del deq
+        times[dout] = t
+        log(f"  K6 time M=1 [{dout}, 4096] bf16, 8 weights in turn: " + json.dumps(t))
+        del ws
+    return max(errs), times
+
+
+def _flash_gqa82_checks(dev, randn) -> tuple:
+    """K2 and K5 bf16 at validate_memory_budget's attention (B 1, T 8,192,
+    GQA 8/2, d 128, causal, window 4096, one segment) against their plain
+    versions with round_operands=True (bf16_bound; lse 1e-4), with times
+    and bounds -> ({fwd, dq, dkv} errors, the times)."""
+    import torch
+
+    from usdm_tpu_torch.ops import flash_attention as FL
+
+    t, h, hkv, d, window = 8192, 8, 2, 128, 4096
+    seg = torch.zeros(1, t, dtype=torch.int32, device=dev)
+    pos = torch.arange(t, dtype=torch.int32, device=dev)[None]
+    q, do = randn(1, t, h, d).bfloat16(), randn(1, t, h, d).bfloat16()
+    k, v = randn(1, t, hkv, d).bfloat16(), randn(1, t, hkv, d).bfloat16()
+    case = "B=1 T=8192 GQA 8/2 d=128 causal window 4096"
+    o, lse = FL.flash_attention(q, k, v, seg, seg, pos, pos, True, window, return_lse=True)
+    want_o, want_lse = FL.flash_attention_reference(q, k, v, seg, seg, pos, pos, True, window,
+                                                    None, False, True)
+    errs = {"fwd": check("K2", f"{case} o", o, want_o, bf16_bound(want_o))}
+    check("K2 lse", case, lse, want_lse, 1e-4)
+    del want_o, want_lse
+    ref = (q, k, v, o, lse, do, seg, seg, pos, pos, True, window, None, False)
+    got, want = FL.flash_attention_bwd(*ref), FL.flash_attention_bwd_reference(*ref, True)
+    out = [check("K5", f"{case} {n}", gg, ww, bf16_bound(ww))
+           for n, gg, ww in zip(("dq", "dk", "dv"), got, want)]
+    errs["dq"], errs["dkv"] = out[0], max(out[1:])
+    del got, want
+    pairs = h * int(attn_mask(seg, seg, pos, pos, True, window).sum())
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse, delta, seg, seg, pos, pos, True, window, None, False)
+    ins = nbytes(q, k, v, do, lse, delta, seg, pos)
+    times = {
+        "fwd": {"ms": cuda_ms(lambda: FL.flash_attention(q, k, v, seg, seg, pos, pos, True,
+                                                         window)),
+                **least_time(2 * nbytes(q) + nbytes(k, v, seg, pos), 4 * d * pairs, "bf16")},
+        "dq": {"ms": cuda_ms(lambda: FL.flash_attention_bwd_dq(*args)),
+               **least_time(ins + nbytes(q), 6 * d * pairs, "bf16")},
+        "dkv": {"ms": cuda_ms(lambda: FL.flash_attention_bwd_dkv(*args)),
+                **least_time(ins + nbytes(k, v), 8 * d * pairs, "bf16")}}
+    log(f"  K2 / K5 [{case}] times: " + json.dumps(times))
+    return errs, times
+
+
+def _flash_estimator_bf16_check(dev, randn) -> tuple:
+    """K2 bf16 with ALiBi at the zero-weight estimator's attention (B 2,
+    T+1 450, 16 heads of d 64, non-causal, every row valid) against its
+    plain version (bf16_bound), with times, the bound and SDPA with the
+    additive ALiBi bias -> (the error, the times)."""
+    import torch
+
+    from usdm_tpu_torch.ops import flash_attention as FL
+
+    b, t1, h, d = 2, 450, 16, 64
+    seg = torch.zeros(b, t1, dtype=torch.int32, device=dev)
+    pos = torch.arange(t1, dtype=torch.int32, device=dev)[None].expand(b, t1).contiguous()
+    q, k, v = (randn(b, t1, h, d).bfloat16() for _ in range(3))
+    case = "B=2 T+1=450 H=16 d=64 ALiBi (the bf16 estimator)"
+    flags = dict(causal=False, sliding_window=None, alibi=True)
+    got = FL.flash_attention(q, k, v, seg, seg, pos, pos, **flags)
+    want, _ = FL.flash_attention_reference(q, k, v, seg, seg, pos, pos, **flags,
+                                           round_operands=True)
+    err = check("K2", case, got, want, bf16_bound(want))
+    slopes = FL.alibi_slopes_pow2(h).to(dev)[None, :, None, None]
+    dist = (pos[:, None, :, None] - pos[:, None, None, :]).abs().float()
+    bias = (-slopes * dist * (pos[:, None, None, :] != 0)).to(torch.bfloat16)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    pairs = b * h * t1 * t1
+    times = {"ms": cuda_ms(lambda: FL.flash_attention(q, k, v, seg, seg, pos, pos, **flags)),
+             "graph_ms": graph_ms(lambda: FL.flash_attention(q, k, v, seg, seg, pos, pos,
+                                                             **flags), dev),
+             "plain_ms": cuda_ms(lambda: FL.flash_attention_reference(
+                 q, k, v, seg, seg, pos, pos, **flags, round_operands=True)),
+             **least_time(2 * nbytes(q) + nbytes(k, v, seg, pos), 4 * d * pairs, "bf16"),
+             "library_ms": cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                 qt, kt, vt, attn_mask=bias))}
+    log(f"  K2 [{case}] times: " + json.dumps(times))
+    return err, times
+
+
+def _k5_f32_case(dev, randn) -> tuple:
+    """K5's f32 route (CUDA cores, csrc/flash_attention_bwd.cu) at the
+    small f32 train step's attention (B 8, T+1 400, 4 heads of d 32, ALiBi,
+    ragged rows) against its plain version (1e-4), with times, its bound
+    (f32 off the tensor cores) and SDPA's backward with the ALiBi + padding
+    bias -> ({dq, dkv} errors, the times)."""
+    import torch
+
+    from usdm_tpu_torch.ops import flash_attention as FL
+
+    b, t1, h, d = 8, 400, 4, 32
+    pos = torch.arange(t1, device=dev, dtype=torch.int32)[None].expand(b, t1).contiguous()
+    lens = torch.tensor([400, 301, 400, 251, 400, 400, 121, 400], device=dev)
+    seg = torch.where(pos < lens[:, None], 0, -1).to(torch.int32)
+    q, k, v, do = (randn(b, t1, h, d) for _ in range(4))
+    o, lse = FL.flash_attention(q, k, v, seg, seg, pos, pos, False, None, alibi=True,
+                                return_lse=True)
+    ref = (q, k, v, o, lse, do, seg, seg, pos, pos, False, None, None, True)
+    got, want = FL.flash_attention_bwd(*ref), FL.flash_attention_bwd_reference(*ref)
+    case = "f32 B=8 T+1=400 H=4 d=32 ALiBi (the small train step)"
+    out = [check("K5", f"{case} {n}", gg, ww, 1e-4)
+           for n, gg, ww in zip(("dq", "dk", "dv"), got, want)]
+    peaks = [ww.abs().max().item() for ww in want]
+    log(f"  K5 [{case}] the plain gradients' peaks (dq, dk, dv): {peaks}")
+    if not min(peaks) > 0:
+        raise AssertionError(f"K5 [{case}]: a zero gradient compares nothing: {peaks}")
+    valid = attn_mask(seg, seg, pos, pos, False, None)
+    pairs = h * int(valid.sum())
+    delta = (do * o).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse, delta, seg, seg, pos, pos, False, None, None, True)
+    slopes = FL.alibi_slopes_pow2(h).to(dev)[None, :, None, None]
+    dist = (pos[:, None, :, None] - pos[:, None, None, :]).abs().float()
+    bias = torch.where(valid[:, None], -slopes * dist * (pos[:, None, None, :] != 0),
+                       torch.finfo(torch.float32).min)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    ot = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias)
+    dot = do.transpose(1, 2)
+    ins = nbytes(q, k, v, do, lse, delta, seg, pos)
+    times = {"ms": cuda_ms(lambda: FL.flash_attention_bwd(*ref)),
+             "dq_ms": cuda_ms(lambda: FL.flash_attention_bwd_dq(*args)),
+             "dkv_ms": cuda_ms(lambda: FL.flash_attention_bwd_dkv(*args)),
+             "graph_ms": graph_ms(lambda: FL.flash_attention_bwd(*ref), dev),
+             "plain_ms": cuda_ms(lambda: FL.flash_attention_bwd_reference(*ref)),
+             **least_time(ins + nbytes(q, k, v), 14 * d * pairs, "f32"),
+             "library_ms": cuda_ms(lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,
+                                                               retain_graph=True))}
+    log(f"  K5 [{case}] times: " + json.dumps(times))
+    return {"dq": out[0], "dkv": max(out[1:])}, times
+
+
+def measure_tail_run(dev) -> dict:
+    """Phase 16 (c), on an emptied card after phase 12: each kernel at the
+    shapes the measuring scripts give it against its plain version (K1 at
+    b 32, K6 at the fused and int8-head widths, K2/K5 at GQA 8/2 T 8,192,
+    K2 bf16 with ALiBi at the estimator's shape, K5's f32 route at the
+    small train step's), then exp_stream_qmv and validate_memory_budget as
+    a user runs them."""
+    import torch
+
+    from usdm_tpu_torch.scripts import exp_stream_qmv, validate_memory_budget
+
+    gen = torch.Generator(device=dev).manual_seed(16)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    log("phase 16 (c): kernels at the measuring scripts' shapes against their plain versions")
+    k1_errs, k1_times = _k1_b32_checks(dev, randn)
+    k6_err, k6_times = _k6_width_checks(dev)
+    flash_errs, flash_times = _flash_gqa82_checks(dev, randn)
+    est_err, est_times = _flash_estimator_bf16_check(dev, randn)
+    k5_errs, k5_times = _k5_f32_case(dev, randn)
+    _free_device()
+    errs = {"paged_decode_attention": k1_errs["bf16"],
+            "paged_decode_attention_int8": k1_errs["int8"], "stream_qmv": k6_err,
+            "flash_attention": max(flash_errs["fwd"], est_err),
+            "flash_attention_bwd_dq": max(flash_errs["dq"], k5_errs["dq"]),
+            "flash_attention_bwd_dkv": max(flash_errs["dkv"], k5_errs["dkv"])}
+    launches = {}
+    esq = _measured("exp_stream_qmv", lambda: exp_stream_qmv.main([]), launches)
+    _free_device()
+    vmb = _measured("validate_memory_budget", lambda: validate_memory_budget.main([]), launches)
+    if not (launches.get("flash_attention", 0) and launches.get("flash_attention_bwd_dq", 0)
+            and launches.get("stream_qmv", 0)):
+        raise AssertionError(f"phase 16 (c): K2/K5 or K6 did not launch: {launches}")
+    for line in vmb:
+        log(f"phase 16 validate_memory_budget: layers {line['layers']} seq {line['seq']}: "
+            f"measured {line['measured_peak_gb']:.3f} GiB, model {line['device_gb']:.3f} GiB, "
+            f"model/measured {line['model_over_measured']:.3f}")
+    return {"max_abs_err": errs, "launches": launches, "exp_stream_qmv": esq,
+            "validate_memory_budget": vmb,
+            "times": {"k1_b32": k1_times, "k6_widths": k6_times, "k2_k5_gqa82": flash_times,
+                      "k2_estimator_bf16": est_times, "k5_f32": k5_times}}
+
+
 def user_wav(tmp: str) -> str:
     """The turns' user speech: 3 s of 16 kHz noise -> its path in `tmp`."""
     from usdm_tpu_torch.audio.wav import write_wav
@@ -2657,6 +3120,9 @@ def slice_run(dev, profile: bool, tmp: str, out_dir: str, smi: str) -> dict:
         dense = dense_turns(pipe, wav_in, graphed, turns[-1], "bf16 turn", False)
         log(f"phase time: dense turns (h) {time.perf_counter() - t0:.1f} s")
         profiles = profilers_run(pipe, wav_in, "phase 4 bf16", respond=False)
+        measure = measure_bf16_run(pipe, out_dir)
+        log(f"phase time: 16 (a) measuring scripts on phase 4's pipeline "
+            f"{measure['seconds']:.1f} s")
         t0 = time.perf_counter()
         load = load_run(dev, pipe, wav_in, graphed, graphed_audio, tmp, smi)
         log(f"phase time: load (phase 10) {time.perf_counter() - t0:.1f} s")
@@ -2665,7 +3131,7 @@ def slice_run(dev, profile: bool, tmp: str, out_dir: str, smi: str) -> dict:
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     return {"turns": turns, "eager": eager, "tf32": tf32, "serve": served, "spec": spec,
-            "ref": ref, "dense": dense, "load": load, "profiles": profiles}
+            "ref": ref, "dense": dense, "load": load, "profiles": profiles, "measure": measure}
 
 
 
@@ -3057,6 +3523,9 @@ def int8_run(dev, tmp: str, wav_in: str, profile: bool, out_dir: str) -> dict:
                                      graphed_turns=1, eager_twin=False)
         log(f"phase time: dense W8A8 turn {time.perf_counter() - t0:.1f} s")
         out["profiles"] = profilers_run(pipe, wav_in, "phase 5 W8A8", respond=True)
+        out["measure"] = measure_w8a8_run(pipe, out_dir)
+        log(f"phase time: 16 (b) measuring scripts on phase 5's pipeline "
+            f"{out['measure']['seconds']:.1f} s")
 
         # (B) eight clients over the same W8A8 7B with int8 KV pages
         n_clients, per_client, prompt_len, max_new = 8, 2, 384, 128
@@ -3467,15 +3936,21 @@ def probe_kernel_checks(dev) -> dict:
     # a yardstick of the read rate from PyTorch's own reduction kernel over
     # the same bytes, viewed as int64 (not the same function: no library_ms)
     sum_ms = graph_ms(lambda: [w.view(torch.int64).sum() for w in ws], dev)
+    # X1a's yardstick at X3's weights (its dot modes compute X1a's
+    # function): one bf16 row times each [F, D] weight dequantized to bf16
+    x_b = xs[1].bfloat16()
+    w_b = [w.bfloat16() for w in ws]
+    lib = graph_ms(lambda: [torch.nn.functional.linear(x_b, w) for w in w_b], dev)
+    del w_b
     log(f"  X3 time dot bpad 1, 16 x [{f}, {d}] int8, loads 8: kernel {km:.4f} ms "
         f"({n * f * d / km / 1e6:.1f} GB/s), plain {pm:.4f} ms, bound {bound['bound_ms']:.4f} ms "
         f"({bound['bound_by']}); dma_only by loads in flight "
         + ", ".join(f"{lo}: {t:.4f}" for lo, t in copy.items()) + " ms; dot at bpad "
         + ", ".join(f"{b}: {t:.4f}" for b, t in dots.items()) + " ms (loads 8); PyTorch's "
         f"sum over the same 16 weights as int64 {sum_ms:.4f} ms ({n * f * d / sum_ms / 1e6:.1f} "
-        "GB/s)")
+        f"GB/s); the bf16 matmul of the weights dequantized to bf16 {lib:.4f} ms")
     results["stream_probe"] = {"max_abs_err": max(errs), "ms": km, "plain_ms": pm, **bound,
-                               "library_ms": None,
+                               "library_ms": lib,
                                "case": "dot bpad 1, loads 8, 16 layers of [14336, 4096] int8"}
     del ws
     return results
@@ -5858,6 +6333,12 @@ def main() -> int:
     gan = gan_distill_run(dev, args.out_dir, smi.stdout.strip())
     log(f"phase time: GAN and distillation training (phase 12) "
         f"{time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    tail = measure_tail_run(dev)
+    tail_s = time.perf_counter() - t_phase
+    log(f"phase time: 16 (c) kernels, exp_stream_qmv, validate_memory_budget {tail_s:.1f} s")
+    log(f"phase time: measuring scripts (phase 16) "
+        f"{bf16_run['measure']['seconds'] + int8['measure']['seconds'] + tail_s:.1f} s")
     a, b = int8["A"]["launches"], int8["B"]["launches"]
     # K1 and K6 add the speculative paths: the ngram turns (c) and the
     # bench ports' engines (b)
@@ -5908,6 +6389,13 @@ def main() -> int:
         for k in ("paged_decode_attention", "flash_attention_f32", "fused_activation1d"):
             launches[k] += turn["launches"][k]
         launches["flash_attention"] += turn["flash_attention_mma_launches"]
+    # phase 16: the measuring scripts' runs (each module's counts, reset
+    # just before it), and each kernel's checks at their shapes
+    for part in (bf16_run["measure"], int8["measure"], tail):
+        for k, n in part["launches"].items():
+            launches[k] += n
+    for k, err in tail["max_abs_err"].items():
+        kres[k]["max_abs_err"] = max(kres[k]["max_abs_err"], err)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", **KERNELS[k], "launches": launches[k],

@@ -7,7 +7,8 @@ graphs against eager steps; prepare_reference on the card against the CPU;
 the safetensors reader's tensors moved to the card bit for bit,
 from_pretrained on the card giving the CPU load's turn; the LM training
 path's loss and gradients against the CPU, and the offload step against
-the resident one.
+the resident one; the measuring scripts' shapes (K1 at b 32, K6 at the
+fused and int8-head widths, the fused W8A8 step variants' tokens).
 
 Marked `cuda`: each test skips without a CUDA device (a CUDA kernel has no
 CPU mode).  Imports no JAX, so it runs where the port runs; there, skip
@@ -2114,3 +2115,90 @@ def test_tiny_clis_on_card(cuda, tmp_path):
     chip_smoke.run_module("usdm_tpu_torch.cli.train_pt", "--tiny", "--data_path", str(rows),
                           "--output_dir", str(tmp_path / "pt"), "--max_steps", "2",
                           "--max_input_length", "256", "--save_steps", "0")
+
+
+# ------------------------------------------- the measuring scripts' shapes
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_paged_kernel_batch32_page256(cuda, kv):
+    """K1 at bench_batch_decode's b 32: page 256, 6 pages a slot, 1,220
+    tokens a slot (one slot 700), window 4096, at the host's split count.
+    Bounds as test_paged_kernel_matches_plain (bf16 pools) and
+    test_paged_int8_kernel_matches_plain (int8 pools)."""
+    g = torch.Generator(device=cuda).manual_seed(32)
+    b, hkv, grp, d, page, maxp = 32, 8, 4, 128, 256, 6
+    nt = b * maxp + 1
+    table = torch.randperm(nt - 1, generator=g, device=cuda)[: b * maxp]
+    table = table.reshape(b, maxp).to(torch.int32).contiguous()
+    lens = torch.full((b,), 1220, dtype=torch.int32, device=cuda)
+    lens[5] = 700
+    q = torch.randn(b, hkv, grp, d, generator=g, device=cuda).bfloat16()
+    scales = {}
+    if kv == "bf16":
+        pools = [torch.randn(hkv, nt, page, d, generator=g, device=cuda).bfloat16()
+                 for _ in range(2)]
+    else:
+        pools = []
+        for key in ("k_scales", "v_scales"):
+            qv, sv = quant_kv_token(torch.randn(hkv, nt, page, d, generator=g, device=cuda))
+            pools.append(qv)
+            scales[key] = sv.transpose(0, 1).contiguous()
+    got = PA.paged_decode_attention(q, *pools, table, lens, 4096, **scales)
+    want = PA.paged_decode_attention_reference(q, *pools, table, lens, 4096, **scales)
+    assert torch.isfinite(got.float()).all()
+    if kv == "bf16":
+        assert (got.float() - want.float()).abs().max().item() <= _bf16_bound(want)
+    else:
+        fold = PA.paged_decode_attention_reference(q.float(), *pools, table, lens, 4096,
+                                                   **scales)
+        rounding = (want.float() - fold).abs().max().item()
+        assert (got.float() - fold).abs().max().item() <= _bf16_bound(fold)
+        assert (got.float() - want.float()).abs().max().item() <= _bf16_bound(fold) + rounding
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dout", [6144, 28672, 42003])
+def test_stream_qmv_fused_and_head_widths(cuda, dout):
+    """K6 at M 1 at exp_decode2's widths: the fused qkv (6,144) and gate|up
+    (28,672) products and the W8A8 lm_head's 42,003 (odd) rows, Din 4096:
+    f32 bit for bit, bf16 within one ulp of each value."""
+    y, w = _qmv_case(cuda, 1, dout, 4096)
+    _assert_qmv_exact(y, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused,unfused", [("fused", "full"), ("fused_nohead", "no_head"),
+                                           ("fused_int8head", "head_int8")])
+def test_fused_w8a8_step_variant_tokens(cuda, fused, unfused):
+    """exp_decode2's fused W8A8 variants give the unfused ones' tokens on
+    the card (each output row's integer product is exact whatever Dout the
+    product has), over a small random W8A8 model (bf16, head_dim 16, lm_head
+    scaled up for peaked logits), 3 slots over a seeded pool; the step
+    launches K6 and K1."""
+    from usdm_tpu_torch.core.config import MistralConfig
+    from usdm_tpu_torch.engine.paged_ops import PagedKV
+    from usdm_tpu_torch.models import mistral as M
+    from usdm_tpu_torch.scripts import exp_decode2 as ED2
+
+    cfg = MistralConfig.tiny().replace(dtype="bfloat16", head_dim=16)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    params = M.init_params(cfg, g, cuda)
+    params["lm_head"] = params["lm_head"] * 8.0
+    fused_params = ED2.fuse_weights(Q.quantize_llm_params(params))
+    b, page, maxp = 3, 16, 4
+    n_pages = b * maxp + 1
+    kv = PagedKV.create(cfg, n_pages, page, cuda)
+    kv.k_pages.normal_(generator=g)
+    kv.v_pages.normal_(generator=g)
+    table = torch.randperm(n_pages - 1, generator=g, device=cuda)[: b * maxp]
+    table = table.reshape(b, maxp).to(torch.int32).contiguous()
+    args = (kv, cfg, torch.tensor([5, 40, 200], device=cuda),
+            torch.tensor([13, 40, 61], dtype=torch.int32, device=cuda), table,
+            torch.ones(b, dtype=torch.bool, device=cuda),
+            torch.ones(b, cfg.vocab_size, dtype=torch.bool, device=cuda), page)
+    k6, k1 = SM.stream_qmv.launches, PA.paged_decode_attention.launches
+    want = ED2.step_variant(fused_params, *args, **ED2.VARIANTS[unfused])
+    got = ED2.step_variant(fused_params, *args, **ED2.VARIANTS[fused])
+    assert torch.equal(got, want)
+    assert SM.stream_qmv.launches - k6 == 11 * cfg.num_layers + 2 * (fused == "fused_int8head")
+    assert PA.paged_decode_attention.launches - k1 == 2 * cfg.num_layers

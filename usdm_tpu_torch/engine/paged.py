@@ -1182,9 +1182,10 @@ class PagedEngine:
         tokens (`spec_accept_per_round` a round); `graph_replays`: decode
         links and rounds run as CUDA-graph replays (on the card every one:
         steps - mixed_links); `runahead_chains`: chains dispatched before
-        their predecessor's sync; `perf_s`: wall seconds by scheduler phase
-        (admit, prefill, chain/multi/step/mixed/spec dispatch and sync,
-        absorb, first_tok_sync)."""
+        their predecessor's sync; `graphs_captured`: CUDA graphs captured
+        so far (a capture runs its link eagerly first); `perf_s`: wall
+        seconds by scheduler phase (admit, prefill, chain/multi/step/mixed/
+        spec dispatch and sync, absorb, first_tok_sync)."""
         return {
             "steps": self.steps,
             "mixed_links": self.mixed_links,
@@ -1202,6 +1203,7 @@ class PagedEngine:
             "spec_accept_per_round": (round(self.spec_emitted / self.spec_rounds, 3)
                                       if self.spec_rounds else None),
             "graph_replays": self.links.replays,
+            "graphs_captured": self.links.captured,
             "runahead_chains": self.runahead_chains,
             "perf_s": {k: round(v, 4) for k, v in sorted(self.perf.items())},
         }

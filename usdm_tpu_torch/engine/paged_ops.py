@@ -669,6 +669,11 @@ class DecodeLinks:
     def replays(self) -> int:
         return self._graphs.replays
 
+    @property
+    def captured(self) -> int:
+        """CUDA graphs captured so far (one per link or round variant)."""
+        return len(self._graphs._graphs)
+
     def _go(self, key) -> None:
         if not self.graphed:
             self._eager(key)

@@ -34,7 +34,7 @@ from typing import Callable, Optional
 import torch
 
 from usdm_tpu_torch.core.config import MistralConfig
-from usdm_tpu_torch.engine.paged_ops import PagedKV, paged_decode_step
+from usdm_tpu_torch.engine.paged_ops import GraphSet, PagedKV, paged_decode_step
 from usdm_tpu_torch.models import mistral as M
 from usdm_tpu_torch.models.quant import is_quantized, qmm
 from usdm_tpu_torch.ops.paged_attention import paged_decode_attention
@@ -93,8 +93,11 @@ def link_bytes(params: dict, logits_slice=None) -> int:
 
 def replay_ms(fn: Callable[[], object], dev: torch.device, replays: int) -> float:
     """fn captured once in a CUDA graph (after one eager call) -> the median
-    of `replays` replays' CUDA-event times in ms.  On the CPU: the median of
-    eager calls on the host clock (no device metric)."""
+    of `replays` replays' CUDA-event times in ms.  The capture goes through
+    the engine's `paged_ops.GraphSet`, so K1's and K6's launch counts grow
+    by what each replay launches, as a decode link's replays count them.
+    On the CPU: the median of eager calls on the host clock (no device
+    metric)."""
     fn()
     if dev.type != "cuda":
         times = []
@@ -104,19 +107,18 @@ def replay_ms(fn: Callable[[], object], dev: torch.device, replays: int) -> floa
             times.append((time.perf_counter() - t0) * 1e3)
         return statistics.median(times)
     torch.cuda.synchronize(dev)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-        fn()
-    graph.replay()
+    graphs = GraphSet(dev)
+    unused = torch.zeros(1, dtype=torch.bool, device=dev)  # GraphSet freezes rows here
+    graphs.run("fn", fn, [], unused)  # the capture, then its first replay
     times = []
     for _ in range(replays):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
-        graph.replay()
+        graphs.run("fn", fn, [], unused)
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
-    del graph
+    del graphs
     return statistics.median(times)
 
 
