@@ -237,6 +237,21 @@ Phases:
      against its plain version with times, then exp_stream_qmv and
      validate_memory_budget's three train steps (measured peak against
      memory_budget).
+ 17. tp (tensor-parallel serving, engine/tp.py): (a) inside phases 4 and 5,
+     after phase 16 (a) / (b), on their pipelines: PagedEngine(mesh=
+     make_tp_mesh(1)) over the bf16 7B with bf16 pools and over the W8A8
+     7B with int8 pools, in a one-rank NCCL group (real NCCL calls), 2
+     requests of 128-token prompts and 64 greedy tokens, then the same with
+     ngram speculation: the single-device graphed engine's tokens, and the
+     all-reduces (2 a layer), vocab gathers (1), eager links and K1/K2/K6
+     launches of every link, round and prefill chunk as the code implies;
+     (b) after phase 16 (c), on an emptied card: K6 (M 1, 8, 16; f32 bit for
+     bit), K1 (bf16 and int8 pools, ctx 1,219) and K2 bf16 (a prefill
+     chunk) at the per-rank shapes of tp 2, 4 and 8, each against its plain
+     version, timed eagerly and from a CUDA graph beside its bound and its
+     library call (<out-dir>/tp_kernels.json); (c) with one card, cli.infer
+     --tp 2 must refuse by name; (d) with two or more, cli.infer --demo
+     --tp 2 must equal --tp 1 (with one card it prints tp2_run "not run").
 
 Each kernel's bound_ms is the least time the card could take for the work
 of its timed case: the larger of its bytes (inputs read once, outputs
@@ -3124,6 +3139,10 @@ def slice_run(dev, profile: bool, tmp: str, out_dir: str, smi: str) -> dict:
         log(f"phase time: 16 (a) measuring scripts on phase 4's pipeline "
             f"{measure['seconds']:.1f} s")
         t0 = time.perf_counter()
+        tp = tp_engine_run(pipe, "bf16 7B", w8a8=False)
+        tp["seconds"] = time.perf_counter() - t0
+        log(f"phase time: 17 (a) tp engine on phase 4's pipeline {tp['seconds']:.1f} s")
+        t0 = time.perf_counter()
         load = load_run(dev, pipe, wav_in, graphed, graphed_audio, tmp, smi)
         log(f"phase time: load (phase 10) {time.perf_counter() - t0:.1f} s")
     finally:
@@ -3131,7 +3150,8 @@ def slice_run(dev, profile: bool, tmp: str, out_dir: str, smi: str) -> dict:
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     return {"turns": turns, "eager": eager, "tf32": tf32, "serve": served, "spec": spec,
-            "ref": ref, "dense": dense, "load": load, "profiles": profiles, "measure": measure}
+            "ref": ref, "dense": dense, "load": load, "profiles": profiles, "measure": measure,
+            "tp": tp}
 
 
 
@@ -3526,6 +3546,10 @@ def int8_run(dev, tmp: str, wav_in: str, profile: bool, out_dir: str) -> dict:
         out["measure"] = measure_w8a8_run(pipe, out_dir)
         log(f"phase time: 16 (b) measuring scripts on phase 5's pipeline "
             f"{out['measure']['seconds']:.1f} s")
+        t0 = time.perf_counter()
+        out["tp"] = tp_engine_run(pipe, "W8A8 7B, int8 KV", w8a8=True)
+        out["tp"]["seconds"] = time.perf_counter() - t0
+        log(f"phase time: 17 (a) tp engine on phase 5's pipeline {out['tp']['seconds']:.1f} s")
 
         # (B) eight clients over the same W8A8 7B with int8 KV pages
         n_clients, per_client, prompt_len, max_new = 8, 2, 384, 128
@@ -6211,6 +6235,304 @@ def compare_run(parent: str, out_dir: str, cells=COMPARE_CELLS) -> dict:
     return out
 
 
+# --------------------------------------------------------------- phase 17
+TP_DEGREES = (2, 4, 8)  # the tp above 1 that the 7B's 8 kv heads allow
+
+
+def tp_group(dev) -> None:
+    """Phase 17 (a)'s one-rank NCCL group, formed at its first use (its
+    collectives are real NCCL calls)."""
+    from usdm_tpu_torch.core import distributed as D
+
+    D.initialize(f"localhost:{_free_port()}", 1, 0, dev)
+
+
+def tp_engine_run(pipe, label: str, w8a8: bool) -> dict:
+    """Phase 17 (a) on phase 4's bf16 7B (bf16 pools) or phase 5's W8A8 7B
+    (int8 pools): PagedEngine(mesh=make_tp_mesh(1)) in a one-rank NCCL
+    group, 2 requests of 128-token prompts and 64 greedy tokens (EOS masked
+    out), then the same with ngram speculation, must give the tokens of the
+    single-device graphed engine; every collective, eager link and kernel
+    launch must be what the code implies: per decode link, round or
+    prefill chunk 2 all-reduces a layer and one vocab gather; K1 once a
+    layer per link or round, K6 7 times a layer (W8A8), K2 once a layer per
+    chunk; no graph replay."""
+    import torch
+
+    from usdm_tpu_torch.core.config import EngineConfig
+    from usdm_tpu_torch.engine import tp as TP
+    from usdm_tpu_torch.engine.paged import PagedEngine, Request
+
+    tp_group(pipe.device)
+    cfg, params, dev = pipe.lm_cfg, pipe.lm_params, pipe.device
+    n_layers = cfg.num_layers
+    ecfg = EngineConfig(page_size=64, max_pages_per_seq=4, max_batch_size=2, prefill_chunk=128,
+                        kv_dtype="int8" if w8a8 else None)
+    rng = np.random.default_rng(17)
+    prompts = [rng.integers(3, min(32000, cfg.vocab_size), 128).tolist() for _ in range(2)]
+    allow = np.ones(cfg.vocab_size, bool)
+    allow[:3] = False  # EOS (2) unreachable: 64 tokens each
+
+    def requests():
+        return [Request(i, list(p), allow, 2, 64) for i, p in enumerate(prompts)]
+
+    t0 = time.perf_counter()
+    want = [r.output_ids for r in PagedEngine(params, cfg, ecfg, device=dev).run(requests())]
+    log(f"phase 17 (a) {label}: the single-device graphed engine in "
+        f"{time.perf_counter() - t0:.1f} s")
+    k1_name = "paged_decode_attention_int8" if w8a8 else "paged_decode_attention"
+    out, launches = {}, {}
+    for kind in ("chain", "ngram"):
+        mesh = TP.make_tp_mesh(1, dev)
+        eng = PagedEngine(params, cfg, ecfg.replace(spec_k=4), mesh=mesh,
+                          draft="ngram" if kind == "ngram" else None)
+        reset_counts()
+        t0 = time.perf_counter()
+        got = [r.output_ids for r in eng.run(requests())]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, st = launch_counts(), eng.stats()
+        bodies = st["steps"] + st["prefill_chunks"]
+        implied = {"all_reduces": 2 * n_layers * bodies, "gathers": bodies,
+                   "eager_links": st["steps"], "graph_replays": 0, "K1": n_layers * st["steps"],
+                   "K6": 7 * n_layers * st["steps"] if w8a8 else 0,
+                   "K2": n_layers * st["prefill_chunks"]}
+        seen = {"all_reduces": st["tp"]["all_reduces"], "gathers": st["tp"]["gathers"],
+                "eager_links": st["eager_links"], "graph_replays": st["graph_replays"],
+                "K1": counts[k1_name], "K6": counts["stream_qmv"],
+                "K2": counts["flash_attention"]}
+        info = {"wall_s": wall, "steps": st["steps"], "prefill_chunks": st["prefill_chunks"],
+                "spec_rounds": st["spec_rounds"], "counts": seen,
+                "tokens_equal_single_device": got == want, "perf_s": st["perf_s"]}
+        log(f"phase 17 (a) {label}, tp engine in a one-rank NCCL group, {kind}: "
+            + json.dumps(info))
+        if got != want:
+            raise AssertionError(f"phase 17 (a) {label} {kind}: the TP engine's tokens differ "
+                                 f"from the single-device engine's")
+        if seen != implied:
+            raise AssertionError(f"phase 17 (a) {label} {kind}: counts {seen}, the code "
+                                 f"implies {implied}")
+        if kind == "ngram" and not st["spec_rounds"]:
+            raise AssertionError(f"phase 17 (a) {label}: no ngram round ran under TP")
+        out[kind] = info
+        for k in (k1_name, "stream_qmv", "flash_attention"):
+            launches[k] = launches.get(k, 0) + counts[k]
+        del eng
+    return {"runs": out, "launches": launches}
+
+
+def _tp_k6_checks(dev) -> tuple:
+    """K6 at every per-rank projection of the 7B at tp 2, 4, 8 (column
+    split [Dout/tp, 4096]: wq, wk/wv, gate/up; row split [4096, Din/tp]: wo,
+    down), M 1, 8 and 16: f32 bit for bit, bf16 within one ulp; timed over
+    enough weights in turn to pass the 50 MB L2, eager and from a CUDA
+    graph, beside the torch._int_mm route's graph (the plain version at
+    M 1) -> (the largest error, the times)."""
+    import torch
+
+    from usdm_tpu_torch.models import quant as Q
+    from usdm_tpu_torch.ops import stream_matvec as SM
+    from usdm_tpu_torch.scripts.common import int_mm
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+    errs, times = [], []
+
+    def library(yy, w):
+        qy, ys = SM.quantize_rows(yy)
+        return SM.epilogue(int_mm(qy, w["q"].t()), ys, w["s"], yy.dtype)
+
+    for tp in TP_DEGREES:
+        for name, dout, din in (("wq", 4096 // tp, 4096), ("wk/wv", 1024 // tp, 4096),
+                                ("gate/up", 14336 // tp, 4096), ("wo", 4096, 4096 // tp),
+                                ("down", 4096, 14336 // tp)):
+            n = max(8, -(-64_000_000 // (dout * din)))
+            ws = [Q.quantize_weight(torch.randn(din, dout, generator=gen, device=dev) * 0.02)
+                  for _ in range(n)]
+            for m in (1, 8, 16):
+                y = torch.randn(m, din, generator=gen, device=dev) * 2.0
+                case = f"tp {tp} {name} M={m} [{dout}, {din}]"
+                errs.append(check("K6", f"{case} f32", SM.stream_qmv(y, ws[0], torch.float32),
+                                  SM.stream_qmv_reference(y, ws[0], torch.float32), 0.0))
+                yb = y.bfloat16()
+                got, want = (fn(yb, ws[0], torch.bfloat16).float()
+                             for fn in (SM.stream_qmv, SM.stream_qmv_reference))
+                ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp(min=1e-30))) - 7)
+                worst = ((got - want).abs() / ulp).max().item()
+                if worst > 1:
+                    raise AssertionError(f"K6 bf16 {case} off by {worst} ulps")
+                errs.append(max_err(got, want))
+                t = {"tp": tp, "proj": name, "m": m, "dout": dout, "din": din, "weights": n,
+                     "ms": cuda_ms(lambda: [SM.stream_qmv(yb, w) for w in ws]) / n,
+                     "graph_ms": graph_ms(lambda: [SM.stream_qmv(yb, w) for w in ws], dev) / n,
+                     "library_graph_ms": graph_ms(lambda: [library(yb, w) for w in ws], dev) / n,
+                     **least_time(nbytes(yb, ws[0]["q"], ws[0]["s"]) + m * dout * 2,
+                                  2 * m * dout * din, "int8")}
+                if m == 1:
+                    t["plain_ms"] = cuda_ms(lambda: [SM.stream_qmv_reference(yb, w)
+                                                     for w in ws]) / n
+                times.append(t)
+            del ws
+    log("  K6 per-rank times: " + json.dumps(times))
+    return max(errs), times
+
+
+def _tp_k1_checks(dev, randn) -> tuple:
+    """K1 at the 7B's per-rank kv heads (8 / tp: 4, 2, 1; group 4, d 128),
+    B 1 at ctx 1,219, page 256, bf16 and int8 pools of 32 layer regions,
+    against its plain version (phase 3's bounds); timed per layer over the
+    32 regions in turn, eager and from a CUDA graph -> ({bf16, int8} errors,
+    the times)."""
+    import torch
+
+    from usdm_tpu_torch.engine.paged_ops import quant_kv_token
+    from usdm_tpu_torch.ops import paged_attention as PA
+
+    g, d, page, maxp, n_layers, ctx = 4, 128, 256, 5, 32, 1219
+    n_pages = maxp + 1
+    lens = torch.full((1,), ctx, dtype=torch.int32, device=dev)
+    errs, times = {"bf16": 0.0, "int8": 0.0}, []
+    for tp in TP_DEGREES:
+        hkv = 8 // tp
+        q = randn(1, hkv, g, d).bfloat16()
+        tables = [(torch.arange(maxp, device=dev, dtype=torch.int32) + li * n_pages)[None]
+                  .contiguous() for li in range(n_layers)]
+        for kind in ("bf16", "int8"):
+            scales = {}
+            if kind == "int8":
+                pools = []
+                for key in ("k_scales", "v_scales"):
+                    qv, sv = quant_kv_token(randn(hkv, n_layers * n_pages, page, d))
+                    pools.append(qv)
+                    scales[key] = sv.transpose(0, 1).contiguous()
+            else:
+                pools = [randn(hkv, n_layers * n_pages, page, d).bfloat16() for _ in range(2)]
+            args = (q, *pools, tables[3], lens, 4096)
+            got = PA.paged_decode_attention(*args, **scales)
+            want = PA.paged_decode_attention_reference(*args, **scales)
+            case = f"tp {tp}: {hkv} kv heads, B=1 ctx {ctx}, {kind} pools"
+            if kind == "bf16":
+                err = check("K1", case, got, want, bf16_bound(want))
+            else:
+                fold = PA.paged_decode_attention_reference(q.float(), *pools, tables[3], lens,
+                                                           4096, **scales)
+                err = check("K1 int8", case, got, want, bf16_bound(fold) + max_err(want, fold))
+            errs[kind] = max(errs[kind], err)
+
+            def step(fn):
+                return lambda: [fn(q, *pools, t, lens, 4096, **scales) for t in tables]
+
+            row = hkv * d * pools[0].element_size() + (4 * hkv if scales else 0)
+            t = {"tp": tp, "kv_heads": hkv, "pools": kind,
+                 "ms": cuda_ms(step(PA.paged_decode_attention)) / n_layers,
+                 "graph_ms": graph_ms(step(PA.paged_decode_attention), dev) / n_layers,
+                 "plain_ms": cuda_ms(step(PA.paged_decode_attention_reference)) / n_layers,
+                 "library_ms": None,
+                 **least_time(2 * nbytes(q) + nbytes(tables[3], lens) + 2 * row * ctx,
+                              4 * g * hkv * d * ctx, "bf16")}
+            times.append(t)
+            del pools
+    log("  K1 per-rank times: " + json.dumps(times))
+    return errs, times
+
+
+def _tp_k2_checks(dev, randn) -> tuple:
+    """K2 bf16 at a prefill chunk with the 7B's per-rank heads (32 / tp: 16,
+    8, 4 over 4, 2, 1 kv heads; phase 3 (a)'s chunk: 512 queries at 768,
+    300 valid, a 2,048-slot context, window 4096) against its plain version
+    with round_operands=True, timed eager and from a CUDA graph beside
+    SDPA's -> (the largest error, the times)."""
+    import torch
+
+    from usdm_tpu_torch.ops import flash_attention as FL
+
+    c, s_ctx, start, n_valid, d = 512, 2048, 768, 300, 128
+    qpos = (start + torch.arange(c, device=dev, dtype=torch.int32))[None]
+    kpos = torch.arange(s_ctx, device=dev, dtype=torch.int32)[None]
+    qseg = torch.where(torch.arange(c, device=dev)[None] < n_valid, 0, -1).to(torch.int32)
+    kseg = torch.where(kpos < start + n_valid, 0, -1).to(torch.int32)
+    mask = attn_mask(qseg, kseg, qpos, kpos, True, 4096)
+    errs, times = [], []
+    for tp in TP_DEGREES:
+        h, hkv = 32 // tp, 8 // tp
+        q = randn(1, c, h, d).bfloat16()
+        k, v = randn(1, s_ctx, hkv, d).bfloat16(), randn(1, s_ctx, hkv, d).bfloat16()
+        args = (q, k, v, qseg, kseg, qpos, kpos, True, 4096, None, False)
+        case = f"tp {tp}: prefill bf16 {h}/{hkv} heads Tq=512 Tk=2048 start=768"
+        got, got_lse = FL.flash_attention(*args, return_lse=True)
+        want, want_lse = FL.flash_attention_reference(*args, round_operands=True)
+        errs.append(check("K2", case, got, want, bf16_bound(want)))
+        check("K2 lse", case, got_lse, want_lse, 1e-4)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask[:, None], enable_gqa=True)
+
+        t = {"tp": tp, "heads": h, "kv_heads": hkv,
+             "ms": cuda_ms(lambda: FL.flash_attention(*args)),
+             "graph_ms": graph_ms(lambda: [FL.flash_attention(*args) for _ in range(10)],
+                                  dev) / 10,
+             "plain_ms": cuda_ms(lambda: FL.flash_attention_reference(*args)),
+             "library_ms": cuda_ms(sdpa),
+             "library_graph_ms": graph_ms(lambda: [sdpa() for _ in range(10)], dev) / 10,
+             **least_time(2 * nbytes(q) + nbytes(k, v, qseg, kseg, qpos, kpos),
+                          4 * d * h * int(mask.sum()), "bf16")}
+        times.append(t)
+    log("  K2 per-rank times: " + json.dumps(times))
+    return max(errs), times
+
+
+def tp_run(dev, tmp: str, out_dir: str) -> dict:
+    """Phase 17 (b)-(d), on an emptied card after phase 16 (c): the kernels
+    at the per-rank shapes, the one-card refusal of cli.infer --tp 2, and
+    the real tp 2 run where the host has two cards."""
+    import torch
+
+    _free_device()
+    gen = torch.Generator(device=dev).manual_seed(23)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    log("phase 17 (b): K6, K1 and K2 at the per-rank shapes of tp 2, 4 and 8 against their "
+        "plain versions")
+    k6_err, k6 = _tp_k6_checks(dev)
+    k1_errs, k1 = _tp_k1_checks(dev, randn)
+    k2_err, k2 = _tp_k2_checks(dev, randn)
+    with open(os.path.join(out_dir, "tp_kernels.json"), "w") as f:
+        json.dump({"K6": k6, "K1": k1, "K2": k2}, f)
+    wav = user_wav(tmp)
+    argv = [sys.executable, "-m", "usdm_tpu_torch.cli.infer", "--input_path", wav, "--demo"]
+    root = os.path.dirname(os.path.abspath(__file__))
+    n_cards = torch.cuda.device_count()
+    out = {"cards": n_cards}
+    if n_cards < 2:  # (c) the refusal: two ranks cannot share one card
+        r = subprocess.run(argv + ["--output_path", os.path.join(tmp, "tp2.wav"), "--tp", "2"],
+                           cwd=root, capture_output=True, text=True, timeout=300)
+        refused = r.returncode != 0 and "need 2 devices for tp=2" in r.stderr
+        log(f"phase 17 (c) cli.infer --tp 2 on {n_cards} card: exit {r.returncode}, "
+            f"{r.stderr.strip().splitlines()[-1] if r.stderr.strip() else ''}")
+        if not refused:
+            raise AssertionError("phase 17 (c): cli.infer --tp 2 did not refuse one card by name")
+        out["tp2_run"] = f"not run: {n_cards} card"
+    else:  # (d) two ranks over NCCL against one rank
+        said = {}
+        for tp in (1, 2):
+            text = run_module("usdm_tpu_torch.cli.infer", *argv[3:], "--output_path",
+                              os.path.join(tmp, f"tp{tp}.wav"), "--tp", str(tp))
+            said[tp] = [ln for ln in text.splitlines() if ln.startswith(("user_", "agent_"))]
+        same = said[1] == said[2] and open(os.path.join(tmp, "tp1.wav"), "rb").read() == open(
+            os.path.join(tmp, "tp2.wav"), "rb").read()
+        if not same:
+            raise AssertionError(f"phase 17 (d): cli.infer --demo --tp 2 differs from --tp 1: "
+                                 f"{said}")
+        out["tp2_run"] = "cli.infer --demo --tp 2 equals --tp 1"
+    log("phase 17: " + json.dumps({"tp2_run": out["tp2_run"], "cards": n_cards}))
+    return {**out, "max_abs_err": {"stream_qmv": k6_err, "paged_decode_attention": k1_errs["bf16"],
+                                   "paged_decode_attention_int8": k1_errs["int8"],
+                                   "flash_attention": k2_err}}
+
+
 def _write_profile(prof, out_dir: str, name: str = "respond_profile.txt") -> None:
     table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
     path = os.path.join(out_dir, name)
@@ -6311,6 +6633,7 @@ def main() -> int:
         t_phase = time.perf_counter()
         int8 = int8_run(dev, tmp, os.path.join(tmp, "user.wav"), args.profile, args.out_dir)
         log(f"phase time: int8 serving {time.perf_counter() - t_phase:.1f} s")
+        torch.distributed.destroy_process_group()  # phase 17 (a)'s one-rank NCCL group
         t_phase = time.perf_counter()
         train = train_run(dev, args.profile, tmp, args.out_dir)["launches"]
         log(f"phase time: training {time.perf_counter() - t_phase:.1f} s")
@@ -6339,6 +6662,13 @@ def main() -> int:
     log(f"phase time: 16 (c) kernels, exp_stream_qmv, validate_memory_budget {tail_s:.1f} s")
     log(f"phase time: measuring scripts (phase 16) "
         f"{bf16_run['measure']['seconds'] + int8['measure']['seconds'] + tail_s:.1f} s")
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tp = tp_run(dev, tmp, args.out_dir)
+    tp_s = time.perf_counter() - t_phase
+    log(f"phase time: 17 (b)-(d) kernels at the per-rank shapes, the tp 2 refusal {tp_s:.1f} s")
+    log(f"phase time: tp (phase 17) "
+        f"{bf16_run['tp']['seconds'] + int8['tp']['seconds'] + tp_s:.1f} s")
     a, b = int8["A"]["launches"], int8["B"]["launches"]
     # K1 and K6 add the speculative paths: the ngram turns (c) and the
     # bench ports' engines (b)
@@ -6395,6 +6725,13 @@ def main() -> int:
         for k, n in part["launches"].items():
             launches[k] += n
     for k, err in tail["max_abs_err"].items():
+        kres[k]["max_abs_err"] = max(kres[k]["max_abs_err"], err)
+    # phase 17: (a)'s tensor-parallel engine runs (K1, K2, K6 and K1's int8
+    # branch; counts reset just before each run), (b)'s per-rank shapes
+    for part in (bf16_run["tp"], int8["tp"]):
+        for k, n in part["launches"].items():
+            launches[k] += n
+    for k, err in tp["max_abs_err"].items():
         kres[k]["max_abs_err"] = max(kres[k]["max_abs_err"], err)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [

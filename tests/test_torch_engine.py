@@ -124,7 +124,9 @@ def test_helpers_match_jax():
 
 @pytest.mark.parametrize("what", ["draft", "int8", "tp"])
 def test_unported_options_raise(weights, what):
-    """Tensor parallelism raises.  int8 KV pools and speculation are
+    """Tensor parallelism is ported (tests/test_torch_tp.py): the "tp" case
+    refuses a mesh that is not engine/tp.py's, and one whose size does not
+    divide the kv heads, by name.  int8 KV pools and speculation are
     ported: the "int8" case serves the concurrent requests with int8 pools
     and must give usdm_tpu's greedy tokens (an unknown kv_dtype raises); the
     "draft" case serves them on an ngram engine, which must give usdm_tpu's
@@ -156,8 +158,12 @@ def test_unported_options_raise(weights, what):
         with pytest.raises(ValueError):
             PagedEngine(tp, PCFG, PECFG.replace(kv_dtype="fp8"), device="cpu")
     else:
-        with pytest.raises(NotImplementedError):
+        from usdm_tpu_torch.engine.tp import TPMesh
+
+        with pytest.raises(TypeError, match="TPMesh"):
             PagedEngine(tp, PCFG, PECFG, device="cpu", mesh=object())
+        with pytest.raises(ValueError, match="num_kv_heads"):
+            PagedEngine(tp, PCFG, PECFG, mesh=TPMesh(None, None, 0, 4, torch.device("cpu")))
 
 
 def test_server_failure_reaches_every_caller(weights):

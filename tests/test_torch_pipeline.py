@@ -184,9 +184,11 @@ def test_entry_points_default_to_cuda(pipes):
 
 
 def test_unported_paths_raise(pipes):
-    """What is not ported raises by name: tensor-parallel serving.  Speaker
-    reference prompts and the dense dialog path run
-    (tests/test_torch_reference.py, tests/test_torch_dense.py)."""
+    """Tensor-parallel serving is ported (tests/test_torch_tp.py), and
+    make_server(tp=2) outside an initialized 2-rank group raises by name
+    rather than serve on one device.  Speaker reference prompts and the
+    dense dialog path run (tests/test_torch_reference.py,
+    tests/test_torch_dense.py)."""
     _, tpipe = pipes
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
+    with pytest.raises(RuntimeError, match="tp=2 needs an initialized 2-rank"):
         tpipe.make_server(tp=2)

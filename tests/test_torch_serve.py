@@ -210,10 +210,11 @@ def test_serve_http_multipart_reference(pipe, user_wav, tmp_path):
 
 
 def test_serve_main_refusals():
-    """--tp > 1 raises by name; without a card the default --device cuda
-    raises."""
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        serve.main(["--demo", "--tp", "2"])
+    """--tp 2 on a host without two cards raises by name, before any
+    process starts; without a card the default --device cuda raises."""
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(ValueError, match="need 2 devices for tp=2"):
+            serve.main(["--demo", "--tp", "2"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             serve.main(["--demo"])

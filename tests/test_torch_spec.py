@@ -581,7 +581,8 @@ def test_rounds_take_one_sync(weights, rng, draft_kind):
 
 def test_engine_refuses_bad_drafts(weights):
     """A draft of another vocabulary, an unknown draft string, and a mesh
-    (tensor-parallel speculation is not ported) raise."""
+    that is not engine/tp.py's raise (tensor-parallel speculation itself
+    runs: tests/test_torch_tp.py)."""
     _, tp, _, _ = weights
     _, pc = ecfgs()
     other = PCFG.replace(vocab_size=CFG.vocab_size + 1)
@@ -589,7 +590,7 @@ def test_engine_refuses_bad_drafts(weights):
         PagedEngine(tp, PCFG, pc, device="cpu", draft=(tp, other))
     with pytest.raises(ValueError):
         PagedEngine(tp, PCFG, pc, device="cpu", draft="medusa")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="TPMesh"):
         PagedEngine(tp, PCFG, pc, device="cpu", draft="ngram", mesh=object())
 
 

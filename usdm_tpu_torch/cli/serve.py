@@ -1,4 +1,4 @@
-"""Dependency-free concurrent HTTP serving (stdlib http.server) on one GPU.
+"""Dependency-free concurrent HTTP serving (stdlib http.server) on one GPU or more.
 
 Port of usdm_tpu/cli/serve.py: a minimal web UI and JSON API over the full
 speech-to-speech pipeline.  LLM decoding goes through the continuous-batching
@@ -30,8 +30,12 @@ Usage:
   python -m usdm_tpu_torch.cli.serve --model_dir ... --xlsr_dir ... --kmeans ... \\
       --voicebox_dir ... --bigvgan_dir ...
 
-`--device cuda` (the default) raises without a card; `--tp` > 1
-(tensor-parallel serving) is not ported yet.
+`--device cuda` (the default) raises without a card.  `--tp N` serves the
+LM tensor-parallel on N GPUs (engine/tp.py): this process is rank 0 (the
+HTTP server, the whole pipeline, the LM's rank-0 slices) and starts N - 1
+worker processes that serve their LM slices until it stops, unless
+torchrun started the ranks; it raises by name with fewer than N cards
+(`--device cpu`: gloo ranks).
 """
 
 from __future__ import annotations
@@ -329,7 +333,8 @@ def main(argv=None) -> int:
     p.add_argument("--max_batch_size", type=int, default=8)
     p.add_argument("--prefill_chunk", type=int, default=256)
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel degree (only 1: not ported yet)")
+                   help="tensor-parallel degree: the LM over N GPUs (N divides the 8 kv "
+                        "heads)")
     p.add_argument("--draft_dir",
                    help="HF-Mistral dir of a small draft LM: greedy speculative decoding "
                         "(output identical to plain greedy)")
@@ -349,32 +354,50 @@ def main(argv=None) -> int:
                    help="torch device (default cuda, which raises without a card)")
     args = p.parse_args(argv)
     if args.tp > 1:
-        raise NotImplementedError("--tp > 1: tensor-parallel serving is not ported to "
-                                  "usdm_tpu_torch yet (ROADMAP Queue 1 item 10)")
+        if args.dense:
+            p.error("--dense serves on one device: it takes no --tp")
+        from usdm_tpu_torch.engine import tp as TP
 
-    from usdm_tpu_torch.core import checkpoint as ckpt
+        return TP.launch(args.tp, args.device, _serve_rank, args)
+    return _serve(args, args.device)
+
+
+def _engine_config(args):
     from usdm_tpu_torch.core.config import EngineConfig
-    from usdm_tpu_torch.pipeline import UsdmPipeline
 
-    if args.demo:
-        pipe = UsdmPipeline.tiny_random(device=args.device)
-    else:
-        pipe = UsdmPipeline.from_pretrained(
-            args.model_dir, args.xlsr_dir, args.kmeans, args.voicebox_dir, args.bigvgan_dir,
-            args.tokenizer_dir, lm_int8=args.int8, vb_int8=not args.no_vb_int8,
-            device=args.device)
+    return EngineConfig(
+        page_size=args.page_size, max_pages_per_seq=args.max_pages_per_seq,
+        max_batch_size=args.max_batch_size, prefill_chunk=args.prefill_chunk,
+        spec_k=args.spec_k, kv_dtype=None if args.kv_dtype == "bf16" else args.kv_dtype,
+        runahead=not args.no_runahead)
 
-    draft = args.draft  # resolved by make_server (early-exit:N, ngram)
-    if args.draft_dir:
-        draft = ckpt.load_mistral(args.draft_dir, dtype="bfloat16", device=pipe.device)
 
+def _serve_rank(rank: int, args) -> int:
+    """One rank of `--tp`: rank 0 serves HTTP; the others serve their LM
+    slices (and the draft's) until rank 0's engine server closes."""
+    from usdm_tpu_torch.cli.infer import rank_draft
+    from usdm_tpu_torch.engine import tp as TP
+    from usdm_tpu_torch.pipeline import serve_lm, worker_lm
+
+    dev = TP.rank_device(args.device)
+    if rank == 0:
+        return _serve(args, dev, args.tp)
+    shard = (args.tp, rank)
+    lm, cfg = worker_lm(dev, None if args.demo else args.model_dir, args.int8, shard)
+    serve_lm(lm, cfg, _engine_config(args), args.tp, rank_draft(args, dev, shard), dev)
+    return 0
+
+
+def _serve(args, device, tp: int = 1) -> int:
+    from usdm_tpu_torch.cli.infer import rank_draft, rank_pipeline
+
+    shard = (tp, 0) if tp > 1 else None
+    pipe = rank_pipeline(args, device, shard)
+    # a --draft spec is resolved by make_server (early-exit:N, ngram)
+    draft = rank_draft(args, pipe.device, shard)
     server = None
     if not args.dense:
-        server = pipe.make_server(EngineConfig(
-            page_size=args.page_size, max_pages_per_seq=args.max_pages_per_seq,
-            max_batch_size=args.max_batch_size, prefill_chunk=args.prefill_chunk,
-            spec_k=args.spec_k, kv_dtype=None if args.kv_dtype == "bf16" else args.kv_dtype,
-            runahead=not args.no_runahead), draft=draft)
+        server = pipe.make_server(_engine_config(args), tp=tp, draft=draft)
 
     httpd = ThreadingHTTPServer(("0.0.0.0", args.port),
                                 make_handler(pipe, server, args.n_timesteps))

@@ -117,14 +117,16 @@ def _write_json(path: str, obj: dict) -> None:
 
 
 def load_mistral(path: str, cfg: Optional[MistralConfig] = None, dtype: Optional[str] = None,
-                 device="cuda", int8: bool = False):
+                 device="cuda", int8: bool = False, shard: Optional[tuple] = None):
     """Local USDM/Mistral HF dir -> (params on `device`, MistralConfig).
 
     config.json by usdm_tpu's rules: head_dim falls back to hidden / heads,
     and a null sliding_window becomes 4096 (HF reads null as no window; the
     reference's checkpoint sets 4096).  A missing lm_head takes the
     embedding's values (tied).  `int8` quantizes each layer's projections to
-    W8A8 as it is loaded (usdm_tpu's from_pretrained(lm_int8=True))."""
+    W8A8 as it is loaded (usdm_tpu's from_pretrained(lm_int8=True)).
+    `shard=(tp, rank)` loads only that tensor-parallel rank's slices
+    (engine/tp.py), each copied from its mapped file alone."""
     from usdm_tpu_torch.models.mistral import convert_hf_state_dict
 
     device = check_device(device)
@@ -146,7 +148,8 @@ def load_mistral(path: str, cfg: Optional[MistralConfig] = None, dtype: Optional
     state = read_state_dict(path)
     if "lm_head.weight" not in state and "model.embed_tokens.weight" in state:
         state["lm_head.weight"] = state["model.embed_tokens.weight"]  # tied
-    return convert_hf_state_dict(state, cfg, dtype=dtype, device=device, int8=int8), cfg
+    return convert_hf_state_dict(state, cfg, dtype=dtype, device=device, int8=int8,
+                                 shard=shard), cfg
 
 
 _MISTRAL_NAMES = {

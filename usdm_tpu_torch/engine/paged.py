@@ -32,8 +32,13 @@ speculative round runs through `DecodeLinks`: on the card one CUDA-graph
 replay per link or round; on the CPU, or with `eager_links=True`, eagerly.
 Mixed links run eagerly everywhere.  The params may hold W8A8 projections
 (models/quant.py) and the KV pool may be int8
-(`EngineConfig.kv_dtype="int8"`).  Not ported and refused: tensor-parallel
-serving (with or without a draft).
+(`EngineConfig.kv_dtype="int8"`).
+
+Tensor-parallel serving (`mesh=`, engine/tp.py): each rank's engine holds
+its slices of the params, the pool and the draft, and takes usdm_tpu's TP
+branches: no lm_head slice, no mixed bursts, `step_multi` as per-token
+steps; chains (with run-ahead), rounds and prefill run as on one device,
+with every link and round eager.
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ import numpy as np
 import torch
 
 from usdm_tpu_torch.core.config import EngineConfig, MistralConfig
+from usdm_tpu_torch.engine import tp as TP
 from usdm_tpu_torch.engine.paged_ops import (
     DecodeLinks,
     PagedKV,
@@ -121,7 +127,12 @@ def _ctx_pages_bucket(n_pages: int, maxp: int) -> int:
 
 
 class PagedEngine:
-    """Continuous-batching engine over the paged KV pool, on one device.
+    """Continuous-batching engine over the paged KV pool, on one device or
+    (`mesh`, engine/tp.py make_tp_mesh) as one rank of a tensor-parallel
+    group: the params (whole, or already the rank's slices), the pool and
+    the draft are sharded as usdm_tpu's engine shards them, and every rank
+    must run the same calls (EngineServer and engine/tp.py follow see to
+    it).
 
     `draft=(draft_params, draft_cfg)` enables greedy speculative decoding
     (ecfg.spec_k tokens drafted per round, verified by one target forward);
@@ -145,26 +156,34 @@ class PagedEngine:
             raise ValueError(f"draft must be (params, cfg) or 'ngram', got {draft!r}")
         if self.ngram:
             draft = None
-        if mesh is not None:
-            raise NotImplementedError("tensor-parallel serving is not ported to usdm_tpu_torch")
         if ecfg.kv_dtype not in (None, "int8"):
             raise ValueError(f"kv_dtype must be None or 'int8', got {ecfg.kv_dtype!r}")
         self.cfg = cfg
         self.ecfg = ecfg
+        self.mesh = mesh
+        if mesh is not None and not isinstance(mesh, TP.TPMesh):
+            raise TypeError(f"mesh must be engine/tp.py's TPMesh (make_tp_mesh), got "
+                            f"{type(mesh).__name__}")
+        tp = 1 if mesh is None else mesh.size
+        if mesh is not None:
+            params = TP.local_params(params, cfg, mesh)
+            device = mesh.device
         self.params = params
         self.device = torch.device(device) if device is not None else params["embed"].device
         ps = ecfg.page_size
         # +1: the last page is the trash target of inactive slots
         n_pages = (ecfg.n_pages or ecfg.max_batch_size * ecfg.max_pages_per_seq) + 1
         self.n_pages = n_pages
-        self.kv = PagedKV.create(cfg, n_pages, ps, self.device, ecfg.kv_dtype)
+        self.kv = PagedKV.create(cfg, n_pages, ps, self.device, ecfg.kv_dtype, tp)
         self.draft_params = self.draft_cfg = self.draft_kv = None
         if draft is not None:
             self.draft_params, self.draft_cfg = draft
             if self.draft_cfg.vocab_size != cfg.vocab_size:
                 raise ValueError("draft vocab must match the target's")
+            if mesh is not None:  # the draft shards like the target
+                self.draft_params = TP.local_params(self.draft_params, self.draft_cfg, mesh)
             # the draft's pool in its own dtype (not the target's int8), as usdm_tpu
-            self.draft_kv = PagedKV.create(self.draft_cfg, n_pages, ps, self.device)
+            self.draft_kv = PagedKV.create(self.draft_cfg, n_pages, ps, self.device, tp=tp)
         self.free_pages: List[int] = list(range(n_pages - 1))
         b = ecfg.max_batch_size
         self.page_table = np.zeros((b, ecfg.max_pages_per_seq), np.int32)
@@ -188,7 +207,7 @@ class PagedEngine:
             max(ecfg.decode_horizon, self._burst_links, 1), graphs=not eager_links,
             draft=None if draft is None else (self.draft_params, self.draft_kv, self.draft_cfg),
             spec_k=ecfg.spec_k if speculates else 0, ngram_max_n=ecfg.ngram_max_n,
-            max_rounds=max(1, ecfg.decode_horizon))
+            max_rounds=max(1, ecfg.decode_horizon), tp=mesh)
         # slot state mirrored in the links' buffers (table, eos, sampling
         # parameters) changes only at admission and window reclaim: it is
         # re-uploaded only when dirty
@@ -387,13 +406,13 @@ class PagedEngine:
         # every per-chunk input rides one host-to-device copy
         packed = to_device(self._pack_rows([(slot, req, start, n)], 1)[0], self.device)
         logits = paged_prefill_chunk_packed(self.params, self.kv, self.cfg, packed,
-                                            self.ecfg.page_size, ncp, c)
+                                            self.ecfg.page_size, ncp, c, self.mesh)
         if self.draft_params is not None:
             # the draft prefills the same chunk into its pool: without a
             # prompt-conditioned draft cache its proposals are garbage (the
             # tokens stay right, acceptance collapses)
             paged_prefill_chunk_packed(self.draft_params, self.draft_kv, self.draft_cfg, packed,
-                                       self.ecfg.page_size, ncp, c)
+                                       self.ecfg.page_size, ncp, c, self.mesh)
         self.prefill_pos[slot] = start + n
         if start + n < len(req.prompt_ids):
             return None
@@ -576,8 +595,9 @@ class PagedEngine:
 
     def _active_slice(self, dec: np.ndarray, sampled: bool) -> Optional[tuple]:
         """The lm_head slice shared by every decoding slot; None when any row
-        samples (the slice is a greedy-only tail)."""
-        if sampled:
+        samples (the slice is a greedy-only tail) and under TP (lm_head is
+        split over the vocab)."""
+        if sampled or self.mesh is not None:
             return None
         slices = {self.slot_slice[i] for i in np.flatnonzero(dec)}
         return slices.pop() if len(slices) == 1 else None
@@ -635,7 +655,10 @@ class PagedEngine:
         run-ahead, and pending first tokens are flushed before the links (the
         links start from the host's tokens).  On the card each link is a
         CUDA-graph replay, as in a chain; links without graphs (the CPU,
-        `eager_links`) are one call of `paged_decode_multi`, as in usdm_tpu."""
+        `eager_links`) are one call of `paged_decode_multi`, as in usdm_tpu.
+        Under TP it is one per-token `step`, as in usdm_tpu."""
+        if self.mesh is not None:
+            return self.step()
         if self._inflight is not None:  # absorb any run-ahead chain first
             fl, self._inflight = self._inflight, None
             self._sync_chain(fl)
@@ -1104,7 +1127,7 @@ class PagedEngine:
     def tick(self) -> int:
         """One scheduler turn: while prompts are pending, a mixed burst when
         `ecfg.mixed_prefill`, no draft model is loaded and at least
-        `mixed_min_decode` slots decode, else drain up to
+        `mixed_min_decode` slots decode on one device, else drain up to
         prefill_chunks_per_tick chunks (then one per-token step unless the
         queue just drained); otherwise speculative rounds when a draft is
         configured and every decoding slot can take them, one per-token step
@@ -1125,6 +1148,7 @@ class PagedEngine:
                 self._flush_pending()
             self._try_admit()
             if (self.prefill_order and self.ecfg.mixed_prefill and self.draft_params is None
+                    and self.mesh is None
                     and int((self.status == DECODE).sum()) >= max(1, self.ecfg.mixed_min_decode)):
                 return self.step_mixed_burst()
             if self.prefill_order:
@@ -1181,7 +1205,12 @@ class PagedEngine:
         `spec_rounds`: speculative rounds, which emitted `spec_emitted`
         tokens (`spec_accept_per_round` a round); `graph_replays`: decode
         links and rounds run as CUDA-graph replays (on the card every one:
-        steps - mixed_links); `runahead_chains`: chains dispatched before
+        steps - mixed_links, on one device); `eager_links`: decode links and
+        rounds run eagerly (on the CPU, with eager_links, and under TP:
+        steps - mixed_links); `tp`: under TP the group's size, this rank,
+        and the all-reduces and vocab gathers the bodies ran over it (each
+        decode link or prefill chunk 2 a layer and 1; a draft round adds
+        its K+1 draft steps'); `runahead_chains`: chains dispatched before
         their predecessor's sync; `graphs_captured`: CUDA graphs captured
         so far (a capture runs its link eagerly first); `perf_s`: wall
         seconds by scheduler phase (admit, prefill, chain/multi/step/mixed/
@@ -1203,7 +1232,11 @@ class PagedEngine:
             "spec_accept_per_round": (round(self.spec_emitted / self.spec_rounds, 3)
                                       if self.spec_rounds else None),
             "graph_replays": self.links.replays,
+            "eager_links": self.links.eager,
             "graphs_captured": self.links.captured,
+            "tp": None if self.mesh is None else {
+                "size": self.mesh.size, "rank": self.mesh.rank,
+                "all_reduces": self.mesh.all_reduces, "gathers": self.mesh.gathers},
             "runahead_chains": self.runahead_chains,
             "perf_s": {k: round(v, 4) for k, v in sorted(self.perf.items())},
         }

@@ -23,6 +23,13 @@ in page-major pools [L*N, Hkv, P]; decode hands them to K1, prefill
 dequantizes the gathered context.  Projections go through `qmm`, so W8A8
 weights (models/quant.py) and plain ones take the same code; head counts
 come from the projections' widths, as in usdm_tpu.
+
+Tensor-parallel serving (engine/tp.py) passes the rank's mesh as `tp` to
+the bodies that take it (usdm_tpu's `tp_axis`): heads, kv heads and the
+vocab block come from the rank's local shapes, the partial sums after wo
+and w_down are all-reduced, and the vocab-split logits are gathered (and
+cut to the true vocab) before masks and sampling.  The lm_head slice is
+refused under TP, as in usdm_tpu.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from usdm_tpu_torch.core.config import MistralConfig
+from usdm_tpu_torch.engine import tp as TP
 from usdm_tpu_torch.models import mistral as M
 from usdm_tpu_torch.models.quant import is_quantized, out_dim, qmm
 from usdm_tpu_torch.ops.attention import mha
@@ -56,10 +64,12 @@ class PagedKV:
 
     @classmethod
     def create(cls, cfg: MistralConfig, n_pages: int, page_size: int, device,
-               dtype: Optional[str] = None) -> "PagedKV":
+               dtype: Optional[str] = None, tp: int = 1) -> "PagedKV":
         """Zeroed pools of `dtype` (None = cfg.dtype, or "int8" with zeroed
-        scale pools, so no slot ever holds a NaN bit pattern)."""
-        shape = (cfg.num_kv_heads, cfg.num_layers * n_pages, page_size, cfg.head_dim)
+        scale pools, so no slot ever holds a NaN bit pattern); with `tp` the
+        pool of one of tp ranks, its num_kv_heads / tp heads (what
+        engine/tp.py shard_kv keeps of the whole pool)."""
+        shape = (cfg.num_kv_heads // tp, cfg.num_layers * n_pages, page_size, cfg.head_dim)
         if dtype == "int8":
             sshape = (shape[1], shape[0], page_size)
             return cls(*(torch.zeros(shape, dtype=torch.int8, device=device) for _ in range(2)),
@@ -114,9 +124,33 @@ def _context(kv: PagedKV, base: int, ctx_pages: torch.Tensor, dtype: torch.dtype
             vc.reshape(hkv, r, -1, hd).permute(1, 2, 0, 3))
 
 
+def _all_reduce(x: torch.Tensor, tp: Optional["TP.TPMesh"]) -> torch.Tensor:
+    """A row-split product's partial sums summed over the ranks (usdm_tpu's
+    psum); `x` itself without TP."""
+    return x if tp is None else TP.all_reduce(x, tp)
+
+
+def _vocab_logits(logits: torch.Tensor, tp: Optional["TP.TPMesh"], vocab: int) -> torch.Tensor:
+    """lm_head products [..., V] (under TP the rank's vocab block) -> the
+    whole vocab's logits in f32: one all-gather under TP, the padding rows
+    cut off."""
+    if tp is not None:
+        logits = TP.gather_vocab(logits, tp, vocab)
+    return logits.float()
+
+
+def _pick(logits: torch.Tensor, allow_masks: torch.Tensor, active: torch.Tensor,
+          sampling: Sampling) -> torch.Tensor:
+    """Masked full-vocab logits [..., B, V] f32 -> next token [..., B] (0
+    for inactive rows): argmax, or a sample where `sampling` is given."""
+    logits = torch.where(allow_masks, logits, NEG_INF)
+    nxt = sample_batched(logits, *sampling) if sampling is not None else torch.argmax(logits, -1)
+    return torch.where(active, nxt, 0)
+
+
 def _logits_tail(params, x: torch.Tensor, allow_masks: torch.Tensor, active: torch.Tensor,
-                 logits_slice: Optional[Tuple[int, int, int]], sampling: Sampling
-                 ) -> torch.Tensor:
+                 logits_slice: Optional[Tuple[int, int, int]], sampling: Sampling,
+                 tp: Optional["TP.TPMesh"] = None) -> torch.Tensor:
     """Final hidden [B, D] -> next token [B] (0 for inactive rows)."""
     lm_head = params["lm_head"]
     if logits_slice is not None:
@@ -134,12 +168,13 @@ def _logits_tail(params, x: torch.Tensor, allow_masks: torch.Tensor, active: tor
             take = ev >= bv if extra < lo else ev > bv
             nxt = torch.where(take, extra, nxt)
         return torch.where(active, nxt, 0)
-    logits = torch.where(allow_masks, F.linear(x, lm_head).float(), NEG_INF)
-    if sampling is not None:
-        nxt = sample_batched(logits, *sampling)
-    else:
-        nxt = torch.argmax(logits, dim=-1)
-    return torch.where(active, nxt, 0)
+    logits = _vocab_logits(F.linear(x, lm_head), tp, allow_masks.shape[-1])
+    return _pick(logits, allow_masks, active, sampling)
+
+
+def _check_slice(logits_slice, sampling: Sampling, tp) -> None:
+    if logits_slice is not None and (sampling is not None or tp is not None):
+        raise ValueError("logits_slice requires greedy single-device decode")
 
 
 def paged_decode_step(
@@ -154,11 +189,12 @@ def paged_decode_step(
     page_size: int,
     logits_slice: Optional[Tuple[int, int, int]] = None,
     sampling: Sampling = None,
+    tp: Optional["TP.TPMesh"] = None,
 ) -> torch.Tensor:
     """One decode step for every slot -> next token [B] (int64).  Writes each
-    active slot's K/V in place; inactive slots write to the trash page."""
-    if logits_slice is not None and sampling is not None:
-        raise ValueError("logits_slice requires greedy decode")
+    active slot's K/V in place; inactive slots write to the trash page.
+    With `tp` (engine/tp.py) it is one rank's step over its slices."""
+    _check_slice(logits_slice, sampling, tp)
     b = tokens.shape[0]
     hd = cfg.head_dim
     h, hkv = out_dim(params["layers"][0]["wq"]) // hd, out_dim(params["layers"][0]["wk"]) // hd
@@ -188,10 +224,10 @@ def paged_decode_step(
                                       kv.k_pages, kv.v_pages, tables[li], kv_len,
                                       sliding_window=cfg.sliding_window,
                                       k_scales=kv.k_scales, v_scales=kv.v_scales)
-        x = x + qmm(attn.reshape(b, 1, h * hd), lp["wo"])
-        x = x + M.mlp(M.rms_norm(x, lp["ln2"], cfg.rms_norm_eps), lp)
+        x = x + _all_reduce(qmm(attn.reshape(b, 1, h * hd), lp["wo"]), tp)
+        x = x + _all_reduce(M.mlp(M.rms_norm(x, lp["ln2"], cfg.rms_norm_eps), lp), tp)
     x = M.rms_norm(x, params["final_norm"], cfg.rms_norm_eps)[:, 0]
-    return _logits_tail(params, x, allow_masks, active, logits_slice, sampling)
+    return _logits_tail(params, x, allow_masks, active, logits_slice, sampling, tp)
 
 
 def paged_decode_step_chained(
@@ -208,12 +244,13 @@ def paged_decode_step_chained(
     page_size: int,
     logits_slice: Optional[Tuple[int, int, int]] = None,
     sampling: Sampling = None,
+    tp: Optional["TP.TPMesh"] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One link of a decode chain with the EOS freeze folded in ->
     (token [B], done' [B], seq_lens' [B]).  All on the device: a chain of
     links needs no host sync until its end."""
     nxt = paged_decode_step(params, kv, cfg, tokens, seq_lens, page_table, active & ~done,
-                            allow_masks, page_size, logits_slice, sampling)
+                            allow_masks, page_size, logits_slice, sampling, tp)
     nxt = torch.where(done, 0, nxt)
     new_done = done | (nxt == eos_ids)
     new_lens = torch.where(done, seq_lens, seq_lens + 1)
@@ -288,6 +325,7 @@ def paged_verify_step(
     allow_masks: torch.Tensor,  # [B, V] bool
     page_size: int,
     logits_slice: Optional[Tuple[int, int, int]] = None,
+    tp: Optional["TP.TPMesh"] = None,
 ) -> torch.Tensor:
     """Speculative verification: one target forward over K+1 tokens per
     slot -> the greedy token after each position [B, K+1] (0 for inactive
@@ -305,7 +343,9 @@ def paged_verify_step(
     product a column.  So the tokens are the decode links' by construction.
     Rejected positions leave stale K/V that kv_len masking hides and the
     next round overwrites (usdm_tpu's paged_verify_step; it gathers the
-    context and runs plain attention over it instead)."""
+    context and runs plain attention over it instead).  Under `tp` the
+    K+1 columns' vocab blocks are gathered in one all-gather."""
+    _check_slice(logits_slice, None, tp)
     b, k1 = tokens.shape
     n = b * k1
     dev = tokens.device
@@ -338,13 +378,19 @@ def paged_verify_step(
                                       sliding_window=cfg.sliding_window,
                                       k_scales=kv.k_scales, v_scales=kv.v_scales,
                                       n_splits=n_splits)
-        x = x + _qmm_cols(attn.reshape(n, 1, h * hd), lp["wo"], k1)
+        x = x + _all_reduce(_qmm_cols(attn.reshape(n, 1, h * hd), lp["wo"], k1), tp)
         y = _rms_norm_cols(x, lp["ln2"], eps, k1)
         gate = F.silu(_qmm_cols(y, lp["w_gate"], k1))
-        x = x + _qmm_cols(gate * _qmm_cols(y, lp["w_up"], k1), lp["w_down"], k1)
+        x = x + _all_reduce(_qmm_cols(gate * _qmm_cols(y, lp["w_up"], k1), lp["w_down"], k1),
+                            tp)
     xn = _rms_norm_cols(x, params["final_norm"], eps, k1)[:, 0].reshape(k1, b, -1)
-    return torch.stack([_logits_tail(params, xn[j], allow_masks, active, logits_slice, None)
-                        for j in range(k1)], dim=1)
+    if logits_slice is not None:
+        return torch.stack([_logits_tail(params, xn[j], allow_masks, active, logits_slice, None)
+                            for j in range(k1)], dim=1)
+    # one lm_head product a column, at the decode link's B rows
+    logits = torch.stack([F.linear(xn[j], params["lm_head"]) for j in range(k1)])
+    return _pick(_vocab_logits(logits, tp, allow_masks.shape[-1]), allow_masks, active,
+                 None).t()
 
 
 def paged_spec_accept(
@@ -360,6 +406,7 @@ def paged_spec_accept(
     allow_masks: torch.Tensor,
     page_size: int,
     logits_slice: Optional[Tuple[int, int, int]] = None,
+    tp: Optional["TP.TPMesh"] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Verification and acceptance on the device -> (tokens [B, K+1],
     n_emit [B], next_cur [B], done' [B], seq_lens' [B]): the drafts that
@@ -369,7 +416,7 @@ def paged_spec_accept(
     k1 = ver_in.shape[1]
     live = active & ~done
     out = paged_verify_step(params, kv, cfg, ver_in, seq_lens, page_table, live, allow_masks,
-                            page_size, logits_slice)
+                            page_size, logits_slice, tp)
     # accepted prefix: drafts d_j (= ver_in[:, j+1]) matching the target's out[:, j]
     n_acc = torch.cumprod((ver_in[:, 1:] == out[:, :-1]).long(), dim=1).sum(dim=1)
     cols = torch.arange(k1, device=ver_in.device)[None]
@@ -438,6 +485,7 @@ def paged_ngram_round(
     k: int,
     max_n: int,
     logits_slice: Optional[Tuple[int, int, int]] = None,
+    tp: Optional["TP.TPMesh"] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """One draft-free speculative round: propose K tokens from each
     sequence's own history (`ngram_propose`), verify and accept them
@@ -451,7 +499,7 @@ def paged_ngram_round(
     ver_in = torch.cat([cur[:, None], props], dim=1)
     out, n_emit, next_cur, new_done, new_lens = paged_spec_accept(
         params, kv, cfg, ver_in, seq_lens, done, eos_ids, page_table, active, allow_masks,
-        page_size, logits_slice)
+        page_size, logits_slice, tp)
     cols = torch.arange(k + 1, device=history.device)[None]
     # emitted tokens land at hist_len + j; the rest go to a dropped column s
     w_idx = torch.where(cols < n_emit[:, None], hist_len[:, None] + cols, s)
@@ -476,6 +524,7 @@ def paged_draft_round(
     page_size: int,
     k: int,
     logits_slice: Optional[Tuple[int, int, int]] = None,
+    tp: Optional["TP.TPMesh"] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """One speculative round with a draft model (the body of usdm_tpu's
     step_spec loop): K+1 greedy draft decode steps over the draft's pool,
@@ -487,11 +536,11 @@ def paged_draft_round(
     cols, d = [cur], cur
     for i in range(k + 1):
         d = paged_decode_step(d_params, d_kv, d_cfg, d, seq_lens + i, page_table, live,
-                              allow_masks, page_size, logits_slice)
+                              allow_masks, page_size, logits_slice, None, tp)
         if i < k:
             cols.append(d)
     return paged_spec_accept(params, kv, cfg, torch.stack(cols, dim=1), seq_lens, done, eos_ids,
-                             page_table, active, allow_masks, page_size, logits_slice)
+                             page_table, active, allow_masks, page_size, logits_slice, tp)
 
 
 def _link_counters() -> List[Tuple[object, str]]:
@@ -581,9 +630,10 @@ class DecodeLinks:
     On the card each variant (a link's logits slice, sampled or greedy and
     mirror; a round's kind and logits slice) is captured once in a CUDA
     graph (`GraphSet`), and every later link or round of that variant is
-    one replay.  On the CPU, or with `graphs=False` (the
-    card tests and chip_smoke.py hold graphs against it), everything runs
-    eagerly.
+    one replay.  On the CPU, with `graphs=False` (the card tests and
+    chip_smoke.py hold graphs against it), or under tensor parallelism
+    (`tp`, the rank's mesh, passed to every body), everything runs eagerly;
+    `eager` counts those links and rounds.
 
     `fetch` copies `stacked` (or `rounds_out`) to one of two pinned host
     buffers without waiting and `wait` (`wait_rounds`) blocks on that copy
@@ -594,8 +644,10 @@ class DecodeLinks:
                  allow_masks: torch.Tensor, max_pages: int, page_size: int, max_links: int,
                  graphs: bool = True,
                  draft: Optional[Tuple[M.Params, PagedKV, MistralConfig]] = None,
-                 spec_k: int = 0, ngram_max_n: int = 0, max_rounds: int = 0):
+                 spec_k: int = 0, ngram_max_n: int = 0, max_rounds: int = 0,
+                 tp: Optional["TP.TPMesh"] = None):
         self.params, self.kv, self.cfg = params, kv, cfg
+        self.tp = tp
         self.allow = allow_masks  # [B, V] bool, rewritten in place by the engine
         self.page_size = page_size
         self.max_links = max_links
@@ -628,7 +680,8 @@ class DecodeLinks:
             self.rcol = zeros(1, dtype=torch.int64)  # the row the next round writes
             self._round_host = [torch.empty(tuple(self.rounds_out.shape), dtype=torch.int64,
                                             pin_memory=card) for _ in range(2)]
-        self.graphed = graphs and card
+        self.graphed = graphs and card and tp is None
+        self.eager = 0
         self._graphs = GraphSet(dev)
         self._events = [torch.cuda.Event() if card else None for _ in range(2)]
         self._fetched: List[Optional[torch.Tensor]] = [None, None]
@@ -676,6 +729,7 @@ class DecodeLinks:
 
     def _go(self, key) -> None:
         if not self.graphed:
+            self.eager += 1
             self._eager(key)
             return
         # the carried state: a capture's warm-up runs the link with every
@@ -695,11 +749,12 @@ class DecodeLinks:
         if mirror:  # the draft model's step on the same inputs, token discarded
             d_params, d_kv, d_cfg = self.draft
             paged_decode_step(d_params, d_kv, d_cfg, self.tok, self.lens, self.table,
-                              self.active & ~self.done, self.allow, self.page_size, logits_slice)
+                              self.active & ~self.done, self.allow, self.page_size, logits_slice,
+                              None, self.tp)
         sampling = (self.noise, self.top_k, self.top_p, self.temperature) if sampled else None
         tok, done, lens = paged_decode_step_chained(
             self.params, self.kv, self.cfg, self.tok, self.lens, self.table, self.active,
-            self.done, self.eos, self.allow, self.page_size, logits_slice, sampling)
+            self.done, self.eos, self.allow, self.page_size, logits_slice, sampling, self.tp)
         self._advance(tok, done, lens)
 
     def _round(self, key) -> None:
@@ -709,10 +764,10 @@ class DecodeLinks:
         if kind == "ngram":
             out, n_emit, cur, done, lens = paged_ngram_round(
                 self.params, self.kv, self.cfg, self.hist, *common, self.ngram_max_n,
-                logits_slice)
+                logits_slice, self.tp)
         else:
             out, n_emit, cur, done, lens = paged_draft_round(
-                self.params, self.kv, self.cfg, self.draft, *common, logits_slice)
+                self.params, self.kv, self.cfg, self.draft, *common, logits_slice, self.tp)
         self.tok.copy_(cur)
         self.done.copy_(done)
         self.lens.copy_(lens)
@@ -824,8 +879,8 @@ def _mlp_parts(y: torch.Tensor, lp: M.Params, nc: int, c: int) -> torch.Tensor:
 
 def _mixed_layers(params: M.Params, kv: PagedKV, cfg: MistralConfig, packed: torch.Tensor,
                   c: int, page_size: int, n_ctx_pages: int,
-                  decode: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]]
-                  ) -> torch.Tensor:
+                  decode: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]],
+                  tp: Optional["TP.TPMesh"] = None) -> torch.Tensor:
     """The layers over NPF packed chunk rows and, with `decode` = (tokens
     [B], seq_lens [B] int32, page_table [B, maxp] int32, live [B] bool), B
     decode rows in one [NPF*C + B, D] activation -> its final hidden state
@@ -901,13 +956,15 @@ def _mixed_layers(params: M.Params, kv: PagedKV, cfg: MistralConfig, packed: tor
                 tables[li], kv_len, sliding_window=cfg.sliding_window,
                 k_scales=kv.k_scales, v_scales=kv.v_scales)
             attn = torch.cat([attn, attn_d.reshape(b, h * hd)])
-        xa = xa + _qmm_parts(attn, lp["wo"], nc, c)
-        xa = xa + _mlp_parts(_rms_norm_parts(xa, lp["ln2"], cfg.rms_norm_eps, nc), lp, nc, c)
+        xa = xa + _all_reduce(_qmm_parts(attn, lp["wo"], nc, c), tp)
+        xa = xa + _all_reduce(
+            _mlp_parts(_rms_norm_parts(xa, lp["ln2"], cfg.rms_norm_eps, nc), lp, nc, c), tp)
     return xa
 
 
 def _chunk_logits(params: M.Params, cfg: MistralConfig, xc: torch.Tensor,
-                  n_valid: torch.Tensor, c: int) -> torch.Tensor:
+                  n_valid: torch.Tensor, c: int, tp: Optional["TP.TPMesh"] = None
+                  ) -> torch.Tensor:
     """Chunk rows' final hidden [NPF*C, D] -> each row's last-valid-position
     logits [NPF, V] f32, one lm_head product per row (the shape of a lone
     prefill chunk's, so a mixed link's first tokens are the alternating
@@ -916,7 +973,8 @@ def _chunk_logits(params: M.Params, cfg: MistralConfig, xc: torch.Tensor,
     xn = M.rms_norm(xc, params["final_norm"], cfg.rms_norm_eps).reshape(npf, c, -1)
     last = torch.clamp(n_valid.long() - 1, 0, c - 1)
     x_last = xn[torch.arange(npf, device=xc.device), last]
-    return torch.cat([F.linear(x_last[r: r + 1], params["lm_head"]) for r in range(npf)]).float()
+    logits = torch.cat([F.linear(x_last[r: r + 1], params["lm_head"]) for r in range(npf)])
+    return _vocab_logits(logits, tp, cfg.vocab_size)
 
 
 def paged_prefill_chunk_packed(
@@ -927,14 +985,16 @@ def paged_prefill_chunk_packed(
     page_size: int,
     n_ctx_pages: int,  # pages gathered as attention context (covers start + C)
     c: int,
+    tp: Optional["TP.TPMesh"] = None,
 ) -> torch.Tensor:
     """Prefill one chunk of one request into its pages -> logits of the last
     valid token [V] f32.  Every per-chunk host input rides in `packed`, one
     host-to-device copy.  Chunk queries attend to the request's pages written
-    so far plus the chunk itself (causal, sliding window)."""
+    so far plus the chunk itself (causal, sliding window).  With `tp`, one
+    rank's chunk over its slices."""
     packed = packed[None]
-    xc = _mixed_layers(params, kv, cfg, packed, c, page_size, n_ctx_pages, None)
-    return _chunk_logits(params, cfg, xc, packed[:, c + 1], c)[0]
+    xc = _mixed_layers(params, kv, cfg, packed, c, page_size, n_ctx_pages, None, tp)
+    return _chunk_logits(params, cfg, xc, packed[:, c + 1], c, tp)[0]
 
 
 def paged_mixed_step(

@@ -7,6 +7,14 @@ as the engine's syncs deliver them; one loop thread ticks the engine outside
 the lock and wakes every waiter after each tick.  A failure in a tick sets
 `error` on every in-flight request, wakes every caller with it, and makes
 later submissions fail fast.
+
+Over a tensor-parallel engine (PagedEngine(mesh=), engine/tp.py) the
+server runs on rank 0 and sends each loop turn's admissions, cancels and
+session releases to the other ranks before it runs the turn
+(`serve_turn`); they run the same turns (engine/tp.py follow) until
+`close`.  When to tick, and the idle drain, are rank 0's decisions; while
+idle it sends an empty turn every `idle_wait_s`, so no rank waits out its
+group's timeout.
 """
 
 from __future__ import annotations
@@ -20,13 +28,35 @@ from typing import Callable, Dict, Iterator, List, Optional
 import numpy as np
 
 from usdm_tpu_torch.core.tokenizer import UsdmTokenizer
+from usdm_tpu_torch.engine import tp as TP
 from usdm_tpu_torch.engine.dialog import DialogResult, run_dialog
 from usdm_tpu_torch.engine.paged import PagedEngine, Request
 from usdm_tpu_torch.ops.sampling import stage_allow_mask, stage_eos
 
 
+def serve_turn(engine: PagedEngine, inbox: List[Request], cancels: List[int],
+               releases: List[int]) -> None:
+    """One turn of the serving loop: admissions, then cancels before
+    session releases (a cancelled session request goes to HOLD, and its
+    dialog's release, queued right after the cancel (DialogAborted), must
+    find it there), one tick while work is pending, and, once work has
+    drained, the run-ahead chain absorbed (so telemetry is exact before the
+    callers wake).  Every rank of a tensor-parallel engine runs the same
+    turns."""
+    for req in inbox:
+        engine.submit(req)
+    for rid in cancels:
+        engine.cancel(rid)
+    for s in releases:
+        engine.release_session(s)
+    if engine.busy:
+        engine.tick()
+    if not engine.busy:
+        engine.drain_inflight()
+
+
 class EngineServer:
-    """Thread-safe front door to a PagedEngine."""
+    """Thread-safe front door to a PagedEngine (rank 0's, under TP)."""
 
     def __init__(self, engine: PagedEngine, idle_wait_s: float = 10.0):
         self.engine = engine
@@ -157,6 +187,14 @@ class EngineServer:
         self.close()
 
     def _loop(self) -> None:
+        mesh = self.engine.mesh
+        try:
+            self._serve(mesh)
+        finally:
+            if mesh is not None:
+                TP.send(mesh, None)  # the other ranks' follow() returns
+
+    def _serve(self, mesh) -> None:
         while True:
             with self._cv:
                 if not self._running:
@@ -165,24 +203,13 @@ class EngineServer:
                 releases, self._releases = self._releases, []
                 cancels, self._cancels = self._cancels, []
                 if not (inbox or releases or cancels or self.engine.busy):
-                    self._cv.wait(timeout=self._idle_wait_s)
-                    continue
+                    # under TP an idle wait that times out sends an empty turn
+                    if self._cv.wait(timeout=self._idle_wait_s) or mesh is None:
+                        continue
             try:
-                # cancels before releases: a cancelled session request goes
-                # to HOLD, and its dialog's release, queued right after the
-                # cancel (DialogAborted), must find it there
-                for req in inbox:
-                    self.engine.submit(req)
-                for rid in cancels:
-                    self.engine.cancel(rid)
-                for s in releases:
-                    self.engine.release_session(s)
-                if self.engine.busy:
-                    self.engine.tick()
-                if not self.engine.busy:
-                    # work drained: absorb the run-ahead chain, so telemetry
-                    # is exact before the callers wake
-                    self.engine.drain_inflight()
+                if mesh is not None:
+                    TP.send(mesh, TP.turn_message(inbox, cancels, releases))
+                serve_turn(self.engine, inbox, cancels, releases)
             except Exception as e:  # device failure: fail the requests, not the callers
                 tb = traceback.format_exc()
                 with self._cv:

@@ -388,21 +388,38 @@ def prefill_extend(params: Params, cfg: MistralConfig, cache: KVCache, new_ids: 
 
 
 def convert_hf_state_dict(state: Dict[str, torch.Tensor], cfg: MistralConfig, dtype=None,
-                          device="cpu", int8: bool = False) -> Params:
+                          device="cpu", int8: bool = False,
+                          shard: Optional[Tuple[int, int]] = None) -> Params:
     """A HF MistralForCausalLM state dict (host tensors) -> the port's
     params on `device` in `dtype` (default cfg.dtype): nn.Linear's [out, in]
     becomes [in, out], lm_head stays [V, D].  Each tensor is popped from
     `state` as it is converted, and with `int8` each layer's projections are
     quantized to W8A8 as the layer arrives, so the float and int8 copies of
-    the model never coexist (usdm_tpu quantizes after the load)."""
+    the model never coexist (usdm_tpu quantizes after the load).
+
+    `shard=(tp, rank)`: only that tensor-parallel rank's slices
+    (engine/tp.py shard_params' result), each narrowed on the host before
+    its copy, so no rank copies the whole model.  A row-split W8A8 weight
+    is quantized whole (its scales run over the whole contraction) and
+    then cut."""
     from usdm_tpu_torch.core.convert import take
+    from usdm_tpu_torch.engine import tp as TP
     from usdm_tpu_torch.models.quant import quantize_weight
 
     dt = torch_dtype(dtype or cfg.dtype)
+    tp, rank = shard or (1, 0)
+    if shard is not None:
+        TP.check_tp(cfg, tp)
 
-    def proj(name):  # [out, in] -> [in, out], or its W8A8 leaf
-        w = take(state, name, device, dt).t()
-        return quantize_weight(w) if int8 else w.contiguous()
+    def proj(key, name):  # [out, in] -> [in, out], or its W8A8 leaf
+        w = state.pop(name)
+        if key in TP.COL or not int8:  # the rank's rows (column split) or columns
+            w = TP.block(w, 0 if key in TP.COL else 1, tp, rank)
+        w = w.to(device=device, dtype=dt).t()
+        if not int8:
+            return w.contiguous()
+        return TP.shard_leaf(key, quantize_weight(w), tp, rank) if key in TP.ROW else \
+            quantize_weight(w)
 
     names = {"wq": "self_attn.q_proj", "wk": "self_attn.k_proj", "wv": "self_attn.v_proj",
              "wo": "self_attn.o_proj", "w_gate": "mlp.gate_proj", "w_up": "mlp.up_proj",
@@ -412,8 +429,9 @@ def convert_hf_state_dict(state: Dict[str, torch.Tensor], cfg: MistralConfig, dt
         p = f"model.layers.{i}."
         lp = {"ln1": take(state, p + "input_layernorm.weight", device, dt),
               "ln2": take(state, p + "post_attention_layernorm.weight", device, dt)}
-        lp.update({k: proj(p + v + ".weight") for k, v in names.items()})
+        lp.update({k: proj(k, p + v + ".weight") for k, v in names.items()})
         layers.append(lp)
+    lm_head = TP.shard_vocab(state.pop("lm_head.weight"), tp, rank)
     return {"embed": take(state, "model.embed_tokens.weight", device, dt), "layers": layers,
             "final_norm": take(state, "model.norm.weight", device, dt),
-            "lm_head": take(state, "lm_head.weight", device, dt)}
+            "lm_head": lm_head.to(device=device, dtype=dt)}

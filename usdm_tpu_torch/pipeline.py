@@ -11,8 +11,11 @@ speculative decoding through `make_server(draft=)` and
 reference's local checkpoint directories (core/checkpoint.py);
 `random_init`, `tiny_random` and `full_random` draw random weights.
 `lm_int8` / `vb_int8` quantize the LLM projections and the Voicebox
-estimator's matmuls to W8A8 (models/quant.py).  Tensor-parallel serving is
-not ported yet.
+estimator's matmuls to W8A8 (models/quant.py).  `make_server(tp=N)` serves
+the LM tensor-parallel over an initialized N-rank group (engine/tp.py):
+every rank calls it, rank 0 gets the server, the others follow it until it
+closes; the XLS-R, Voicebox and BigVGAN stages run on rank 0 alone
+(`serve_lm` serves a bare LM, as a worker rank needs nothing else).
 """
 
 from __future__ import annotations
@@ -49,6 +52,56 @@ from usdm_tpu_torch.models.quant import (
 )
 
 
+def random_lm(lm_cfg: MistralConfig, device, seed: int = 0, lm_int8: bool = False) -> LM.Params:
+    """The LM of `UsdmPipeline.random_init(..., seed)`: the same weights,
+    drawn alone (a tensor-parallel worker rank builds nothing else)."""
+    lm = LM.init_params(lm_cfg, torch.Generator(device=device).manual_seed(seed * 4 + 2), device)
+    return quantize_llm_params(lm) if lm_int8 else lm
+
+
+def tiny_lm_config(tok: Optional[UsdmTokenizer] = None) -> MistralConfig:
+    """The LM config of `UsdmPipeline.tiny_random`."""
+    tok = tok or UsdmTokenizer.build_test(num_units=32)
+    return MistralConfig.tiny(vocab_size=tok.vocab_size)
+
+
+def worker_lm(device, model_dir: Optional[str] = None, lm_int8: bool = False,
+              shard: Optional[tuple] = None):
+    """A tensor-parallel worker rank's LM -> (params, config): `shard`'s
+    slices of `model_dir`'s LM as from_pretrained loads it, or without a
+    directory tiny_random's LM, whole (the engine shards it)."""
+    if model_dir is None:
+        cfg = tiny_lm_config()
+        return random_lm(cfg, device), cfg
+    return ckpt.load_mistral(model_dir, dtype="bfloat16", device=device, int8=lm_int8,
+                             shard=shard)
+
+
+def serve_lm(lm_params: LM.Params, lm_cfg: MistralConfig, ecfg: Optional[EngineConfig] = None,
+             tp: int = 1, draft=None, device="cuda"):
+    """The continuous-batching server over a bare LM (`make_server`'s
+    engine).  With `tp` > 1 every rank of the initialized tp-rank group
+    calls it: rank 0 gets the EngineServer, the other ranks run its turns
+    (engine/tp.py follow) and get None once it closes.  The params may be
+    whole or the rank's slices (load_mistral(shard=))."""
+    from usdm_tpu_torch.engine import tp as TP
+    from usdm_tpu_torch.engine.paged import PagedEngine
+    from usdm_tpu_torch.engine.server import EngineServer
+
+    mesh = TP.make_tp_mesh(tp, device) if tp > 1 else None
+    if isinstance(draft, str) and draft != "ngram":
+        if not draft.startswith("early-exit:"):
+            raise ValueError(f"unknown draft spec {draft!r}")
+        n = int(draft.split(":", 1)[1])
+        draft = (early_exit_draft(lm_params, n), lm_cfg.replace(num_layers=n))
+    engine = PagedEngine(lm_params, lm_cfg, ecfg or EngineConfig(), device=device, mesh=mesh,
+                         draft=draft)
+    if mesh is not None and mesh.rank != 0:
+        TP.follow(engine)
+        return None
+    return EngineServer(engine)
+
+
 @dataclasses.dataclass
 class UsdmPipeline:
     tokenizer: UsdmTokenizer
@@ -74,7 +127,7 @@ class UsdmPipeline:
     def from_pretrained(cls, llm_dir: str, xlsr_dir: str, kmeans_path: str, voicebox_dir: str,
                         bigvgan_dir: str, tokenizer_dir: Optional[str] = None,
                         lm_dtype: str = "bfloat16", lm_int8: bool = False, vb_int8: bool = True,
-                        device="cuda") -> "UsdmPipeline":
+                        device="cuda", lm_shard: Optional[tuple] = None) -> "UsdmPipeline":
         """The full stack from local checkpoint directories, on `device`:
         the HF LM (`llm_dir`, with its tokenizer unless `tokenizer_dir`),
         XLS-R (an HF dir or fairseq2's .pt) with the k-means .npy, the
@@ -83,10 +136,12 @@ class UsdmPipeline:
         loads; `vb_int8=True` (the default) quantizes the Voicebox
         estimator's projections, FFN and skips to W8A8, which usdm_tpu's
         drift gate holds within nRMS 1e-2 of the float estimator
-        (scripts/bench_vb_int8.py)."""
+        (scripts/bench_vb_int8.py).  `lm_shard=(tp, rank)` loads only that
+        rank's slices of the LM (rank 0 of `make_server(tp=)`; such a
+        pipeline serves its LM through that server alone)."""
         device = _check_device(device)
         lm_params, lm_cfg = ckpt.load_mistral(llm_dir, dtype=lm_dtype, device=device,
-                                              int8=lm_int8)
+                                              int8=lm_int8, shard=lm_shard)
         xlsr_params, xlsr_cfg = ckpt.load_xlsr(xlsr_dir, kmeans_path, device=device)
         vb_params, vb_cfg = ckpt.load_voicebox(voicebox_dir, device=device)
         if vb_int8:
@@ -109,8 +164,7 @@ class UsdmPipeline:
         vb = VB.init_params(vb_cfg, gens[0], device)
         decoder = SpeechDecoder(quantize_voicebox_params(vb) if vb_int8 else vb, vb_cfg,
                                 BV.init_generator(bv_cfg, gens[1], device), bv_cfg, MelConfig())
-        lm = LM.init_params(lm_cfg, gens[2], device)
-        return cls(tok, quantize_llm_params(lm) if lm_int8 else lm, lm_cfg,
+        return cls(tok, random_lm(lm_cfg, device, seed, lm_int8), lm_cfg,
                    XL.init_params(xl_cfg, gens[3], device), xl_cfg, decoder, device, **kw)
 
     @classmethod
@@ -120,7 +174,7 @@ class UsdmPipeline:
         of usdm_tpu's tiny_random)."""
         tok = UsdmTokenizer.build_test(num_units=32)
         return cls.random_init(
-            tok, MistralConfig.tiny(vocab_size=tok.vocab_size),
+            tok, tiny_lm_config(tok),
             XlsrConfig.tiny().replace(num_clusters=32),
             VoiceboxConfig.tiny().replace(n_tokens=32, n_feats=80),
             BigVGANConfig.tiny().replace(num_mels=80), device, seed, lm_int8, vb_int8,
@@ -152,19 +206,12 @@ class UsdmPipeline:
         `draft` enables greedy speculative decoding: `(params, cfg)` of a
         separate small LM, `"early-exit:N"` for a self-draft of the target's
         first N layers (sharing its tensors), or `"ngram"` for draft-free
-        prompt-lookup proposals.  The tokens are plain greedy's either way."""
-        from usdm_tpu_torch.engine.paged import PagedEngine
-        from usdm_tpu_torch.engine.server import EngineServer
-
-        if tp != 1:
-            raise NotImplementedError("tensor-parallel serving is not ported to usdm_tpu_torch")
-        if isinstance(draft, str) and draft != "ngram":
-            if not draft.startswith("early-exit:"):
-                raise ValueError(f"unknown draft spec {draft!r}")
-            n = int(draft.split(":", 1)[1])
-            draft = (early_exit_draft(self.lm_params, n), self.lm_cfg.replace(num_layers=n))
-        return EngineServer(PagedEngine(self.lm_params, self.lm_cfg, ecfg or EngineConfig(),
-                                        device=self.device, draft=draft))
+        prompt-lookup proposals.  The tokens are plain greedy's either way.
+        `tp` > 1 shards the LM, its pool and the draft over the initialized
+        tp-rank group (`serve_lm`: the other ranks get None when rank 0's
+        server closes); it raises by name without such a group or without
+        tp GPUs."""
+        return serve_lm(self.lm_params, self.lm_cfg, ecfg, tp, draft, self.device)
 
     def enable_speculation(self, draft) -> None:
         """Attach a speculative-decoding draft to the respond() path:
