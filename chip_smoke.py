@@ -252,6 +252,24 @@ Phases:
      library call (<out-dir>/tp_kernels.json); (c) with one card, cli.infer
      --tp 2 must refuse by name; (d) with two or more, cli.infer --demo
      --tp 2 must equal --tp 1 (with one card it prints tp2_run "not run").
+ 18. sharded training (core/mesh.py, train/lm.py's FSDP + TP, data
+     parallelism in train/cfm.py, train/vocoder.py, train/lora.py), after
+     phase 17: (a) cli.train_pt with phase 11 (b)'s flags plus --coordinator
+     localhost --num_processes 1 --process_id 0 --dp 1 --tp 1, in a one-rank
+     NCCL group, 2 steps: loss and grad_norm equal to 11 (b)'s bit for bit,
+     every collective counted as train/lm.py step_collectives implies, peak
+     memory within memory_budget's; (b) the full-width CFM step and GAN
+     steps, 2 each, on a one-rank mesh against one device, bit for bit
+     (cuDNN's deterministic algorithms on for both runs);
+     (c) phase 12 (c)'s first distill step with the draft on the mesh, bit
+     for bit; (d) on an emptied card, K2/K5 at the 7B's per-rank heads of tp
+     2, 4, 8 and K2/K4/K5 at the CFM step's per-rank rows and K3's Function
+     at the GAN step's of dp 2, 4, 8, each against its plain version, timed
+     eagerly and from a CUDA graph beside its bound and library call
+     (<out-dir>/train_rank_kernels.json); (e) with one card, cli.train_pt
+     --tp 2 and cli.train_voicebox --num_processes 2 refuse by name (with
+     two or more, a tiny --dp 2 run against --dp 1; with one it prints
+     dp2_run "not run").
 
 Each kernel's bound_ms is the least time the card could take for the work
 of its timed case: the larger of its bytes (inputs read once, outputs
@@ -6533,6 +6551,569 @@ def tp_run(dev, tmp: str, out_dir: str) -> dict:
                                    "flash_attention": k2_err}}
 
 
+# --------------------------------------------------------------- phase 18
+DP_DEGREES = (2, 4, 8)  # the data-parallel degrees whose per-rank rows (d) times
+CFM_B, CFM_T1 = 8, 1379  # the CFM step: batch 8 of 16 s crops, T + 1 estimator rows
+CFM_LENS = (1379, 900, 1379, 1200, 640, 1379, 1000, 1301)  # phase 3's ragged rows
+MESH_STEPS = 2
+
+
+def _captured_mesh(run):
+    """run() with core/distributed.py make_cli_mesh recording the mesh a
+    CLI builds -> (run's result, the mesh)."""
+    from usdm_tpu_torch.core import distributed as D
+
+    seen, orig = [], D.make_cli_mesh
+
+    def keep(*a, **kw):
+        mesh = orig(*a, **kw)
+        seen.append(mesh)
+        return mesh
+
+    D.make_cli_mesh = keep
+    try:
+        out = run()
+    finally:
+        D.make_cli_mesh = orig
+    return out, seen[0] if seen else None
+
+
+def _mesh_pt_run(dev, root: str, want_steps: list, smi: str) -> dict:
+    """Phase 18 (a): cli.train_pt with phase 11 (b)'s flags (full-width 7B,
+    --offload, 1 x 8,192-token rows from the same seed) in a one-rank NCCL
+    group (--coordinator localhost --num_processes 1 --process_id 0 --dp 1
+    --tp 1), the sharded path, 2 steps, no checkpoint or export: each
+    step's loss and grad_norm equal phase 11 (b)'s bit for bit (steps 1-2
+    do not depend on --max_steps: step 1 runs at lr 0 and both schedules
+    give step 2 the peak lr); every collective counted as train/lm.py
+    step_collectives implies; K2/K5 as in (b); peak device memory and the
+    host memory added within memory_budget's."""
+    import torch
+
+    from usdm_tpu_torch.cli import train_pt
+    from usdm_tpu_torch.core.config import MistralConfig, TrainConfig
+    from usdm_tpu_torch.train import lm as T
+
+    cfg = MistralConfig()
+    rows = os.path.join(root, "mesh_rows")
+    os.makedirs(rows)
+    with open(os.path.join(rows, "part0.txt"), "w") as f:
+        for row in _lm_rows(MESH_STEPS, cfg.vocab_size, 1):
+            f.write(" ".join(map(str, row)) + "\n")
+    out = os.path.join(root, "mesh_pt")
+    hbm = torch.cuda.get_device_properties(dev).total_memory / 2**30
+    budget = T.memory_budget(cfg, dp=1, tp=1, seq_len=LM_T, batch_per_chip=1, offload=True,
+                             hbm_gb=hbm)
+    _free_device()
+    reset_counts()
+    (rc, mesh), wall, rss0, rss_peak = _host_step(lambda: _captured_mesh(lambda: train_pt.main([
+        "--data_path", rows, "--output_dir", out, "--max_steps", str(MESH_STEPS),
+        "--train_batch_size", "1", "--max_input_length", str(LM_T), "--offload",
+        "--logging_steps", "1", "--save_steps", "0", "--learning_rate", str(TRAIN_LR),
+        "--seed", "42", "--device", str(dev), "--coordinator", f"localhost:{_free_port()}",
+        "--num_processes", "1", "--process_id", "0", "--dp", "1", "--tp", "1"])))
+    counts, mma = launch_counts(), mma_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    host_gb = (rss_peak - rss0) / 2**30
+    metrics = _train_metrics(out)
+    got = [[r["train/loss"], r["train/grad_norm"]] for r in metrics]
+    want = [[s["loss"], s["grad_norm"]] for s in want_steps[:MESH_STEPS]]
+    implied = {k: MESH_STEPS * n for k, n in
+               T.step_collectives(cfg, TrainConfig(), LM_T, mesh.axis_names).items()}
+    collectives = dict(mesh.counts)
+    launches = {k: counts[k] for k in ("flash_attention", "flash_attention_bwd_dq",
+                                        "flash_attention_bwd_dkv")}
+    want_launches = {"flash_attention": 2 * MESH_STEPS * cfg.num_layers,
+                     "flash_attention_bwd_dq": MESH_STEPS * cfg.num_layers,
+                     "flash_attention_bwd_dkv": MESH_STEPS * cfg.num_layers}
+    info = {"rc": rc, "wall_s": wall, "mesh": mesh.shape, "steps": got,
+            "phase_11b_steps": want, "bit_equal": got == want,
+            "step_s": [r["train/step_s"] for r in metrics],
+            "collectives": collectives, "implied": implied, "launches": launches,
+            "max_memory_allocated_gib": peak, "budget_device_gb": budget["device_gb"],
+            "host_memory_added_gib": host_gb, "budget_host_gb": budget["host_gb"], "card": smi}
+    log("phase 18 (a) train_pt --offload, full width, one-rank NCCL mesh: " + json.dumps(info))
+    if rc != 0 or got != want:
+        raise AssertionError(f"phase 18 (a): the mesh path's steps {got} are not phase 11 (b)'s "
+                             f"{want} bit for bit (rc {rc})")
+    if collectives != implied:
+        raise AssertionError(f"phase 18 (a): collectives {collectives}, the code implies "
+                             f"{implied}")
+    if launches != want_launches or any(mma[k] != n for k, n in launches.items()):
+        raise AssertionError(f"phase 18 (a): K2/K5 launched {launches}, want {want_launches}")
+    if peak > budget["device_gb"] or host_gb > budget["host_gb"] + LM_HOST_SLACK_GB:
+        raise AssertionError(f"phase 18 (a): {peak:.2f} GiB on the card, {host_gb:.2f} GiB of "
+                             f"host memory added; the budget says {budget['device_gb']:.2f} "
+                             f"and {budget['host_gb']:.2f} + {LM_HOST_SLACK_GB}")
+    return {**info, "launches": launches}
+
+
+def _bit_equal(a, b) -> bool:
+    import torch
+
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@contextlib.contextmanager
+def _deterministic_cudnn():
+    """cuDNN's deterministic algorithms inside the block (the flags
+    restored after): a step is then bit-reproducible run to run."""
+    import torch
+
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+
+
+def _cfm_mesh_batch(dev, n_tokens: int, n_feats: int) -> dict:
+    """A CFM batch at the trainer's shape: 8 rows of 1,378 frames (16 s),
+    ragged lengths, context spans in two rows."""
+    import torch
+
+    rng = np.random.default_rng(18)
+    t = CFM_T1 - 1
+    mask = np.zeros((CFM_B, 1, t), np.float32)
+    mask[1, 0, 40:400] = 1.0
+    mask[5, 0, 100:700] = 1.0
+    batch = {"x": rng.integers(0, n_tokens, (CFM_B, t)), "mask": mask,
+             "y": rng.standard_normal((CFM_B, n_feats, t)).astype(np.float32),
+             "y_lengths": np.asarray(CFM_LENS) - 1}
+    return {k: torch.from_numpy(np.asarray(v)).to(dev) for k, v in batch.items()}
+
+
+def _dp_equal_runs(dev, mesh) -> dict:
+    """Phase 18 (b): the CFM step (VoiceboxConfig(), bf16 over f32, batch 8
+    of 16 s crops) and the GAN steps (BigVGANConfig(), batch 32 x 8,192
+    samples) each from one seeded state, 2 steps on one device and 2 on
+    the one-rank mesh, cuDNN's deterministic algorithms on for both:
+    metrics and final params bit for bit; the mesh runs' launches
+    (K2/K4/K5, K3) and all-reduces.  The GAN step is also run twice on one
+    device with the default flags, and whether those two agree is logged."""
+    import torch
+
+    from usdm_tpu_torch.core.config import BigVGANConfig, CfmTrainConfig, MelConfig, VoiceboxConfig
+    from usdm_tpu_torch.core.tree import tree_leaves
+    from usdm_tpu_torch.data.mel_dataset import loss_mel_config
+    from usdm_tpu_torch.train import cfm as C
+    from usdm_tpu_torch.train import vocoder as V
+
+    out = {}
+    cfg, tc = VoiceboxConfig(), CfmTrainConfig()
+    batch = _cfm_mesh_batch(dev, cfg.n_tokens, cfg.n_feats)
+    res = {}
+    for label, m in (("single", None), ("mesh", mesh)):
+        _free_device()
+        state, opt = C.init_state(cfg, tc, dev, torch.Generator(device=dev).manual_seed(37))
+        step = C.make_train_step(cfg, tc, opt, mesh=m)
+        gen = torch.Generator(device=dev).manual_seed(5)
+        reset_counts()
+        before = dict(m.counts) if m is not None else {}
+        with _deterministic_cudnn():
+            metrics = [{k: float(v) for k, v in step(state, batch, gen).items()}
+                       for _ in range(MESH_STEPS)]
+            torch.cuda.synchronize()
+        res[label] = {"metrics": metrics, "params": [t.detach() for t in tree_leaves(state.params)],
+                      "launches": {k: v for k, v in launch_counts().items()
+                                   if k in _train_counters()},
+                      "collectives": {k: v - before.get(k, 0) for k, v in m.counts.items()}
+                      if m is not None else {}}
+        del state, opt, step
+    cfm = {"metrics": res["mesh"]["metrics"], "single_metrics": res["single"]["metrics"],
+           "params_bit_equal": _bit_equal(res["mesh"]["params"], res["single"]["params"]),
+           "launches": res["mesh"]["launches"], "collectives": res["mesh"]["collectives"]}
+    del res
+    log("phase 18 (b) CFM step, one device against the one-rank mesh: " + json.dumps(cfm))
+    if cfm["metrics"] != cfm["single_metrics"] or not cfm["params_bit_equal"]:
+        raise AssertionError(f"phase 18 (b): the CFM mesh step differs from one device: {cfm}")
+    if not all(cfm["launches"].values()):
+        raise AssertionError(f"phase 18 (b): a kernel of the CFM step did not launch: "
+                             f"{cfm['launches']}")
+    out["cfm"] = cfm
+
+    gcfg, mc = BigVGANConfig(), loss_mel_config(MelConfig())
+    rng = np.random.default_rng(19)
+    frames = GAN_SEG // gcfg.total_upsample
+    gb = {"mel": torch.from_numpy((rng.standard_normal((GAN_B, gcfg.num_mels, frames)) - 5.0)
+                                  .astype(np.float32)).to(dev),
+          "wav": torch.from_numpy((rng.standard_normal((GAN_B, 1, GAN_SEG)) * 0.1)
+                                  .astype(np.float32)).to(dev)}
+    res = {}
+    # with PyTorch's default cuDNN flags a GAN step is not bit-reproducible
+    # run to run (its convolutions' backward may sum in any order), so the
+    # gate compares one device and the mesh with cudnn.deterministic on for
+    # both; the default flags' run-to-run check is logged
+    for label, m, det in (("single", None, False), ("single_again", None, False),
+                          ("single_det", None, True), ("mesh_det", mesh, True)):
+        _free_device()
+        state, gopt, dopt = V.init_state(gcfg, torch.Generator(device=dev).manual_seed(1),
+                                         device=dev)
+        d_step, g_step = V.make_train_steps(gcfg, gopt, dopt, mc, mesh=m)
+        reset_counts()
+        before = dict(m.counts) if m is not None else {}
+        t0 = time.perf_counter()
+        with _deterministic_cudnn() if det else contextlib.nullcontext():
+            metrics = [{k: float(v) for k, v in {**d_step(state, gb),
+                                                  **g_step(state, gb)}.items()}
+                       for _ in range(MESH_STEPS)]
+            torch.cuda.synchronize()
+        res[label] = {"metrics": metrics, "wall_s": time.perf_counter() - t0,
+                      "params": [t.detach() for t in tree_leaves(state.params)],
+                      "k3": launch_counts()["fused_activation1d"],
+                      "collectives": {k: v - before.get(k, 0) for k, v in m.counts.items()}
+                      if m is not None else {}}
+        del state, d_step, g_step
+    gan = {"metrics": res["mesh_det"]["metrics"], "single_metrics": res["single_det"]["metrics"],
+           "params_bit_equal": _bit_equal(res["mesh_det"]["params"],
+                                          res["single_det"]["params"]),
+           "default_flags_reproducible": _bit_equal(res["single"]["params"],
+                                                    res["single_again"]["params"]),
+           "wall_s": {k: r["wall_s"] for k, r in res.items()},
+           "k3_launches": res["mesh_det"]["k3"], "collectives": res["mesh_det"]["collectives"]}
+    del res, gb
+    _free_device()
+    log("phase 18 (b) GAN steps, one device against the one-rank mesh (cudnn.deterministic "
+        "for both): " + json.dumps(gan))
+    if gan["metrics"] != gan["single_metrics"] or not gan["params_bit_equal"]:
+        raise AssertionError(f"phase 18 (b): the GAN mesh steps differ from one device: {gan}")
+    if gan["k3_launches"] != MESH_STEPS * K3_PER_GAN_STEP:
+        raise AssertionError(f"phase 18 (b): K3 launched {gan['k3_launches']}, want "
+                             f"{MESH_STEPS * K3_PER_GAN_STEP}")
+    out["gan"] = gan
+    return out
+
+
+def _mesh_distill_run(dev, mesh, want: dict) -> dict:
+    """Phase 18 (c): phase 12 (c)'s first step (the bf16 MistralConfig()
+    target from seed 7, the 8-layer early-exit draft, batch seed 20) with
+    the draft's state on the one-rank mesh: loss, agree, grad_norm and
+    ntokens equal phase 12 (c)'s bit for bit; K2 32 + 2 x 8 and K5 8 + 8."""
+    import torch
+
+    from usdm_tpu_torch.core.config import MistralConfig, TrainConfig
+    from usdm_tpu_torch.models import mistral as M
+    from usdm_tpu_torch.train import distill as DI
+    from usdm_tpu_torch.train import lm as T
+
+    _free_device()
+    cfg = MistralConfig()
+    target = M.init_params(cfg, torch.Generator(device=dev).manual_seed(7), dev)
+    draft, cfg_d = DI.init_draft_from_target(target, cfg, DISTILL_LAYERS)
+    tc = TrainConfig(batch_size=DISTILL_B, max_steps=1000, learning_rate=1e-4)
+    state = T.init_state(cfg_d, tc, dev, params=draft, mesh=mesh)
+    del draft
+    step = DI.make_distill_step(cfg_d, cfg, tc, mesh=mesh)
+    reset_counts()
+    before = dict(mesh.counts)
+    m = step(state, target, _distill_batch(cfg.vocab_size, 20, dev))
+    got = {k: float(v) for k, v in m.items()}
+    counts = launch_counts()
+    launches = {k: counts[k] for k in ("flash_attention", "flash_attention_bwd_dq",
+                                        "flash_attention_bwd_dkv")}
+    info = {"step": got, "phase_12c_step": {k: want[k] for k in got},
+            "launches": launches,
+            "collectives": {k: v - before.get(k, 0) for k, v in mesh.counts.items()}}
+    del state, target, step
+    _free_device()
+    log("phase 18 (c) distill step, the draft on the one-rank mesh: " + json.dumps(info))
+    if got != info["phase_12c_step"]:
+        raise AssertionError(f"phase 18 (c): {got} is not phase 12 (c)'s first step "
+                             f"{info['phase_12c_step']} bit for bit")
+    want_l = {"flash_attention": 32 + 2 * DISTILL_LAYERS, "flash_attention_bwd_dq": DISTILL_LAYERS,
+              "flash_attention_bwd_dkv": DISTILL_LAYERS}
+    if launches != want_l:
+        raise AssertionError(f"phase 18 (c): K2/K5 launched {launches}, want {want_l}")
+    return info
+
+
+def _flash_rank_case(dev, case: str, q, k, v, do, seg, pos, causal, window, alibi) -> dict:
+    """K2 and K5 bf16 at one per-rank shape against their plain versions
+    (round_operands=True, bf16_bound), then times: eager and from a CUDA
+    graph, the plain versions', and SDPA's forward and backward with the
+    same mask (K/V repeated to the query heads outside the timed call,
+    ALiBi as an added bias), beside each bound -> its row."""
+    import torch
+
+    from usdm_tpu_torch.ops import flash_attention as FL
+
+    b, t, h, d = q.shape
+    o, lse = FL.flash_attention(q, k, v, seg, seg, pos, pos, causal, window, alibi=alibi,
+                                return_lse=True)
+    want_o, want_lse = FL.flash_attention_reference(q, k, v, seg, seg, pos, pos, causal, window,
+                                                    None, alibi, True)
+    errs = {"fwd": check("K2", f"{case} o", o, want_o, bf16_bound(want_o))}
+    check("K2 lse", case, lse, want_lse, 1e-4)
+    del want_o, want_lse
+    ref_args = (q, k, v, o, lse, do, seg, seg, pos, pos, causal, window, None, alibi)
+    got = FL.flash_attention_bwd(*ref_args)
+    want = FL.flash_attention_bwd_reference(*ref_args, True)
+    out = [check("K5", f"{case} {n}", g, w, bf16_bound(w))
+           for n, g, w in zip(("dq", "dk", "dv"), got, want)]
+    errs["dq"], errs["dkv"] = out[0], max(out[1:])
+    del got, want
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse, delta, seg, seg, pos, pos, causal, window, None, alibi)
+    calls = {"fwd": lambda: FL.flash_attention(q, k, v, seg, seg, pos, pos, causal, window,
+                                               alibi=alibi),
+             "dq": lambda: FL.flash_attention_bwd_dq(*args),
+             "dkv": lambda: FL.flash_attention_bwd_dkv(*args)}
+    eager = {n: cuda_ms(fn) for n, fn in calls.items()}
+    graph = {n: graph_ms(lambda fn=fn: [fn() for _ in range(10)], dev) / 10
+             for n, fn in calls.items()}
+    plain = {"fwd": cuda_ms(lambda: FL.flash_attention_reference(
+                 q, k, v, seg, seg, pos, pos, causal, window, None, alibi, True)),
+             "bwd": cuda_ms(lambda: FL.flash_attention_bwd_reference(*ref_args, True))}
+    mask = attn_mask(seg, seg, pos, pos, causal, window)
+    pairs = h * int(mask.sum())
+    ins = nbytes(q, k, v, do, lse, delta, seg, pos)
+    bounds = {"fwd": least_time(2 * nbytes(q) + nbytes(k, v, seg, pos), 4 * d * pairs, "bf16"),
+              "dq": least_time(ins + nbytes(q), 6 * d * pairs, "bf16"),
+              "dkv": least_time(ins + nbytes(k, v), 8 * d * pairs, "bf16")}
+    bias = mask[:, None]
+    if alibi:
+        slopes = FL.alibi_slopes_pow2(h).to(dev)[None, :, None, None]
+        dist = (pos[:, None, :, None] - pos[:, None, None, :]).abs().float()
+        bias = torch.where(bias, -slopes * dist * (pos[:, None, None, :] != 0),
+                           torch.finfo(torch.bfloat16).min).to(torch.bfloat16)
+        del dist
+    qt = q.transpose(1, 2).detach().requires_grad_()
+    kt, vt = (x.repeat_interleave(h // k.shape[2], dim=2).transpose(1, 2).detach()
+              .requires_grad_() for x in (k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    with torch.no_grad():
+        library_fwd = cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=bias))
+    ot = sdpa(qt, kt, vt, attn_mask=bias)
+    dot = do.transpose(1, 2)
+    library_bwd = cuda_ms(lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True))
+    del qt, kt, vt, ot, bias, mask, o, lse, delta
+    return {"case": case, "heads": h, "kv_heads": k.shape[2], "rows": b, "max_abs_err": errs,
+            "ms": eager, "graph_ms": graph, "plain_ms": plain,
+            "bound_ms": {n: x["bound_ms"] for n, x in bounds.items()},
+            "bound_by": {n: x["bound_by"] for n, x in bounds.items()},
+            "library_ms": {"sdpa_fwd": library_fwd, "sdpa_bwd": library_bwd}}
+
+
+def rank_kernel_checks(dev, out_dir: str) -> dict:
+    """Phase 18 (d), on an emptied card: each kernel of the sharded
+    trainers at the shapes one rank gives it, against its plain version,
+    timed eagerly and from a CUDA graph beside its bound and its library
+    call: K2/K5 bf16 at the 7B training shape (T 8,192, segments 5000 +
+    2000 + 1192, window 4,096) with the heads of tp 2, 4 and 8 (16/4, 8/2,
+    4/1); K2/K5 (ALiBi, non-causal, d 64) and K4's forward and backward at
+    the CFM step's rows of dp 2, 4 and 8 (4, 2, 1 of its 8); K3's Function
+    at the GAN step's rows of dp 2, 4 and 8 (16, 8, 4 of its 32), the six
+    stage shapes.  -> {kernel: largest error}; the rows to
+    <out-dir>/train_rank_kernels.json."""
+    import torch
+
+    from usdm_tpu_torch.ops import fused_act as FA
+    from usdm_tpu_torch.ops import fused_ln as LN
+
+    _free_device()
+    gen = torch.Generator(device=dev).manual_seed(18)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    rows = {"lm_tp": [], "cfm_dp": [], "k4_dp": [], "k3_dp": []}
+    log("phase 18 (d): K2/K5 at the 7B's per-rank heads of tp 2, 4, 8; K2/K4/K5 at the CFM "
+        "step's per-rank rows of dp 2, 4, 8; K3's Function at the GAN step's")
+    seg, pos = _lm_seg_pos(dev)
+    for tp in TP_DEGREES:
+        h, hkv = 32 // tp, 8 // tp
+        q, do, k, v = (randn(1, LM_T, n, 128) for n in (h, h, hkv, hkv))
+        rows["lm_tp"].append({"tp": tp, **_flash_rank_case(
+            dev, f"tp {tp}: LM bf16 {h}/{hkv} heads T=8192 window 4096", q, k, v, do, seg, pos,
+            True, 4096, False)})
+        del q, do, k, v
+    for dp in DP_DEGREES:
+        b = CFM_B // dp
+        lens = torch.tensor(CFM_LENS[:b], device=dev)
+        cpos = torch.arange(CFM_T1, device=dev, dtype=torch.int32)[None].expand(b, CFM_T1)
+        cpos = cpos.contiguous()
+        cseg = torch.where(cpos < lens[:, None], 0, -1).to(torch.int32)
+        q, k, v, do = (randn(b, CFM_T1, 16, 64) for _ in range(4))
+        rows["cfm_dp"].append({"dp": dp, **_flash_rank_case(
+            dev, f"dp {dp}: voicebox bf16 B={b} T=1379 ALiBi", q, k, v, do, cseg, cpos, False,
+            None, True)})
+        del q, k, v, do
+        x, r, go = (randn(b, CFM_T1, 1024) for _ in range(3))
+        w, bb = (randn(1024) * 0.1 + 1.0), randn(1024) * 0.1
+        ln_lens = lens.to(torch.int32)
+        got = LN.add_mask_ln(x, r, ln_lens, w, bb, True)
+        want = LN.add_mask_ln_reference(x, r, ln_lens, w, bb, True)
+        err = check("K4", f"dp {dp}: [{b}, 1379, 1024] bf16", got, want,
+                    2.0**-6 * want.float().abs().max().item())
+        gb = LN.add_mask_ln_bwd(x, r, ln_lens, w, go, True)
+        wb = LN.add_mask_ln_backward_reference(x, r, ln_lens, w, go, True)
+        berr = max(check("K4 backward", f"dp {dp}: [{b}, 1379, 1024] bf16 {n}", g, ww, bound)
+                   for n, g, ww, bound in zip(("dx", "dr", "dw", "db"), gb, wb,
+                                              _ln_bwd_bounds(x, r, ln_lens, go, True, wb)))
+        rows["k4_dp"].append({
+            "dp": dp, "rows": b, "max_abs_err": {"fwd": err, "bwd": berr},
+            "ms": {"fwd": cuda_ms(lambda: LN.add_mask_ln(x, r, ln_lens, w, bb, True)),
+                   "bwd": cuda_ms(lambda: LN.add_mask_ln_bwd(x, r, ln_lens, w, go, True))},
+            "graph_ms": {
+                "fwd": graph_ms(lambda: [LN.add_mask_ln(x, r, ln_lens, w, bb, True)
+                                         for _ in range(10)], dev) / 10,
+                "bwd": graph_ms(lambda: [LN.add_mask_ln_bwd(x, r, ln_lens, w, go, True)
+                                         for _ in range(10)], dev) / 10},
+            "plain_ms": {
+                "fwd": cuda_ms(lambda: LN.add_mask_ln_reference(x, r, ln_lens, w, bb, True)),
+                "bwd": cuda_ms(lambda: LN.add_mask_ln_backward_reference(x, r, ln_lens, w, go,
+                                                                         True))},
+            "bound_ms": {"fwd": least_time(3 * nbytes(x) + nbytes(w, bb, ln_lens),
+                                           8 * x.numel(), "bf16")["bound_ms"],
+                         "bwd": least_time(4 * nbytes(x) + 3 * nbytes(w) + nbytes(ln_lens),
+                                           20 * x.numel(), "bf16")["bound_ms"]},
+            "library_ms": None})
+        del x, r, go, got, want, gb, wb
+    k3_err = 0.0
+    for dp in DP_DEGREES:
+        b = GAN_B // dp
+        stage_rows = []
+        for ch, tlen in GAN_STAGES:
+            x = randn(b, ch, tlen, dtype=torch.float32).requires_grad_()
+            a = (randn(ch, dtype=torch.float32) * 0.3).requires_grad_()
+            bt = (randn(ch, dtype=torch.float32) * 0.3).requires_grad_()
+            g = randn(b, ch, tlen, dtype=torch.float32)
+            y = FA.fused_activation1d(x, a, bt, True)
+            want = FA.activation1d_reference(x, a, bt, True)
+            k3_err = max(k3_err, check("K3 Function forward", f"dp {dp}: B={b} C={ch} T={tlen}",
+                                       y, want, 1e-4))
+            got = torch.autograd.grad(y, (x, a, bt), g, retain_graph=True)
+            ref = torch.autograd.grad(want, (x, a, bt), g, retain_graph=True)
+            for name, gv, rv in zip(("dx", "dalpha", "dbeta"), got, ref):
+                check(f"K3 Function {name}", f"dp {dp}: B={b} C={ch} T={tlen}", gv, rv,
+                      K3_GRAD_BOUND * float(rv.abs().max()))
+            xd, ad, bd = x.detach(), a.detach(), bt.detach()
+            stage_rows.append({
+                "C": ch, "T": tlen,
+                "ms": cuda_ms(lambda: FA.fused_activation1d(xd, ad, bd, True)),
+                "graph_ms": graph_ms(lambda: [FA.fused_activation1d(xd, ad, bd, True)
+                                              for _ in range(10)], dev) / 10,
+                "bwd_ms": cuda_ms(lambda: torch.autograd.grad(y, (x, a, bt), g,
+                                                              retain_graph=True)),
+                "plain_ms": cuda_ms(lambda: FA.activation1d_reference(xd, ad, bd, True)),
+                # phase 3's K3 count: x in, y out, alpha and beta, f32; ~60
+                # operations an output
+                **least_time(8 * xd.numel() + 8 * ch, 60 * xd.numel(), "f32"),
+                "library_ms": None})
+            del x, a, bt, g, y, want, got, ref
+        rows["k3_dp"].append({"dp": dp, "rows": b, "stages": stage_rows})
+    with open(os.path.join(out_dir, "train_rank_kernels.json"), "w") as f:
+        json.dump(rows, f)
+    log("phase 18 (d) train_rank_kernels: " + json.dumps(rows))
+    return {"flash_attention": max(r["max_abs_err"]["fwd"] for r in rows["lm_tp"]
+                                   + rows["cfm_dp"]),
+            "flash_attention_bwd_dq": max(r["max_abs_err"]["dq"] for r in rows["lm_tp"]
+                                          + rows["cfm_dp"]),
+            "flash_attention_bwd_dkv": max(r["max_abs_err"]["dkv"] for r in rows["lm_tp"]
+                                           + rows["cfm_dp"]),
+            "add_mask_ln": max(r["max_abs_err"]["fwd"] for r in rows["k4_dp"]),
+            "add_mask_ln_bwd": max(r["max_abs_err"]["bwd"] for r in rows["k4_dp"]),
+            "fused_activation1d": k3_err}
+
+
+def _mesh_refusals(dev, tmp: str) -> dict:
+    """Phase 18 (e): with one card cli.train_pt --tp 2 and
+    cli.train_voicebox --num_processes 2 refuse by name (in process, before
+    any group forms); with two or more, a tiny train_pt --dp 2 over two
+    processes against --dp 1 (losses within 2e-2 rel, bf16 compute)."""
+    import torch
+
+    from usdm_tpu_torch.cli import train_pt, train_voicebox
+
+    n = torch.cuda.device_count()
+    out = {"cards": n}
+    if n < 2:
+        said = {}
+        for name, call in (
+                ("train_pt --tp 2", lambda: train_pt.main([
+                    "--tiny", "--data_path", tmp, "--output_dir", os.path.join(tmp, "r1"),
+                    "--device", str(dev), "--tp", "2"])),
+                ("train_voicebox --num_processes 2", lambda: train_voicebox.main([
+                    "--train_filelist", "x", "--output_dir", os.path.join(tmp, "r2"),
+                    "--device", str(dev), "--num_processes", "2"]))):
+            try:
+                call()
+                said[name] = "ran"
+            except ValueError as e:
+                said[name] = str(e)
+        log(f"phase 18 (e) refusals on {n} card: " + json.dumps(said))
+        if not all("need 2 devices" in s for s in said.values()):
+            raise AssertionError(f"phase 18 (e): a sharded CLI did not refuse one card by name: "
+                                 f"{said}")
+        out.update({"refusals": said, "dp2_run": f"not run: {n} card"})
+        return out
+    rows = os.path.join(tmp, "dp2_rows")
+    os.makedirs(rows)
+    rng = np.random.default_rng(18)
+    with open(os.path.join(rows, "part0.txt"), "w") as f:
+        for _ in range(8):
+            f.write(" ".join(map(str, [1] + rng.integers(3, 500, 60).tolist())) + "\n")
+    common = ["--tiny", "--data_path", rows, "--max_steps", "4", "--train_batch_size", "2",
+              "--logging_steps", "1", "--save_steps", "0"]
+    root = os.path.dirname(os.path.abspath(__file__))
+    port = str(_free_port())
+    procs = [subprocess.Popen([sys.executable, "-m", "usdm_tpu_torch.cli.train_pt", *common,
+                               "--output_dir", os.path.join(tmp, "dp2"), "--dp", "2",
+                               "--coordinator", f"localhost:{port}", "--num_processes", "2",
+                               "--process_id", str(r)], cwd=root) for r in range(2)]
+    rcs = [p.wait(timeout=300) for p in procs]
+    run_module("usdm_tpu_torch.cli.train_pt", *common, "--output_dir", os.path.join(tmp, "dp1"))
+    a, b = _train_metrics(os.path.join(tmp, "dp2")), _train_metrics(os.path.join(tmp, "dp1"))
+    close = all(abs(x["train/loss"] / y["train/loss"] - 1) <= 2e-2 for x, y in zip(a, b))
+    if any(rcs) or len(a) != 4 or not close:
+        raise AssertionError(f"phase 18 (e): train_pt --dp 2 (rc {rcs}) against --dp 1: {a} {b}")
+    out["dp2_run"] = "cli.train_pt --tiny --dp 2 over two cards within 2e-2 of --dp 1"
+    return out
+
+
+def mesh_train_run(dev, lm: dict, gan: dict, out_dir: str, smi: str) -> dict:
+    """Phase 18: the sharded trainers on one card.  (a) train_pt in a
+    one-rank NCCL group against phase 11 (b); (b) the CFM and GAN steps on
+    a one-rank mesh against one device; (c) the distill step against phase
+    12 (c); (d) the kernels at every per-rank shape of dp / tp 2, 4, 8;
+    (e) the one-card refusals.  -> the results; "launches": (a)-(c)'s."""
+    import torch
+
+    from usdm_tpu_torch.core import distributed as D
+    from usdm_tpu_torch.core import mesh as MS
+
+    out, t0 = {}, time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        out["pt"] = _mesh_pt_run(dev, root, lm["pt"]["info"]["steps"], smi)
+        log(f"phase time: 18 (a) {time.perf_counter() - t0:.1f} s")
+        t1 = time.perf_counter()
+        tp_group(dev)
+        mesh = MS.single_device_mesh(dev)
+        out["dp"] = _dp_equal_runs(dev, mesh)
+        out["distill"] = _mesh_distill_run(dev, mesh, gan["distill"]["bf16"]["steps"][0])
+        D.finish()
+        log(f"phase time: 18 (b)-(c) {time.perf_counter() - t1:.1f} s")
+        t1 = time.perf_counter()
+        out["max_abs_err"] = rank_kernel_checks(dev, out_dir)
+        log(f"phase time: 18 (d) {time.perf_counter() - t1:.1f} s")
+        out["e"] = _mesh_refusals(dev, root)
+    if torch.distributed.is_initialized():
+        raise AssertionError("phase 18 left a process group behind")
+    launches = dict(out["pt"]["launches"])
+    for k, n in out["distill"]["launches"].items():
+        launches[k] += n
+    for k, n in out["dp"]["cfm"]["launches"].items():
+        launches[k] = launches.get(k, 0) + n
+    launches["fused_activation1d"] = out["dp"]["gan"]["k3_launches"]
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t0
+    log("phase 18: " + json.dumps({"dp2_run": out["e"]["dp2_run"], "cards": out["e"]["cards"],
+                                   "launches": launches}))
+    log(f"phase time: sharded training (phase 18) {out['seconds']:.1f} s")
+    return out
+
+
 def _write_profile(prof, out_dir: str, name: str = "respond_profile.txt") -> None:
     table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
     path = os.path.join(out_dir, name)
@@ -6669,6 +7250,7 @@ def main() -> int:
     log(f"phase time: 17 (b)-(d) kernels at the per-rank shapes, the tp 2 refusal {tp_s:.1f} s")
     log(f"phase time: tp (phase 17) "
         f"{bf16_run['tp']['seconds'] + int8['tp']['seconds'] + tp_s:.1f} s")
+    mesh = mesh_train_run(dev, lm, gan, args.out_dir, smi.stdout.strip())
     a, b = int8["A"]["launches"], int8["B"]["launches"]
     # K1 and K6 add the speculative paths: the ngram turns (c) and the
     # bench ports' engines (b)
@@ -6732,6 +7314,13 @@ def main() -> int:
         for k, n in part["launches"].items():
             launches[k] += n
     for k, err in tp["max_abs_err"].items():
+        kres[k]["max_abs_err"] = max(kres[k]["max_abs_err"], err)
+    # phase 18: the sharded trainers' runs on one card ((a) train_pt: K2/K5;
+    # (b) CFM: K2/K4/K5, GAN: K3; (c) distill: K2/K5; counts reset just
+    # before each run) and (d)'s checks at every per-rank shape
+    for k, n in mesh["launches"].items():
+        launches[k] += n
+    for k, err in mesh["max_abs_err"].items():
         kres[k]["max_abs_err"] = max(kres[k]["max_abs_err"], err)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [

@@ -204,7 +204,7 @@ def test_train_draft_tiny_resume_export_and_serve(tmp_path):
     got = [r.output_ids for r in spec.run(reqs())]
     want = [r.output_ids for r in PagedEngine(tparams, tcfg, ecfg, device="cpu").run(reqs())]
     assert got == want and spec.spec_rounds > 0
-    with pytest.raises(NotImplementedError, match="--tp"):
+    with pytest.raises(ValueError, match="tp 2, 1 slices\\) needs 2 processes"):
         train_draft.main(common + ["--output_dir", str(tmp_path / "c"), "--tp", "2"])
     with pytest.raises(RuntimeError, match="CUDA"):
         train_draft.main(["--tiny", "--data_path", str(rows), "--output_dir",

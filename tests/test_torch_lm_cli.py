@@ -2,9 +2,9 @@
 end to end at --tiny on the CPU: a few steps on rows written here, --resume
 equal to an uninterrupted run, --offload equal to the resident step,
 --export_hf read back by checkpoint.load_mistral (and usdm_tpu's loader),
-LoRA over a frozen base, and the refusals (no card, more than one device,
-the multi-host flags, train_pt --lora, an HF datasets cache without
-`datasets`)."""
+LoRA over a frozen base, and the refusals (no card, a mesh or process
+count that one process cannot serve, train_pt --lora, an HF datasets cache
+without `datasets`)."""
 
 import json
 import os
@@ -157,19 +157,27 @@ def test_train_sft_full_resume_and_lora_export(data, tmp_path):
 
 
 def test_cli_refusals(data, tmp_path, monkeypatch):
-    """Without a card --device cuda (the default) raises; --dp/--tp > 1 and
-    the multi-host flags raise NotImplementedError naming ROADMAP item 10;
-    a datasets cache without `datasets` names the package."""
+    """Without a card --device cuda (the default) raises; the multi-process
+    flags are served, and where one process stands alone they raise by name
+    what is missing (the ranks of --dp/--tp/--num_slices, a rendezvous for
+    --num_processes, a rank for --coordinator) rather than train on one
+    device; a datasets cache without `datasets` names the package."""
     base = ["--tiny", "--output_dir", str(tmp_path / "o"), "--max_steps", "1"]
     pt, sft = base + ["--data_path", data["rows"]], base + ["--train_path", data["sft"]]
+    for k in ("WORLD_SIZE", "MASTER_ADDR", "LOCAL_RANK"):
+        monkeypatch.delenv(k, raising=False)
     for main, args in ((train_pt.main, pt), (train_sft.main, sft)):
         if not torch.cuda.is_available():
             with pytest.raises(RuntimeError, match="CUDA"):
                 main(args)
-        for extra in (["--dp", "2"], ["--tp", "2"], ["--coordinator", "h:1"],
-                      ["--num_processes", "2"], ["--num_slices", "2"]):
-            with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        for extra, said in ((["--dp", "2"], "needs 2 processes"),
+                            (["--tp", "2"], "needs 2 processes"),
+                            (["--coordinator", "h:1"], "needs --num_processes and --process_id"),
+                            (["--num_processes", "2"], "rendezvous"),
+                            (["--num_slices", "2"], "needs 2 processes")):
+            with pytest.raises(ValueError, match=said):
                 main(args + ["--device", "cpu"] + extra)
+    assert not torch.distributed.is_initialized()
     monkeypatch.setitem(sys.modules, "datasets", None)
     with pytest.raises(ModuleNotFoundError, match="datasets"):
         next(train_pt.iter_packed_rows(str(tmp_path)))

@@ -1,5 +1,5 @@
-"""CLI: distill a speculative-decoding draft model from a USDM target, on one
-GPU.
+"""CLI: distill a speculative-decoding draft model from a USDM target, on
+one GPU or sharded over several.
 
 Port of usdm_tpu/cli/train_draft.py, with its flags plus `--device`:
 
@@ -22,8 +22,9 @@ continues from the newest and skips the rows its steps consumed (usdm_tpu
 rereads from the first row), so it equals the uninterrupted run.
 `--export_hf` writes the draft as an HF Mistral dir that --draft_dir of
 cli.infer and cli.serve loads.  `--device cuda` (the default) raises
-without a card; --dp/--tp > 1 and the multi-host flags raise
-NotImplementedError.
+without a card.  The multi-process flags run as cli/train_pt.py's: the
+draft's state sharded (FSDP + TP), the target whole on every rank, each
+rank on its rows of the global batch; rank 0 logs and writes.
 """
 
 from __future__ import annotations
@@ -72,7 +73,6 @@ def main(argv=None) -> int:
 
     D.add_cli_args(p)
     args = p.parse_args(argv)
-    D.refuse_unported(args)
 
     import torch
 
@@ -88,6 +88,8 @@ def main(argv=None) -> int:
     from usdm_tpu_torch.train import lm as T
 
     device = ckpt.check_device(args.device)
+    mesh = D.make_cli_mesh(args, device)
+    primary = D.is_primary()
     gen = torch.Generator(device=device).manual_seed(args.seed)
     if args.tiny:
         cfg_t = MistralConfig.tiny(vocab_size=512)
@@ -109,20 +111,23 @@ def main(argv=None) -> int:
 
     tc = TrainConfig(learning_rate=args.learning_rate, warmup_ratio=args.warmup_ratio,
                      batch_size=args.train_batch_size, max_steps=args.max_steps, seed=args.seed,
-                     dp=max(args.dp, 1), tp=args.tp, save_every=args.save_steps,
+                     dp=1 if mesh is None else mesh.size("data"),
+                     tp=1 if mesh is None else mesh.size("model"), save_every=args.save_steps,
                      keep_checkpoints=args.save_total_limit)
-    state = T.init_state(cfg_d, tc, device, params=draft)
+    state = T.init_state(cfg_d, tc, device, params=draft, mesh=mesh)
     del draft
     ckpt_dir = os.path.join(args.output_dir, "checkpoints")
     start_step = 0
+    saved = None
     if args.resume and ckpt.latest_step(ckpt_dir) is not None:
         ckpt.restore_train_state(ckpt_dir, state)
-        start_step = state.step
-        print(f"resuming from step {start_step}")
+        start_step = saved = state.step
+        if primary:
+            print(f"resuming from step {start_step}")
 
     step_fn = DI.make_distill_step(cfg_d, cfg_t, tc, temperature=args.temperature,
-                                   mode=args.mode, chunk=args.chunk)
-    logger = MetricsLogger(args.output_dir, use_tensorboard=False)
+                                   mode=args.mode, chunk=args.chunk, mesh=mesh)
+    logger = MetricsLogger(args.output_dir, use_tensorboard=False, enabled=primary)
     pad_id = cfg_t.vocab_size - 1
     rows = rows_forever(args.data_path)
     for _ in range(start_step * tc.batch_size):  # the rows the resumed steps consumed
@@ -130,7 +135,7 @@ def main(argv=None) -> int:
 
     def next_batch():
         batch_rows = [next(rows)[:args.max_input_length] for _ in range(tc.batch_size)]
-        return LT.to_device(pack_collate(batch_rows, pad_id=pad_id), device)
+        return LT.to_device(pack_collate(batch_rows, pad_id=pad_id), device, mesh)
 
     metrics_of = LT.StepMetrics(start_step, device)
     for step in range(start_step, args.max_steps):
@@ -138,16 +143,22 @@ def main(argv=None) -> int:
         if (step + 1) % args.logging_steps == 0 or step == start_step:
             vals = metrics_of(step + 1, metrics)
             logger.log(step + 1, vals)
-            print(f"step {step + 1}: loss={vals['loss']:.4f} agree={vals['agree']:.3f}")
+            if primary:
+                print(f"step {step + 1}: loss={vals['loss']:.4f} agree={vals['agree']:.3f}")
         if (step + 1) % tc.save_every == 0:
             ckpt.save_train_state(ckpt_dir, state, step + 1, keep=tc.keep_checkpoints)
-    if ckpt.latest_step(ckpt_dir) != args.max_steps:
+            saved = step + 1
+    if saved != args.max_steps:
         ckpt.save_train_state(ckpt_dir, state, args.max_steps, keep=tc.keep_checkpoints)
     if args.export_hf:
-        ckpt.save_mistral_hf(args.export_hf, state.params, cfg_d)
-        print(f"exported draft HF dir: {args.export_hf}")
+        trainer = LT.Trainer(state, None, None, cfg_d, mesh)
+        LT.export_hf(args.export_hf, trainer)
+        if primary:
+            print(f"exported draft HF dir: {args.export_hf}")
     logger.close()
-    print("done")
+    D.finish()
+    if primary:
+        print("done")
     return 0
 
 

@@ -1,9 +1,11 @@
-"""CLI: interleaved speech-text pre-training (USTM phase) on one GPU.
+"""CLI: interleaved speech-text pre-training (USTM phase), on one GPU or
+sharded over several.
 
 Port of usdm_tpu/cli/train_pt.py, with the same flags plus `--device`:
 
   python -m usdm_tpu_torch.cli.train_pt --data_path rows/ --output_dir out \\
       [--model_dir mistral-7b] [--offload] [--resume] [--export_hf DIR]
+  torchrun --nproc_per_node 8 -m usdm_tpu_torch.cli.train_pt ... --dp 4 --tp 2
 
 Loads base Mistral weights (or draws them: MistralConfig(), or --tiny),
 extends the vocabulary by the speech tokens (normal(0, initializer_range)
@@ -22,8 +24,18 @@ steps consumed (usdm_tpu rereads from the first row).  `--profile_steps N`
 traces the first N steps with torch.profiler into `<output_dir>/trace`
 and trains on untraced (usdm_tpu stops after them).  Metrics go to
 `<output_dir>/metrics.jsonl`: loss, grad_norm, ntokens, step_s and, on the
-card, max_memory_gib.  `--device cuda` (the default) raises without a card;
---dp/--tp > 1 and the multi-host flags raise NotImplementedError.
+card, max_memory_gib.  `--device cuda` (the default) raises without a card.
+
+Sharded (usdm_tpu's FSDP over `data`, TP over `model`; train/lm.py): one
+process per GPU, started by torchrun or with `--coordinator host:port
+--num_processes N --process_id r` each; `--dp` x `--tp` (x `--num_slices`)
+must equal N (`--dp -1`: every rank left), and a host without LOCAL_RANK
+must hold N GPUs.  Every rank reads the same rows and trains on its block of
+each global batch of --train_batch_size rows, so the data order is the
+single-process run's; rank 0 alone logs and writes (checkpoints gathered
+leaf by leaf in the single-device format, restorable at any dp and tp;
+the export).  A coordinator with one process and --dp 1 --tp 1 runs the
+sharded path in a one-rank group.
 """
 
 from __future__ import annotations
@@ -113,7 +125,6 @@ def main(argv=None) -> int:
 
     D.add_cli_args(p)
     args = p.parse_args(argv)
-    D.refuse_unported(args)
     if args.lora:
         p.error("--lora: usdm_tpu's train_pt accepts it and trains every parameter; "
                 "train adapters with usdm_tpu_torch.cli.train_sft --lora")
@@ -129,6 +140,8 @@ def main(argv=None) -> int:
     from usdm_tpu_torch.train import lm as T
 
     device = ckpt.check_device(args.device)
+    mesh = D.make_cli_mesh(args, device)
+    primary = D.is_primary()
     gen = torch.Generator(device=device).manual_seed(args.seed)
     base = None
     if args.tiny:
@@ -141,30 +154,33 @@ def main(argv=None) -> int:
     else:
         cfg = MistralConfig().replace(dtype=T.COMPUTE_DTYPE)
 
+    dp = 1 if mesh is None else mesh.size("data")
+    tp = 1 if mesh is None else mesh.size("model")
     tc = TrainConfig(
         learning_rate=args.learning_rate, warmup_ratio=args.warmup_ratio,
         batch_size=args.train_batch_size, max_steps=args.max_steps, seed=args.seed,
-        dp=max(args.dp, 1), tp=args.tp, save_every=args.save_steps,
-        keep_checkpoints=args.save_total_limit,
+        dp=dp, tp=tp, save_every=args.save_steps, keep_checkpoints=args.save_total_limit,
     )
     hbm_gb = (torch.cuda.get_device_properties(device).total_memory / 2**30
               if device.type == "cuda" else None)
-    budget = T.memory_budget(cfg, dp=1, tp=1, seq_len=args.max_input_length,
-                             batch_per_chip=tc.batch_size, offload=args.offload,
-                             hbm_gb=hbm_gb or 0.0)
+    shards = 1 if mesh is None else mesh.batch_shards
+    budget = T.memory_budget(cfg, dp=dp, tp=tp, seq_len=args.max_input_length,
+                             batch_per_chip=max(tc.batch_size // shards, 1),
+                             offload=args.offload, hbm_gb=hbm_gb or 0.0)
     where = (f"of the card's {hbm_gb:.2f} GiB (fits: {budget['fits']})" if hbm_gb
              else "(a CPU run: no device memory to hold it against)")
-    print(f"memory budget: device {budget['device_gb']:.2f} GiB {where}, host "
-          f"{budget['host_gb']:.2f} GiB")
-    if hbm_gb and not budget["fits"] and not args.offload:
-        print("[warning] the budget exceeds the card's memory: consider --offload")
+    if primary:
+        print(f"memory budget (dp {dp}, tp {tp}): device {budget['device_gb']:.2f} GiB {where}, "
+              f"host {budget['host_gb']:.2f} GiB")
+        if hbm_gb and not budget["fits"] and not args.offload:
+            print("[warning] the budget exceeds the card's memory: consider --offload")
 
-    trainer = LT.make_trainer(cfg, tc, device, gen, base, offload=args.offload)
+    trainer = LT.make_trainer(cfg, tc, device, gen, base, offload=args.offload, mesh=mesh)
     del base
     ckpt_dir = os.path.join(args.output_dir, "checkpoints")
     start_step = LT.resume(trainer, ckpt_dir) if args.resume else 0
-    eval_fn = T.make_eval_step(cfg, tc) if args.eval_data_path else None
-    logger = MetricsLogger(args.output_dir, use_tensorboard=False)
+    eval_fn = T.make_eval_step(cfg, tc, mesh) if args.eval_data_path else None
+    logger = MetricsLogger(args.output_dir, use_tensorboard=False, enabled=primary)
     pad_id = cfg.vocab_size - 1
 
     tokenizer = None
@@ -173,9 +189,12 @@ def main(argv=None) -> int:
 
         tokenizer = UsdmTokenizer.load(args.tokenizer_dir, num_units=args.num_unit_tokens)
 
+    saved = [start_step if args.resume else None]
+
     def save_ckpt(step):
         ckpt.save_train_state(ckpt_dir, trainer.state, step, keep=tc.keep_checkpoints)
-        if tokenizer is not None:
+        saved[0] = step
+        if tokenizer is not None and primary:
             tokenizer.save(os.path.join(ckpt_dir, f"tokenizer-{step}"))
 
     last_eval = [-1]
@@ -192,12 +211,13 @@ def main(argv=None) -> int:
             if len(batch_rows) < tc.batch_size:
                 break
             m = eval_fn(trainer.state.params,
-                        LT.to_device(pack_collate(batch_rows, pad_id=pad_id), device))
+                        LT.to_device(pack_collate(batch_rows, pad_id=pad_id), device, mesh))
             losses.append(float(m["loss"]))
             toks += int(m["ntokens"])
         if losses:
             logger.log(step, {"loss": float(np.mean(losses)), "ntokens": toks}, prefix="eval")
-            print(f"eval @ {step}: loss={np.mean(losses):.4f}")
+            if primary:
+                print(f"eval @ {step}: loss={np.mean(losses):.4f}")
 
     rows = rows_forever(args.data_path)
     for _ in range(start_step * tc.batch_size):  # the rows the resumed steps consumed
@@ -205,18 +225,20 @@ def main(argv=None) -> int:
 
     def next_batch():
         batch_rows = [next(rows)[:args.max_input_length] for _ in range(tc.batch_size)]
-        return LT.to_device(pack_collate(batch_rows, pad_id=pad_id), device)
+        return LT.to_device(pack_collate(batch_rows, pad_id=pad_id), device, mesh)
 
     metrics_of = LT.StepMetrics(start_step, device)
     with contextlib.ExitStack() as profiling:
-        if args.profile_steps:
+        if args.profile_steps and primary:
             profiling.enter_context(profile_trace(os.path.join(args.output_dir, "trace")))
         for step in range(start_step, args.max_steps):
             metrics = trainer.step(next_batch())
             if (step + 1) % args.logging_steps == 0 or step == start_step:
                 vals = metrics_of(step + 1, metrics)
                 logger.log(step + 1, vals)
-                print(f"step {step + 1}: loss={vals['loss']:.4f} gnorm={vals['grad_norm']:.3f}")
+                if primary:
+                    print(f"step {step + 1}: loss={vals['loss']:.4f} "
+                          f"gnorm={vals['grad_norm']:.3f}")
             if (step + 1) % args.eval_steps == 0:
                 run_eval(step + 1)
             if args.save_steps and (step + 1) % args.save_steps == 0:
@@ -225,13 +247,16 @@ def main(argv=None) -> int:
                 profiling.close()  # writes the trace of the first profile_steps steps
                 metrics_of.restart(step + 1)  # the next step_s leaves the writing out
     run_eval(args.max_steps)
-    if args.save_steps and ckpt.latest_step(ckpt_dir) != args.max_steps:
+    if args.save_steps and saved[0] != args.max_steps:
         save_ckpt(args.max_steps)
     if args.export_hf:
         LT.export_hf(args.export_hf, trainer, tokenizer)
-        print(f"exported HF dir: {args.export_hf}")
+        if primary:
+            print(f"exported HF dir: {args.export_hf}")
     logger.close()
-    print("done")
+    D.finish()
+    if primary:
+        print("done")
     return 0
 
 

@@ -1,4 +1,4 @@
-"""CLI: DailyTalk SFT (USDM phase) on one GPU.
+"""CLI: DailyTalk SFT (USDM phase), on one GPU or sharded over several.
 
 Port of usdm_tpu/cli/train_sft.py, with its flags plus `--device` and
 `--resume`:
@@ -16,8 +16,11 @@ end hold the whole train state, the LoRA adapters' too (usdm_tpu saves the
 adapters alone and cannot resume); `--resume` continues from the newest,
 in the batch order of an uninterrupted run.  `--export_hf` writes the
 final params (LoRA merged) as an HF dir.  Metrics as cli/train_pt.py's.
-`--device cuda` (the default) raises without a card; --dp/--tp > 1 and the
-multi-host flags raise NotImplementedError.
+`--device cuda` (the default) raises without a card.  The multi-process
+flags (--dp, --tp, --num_slices, --coordinator, --num_processes,
+--process_id, or torchrun) run as cli/train_pt.py's: every parameter
+sharded (FSDP + TP), or with --lora data parallel over the whole base
+(usdm_tpu's layout; the model axis then repeats the work).
 """
 
 from __future__ import annotations
@@ -70,7 +73,6 @@ def main(argv=None) -> int:
 
     D.add_cli_args(p)
     args = p.parse_args(argv)
-    D.refuse_unported(args)
 
     import torch
 
@@ -85,6 +87,8 @@ def main(argv=None) -> int:
     device = ckpt.check_device(args.device)
     if not args.tiny and not args.model_dir:
         p.error("--model_dir is required (or pass --tiny)")
+    mesh = D.make_cli_mesh(args, device)
+    primary = D.is_primary()
     gen = torch.Generator(device=device).manual_seed(args.seed)
     data = read_sft_file(args.train_path)
     if args.tiny:
@@ -96,13 +100,15 @@ def main(argv=None) -> int:
     steps_per_epoch = max(len(data) // args.train_batch_size, 1)
     max_steps = args.max_steps or steps_per_epoch * args.num_train_epochs
     tc = TrainConfig(learning_rate=args.learning_rate, batch_size=args.train_batch_size,
-                     max_steps=max_steps, seed=args.seed, dp=max(args.dp, 1), tp=args.tp)
+                     max_steps=max_steps, seed=args.seed,
+                     dp=1 if mesh is None else mesh.size("data"),
+                     tp=1 if mesh is None else mesh.size("model"))
     trainer = LT.make_trainer(cfg, tc, device, gen, base, lora=args.lora, lora_r=args.lora_r,
-                              lora_alpha=args.lora_alpha)
+                              lora_alpha=args.lora_alpha, mesh=mesh)
     del base
     ckpt_dir = os.path.join(args.output_dir, "checkpoints")
     start_step = LT.resume(trainer, ckpt_dir) if args.resume else 0
-    logger = MetricsLogger(args.output_dir, use_tensorboard=False)
+    logger = MetricsLogger(args.output_dir, use_tensorboard=False, enabled=primary)
     pad_id = cfg.vocab_size - 1
     rng = np.random.default_rng(args.seed)
 
@@ -118,18 +124,22 @@ def main(argv=None) -> int:
         next(it)
     metrics_of = LT.StepMetrics(start_step, device)
     for step in range(start_step, max_steps):
-        metrics = trainer.step(LT.to_device(next(it), device))
+        metrics = trainer.step(LT.to_device(next(it), device, mesh))
         if (step + 1) % args.logging_steps == 0 or step == start_step:
             vals = metrics_of(step + 1, metrics)
             logger.log(step + 1, vals)
-            print(f"step {step + 1}: loss={vals['loss']:.4f}")
+            if primary:
+                print(f"step {step + 1}: loss={vals['loss']:.4f}")
         if (step + 1) % args.save_steps == 0 or step + 1 == max_steps:
             ckpt.save_train_state(ckpt_dir, trainer.state, step + 1, keep=tc.keep_checkpoints)
     if args.export_hf:
         LT.export_hf(args.export_hf, trainer)
-        print(f"exported HF dir{' (LoRA merged)' if args.lora else ''}: {args.export_hf}")
+        if primary:
+            print(f"exported HF dir{' (LoRA merged)' if args.lora else ''}: {args.export_hf}")
     logger.close()
-    print("done")
+    D.finish()
+    if primary:
+        print("done")
     return 0
 
 

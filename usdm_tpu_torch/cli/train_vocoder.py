@@ -1,4 +1,5 @@
-"""CLI: BigVGAN vocoder GAN training / fine-tuning on one GPU.
+"""CLI: BigVGAN vocoder GAN training / fine-tuning, on one GPU or data
+parallel over several.
 
 Port of usdm_tpu/cli/train_vocoder.py, with its flags plus `--device`:
 
@@ -24,8 +25,14 @@ restarts the step count on resume).  Metrics of every step go to
 gen_mel_l1, the wall step_s, data loading included, and, on the card,
 max_memory_gib).  `--export DIR` writes the trained generator as
 config.json + bigvgan_generator.pt (checkpoint.load_bigvgan reads it).
-`--device cuda` (the default) raises without a card; the multi-host flags
-raise NotImplementedError.
+`--device cuda` (the default) raises without a card.
+
+Data parallel (usdm_tpu's create_mesh(dp=-1, tp=1): every rank over
+`data`, the GAN state replicated): one process per GPU, started by torchrun
+or with `--coordinator host:port --num_processes N --process_id r` each.
+Every rank draws the same global batch of --batch_size crops from the
+seeded loader and trains on its block of rows; rank 0 alone logs,
+validates and writes.
 """
 
 from __future__ import annotations
@@ -68,13 +75,13 @@ def main(argv=None) -> int:
 
     D.add_cli_args(p)
     args = p.parse_args(argv)
-    D.refuse_unported(args)
 
     import torch
 
     from usdm_tpu_torch.audio.mel import mel_for_config
     from usdm_tpu_torch.cli.lm_trainer import StepMetrics
     from usdm_tpu_torch.core import checkpoint as ckpt
+    from usdm_tpu_torch.core import mesh as MS
     from usdm_tpu_torch.core.config import BigVGANConfig, MelConfig
     from usdm_tpu_torch.core.logging import MetricsLogger
     from usdm_tpu_torch.core.tree import tree_leaves
@@ -84,6 +91,8 @@ def main(argv=None) -> int:
     from usdm_tpu_torch.train import vocoder as V
 
     device = ckpt.check_device(args.device)
+    mesh = D.make_cli_mesh(args, device)
+    primary = D.is_primary()
     cfg = BigVGANConfig.tiny() if args.tiny else BigVGANConfig()
     mel_cfg = MelConfig()
     resolutions, periods = BV.DEFAULT_RESOLUTIONS, BV.DEFAULT_PERIODS
@@ -113,10 +122,11 @@ def main(argv=None) -> int:
         saved = ckpt.read_train_extra(ckpt_dir, state.step)
         rng.bit_generator.state = saved["rng"]
         pos = {k: saved[k] for k in pos}
-        print(f"resuming from step {state.step} (epoch {pos['epoch']})")
+        if primary:
+            print(f"resuming from step {state.step} (epoch {pos['epoch']})")
 
     disc_step, gen_step = V.make_train_steps(cfg, gopt, dopt, loss_mel_config(mel_cfg),
-                                             resolutions, periods)
+                                             resolutions, periods, mesh)
     files = read_vocoder_filelist(args.input_training_file, args.input_wavs_dir)
     dataset = MelAudioDataset(files, args.segment_size, mel_cfg, fine_tuning=args.fine_tuning,
                               base_mels_path=args.base_mels_path)
@@ -130,12 +140,15 @@ def main(argv=None) -> int:
                               args.segment_size, mel_cfg, fine_tuning=args.fine_tuning,
                               base_mels_path=args.base_mels_path)
 
-    logger = MetricsLogger(args.output_dir, use_tensorboard=False)
+    logger = MetricsLogger(args.output_dir, use_tensorboard=False, enabled=primary)
     metrics_of = StepMetrics(state.step, device)
+
+    saved_at = [state.step if args.resume else None]
 
     def save():
         ckpt.save_train_state(ckpt_dir, state, state.step,
                               extra={**pos, "rng": rng.bit_generator.state})
+        saved_at[0] = state.step
 
     def done() -> bool:
         return bool(args.max_steps) and state.step >= args.max_steps
@@ -151,16 +164,19 @@ def main(argv=None) -> int:
             i = starts[pos["next"]]
             items = [dataset.__getitem__(j, rng) for j in order[i:i + bs]]
             batch = collate_mel_batch(items, mel_cfg, device)
+            if mesh is not None:  # this rank's rows of the global batch
+                batch = MS.shard_batch(mesh, batch)
             metrics = {**disc_step(state, batch), **gen_step(state, batch)}
             vals = metrics_of(state.step, metrics)  # waits for the step
             pos["next"] += 1
             logger.log(state.step, vals)
-            if state.step % 20 == 0 or state.step == 1:
+            if (state.step % 20 == 0 or state.step == 1) and primary:
                 print(f"epoch {epoch} step {state.step}: gen={vals['gen_loss']:.4f} "
                       f"disc={vals['disc_loss']:.4f} mel_l1={vals['gen_mel_l1']:.4f}")
         if done():
             break
-        if val is not None and (epoch + 1) % max(args.eval_every, 1) == 0 and len(val):
+        if (val is not None and (epoch + 1) % max(args.eval_every, 1) == 0 and len(val)
+                and primary):
             # cycled when the validation set is smaller than a batch
             items = [val.__getitem__(j % len(val), np.random.default_rng(0)) for j in range(bs)]
             batch = collate_mel_batch(items, mel_cfg, device)
@@ -174,13 +190,15 @@ def main(argv=None) -> int:
         pos = {"epoch": epoch + 1, "order": None, "next": 0}
         if (epoch + 1) % args.save_every == 0:
             save()
-    if ckpt.latest_step(ckpt_dir) != state.step:
+    if saved_at[0] != state.step:
         save()
-    if args.export:
+    if args.export and primary:
         ckpt.save_bigvgan_generator(args.export, state.gen_params, cfg)
         print(f"exported generator: {args.export}")
     logger.close()
-    print("done")
+    D.finish()
+    if primary:
+        print("done")
     return 0
 
 

@@ -1,4 +1,4 @@
-"""CLI: token-Voicebox CFM training on one GPU.
+"""CLI: token-Voicebox CFM training, on one GPU or data parallel over several.
 
 Port of usdm_tpu/cli/train_voicebox.py: unit-mel filelist dataset,
 CFG/infilling collate, the train loop with bf16 compute over f32 masters and
@@ -21,8 +21,15 @@ by epoch and its last one by the run's own step count.)  `--bigvgan_dir`
 vocodes each synthesis smoke test's mel into a wav
 (`MetricsLogger.log_audio`); `--export_hub DIR` writes the trained params
 as a HubMixin directory after training (`load_voicebox` and usdm_tpu's read
-it).  Multi-process data parallelism is not ported yet (ROADMAP Queue 1
-item 10).
+it).
+
+Data parallel (usdm_tpu's create_mesh(dp=-1, tp=1): every rank over
+`data`, the state replicated): one process per GPU, started by torchrun or
+with `--coordinator host:port --num_processes N --process_id r` each.
+Every rank builds the same global batch of --batch_size rows from the
+seeded loader and trains on its block of rows (train/cfm.py draws t and z
+for the global batch), so the run computes the single-process run's
+numbers; rank 0 alone logs, runs the smoke tests and writes.
 """
 
 from __future__ import annotations
@@ -62,11 +69,15 @@ def main(argv=None) -> int:
     p.add_argument("--bigvgan_dir", default=None,
                    help="BigVGAN checkpoint dir: vocode each smoke test's mel into a wav")
     p.add_argument("--device", default="cuda", help="torch device to train on")
+    from usdm_tpu_torch.core import distributed as D
+
+    D.add_cli_args(p)
     args = p.parse_args(argv)
 
     import torch
 
     from usdm_tpu_torch.core import checkpoint as ckpt
+    from usdm_tpu_torch.core import mesh as MS
     from usdm_tpu_torch.core.config import CfmTrainConfig, MelConfig, VoiceboxConfig
     from usdm_tpu_torch.core.logging import MetricsLogger
     from usdm_tpu_torch.data.unit_mel import UnitMelCollate, UnitMelDataset
@@ -78,6 +89,8 @@ def main(argv=None) -> int:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: CUDA is not available (pass --device cpu to train "
                            "on the CPU)")
+    mesh = D.make_cli_mesh(args, device)
+    primary = D.is_primary()
 
     cfg = VoiceboxConfig.tiny().replace(n_feats=80) if args.tiny else VoiceboxConfig()
     mel_cfg = MelConfig()
@@ -99,18 +112,23 @@ def main(argv=None) -> int:
     ckpt_dir = os.path.join(args.output_dir, "checkpoints")
     if args.resume and ckpt.latest_step(ckpt_dir) is not None:
         state = ckpt.restore_train_state(ckpt_dir, state)
-        print(f"resuming from step {state.step}")
+        if primary:
+            print(f"resuming from step {state.step}")
     gstep = state.step
+    saved = gstep if args.resume else None
     start_epoch = gstep // steps_per_epoch
 
-    step_fn = C.make_train_step(cfg, tc, opt)
+    step_fn = C.make_train_step(cfg, tc, opt, mesh=mesh)
     eval_fn = C.make_eval_step(cfg)
-    logger = MetricsLogger(args.output_dir, use_tensorboard=False)
+    logger = MetricsLogger(args.output_dir, use_tensorboard=False, enabled=primary)
     vocoder = ckpt.load_bigvgan(args.bigvgan_dir, device=device) if args.bigvgan_dir else None
 
-    def to_device(batch):
+    def to_device(batch, shard=True):
+        if mesh is not None and shard:  # this rank's rows
+            batch = MS.shard_batch(mesh, batch)
         out = {}
         for k, v in batch.items():
+            v = np.ascontiguousarray(v)
             t = torch.from_numpy(v)
             out[k] = (t.pin_memory().to(device, non_blocking=True) if device.type == "cuda"
                       else t)
@@ -126,7 +144,7 @@ def main(argv=None) -> int:
             vals["step_s"] = now - last[0]
             last[0] = now
             logger.log(gstep_, vals)
-            if gstep_ % 20 == 0:
+            if gstep_ % 20 == 0 and primary:
                 print(f"epoch {epoch_} step {gstep_}: loss={vals['loss']:.4f}")
         pending.clear()
 
@@ -147,10 +165,13 @@ def main(argv=None) -> int:
         if val is not None:
             flush()
             items = [val[j] for j in range(min(len(val), args.batch_size))]
-            batch = to_device(collate(items, rng, evaluation=True))
-            ev = eval_fn(state.params, batch, torch.Generator(device=device).manual_seed(0))
-            logger.log(gstep, ev, prefix="eval")
-        if args.synthesize_every and (epoch + 1) % args.synthesize_every == 0 and len(dataset):
+            batch = collate(items, rng, evaluation=True)  # every rank: rng stays in step
+            if primary:
+                ev = eval_fn(state.params, to_device(batch, shard=False),
+                             torch.Generator(device=device).manual_seed(0))
+                logger.log(gstep, ev, prefix="eval")
+        if (args.synthesize_every and (epoch + 1) % args.synthesize_every == 0 and len(dataset)
+                and primary):
             flush()
             unit, _ = dataset[0]  # smoke test: synthesize the first sample's mel
             n = min(len(unit), 200)
@@ -171,15 +192,18 @@ def main(argv=None) -> int:
         if (epoch + 1) % args.save_every == 0:
             flush()
             ckpt.save_train_state(ckpt_dir, state, state.step)
+            saved = state.step
     flush()
-    if ckpt.latest_step(ckpt_dir) != state.step:
+    if saved != state.step:
         ckpt.save_train_state(ckpt_dir, state, state.step)
-    if args.export_hub:
+    if args.export_hub and primary:
         # the reference's training saves a HubMixin dir (decoder/scripts/train.py:305-318)
         ckpt.save_voicebox_hub(args.export_hub, state.params, cfg)
         print(f"exported HubMixin dir: {args.export_hub}")
     logger.close()
-    print("done")
+    D.finish()
+    if primary:
+        print("done")
     return 0
 
 

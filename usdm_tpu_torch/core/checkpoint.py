@@ -456,26 +456,52 @@ def _steps(path: str):
                   if m and os.path.exists(os.path.join(path, m.group(0), _FILE)))
 
 
+def _gathered(state):
+    """(params, optimizer state dict) of `state` on the host; a sharded
+    state (`layout`: a core/mesh.py Sharding per leaf) gathered whole leaf
+    by leaf (every rank joins; only rank 0 keeps them)."""
+    layout = getattr(state, "layout", None)
+    if layout is None:
+        return tree_map(lambda a: a.detach().cpu(), state.params), state.opt_state.state_dict()
+    it = iter(layout)
+    params = tree_map(lambda a: next(it).gather_to_host(a), state.params)
+    return params, state.opt_state.state_dict(layout)
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.barrier()
+
+
 def save_train_state(path: str, state, step: int, keep: int = 2,
                      extra: Optional[dict] = None) -> None:
     """Write `state` as `path/step_<step>` (and `extra`, a JSON-able dict such
     as a data loader's position, as its extra.json), then drop all but the
-    newest `keep` checkpoints."""
-    path = os.path.abspath(path)
-    os.makedirs(path, exist_ok=True)
-    final = os.path.join(path, f"step_{step}")
-    tmp = os.path.join(path, f".step_{step}.{os.getpid()}.tmp")
-    shutil.rmtree(tmp, ignore_errors=True)
-    os.makedirs(tmp)
-    torch.save({"params": tree_map(lambda a: a.detach().cpu(), state.params),
-                "opt_state": state.opt_state.state_dict(), "step": int(state.step)},
-               os.path.join(tmp, _FILE))
-    if extra is not None:
-        _write_json(os.path.join(tmp, _EXTRA), extra)
-    shutil.rmtree(final, ignore_errors=True)
-    os.replace(tmp, final)
-    for old in _steps(path)[:-keep]:
-        shutil.rmtree(os.path.join(path, f"step_{old}"))
+    newest `keep` checkpoints.  In a process group every rank calls it:
+    a sharded state is gathered leaf by leaf, rank 0 alone writes the
+    single-device format, and the ranks leave together."""
+    from usdm_tpu_torch.core.distributed import is_primary
+
+    if getattr(state, "layout", None) is not None or is_primary():
+        params, opt = _gathered(state)
+    if is_primary():
+        path = os.path.abspath(path)
+        os.makedirs(path, exist_ok=True)
+        final = os.path.join(path, f"step_{step}")
+        tmp = os.path.join(path, f".step_{step}.{os.getpid()}.tmp")
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        torch.save({"params": params, "opt_state": opt, "step": int(state.step)},
+                   os.path.join(tmp, _FILE))
+        if extra is not None:
+            _write_json(os.path.join(tmp, _EXTRA), extra)
+        shutil.rmtree(final, ignore_errors=True)
+        os.replace(tmp, final)
+        for old in _steps(path)[:-keep]:
+            shutil.rmtree(os.path.join(path, f"step_{old}"))
+    _barrier()
 
 
 def latest_step(path: str) -> Optional[int]:
@@ -492,19 +518,27 @@ def read_train_extra(path: str, step: int) -> Optional[dict]:
 def restore_train_state(path: str, state, step: Optional[int] = None):
     """Load `path/step_<step>` (the latest when None) into `state` in place:
     parameters copied into its tensors, on their device, the optimizer
-    state through its load_state_dict."""
+    state through its load_state_dict.  A sharded state (`layout`) takes
+    each leaf's block for its mesh, so a checkpoint restores under any
+    dp and tp (the file holds whole leaves)."""
     path = os.path.abspath(path)
     step = latest_step(path) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no train-state checkpoint under {path}")
+    layout = getattr(state, "layout", None)
     saved = torch.load(os.path.join(path, f"step_{step}", _FILE), map_location="cpu",
-                       weights_only=True)
+                       weights_only=True, mmap=layout is not None)
     dst, src = tree_leaves(state.params), tree_leaves(saved["params"])
+    if layout is not None and len(src) == len(layout):
+        src = [sh.shard(t) for sh, t in zip(layout, src)]
     if len(dst) != len(src) or any(a.shape != b.shape for a, b in zip(dst, src)):
         raise ValueError(f"checkpoint step_{step} does not match the model's parameters")
     with torch.no_grad():
         for a, b in zip(dst, src):
             a.copy_(b)
-    state.opt_state.load_state_dict(saved["opt_state"])
+    if layout is not None:
+        state.opt_state.load_state_dict(saved["opt_state"], layout)
+    else:
+        state.opt_state.load_state_dict(saved["opt_state"])
     state.step = saved["step"]
     return state

@@ -12,7 +12,13 @@ from typing import Any, Dict
 
 
 class MetricsLogger:
-    def __init__(self, out_dir: str, use_tensorboard: bool = True):
+    """`enabled` False (a rank other than 0 of a process group): writes
+    nothing."""
+
+    def __init__(self, out_dir: str, use_tensorboard: bool = True, enabled: bool = True):
+        self.enabled = enabled
+        if not enabled:
+            return
         os.makedirs(out_dir, exist_ok=True)
         self.out_dir = out_dir
         self._jsonl = open(os.path.join(out_dir, "metrics.jsonl"), "a")
@@ -26,6 +32,8 @@ class MetricsLogger:
                 self._tb = None
 
     def log(self, step: int, metrics: Dict[str, Any], prefix: str = "train") -> None:
+        if not self.enabled:
+            return
         rec = {"step": int(step), "time": time.time()}
         for k, v in metrics.items():
             try:
@@ -44,6 +52,8 @@ class MetricsLogger:
         file `audio_<tag>_<step>.wav` in the output directory."""
         import numpy as np
 
+        if not self.enabled:
+            return
         if self._tb is not None:
             import torch
 
@@ -55,6 +65,8 @@ class MetricsLogger:
             write_wav(path, np.asarray(wav), sample_rate)
 
     def close(self) -> None:
+        if not self.enabled:
+            return
         self._jsonl.close()
         if self._tb is not None:
             self._tb.close()

@@ -23,3 +23,13 @@ def tree_leaves(tree) -> List[torch.Tensor]:
     if isinstance(tree, list):
         return [t for v in tree for t in tree_leaves(v)]
     return [tree]
+
+
+def tree_map2(fn: Callable, tree, other):
+    """`fn(leaf, other_leaf)` over `tree`, `other` matched to it by dict key
+    and list index (the result has `tree`'s structure and order)."""
+    if isinstance(tree, dict):
+        return {k: tree_map2(fn, v, other[k]) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map2(fn, v, o) for v, o in zip(tree, other, strict=True)]
+    return fn(tree, other)

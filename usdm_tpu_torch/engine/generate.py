@@ -70,19 +70,20 @@ class DenseLoop:
     `done`."""
 
     def __init__(self, params: M.Params, cfg: MistralConfig, cache: M.KVCache,
-                 graphs: bool = True):
-        self.params, self.cfg = params, cfg
+                 graphs: bool = True, mesh=None):
+        self.params, self.cfg, self.mesh = params, cfg, mesh
         self.cache = M.KVCache(cache.k, cache.v, cache.length.clone())
         b, dev = cache.k.shape[1], cache.k.device
         self.device = dev
         self.last = torch.zeros(b, dtype=torch.int64, device=dev)
         self.done = torch.zeros(b, dtype=torch.bool, device=dev)
         self.n = torch.zeros(1, dtype=torch.int64, device=dev)
-        self.allow = torch.zeros(params["lm_head"].shape[0], dtype=torch.bool, device=dev)
+        vocab = params["lm_head"].shape[0] if mesh is None else cfg.vocab_size
+        self.allow = torch.zeros(vocab, dtype=torch.bool, device=dev)
         self.eos = torch.zeros((), dtype=torch.int64, device=dev)
         self.noise: Optional[torch.Tensor] = None
         self._tokens: dict = {}  # max_new -> [B, max_new] int64
-        self.graphed = graphs and dev.type == "cuda"
+        self.graphed = graphs and dev.type == "cuda" and mesh is None
         self._graphs = GraphSet(dev)
         self.steps = self.syncs = 0
 
@@ -99,7 +100,7 @@ class DenseLoop:
         while_loop): frozen rows emit pad 0 and keep their cache length."""
         max_new, top_k, top_p, temperature = key
         tokens, length = self._tokens[max_new], self.cache.length
-        logits, _ = M.decode_step(self.params, self.cfg, self.last, self.cache)
+        logits, _ = M.decode_step(self.params, self.cfg, self.last, self.cache, self.mesh)
         nxt = _pick(logits, self.allow, self.noise, top_k, top_p, temperature)
         nxt = torch.where(self.done, 0, nxt)
         length.copy_(torch.where(self.done, length, length + 1))
@@ -159,10 +160,10 @@ class DenseLoop:
 
 
 def _loop_for(params: M.Params, cfg: MistralConfig, loop: Optional[DenseLoop], batch: int,
-              cache_len: int, device, eager: bool) -> DenseLoop:
+              cache_len: int, device, eager: bool, mesh=None) -> DenseLoop:
     if loop is None:
-        return DenseLoop(params, cfg, M.KVCache.create(cfg, batch, cache_len, device),
-                         graphs=not eager)
+        cache = M.KVCache.create(M.local_config(cfg, mesh), batch, cache_len, device)
+        return DenseLoop(params, cfg, cache, graphs=not eager, mesh=mesh)
     if tuple(loop.cache.k.shape[1:3]) != (batch, cache_len):
         raise ValueError(f"loop's cache is [B, S] = {tuple(loop.cache.k.shape[1:3])}, the "
                          f"call needs {(batch, cache_len)}")
@@ -175,17 +176,19 @@ def generate(params: M.Params, cfg: MistralConfig, input_ids: torch.Tensor,
              max_new_tokens: int = 256, cache_len: Optional[int] = None,
              attn_impl: str = "auto", top_k: int = 1, top_p: float = 1.0,
              temperature: float = 1.0, generator: Optional[torch.Generator] = None,
-             loop: Optional[DenseLoop] = None,
-             eager: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+             loop: Optional[DenseLoop] = None, eager: bool = False,
+             mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Constrained generation from a right-padded prompt [B, T] (input_len
     [B]) on a fresh cache of `cache_len` slots (default dense_cache_len)
     -> (tokens [B, max_new_tokens], lengths [B]).  `loop`, a DenseLoop of
     that cache geometry, keeps its graphs across calls; `eager` builds a
-    loop that runs its steps eagerly."""
+    loop that runs its steps eagerly.  `mesh` (core/mesh.py): params are
+    models/mistral.py param_shardings blocks, every rank passes the same
+    prompt, and the steps run eagerly over this rank's kv heads."""
     b, t = input_ids.shape
     total = cache_len or dense_cache_len(cfg, t, max_new_tokens)
-    loop = _loop_for(params, cfg, loop, b, total, input_ids.device, eager)
-    logits, cache = M.prefill(params, cfg, input_ids, input_len, loop.cache, attn_impl)
+    loop = _loop_for(params, cfg, loop, b, total, input_ids.device, eager, mesh)
+    logits, cache = M.prefill(params, cfg, input_ids, input_len, loop.cache, attn_impl, mesh)
     return loop.run(logits, cache.length, allow_mask, eos_id, max_new_tokens, top_k, top_p,
                     temperature, generator)
 

@@ -38,11 +38,8 @@ import torch
 import torch.distributed as dist
 
 from usdm_tpu_torch.core import distributed as D
+from usdm_tpu_torch.models.mistral import COL, ROW  # column- and row-split projections
 from usdm_tpu_torch.models.quant import is_quantized, out_dim
-
-# usdm_tpu's tp_param_specs in the port's layouts: the dimension of a float
-# weight [Din, Dout] that splits (column-split: Dout; row-split: Din)
-COL, ROW = ("wq", "wk", "wv", "w_gate", "w_up"), ("wo", "w_down")
 
 
 @dataclasses.dataclass(eq=False)

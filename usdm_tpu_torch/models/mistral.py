@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from usdm_tpu_torch.core import mesh as MS
 from usdm_tpu_torch.core.config import MistralConfig
 from usdm_tpu_torch.models.quant import qmm
 from usdm_tpu_torch.ops.attention import decode_attention, mha
@@ -50,13 +51,24 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def init_params(cfg: MistralConfig, generator: torch.Generator, device="cpu",
-                dtype: Optional[str] = None) -> Params:
+                dtype: Optional[str] = None, shardings: Optional[Params] = None) -> Params:
     """Random weights N(0, initializer_range), norms at 1, drawn on `device`
-    from `generator` (which must live on that device)."""
+    from `generator` (which must live on that device).  `shardings`
+    (param_shardings): each leaf is cut to this rank's block as soon as it
+    is drawn, so no more than one whole leaf exists at a time, and every
+    rank draws the single-device model's numbers."""
     dt = torch_dtype(dtype or cfg.dtype)
     d, f, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     std = cfg.initializer_range
+
+    def place(t, *path):
+        if shardings is None:
+            return t
+        sh = shardings
+        for k in path:
+            sh = sh[k]
+        return sh.shard(t)
 
     def dense(*shape):
         return (torch.randn(*shape, generator=generator, device=device, dtype=dt) * std)
@@ -64,14 +76,89 @@ def init_params(cfg: MistralConfig, generator: torch.Generator, device="cpu",
     def ones(n):
         return torch.ones(n, device=device, dtype=dt)
 
-    layers = [{
-        "ln1": ones(d), "ln2": ones(d),
-        "wq": dense(d, h * hd), "wk": dense(d, hkv * hd), "wv": dense(d, hkv * hd),
-        "wo": dense(h * hd, d),
-        "w_gate": dense(d, f), "w_up": dense(d, f), "w_down": dense(f, d),
-    } for _ in range(cfg.num_layers)]
-    return {"embed": dense(v, d), "layers": layers, "final_norm": ones(d),
-            "lm_head": dense(v, d)}
+    layers = []
+    for i in range(cfg.num_layers):
+        lp = {k: place(ones(d), "layers", i, k) for k in ("ln1", "ln2")}
+        for k, shape in (("wq", (d, h * hd)), ("wk", (d, hkv * hd)), ("wv", (d, hkv * hd)),
+                         ("wo", (h * hd, d)), ("w_gate", (d, f)), ("w_up", (d, f)),
+                         ("w_down", (f, d))):
+            lp[k] = place(dense(*shape), "layers", i, k)
+        layers.append(lp)
+    embed = place(dense(v, d), "embed")
+    return {"embed": embed, "layers": layers, "final_norm": place(ones(d), "final_norm"),
+            "lm_head": place(dense(v, d), "lm_head")}
+
+
+# the projections a tensor-parallel rank splits: column-split (heads, FFN
+# columns) and row-split (their partial sums are all-reduced)
+COL, ROW = ("wq", "wk", "wv", "w_gate", "w_up"), ("wo", "w_down")
+
+
+LAYER_SPECS = {k: (None,) if k.startswith("ln") else
+               (MS.DATA_AXIS, MS.MODEL_AXIS) if k in COL else (MS.MODEL_AXIS, MS.DATA_AXIS)
+               for k in ("ln1", "ln2", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")}
+
+
+def param_specs(cfg: MistralConfig) -> Params:
+    """usdm_tpu's param_specs in the port's layouts: FSDP over `data` on one
+    dimension, TP over `model` on the other (projections [Din, Dout]:
+    column split on Dout, row split on Din; embed and lm_head [V, D]: the
+    vocab over model, D over data); the norms replicated."""
+    vocab = (MS.MODEL_AXIS, MS.DATA_AXIS)
+    return {"embed": vocab, "layers": [dict(LAYER_SPECS) for _ in range(cfg.num_layers)],
+            "final_norm": (None,), "lm_head": vocab}
+
+
+def param_shardings(cfg: MistralConfig, mesh: "MS.Mesh") -> Params:
+    """param_specs as core/mesh.py Shardings over `mesh` with each leaf's
+    whole shape; embed and lm_head pad the vocab with zero rows to a
+    multiple of tp (engine/tp.py shard_vocab's layout)."""
+    from usdm_tpu_torch.engine.tp import check_tp
+
+    check_tp(cfg, mesh.size(MS.MODEL_AXIS))
+    d, f, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    q, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    shapes = {"ln1": (d,), "ln2": (d,), "wq": (d, q), "wk": (d, kv), "wv": (d, kv),
+              "wo": (q, d), "w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)}
+    specs = param_specs(cfg)
+    out = {"embed": MS.Sharding(mesh, specs["embed"], (v, d), pad=True),
+           "layers": [{k: MS.Sharding(mesh, s, shapes[k]) for k, s in lp.items()}
+                      for lp in specs["layers"]],
+           "final_norm": MS.Sharding(mesh, (None,), (d,)),
+           "lm_head": MS.Sharding(mesh, specs["lm_head"], (v, d), pad=True)}
+    for sh in (out["embed"], *out["layers"][0].values()):
+        sh.check()
+    return out
+
+
+def local_config(cfg: MistralConfig, mesh: Optional["MS.Mesh"]) -> MistralConfig:
+    """A tensor-parallel rank's heads and FFN width."""
+    if mesh is None:
+        return cfg
+    tp = mesh.size(MS.MODEL_AXIS)
+    return cfg.replace(num_heads=cfg.num_heads // tp, num_kv_heads=cfg.num_kv_heads // tp,
+                       intermediate_size=cfg.intermediate_size // tp)
+
+
+def _gather_leaves(lp: Params, mesh: "MS.Mesh", dt: Optional[torch.dtype]) -> Params:
+    """A layer's FSDP shards gathered over `data` at use (cast to `dt`
+    first, None: kept), the norms as they are: inside a rematerialized layer
+    function the recompute gathers again, and the backward reduce-scatters
+    each weight's gradient."""
+    return {k: MS.gather_param(v, mesh, LAYER_SPECS[k].index(MS.DATA_AXIS), dt or v.dtype)
+            if MS.DATA_AXIS in LAYER_SPECS[k] else v for k, v in lp.items()}
+
+
+def _vocab_embed(ids: torch.Tensor, shard: torch.Tensor, mesh: "MS.Mesh") -> torch.Tensor:
+    """The embedding lookup over a vocab-split, FSDP-sharded table: the
+    rank's rows gathered over data, ids outside them looked up as zeros,
+    the rows summed over model (exact: one rank holds each id)."""
+    w = MS.gather_param(shard, mesh, 1, shard.dtype)
+    rows = w.shape[0]
+    local = ids - mesh.coord(MS.MODEL_AXIS) * rows
+    inside = (local >= 0) & (local < rows)
+    e = F.embedding(torch.where(inside, local, 0), w)
+    return MS.reduce_from_model(torch.where(inside[..., None], e, 0.0), mesh)
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -125,33 +212,45 @@ def _proj(y: torch.Tensor, lp: Params, name: str, lw: Optional[Params]) -> torch
     return out if delta is None else out + delta
 
 
-def _qkv(cfg: MistralConfig, x: torch.Tensor, lp: Params, cos, sin, lw: Optional[Params] = None):
+def _qkv(cfg: MistralConfig, x: torch.Tensor, lp: Params, cos, sin, lw: Optional[Params] = None,
+         mesh: Optional["MS.Mesh"] = None):
     """A layer's normed, projected and rotated q [B, T, H, hd], k and v
-    [B, T, Hkv, hd]; `lw` the layer's LoRA adapters, if any."""
+    [B, T, Hkv, hd]; `lw` the layer's LoRA adapters, if any.  Under a
+    `mesh` the heads are this rank's (cfg local_config's) and the column-split
+    products' input gradient is all-reduced over model."""
     b, t, _ = x.shape
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     y = rms_norm(x, lp["ln1"], cfg.rms_norm_eps)
+    if mesh is not None:
+        y = MS.copy_to_model(y, mesh)
     q = apply_rope(_proj(y, lp, "wq", lw).reshape(b, t, h, hd), cos, sin)
     kk = apply_rope(_proj(y, lp, "wk", lw).reshape(b, t, hkv, hd), cos, sin)
     return q, kk, _proj(y, lp, "wv", lw).reshape(b, t, hkv, hd)
 
 
 def _finish_layer(cfg: MistralConfig, x: torch.Tensor, attn: torch.Tensor, lp: Params,
-                  lw: Optional[Params] = None):
-    """The attention output's projection and residual, then the MLP block."""
+                  lw: Optional[Params] = None, mesh: Optional["MS.Mesh"] = None):
+    """The attention output's projection and residual, then the MLP block;
+    under a `mesh` the row-split products' partial sums (wo, w_down) are
+    all-reduced over model."""
     b, t = x.shape[:2]
-    x = x + _proj(attn.reshape(b, t, -1), lp, "wo", lw)
-    return x + mlp(rms_norm(x, lp["ln2"], cfg.rms_norm_eps), lp)
+    o = _proj(attn.reshape(b, t, -1), lp, "wo", lw)
+    if mesh is None:
+        x = x + o
+        return x + mlp(rms_norm(x, lp["ln2"], cfg.rms_norm_eps), lp)
+    x = x + MS.reduce_from_model(o, mesh)
+    y = MS.copy_to_model(rms_norm(x, lp["ln2"], cfg.rms_norm_eps), mesh)
+    return x + MS.reduce_from_model(mlp(y, lp), mesh)
 
 
 def _layer(cfg: MistralConfig, x: torch.Tensor, lp: Params, cos, sin,
            segment_ids: torch.Tensor, positions: torch.Tensor, attn_impl: str,
-           lw: Optional[Params] = None) -> torch.Tensor:
-    q, kk, vv = _qkv(cfg, x, lp, cos, sin, lw)
+           lw: Optional[Params] = None, mesh: Optional["MS.Mesh"] = None) -> torch.Tensor:
+    q, kk, vv = _qkv(cfg, x, lp, cos, sin, lw, mesh)
     attn = mha(q, kk, vv, q_segment_ids=segment_ids, kv_segment_ids=segment_ids,
                q_positions=positions, kv_positions=positions, causal=True,
                sliding_window=cfg.sliding_window, impl=attn_impl)
-    return _finish_layer(cfg, x, attn, lp, lw)
+    return _finish_layer(cfg, x, attn, lp, lw, mesh)
 
 
 def _compute_leaves(lp: Params, dt: torch.dtype) -> Params:
@@ -164,7 +263,8 @@ def _compute_leaves(lp: Params, dt: torch.dtype) -> Params:
 def forward_hidden(params: Params, cfg: MistralConfig, input_ids: torch.Tensor,
                    segment_ids: Optional[torch.Tensor] = None,
                    positions: Optional[torch.Tensor] = None, attn_impl: str = "auto",
-                   remat: bool = False, lora: Optional[list] = None) -> torch.Tensor:
+                   remat: bool = False, lora: Optional[list] = None,
+                   mesh: Optional["MS.Mesh"] = None) -> torch.Tensor:
     """The packed forward up to and including the final norm -> [B, T, D]
     in the compute dtype cfg.dtype.  Weights of another dtype (f32 masters)
     are cast layer by layer inside the layer function, so with `remat`
@@ -172,7 +272,10 @@ def forward_hidden(params: Params, cfg: MistralConfig, input_ids: torch.Tensor,
     one layer's compute copy exists at a time; `lora` holds each layer's
     adapters (train/lora.py), None for a layer or a projection without.
     `positions` restart at each packed subsample and `segment_ids` (< 0:
-    padding) isolate the subsamples."""
+    padding) isolate the subsamples.  `mesh`: `params` are this rank's
+    param_shardings blocks; each layer's weights are gathered over data
+    (cast first) inside the layer function, the heads and FFN columns are
+    the rank's, and the row-split partial sums are all-reduced over model."""
     b, t = input_ids.shape
     dev = input_ids.device
     dt = torch_dtype(cfg.dtype)
@@ -181,12 +284,16 @@ def forward_hidden(params: Params, cfg: MistralConfig, input_ids: torch.Tensor,
     if positions is None:
         positions = torch.arange(t, device=dev)[None].expand(b, t)
     # F.embedding: its CUDA backward sums repeated ids in a fixed order
-    x = F.embedding(input_ids, params["embed"]).to(dt)
+    if mesh is None:
+        x = F.embedding(input_ids, params["embed"]).to(dt)
+    else:
+        x = _vocab_embed(input_ids, params["embed"], mesh).to(dt)
     cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    lcfg = local_config(cfg, mesh)
 
     def layer(x, lp, lw):
-        return _layer(cfg, x, _compute_leaves(lp, dt), cos, sin, segment_ids, positions,
-                      attn_impl, lw)
+        w = _compute_leaves(lp, dt) if mesh is None else _gather_leaves(lp, mesh, dt)
+        return _layer(lcfg, x, w, cos, sin, segment_ids, positions, attn_impl, lw, mesh)
 
     for i, lp in enumerate(params["layers"]):
         lw = None if lora is None else lora[i]
@@ -197,20 +304,41 @@ def forward_hidden(params: Params, cfg: MistralConfig, input_ids: torch.Tensor,
     return rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
 
 
+def lm_head_logits(h: torch.Tensor, w: torch.Tensor, mesh: Optional["MS.Mesh"],
+                   vocab: int) -> torch.Tensor:
+    """h @ w.T in h's dtype; under a `mesh` (w this rank's vocab rows, h
+    after copy_to_model) the vocab blocks are gathered and cut to `vocab`."""
+    z = F.linear(h, w)
+    return z if mesh is None else MS.gather_vocab(z, mesh, vocab)
+
+
+def head_weight(params: Params, mesh: Optional["MS.Mesh"], dt: torch.dtype) -> torch.Tensor:
+    """lm_head in `dt`: gathered over data under a `mesh` (its vocab rows)."""
+    if mesh is None:
+        return params["lm_head"].to(dt)
+    return MS.gather_param(params["lm_head"], mesh, 1, dt)
+
+
 def forward(params: Params, cfg: MistralConfig, input_ids: torch.Tensor,
             segment_ids: Optional[torch.Tensor] = None,
             positions: Optional[torch.Tensor] = None,
-            attn_impl: str = "auto", lora: Optional[list] = None) -> torch.Tensor:
-    """Packed full-sequence forward -> logits [B, T, V] f32."""
-    x = forward_hidden(params, cfg, input_ids, segment_ids, positions, attn_impl, lora=lora)
-    return F.linear(x, params["lm_head"].to(x.dtype)).float()
+            attn_impl: str = "auto", lora: Optional[list] = None,
+            mesh: Optional["MS.Mesh"] = None) -> torch.Tensor:
+    """Packed full-sequence forward -> logits [B, T, V] f32 (`mesh`: as
+    forward_hidden's, every rank gets the whole logits)."""
+    x = forward_hidden(params, cfg, input_ids, segment_ids, positions, attn_impl, lora=lora,
+                       mesh=mesh)
+    if mesh is not None:
+        x = MS.copy_to_model(x, mesh)
+    return lm_head_logits(x, head_weight(params, mesh, x.dtype), mesh, cfg.vocab_size).float()
 
 
 def _token_ll(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
-              valid: torch.Tensor) -> torch.Tensor:
+              valid: torch.Tensor, mesh: Optional["MS.Mesh"] = None,
+              vocab: int = 0) -> torch.Tensor:
     """Sum of the log-likelihoods of `labels` under lm_head `w` [V, D] at
     the valid positions of hidden `h` [B, T, D] (logits and log-softmax f32)."""
-    logp = torch.log_softmax(F.linear(h, w).float(), dim=-1)
+    logp = torch.log_softmax(lm_head_logits(h, w, mesh, vocab).float(), dim=-1)
     return (logp.gather(-1, labels[..., None])[..., 0] * valid).sum()
 
 
@@ -218,30 +346,50 @@ def loss_fn(params: Params, cfg: MistralConfig, input_ids: torch.Tensor, labels:
             segment_ids: Optional[torch.Tensor] = None,
             positions: Optional[torch.Tensor] = None, attn_impl: str = "auto",
             remat: bool = True, lora: Optional[list] = None,
-            ce_chunk: int = 1024) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+            ce_chunk: int = 1024, mesh: Optional["MS.Mesh"] = None,
+            replicated: bool = False) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Shifted mean cross-entropy over the labels that are not -100 ->
     (loss, {"loss", "ntokens"}), computed in cfg.dtype as forward_hidden.
     The lm_head product and the log-softmax run per `ce_chunk` positions,
     each chunk recomputed in backward (torch.utils.checkpoint), so the full
     [B, T, V] f32 logits never exist; 0 (or T - 1 <= ce_chunk) is one
-    chunk, not recomputed.  The same per-token numbers either way."""
+    chunk, not recomputed.  The same per-token numbers either way.
+
+    `mesh`: the batch is this rank's rows; the loss is the global one,
+    usdm_tpu's sum over the global batch over the global count of valid
+    tokens: the count is all-reduced over the batch axes first, and each
+    rank's sum is divided by it, so the ranks' losses (and gradients) add up
+    to the global ones.  The returned `loss` is this rank's part (for
+    backward), aux["loss"] and aux["ntokens"] the global values.  The params
+    are param_shardings blocks (FSDP + TP), or whole on every rank with
+    `replicated` (LoRA's base)."""
+    sharded = mesh if mesh is not None and not replicated else None
     hidden = forward_hidden(params, cfg, input_ids, segment_ids, positions, attn_impl, remat,
-                            lora)
+                            lora, sharded)
     sh = hidden[:, :-1]
     shift_labels = labels[:, 1:].long()
     valid = shift_labels != -100
     safe = torch.where(valid, shift_labels, 0)
-    n = valid.sum().clamp(min=1)
-    w = params["lm_head"].to(sh.dtype)
+    count = valid.sum()
+    if mesh is not None:
+        count = MS.all_reduce(count.clone(), mesh, mesh.batch_axes)
+    n = count.clamp(min=1)
+    if sharded is not None:
+        sh = MS.copy_to_model(sh, sharded)
+    w = head_weight(params, sharded, sh.dtype)
+    ll = functools.partial(_token_ll, mesh=sharded, vocab=cfg.vocab_size)
     t1 = sh.shape[1]
     if not ce_chunk or t1 <= ce_chunk:
-        total = _token_ll(sh, w, safe, valid)
+        total = ll(sh, w, safe, valid)
     else:
         total = sum(torch.utils.checkpoint.checkpoint(
-            _token_ll, sh[:, c:c + ce_chunk], w, safe[:, c:c + ce_chunk],
+            ll, sh[:, c:c + ce_chunk], w, safe[:, c:c + ce_chunk],
             valid[:, c:c + ce_chunk], use_reentrant=False) for c in range(0, t1, ce_chunk))
     loss = -total / n
-    return loss, {"loss": loss.detach(), "ntokens": valid.sum()}
+    shown = loss.detach()
+    if mesh is not None:
+        shown = MS.all_reduce(shown.clone(), mesh, mesh.batch_axes)
+    return loss, {"loss": shown, "ntokens": count}
 
 
 def extend_embeddings(params: Params, cfg: MistralConfig, new_vocab: int,
@@ -288,67 +436,85 @@ class KVCache:
                    torch.zeros(batch, dtype=torch.int64, device=device))
 
 
+def _serving_weights(lp: Params, mesh: Optional["MS.Mesh"]) -> Params:
+    return lp if mesh is None else _gather_leaves(lp, mesh, None)
+
+
+def _embed_rows(params: Params, ids: torch.Tensor, mesh: Optional["MS.Mesh"]) -> torch.Tensor:
+    return params["embed"][ids] if mesh is None else _vocab_embed(ids, params["embed"], mesh)
+
+
 def _last_logits(params: Params, cfg: MistralConfig, x: torch.Tensor,
-                 n: torch.Tensor) -> torch.Tensor:
+                 n: torch.Tensor, mesh: Optional["MS.Mesh"] = None) -> torch.Tensor:
     """Logits [B, V] f32 of each row's last valid position n - 1."""
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     last = torch.clamp(n - 1, 0, x.shape[1] - 1)
     x_last = x[torch.arange(x.shape[0], device=x.device), last]
-    return F.linear(x_last, params["lm_head"]).float()
+    w = params["lm_head"] if mesh is None else head_weight(params, mesh, x.dtype)
+    return lm_head_logits(x_last, w, mesh, cfg.vocab_size).float()
 
 
 def prefill(params: Params, cfg: MistralConfig, input_ids: torch.Tensor,
             input_len: torch.Tensor, cache: KVCache,
-            attn_impl: str = "auto") -> Tuple[torch.Tensor, KVCache]:
+            attn_impl: str = "auto",
+            mesh: Optional["MS.Mesh"] = None) -> Tuple[torch.Tensor, KVCache]:
     """Run the right-padded prompt [B, T], write its K/V into cache slots
     [0, T) in place -> (last valid token's logits [B, V] f32, the cache at
-    length input_len)."""
+    length input_len).  `mesh`: params are param_shardings blocks (gathered
+    over data per layer), the cache holds this rank's kv heads
+    (KVCache.create(local_config(cfg, mesh), ...)), and every rank gets the
+    whole logits."""
     b, t = input_ids.shape
     dev = input_ids.device
+    lcfg = local_config(cfg, mesh)
     positions = torch.arange(t, device=dev)[None].expand(b, t)
     seg = torch.where(positions < input_len[:, None], 0, -1).to(torch.int32)
-    x = params["embed"][input_ids]
+    x = _embed_rows(params, input_ids, mesh)
     cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     for li, lp in enumerate(params["layers"]):
-        q, kk, vv = _qkv(cfg, x, lp, cos, sin)
+        lp = _serving_weights(lp, mesh)
+        q, kk, vv = _qkv(lcfg, x, lp, cos, sin, mesh=mesh)
         cache.k[li, :, :t] = kk.to(cache.k.dtype)
         cache.v[li, :, :t] = vv.to(cache.v.dtype)
         attn = mha(q, kk, vv, q_segment_ids=seg, kv_segment_ids=seg, q_positions=positions,
                    kv_positions=positions, causal=True, sliding_window=cfg.sliding_window,
                    impl=attn_impl)
-        x = _finish_layer(cfg, x, attn, lp)
+        x = _finish_layer(lcfg, x, attn, lp, mesh=mesh)
     length = input_len.to(torch.int64)
-    return _last_logits(params, cfg, x, length), KVCache(cache.k, cache.v, length)
+    return _last_logits(params, cfg, x, length, mesh), KVCache(cache.k, cache.v, length)
 
 
 def decode_step(params: Params, cfg: MistralConfig, token: torch.Tensor,
-                cache: KVCache) -> Tuple[torch.Tensor, KVCache]:
+                cache: KVCache, mesh: Optional["MS.Mesh"] = None) -> Tuple[torch.Tensor, KVCache]:
     """One step: token [B] -> (logits [B, V] f32, the cache one longer).
     The cache is a ring over its S slots: the token at position pos writes
     slot pos % S in place, and attention masks by each slot's position
     pos - (pos - slot) % S, so a cache of the window's size holds exactly
     the last S tokens; while pos < S the ring is the identity.  Reads
-    nothing back to the host, so it can be captured in a CUDA graph."""
+    nothing back to the host, so it can be captured in a CUDA graph
+    (without a `mesh`, which is prefill's)."""
     b = token.shape[0]
     s = cache.k.shape[2]
     dev = token.device
+    lcfg = local_config(cfg, mesh)
     pos = cache.length
     widx = pos % s
     slot = torch.arange(s, device=dev)[None]
     slot_pos = pos[:, None] - (pos[:, None] - slot) % s  # < 0: never written
     rows = torch.arange(b, device=dev)
-    x = params["embed"][token][:, None, :]
+    x = _embed_rows(params, token, mesh)[:, None, :]
     cos, sin = rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta)
     for li, lp in enumerate(params["layers"]):
-        q, kk, vv = _qkv(cfg, x, lp, cos, sin)
+        lp = _serving_weights(lp, mesh)
+        q, kk, vv = _qkv(lcfg, x, lp, cos, sin, mesh=mesh)
         cache.k[li, rows, widx] = kk[:, 0].to(cache.k.dtype)
         cache.v[li, rows, widx] = vv[:, 0].to(cache.v.dtype)
         attn = decode_attention(q, cache.k[li], cache.v[li], pos + 1,
                                 sliding_window=cfg.sliding_window, kv_positions=slot_pos)
-        x = _finish_layer(cfg, x, attn, lp)
-    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    logits = F.linear(x[:, 0], params["lm_head"]).float()
-    return logits, KVCache(cache.k, cache.v, pos + 1)
+        x = _finish_layer(lcfg, x, attn, lp, mesh=mesh)
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)[:, 0]
+    w = params["lm_head"] if mesh is None else head_weight(params, mesh, x.dtype)
+    return lm_head_logits(x, w, mesh, cfg.vocab_size).float(), KVCache(cache.k, cache.v, pos + 1)
 
 
 def prefill_extend(params: Params, cfg: MistralConfig, cache: KVCache, new_ids: torch.Tensor,
@@ -413,12 +579,12 @@ def convert_hf_state_dict(state: Dict[str, torch.Tensor], cfg: MistralConfig, dt
 
     def proj(key, name):  # [out, in] -> [in, out], or its W8A8 leaf
         w = state.pop(name)
-        if key in TP.COL or not int8:  # the rank's rows (column split) or columns
-            w = TP.block(w, 0 if key in TP.COL else 1, tp, rank)
+        if key in COL or not int8:  # the rank's rows (column split) or columns
+            w = TP.block(w, 0 if key in COL else 1, tp, rank)
         w = w.to(device=device, dtype=dt).t()
         if not int8:
             return w.contiguous()
-        return TP.shard_leaf(key, quantize_weight(w), tp, rank) if key in TP.ROW else \
+        return TP.shard_leaf(key, quantize_weight(w), tp, rank) if key in ROW else \
             quantize_weight(w)
 
     names = {"wq": "self_attn.q_proj", "wk": "self_attn.k_proj", "wv": "self_attn.v_proj",

@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -228,12 +228,16 @@ def estimator(params: Params, cfg: VoiceboxConfig, x_units: torch.Tensor, y: tor
 def cfm_loss(params: Params, cfg: VoiceboxConfig, x_units: torch.Tensor, mask: torch.Tensor,
              x1: torch.Tensor, lengths: torch.Tensor, t: Optional[torch.Tensor] = None,
              z: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None,
-             remat: bool = True) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+             remat: bool = True,
+             frames: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """OT-CFM loss on non-context frames: y = (1 - (1 - sigma) t) z + t x1,
     target u = x1 - (1 - sigma) z, cond = x1 * mask, MSE over valid and
     non-context frames.  units [B, T], mask [B, 1, T] (1 = context frame),
     x1 [B, n_feats, T] target mel, lengths [B]; t [B] and z (x1's shape) are
-    given or drawn from `generator`."""
+    given or drawn from `generator`.  `frames` maps this batch's count of
+    loss frames to the denominator's (a data-parallel step's global count;
+    default: this batch's)."""
     if is_quantized(params["layers"][0]["wq"]):
         raise ValueError("quantized Voicebox params are inference-only")
     b, nf, T = x1.shape
@@ -249,9 +253,10 @@ def cfm_loss(params: Params, cfg: VoiceboxConfig, x_units: torch.Tensor, mask: t
     ue = estimator(params, cfg, x_units, y, cond, t, lengths, remat=remat)
     loss_mask = loss_mask * (1.0 - mask)
     diff = (ue - u) * loss_mask
-    denom = torch.clamp(loss_mask.sum() * nf, min=1.0)
+    nframes = loss_mask.sum() if frames is None else frames(loss_mask.sum())
+    denom = torch.clamp(nframes * nf, min=1.0)
     loss = (diff * diff).sum() / denom
-    return loss, {"loss": loss, "nframes": loss_mask.sum()}
+    return loss, {"loss": loss, "nframes": nframes}
 
 
 def _cfg_estimate(params, cfg, x, z, cond, lengths, t, gradient_scale, fused_ln="auto"):

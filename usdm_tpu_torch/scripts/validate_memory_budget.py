@@ -17,8 +17,11 @@ first, the card's prior allocation subtracted), the second step's wall
 time, and memory_budget(cfg, dp=1, seq_len, batch_per_chip=1, hbm_gb=80)'s
 device_gb, fwd_bwd_peak_gb and update_peak_gb with model / measured.  The
 steps run K2 and K5 bf16 at d 128 (GQA 8/2, causal, window 4,096).  The TPU
-script's 7B dp 8 AOT branch needs eight cards (ROADMAP Queue 1 item 10): one
-line says so.  Prints one JSON line per geometry.  Without a card it
+script's 7B dp 8 AOT branch: with eight cards, one step of the sharded
+trainer (train/lm.py, FSDP over 8 ranks, the full-width 7B, one 8,192-token
+row a rank) and its measured peak on rank 0 against memory_budget(dp=8);
+with fewer, one line refuses by name ("needs eight cards").  Prints one JSON
+line per geometry.  Without a card it
 raises; `--device cpu --tiny` runs three toy geometries (a plumbing check:
 no memory is measured on the CPU).
 """
@@ -95,6 +98,42 @@ def measure(cfg: MistralConfig, dev: torch.device, seed: int = 0) -> dict:
     return line
 
 
+def dp8_rank(rank: int, seq: int) -> dict:
+    """One rank of the 7B dp 8 step: the sharded resident state, two steps
+    on one row of `seq` zero tokens a rank -> rank 0's line."""
+    from usdm_tpu_torch.core import mesh as MS
+
+    mesh = MS.create_mesh(dp=8, tp=1, device="cuda")
+    dev = mesh.device
+    cfg = MistralConfig().replace(dtype=T.COMPUTE_DTYPE, max_seq_len=seq)
+    tc = TrainConfig()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    state = T.init_state(cfg, tc, dev, torch.Generator(device=dev).manual_seed(0), mesh=mesh)
+    step = T.make_train_step(cfg, tc, mesh)
+    batch = _batch(seq, dev)
+    step(state, batch)
+    _sync(dev)
+    t0 = time.perf_counter()
+    loss = float(step(state, batch)["loss"])
+    step_s = time.perf_counter() - t0
+    measured = (torch.cuda.max_memory_allocated(dev) - base) / GiB
+    b = T.memory_budget(cfg, dp=8, seq_len=seq, batch_per_chip=1, hbm_gb=HBM_GB)
+    return {"hidden": cfg.hidden_size, "layers": cfg.num_layers, "vocab": cfg.vocab_size,
+            "seq": seq, "dp": 8, "step_s": step_s, "loss": loss, "measured_peak_gb": measured,
+            **{k: b[k] for k in BUDGET_KEYS}, "model_over_measured": b["device_gb"] / measured}
+
+
+def dp8_line(dev: torch.device) -> dict:
+    """The 7B dp 8 branch: run on eight cards, else refused by name."""
+    n = torch.cuda.device_count() if dev.type == "cuda" else 0
+    if n < 8:
+        return {"7B_dp8": f"not run: needs eight cards, this host has {n}"}
+    from usdm_tpu_torch.engine import tp as TP
+
+    return {"7B_dp8": TP.launch(8, "cuda", dp8_rank, 8192)}
+
+
 def main(argv=None) -> list:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda",
@@ -106,10 +145,7 @@ def main(argv=None) -> list:
     for g in TINY_GEOMETRIES if args.tiny else GEOMETRIES:
         lines.append(measure(MistralConfig(**g), dev))
         print(json.dumps({"validate_memory_budget": lines[-1]}), flush=True)
-    print(json.dumps({"validate_memory_budget": {
-        "7B_dp8": "not run: dp 8 needs eight cards and the sharded trainer (ROADMAP Queue 1 "
-                  "item 10); chip_smoke.py phase 11 (b) holds the 7B's offloaded step at dp 1 "
-                  "to the budget"}}))
+    print(json.dumps({"validate_memory_budget": dp8_line(dev)}))
     print(json.dumps({"device": device_info(dev)}))
     return lines
 

@@ -1,9 +1,9 @@
-"""LM training on one GPU: the packed speech-text objective.
+"""LM training: the packed speech-text objective, on one GPU or sharded.
 
 Port of usdm_tpu/train/lm.py.  usdm_tpu runs one jitted SPMD program over a
-('data', 'model') mesh; here a step is eager on one device and updates the
-parameters and the AdamW moments in place (the counterpart of
-`donate_argnums`):
+('data', 'model') mesh; here a step is eager and updates the parameters and
+the AdamW moments in place (the counterpart of `donate_argnums`), on one
+device or, given a core/mesh.py Mesh, on every rank of it (SPMD):
 
   * bf16 compute over f32 masters: the params are f32 tensors with
     requires_grad, and models/mistral.py casts each layer's weights to the
@@ -21,22 +21,34 @@ parameters and the AdamW moments in place (the counterpart of
     memory, and the same step streams them one leaf at a time host ->
     device -> host on two side streams, so the copies overlap the
     neighbouring leaves' updates.  Resident and offloaded moments take the
-    same per-leaf arithmetic (`manual_adamw_update`).
-
-Sharding (usdm_tpu's batch_spec, state_specs, offload_state_specs) waits for
-multi-GPU (ROADMAP Queue 1 item 10).
+    same per-leaf arithmetic (`manual_adamw_update`);
+  * sharding (`mesh=`): usdm_tpu's FSDP + TP layout (models/mistral.py
+    param_specs; batch_spec, state_specs, offload_state_specs here).  Each
+    rank holds its block of every master and moment; a layer's weights are
+    all-gathered over data inside the rematerialized layer function (the
+    recompute gathers again), the heads and FFN columns split over model
+    with an all-reduce after wo and w_down, and each weight's gradient is
+    reduce-scattered over data as a sum.  The loss is usdm_tpu's global
+    one (the valid-token count all-reduced first); the norms' gradients
+    are all-reduced over data, every gradient over replica on a
+    multi-slice mesh; the clip norm sums each leaf's squared norm over
+    every rank, a replicated leaf once.  AdamW is the per-leaf arithmetic
+    on the shards.  The collectives are explicit calls (core/mesh.py), not
+    torch's FSDP or DDP wrappers: the params are dicts of tensors, and the
+    layer function casts and gathers each weight where it uses it.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 
+from usdm_tpu_torch.core import mesh as MS
 from usdm_tpu_torch.core.config import MistralConfig, TrainConfig
-from usdm_tpu_torch.core.tree import tree_leaves, tree_map
+from usdm_tpu_torch.core.tree import tree_leaves, tree_map, tree_map2
 from usdm_tpu_torch.models import mistral as M
 
 COMPUTE_DTYPE = "bfloat16"  # the trainers' compute dtype over f32 masters
@@ -76,14 +88,25 @@ class AdamWState:
     count: int = 0
     host: Optional["HostMoments"] = None
 
-    def state_dict(self) -> dict:
+    def state_dict(self, layout: Optional[list] = None) -> dict:
+        """The moments on the host; with `layout` (a Sharding per leaf) each
+        gathered whole, leaf by leaf (every rank calls it; the others' lists
+        hold None)."""
         if self.host is not None and self.host.cuda:
             torch.cuda.synchronize()  # the staged write-backs are asynchronous
-        return {"m": [t.detach().cpu() for t in self.m],
-                "v": [t.detach().cpu() for t in self.v], "count": self.count}
+        if layout is None:
+            return {"m": [t.detach().cpu() for t in self.m],
+                    "v": [t.detach().cpu() for t in self.v], "count": self.count}
+        return {"m": [sh.gather_to_host(t) for t, sh in zip(self.m, layout)],
+                "v": [sh.gather_to_host(t) for t, sh in zip(self.v, layout)],
+                "count": self.count}
 
-    def load_state_dict(self, saved: dict) -> None:
-        for dst, src in zip(self.m + self.v, saved["m"] + saved["v"]):
+    def load_state_dict(self, saved: dict, layout: Optional[list] = None) -> None:
+        """Copy saved whole moments in (each cut to this rank's block with
+        `layout`)."""
+        for i, (dst, src) in enumerate(zip(self.m + self.v, saved["m"] + saved["v"])):
+            if layout is not None:
+                src = layout[i % len(self.m)].shard(src)
             if dst.shape != src.shape:
                 raise ValueError(f"AdamW moment {tuple(src.shape)} does not match "
                                  f"{tuple(dst.shape)}")
@@ -91,11 +114,15 @@ class AdamWState:
         self.count = int(saved["count"])
 
 
+
 @dataclasses.dataclass
 class TrainState:
     params: Any  # f32 masters with requires_grad (a LoRA state: the adapters)
     opt_state: AdamWState
     step: int = 0
+    # sharded: a core/mesh.py Sharding per leaf of params (tree_leaves
+    # order), by which checkpoints gather and restore each leaf
+    layout: Optional[list] = None
 
 
 def lr_schedule(tc: TrainConfig) -> Callable[[int], float]:
@@ -205,16 +232,19 @@ class HostMoments:
 @torch.no_grad()
 def manual_adamw_update(leaves: List[torch.Tensor], grads: List[torch.Tensor], st: AdamWState,
                         sched: Callable[[int], float], tc: TrainConfig,
-                        clip: bool = True) -> Optional[torch.Tensor]:
+                        clip: bool = True,
+                        gnorm: Optional[torch.Tensor] = None) -> Optional[torch.Tensor]:
     """One clipped AdamW step over `leaves` in place, leaf by leaf, as
     usdm_tpu's manual_adamw_update (and its make_optimizer) computes it:
     g * min(1, clip / max(norm, 1e-12)), the moments, the bias-corrected
     update plus weight decay, p - lr * update, lr = sched(count before the
     increment).  Moments on the host (`st.host`) are staged leaf by leaf.
     Each gradient is released after its leaf.  `clip` False: optax's plain
-    adamw, the gradients unscaled.
+    adamw, the gradients unscaled.  `gnorm`: the global norm, computed by
+    the caller (a sharded state's, sharded_global_norm).
     -> the global norm of the unclipped gradients (None without `clip`)."""
-    gnorm = global_norm(grads) if clip else None
+    if clip and gnorm is None:
+        gnorm = global_norm(grads)
     scale = (torch.clamp(tc.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0) if clip
              else 1.0)
     lr = sched(st.count)
@@ -261,40 +291,120 @@ class ClipAdamW:
         return AdamWState(views[:len(leaves)], views[len(leaves):], 0,
                           HostMoments(buf, max(sizes), leaves[0].device))
 
-    def update(self, params, st: AdamWState):
+    def update(self, params, st: AdamWState, layout: Optional[list] = None):
+        """`layout` (a sharded state's Sharding per leaf): the gradients are
+        first completed over the mesh (sync_sharded_grads) and the clip
+        norm is the global one."""
         leaves = tree_leaves(params)
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in leaves]
         for p in leaves:
             p.grad = None
-        return manual_adamw_update(leaves, grads, st, self.schedule, self.tc, self.clip)
+        gnorm = None
+        if layout is not None:
+            sync_sharded_grads(grads, layout)
+            gnorm = sharded_global_norm(grads, layout) if self.clip else None
+        return manual_adamw_update(leaves, grads, st, self.schedule, self.tc, self.clip, gnorm)
+
+
+@torch.no_grad()
+def sync_sharded_grads(grads: List[torch.Tensor], layout: list) -> None:
+    """Complete a sharded step's gradients in place.  A leaf split over data
+    has its sum already (its gather's backward reduce-scattered it); the
+    leaves replicated over data (the norms) are all-reduced over data, in
+    one call; on a multi-slice mesh every gradient is then all-reduced over
+    replica, in one call.  Model ranks hold whole, equal gradients of the
+    replicated leaves: the backward all-reduced their inputs' gradients."""
+    mesh = layout[0].mesh
+    MS.all_reduce_coalesced([g for g, sh in zip(grads, layout) if MS.DATA_AXIS not in sh.spec],
+                            mesh, (MS.DATA_AXIS,))
+    if MS.REPLICA_AXIS in mesh.axis_names:
+        MS.all_reduce_coalesced(grads, mesh, (MS.REPLICA_AXIS,))
+
+
+@torch.no_grad()
+def sharded_global_norm(grads: List[torch.Tensor], layout: list) -> torch.Tensor:
+    """The global norm of a sharded state's gradients: each leaf's squared
+    norm summed over every rank in one all-reduce, a leaf replicated over
+    an axis counted only at coordinate 0 there, then global_norm's
+    reduction over the leaves' norms.  sqrt(n * n) == n in binary floating
+    point, so a one-rank mesh gives global_norm's bits."""
+    mesh = layout[0].mesh
+    norms = torch.stack(torch._foreach_norm(grads))
+    once = torch.tensor([float(all(mesh.coord(a) == 0 for a in sh.replicated_axes))
+                         for sh in layout], device=norms.device)
+    sq = MS.all_reduce(norms * norms * once, mesh, None)
+    return torch.linalg.vector_norm(torch.sqrt(sq))
 
 
 def make_optimizer(tc: TrainConfig) -> ClipAdamW:
     return ClipAdamW(tc)
 
 
-def _init(cfg: MistralConfig, tc: TrainConfig, device, generator, params, host: bool):
-    if params is None:
+def batch_spec(mesh: Optional["MS.Mesh"] = None) -> Dict[str, tuple]:
+    """Batch rows split over `data`, over (replica, data) on a multi-slice
+    mesh (usdm_tpu's batch_spec): each slice takes a block of rows, so the
+    only collective across slices is the per-step gradient all-reduce."""
+    axes = mesh.batch_axes if mesh is not None else (MS.DATA_AXIS,)
+    spec = (axes if len(axes) > 1 else axes[0], None)
+    return {"input_ids": spec, "labels": spec, "segment_ids": spec, "positions": spec}
+
+
+def state_specs(cfg: MistralConfig) -> TrainState:
+    """The placement of every leaf of a TrainState: the params' specs, the
+    moments' the same leaf by leaf, the count and step replicated."""
+    pspecs = M.param_specs(cfg)
+    leaves = [s for lp in pspecs["layers"] for s in lp.values()]
+    flat = [pspecs["embed"], *leaves, pspecs["final_norm"], pspecs["lm_head"]]
+    return TrainState(pspecs, AdamWState(list(flat), list(flat), 0), 0)
+
+
+def offload_state_specs(cfg: MistralConfig) -> TrainState:
+    """state_specs of the offloaded state: the same blocks, each rank's
+    moments in its own pinned host buffer (usdm_tpu's pinned_host memory
+    kind)."""
+    return state_specs(cfg)
+
+
+def shard_params(params, cfg: MistralConfig, mesh: "MS.Mesh"):
+    """Whole params -> this rank's blocks (param_shardings; the vocab padded
+    to a multiple of tp), each a new tensor on the mesh's device."""
+    return tree_map2(lambda t, sh: sh.shard(t.detach().to(mesh.device)), params,
+                     M.param_shardings(cfg, mesh))
+
+
+def _init(cfg: MistralConfig, tc: TrainConfig, device, generator, params, host: bool,
+          mesh: Optional["MS.Mesh"]):
+    layout = None
+    if mesh is not None:
+        shs = M.param_shardings(cfg, mesh)
+        if params is None:
+            params = M.init_params(cfg, generator, device, dtype="float32", shardings=shs)
+        else:
+            params = shard_params(params, cfg, mesh)
+        layout = tree_leaves(tree_map2(lambda t, sh: sh, params, shs))
+    elif params is None:
         params = M.init_params(cfg, generator, device, dtype="float32")
     params = tree_map(lambda a: a.detach().to(device, torch.float32).requires_grad_(True),
                       params)
-    return TrainState(params, ClipAdamW(tc).init(params, host=host), 0)
+    return TrainState(params, ClipAdamW(tc).init(params, host=host), 0, layout)
 
 
 def init_state(cfg: MistralConfig, tc: TrainConfig, device, generator=None,
-               params=None) -> TrainState:
+               params=None, mesh: Optional["MS.Mesh"] = None) -> TrainState:
     """f32 masters on `device` (`params`, or drawn there from `generator`)
-    with zero moments beside them."""
-    return _init(cfg, tc, device, generator, params, host=False)
+    with zero moments beside them.  `mesh`: this rank's blocks only (a
+    drawn leaf is cut as soon as it exists; `params`, whole, are cut)."""
+    return _init(cfg, tc, device, generator, params, False, mesh)
 
 
 def init_offload_state(cfg: MistralConfig, tc: TrainConfig, device, generator=None,
-                       params=None) -> TrainState:
+                       params=None, mesh: Optional["MS.Mesh"] = None) -> TrainState:
     """init_state with the moments in pinned host memory (usdm_tpu's
-    pinned_host memory kind), streamed through the device by the step.
-    Needed for the full-width 7B on one 80 GB card: its f32 moments alone
-    are 54.6 GiB (memory_budget)."""
-    return _init(cfg, tc, device, generator, params, host=True)
+    pinned_host memory kind), streamed through the device by the step;
+    with a `mesh`, each rank's buffer holds its blocks.  Needed for the
+    full-width 7B on one 80 GB card: its f32 moments alone are 54.6 GiB
+    (memory_budget)."""
+    return _init(cfg, tc, device, generator, params, True, mesh)
 
 
 def load_masters(path: str, device) -> tuple:
@@ -306,41 +416,74 @@ def load_masters(path: str, device) -> tuple:
     return params, cfg.replace(dtype=COMPUTE_DTYPE)
 
 
-def _loss(params, cfg: MistralConfig, tc: TrainConfig, batch, remat: bool):
+def _loss(params, cfg: MistralConfig, tc: TrainConfig, batch, remat: bool, mesh=None):
     return M.loss_fn(params, cfg, batch["input_ids"], batch["labels"],
                      batch.get("segment_ids"), batch.get("positions"), remat=remat,
-                     ce_chunk=tc.ce_chunk)
+                     ce_chunk=tc.ce_chunk, mesh=mesh)
 
 
-def make_train_step(cfg: MistralConfig, tc: TrainConfig):
+def make_train_step(cfg: MistralConfig, tc: TrainConfig, mesh: Optional["MS.Mesh"] = None):
     """-> step(state, batch) -> {"loss", "grad_norm", "ntokens"} (device
     tensors, no synchronization); the state updated in place, its moments
     resident (init_state) or streamed from and back to host memory
     (init_offload_state).  batch: input_ids, labels and optional
     segment_ids, positions [B, T] on the params' device.  Computes in
-    cfg.dtype."""
+    cfg.dtype.  `mesh`: the state is init_state(..., mesh=)'s and the batch
+    this rank's rows (core/mesh.py shard_batch); the metrics are global."""
     opt = make_optimizer(tc)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        loss, aux = _loss(state.params, cfg, tc, batch, tc.remat)
+        loss, aux = _loss(state.params, cfg, tc, batch, tc.remat, mesh)
         loss.backward()
-        gnorm = opt.update(state.params, state.opt_state)
+        gnorm = opt.update(state.params, state.opt_state, state.layout)
         state.step += 1
-        return {"loss": loss.detach(), "grad_norm": gnorm, "ntokens": aux["ntokens"]}
+        return {"loss": aux["loss"], "grad_norm": gnorm, "ntokens": aux["ntokens"]}
 
     return step
 
 
-def make_eval_step(cfg: MistralConfig, tc: TrainConfig):
+def make_eval_step(cfg: MistralConfig, tc: TrainConfig, mesh: Optional["MS.Mesh"] = None):
     """-> step(params, batch) -> {"loss", "ntokens"}: no gradient, no
-    remat."""
+    remat (`mesh`: as make_train_step's)."""
 
     @torch.no_grad()
     def step(params, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        loss, aux = _loss(params, cfg, tc, batch, False)
-        return {"loss": loss, "ntokens": aux["ntokens"]}
+        loss, aux = _loss(params, cfg, tc, batch, False, mesh)
+        return {"loss": aux["loss"], "ntokens": aux["ntokens"]}
 
     return step
+
+
+def step_collectives(cfg: MistralConfig, tc: TrainConfig, seq_len: int,
+                     axes: Sequence[str] = (MS.DATA_AXIS, MS.MODEL_AXIS)) -> Dict[str, int]:
+    """The collectives one sharded make_train_step step runs, by core/mesh.py
+    counter name, for L = cfg.num_layers and rows of `seq_len` tokens:
+
+      * all_gather:data   2 (embed, lm_head) + 7 a layer, twice with remat
+                          (the recompute gathers again);
+      * reduce_scatter:data  2 + 7 L, one per split weight's gradient;
+      * all_gather:model  one per CE chunk, twice when chunked (the chunk's
+                          recompute);
+      * all_reduce:model  the embedding's rows, wo's and w_down's sums in
+                          forward (2 L); in the remat recompute only wo's
+                          (L): non-reentrant checkpoint stops recomputing
+                          after the last saved tensor, w_down's product;
+                          in backward one a column-split input (2 L) and
+                          lm_head's input: 2 + 5 L with remat, 2 + 4 L without;
+      * all_reduce:data   the token count, the shown loss, the norms'
+                          gradients: 3 (and on replica the same 3, the
+                          gradients in one call);
+      * all_reduce:world  the clip norm's squared shard norms: 1."""
+    L, t1 = cfg.num_layers, seq_len - 1
+    chunks = 1 if not tc.ce_chunk or t1 <= tc.ce_chunk else -(-t1 // tc.ce_chunk)
+    remat = 2 if tc.remat else 1
+    out = {"all_gather:data": 2 + 7 * L * remat, "reduce_scatter:data": 2 + 7 * L,
+           "all_gather:model": chunks * (2 if chunks > 1 else 1),
+           "all_reduce:model": 2 + (5 if tc.remat else 4) * L,
+           "all_reduce:data": 3, "all_reduce:world": 1}
+    if MS.REPLICA_AXIS in axes:
+        out["all_reduce:replica"] = 3
+    return out
 
 
 def _param_shapes(cfg: MistralConfig) -> list:

@@ -15,10 +15,11 @@ receive gradients and AdamW updates.
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
+from usdm_tpu_torch.core import mesh as MS
 from usdm_tpu_torch.core.config import MistralConfig, TrainConfig
 from usdm_tpu_torch.core.tree import tree_leaves
 from usdm_tpu_torch.models import mistral as M
@@ -72,20 +73,27 @@ def count_lora_params(lora: List[dict]) -> int:
     return sum(t.numel() for t in tree_leaves(lora))
 
 
-def make_lora_train_step(cfg: MistralConfig, tc: TrainConfig):
+def make_lora_train_step(cfg: MistralConfig, tc: TrainConfig, mesh: Optional["MS.Mesh"] = None):
     """-> (step, opt); step(base, state, batch) -> {"loss", "grad_norm"}
     with `state` a train/lm.py TrainState whose params are the adapters
     (opt.init(lora) its moments), updated in place.  The base is read, never
-    written: it takes no gradient.  Computes in cfg.dtype."""
+    written: it takes no gradient.  Computes in cfg.dtype.  `mesh`: data
+    parallelism, as usdm_tpu runs LoRA (base and adapters whole on every
+    rank, the batch this rank's rows): the loss is the global one and the
+    adapters' gradients are all-reduced (summed) over the batch axes before
+    the update, so every rank updates alike."""
     opt = make_optimizer(tc)
 
     def step(base: dict, state, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        loss, _ = M.loss_fn(base, cfg, batch["input_ids"], batch["labels"],
-                            batch.get("segment_ids"), batch.get("positions"),
-                            remat=tc.remat, lora=state.params, ce_chunk=tc.ce_chunk)
+        loss, aux = M.loss_fn(base, cfg, batch["input_ids"], batch["labels"],
+                              batch.get("segment_ids"), batch.get("positions"),
+                              remat=tc.remat, lora=state.params, ce_chunk=tc.ce_chunk,
+                              mesh=mesh, replicated=True)
         loss.backward()
+        if mesh is not None:
+            MS.all_reduce_grads(state.params, mesh)
         gnorm = opt.update(state.params, state.opt_state)
         state.step += 1
-        return {"loss": loss.detach(), "grad_norm": gnorm}
+        return {"loss": aux["loss"], "grad_norm": gnorm}
 
     return step, opt

@@ -1,27 +1,34 @@
-"""BigVGAN GAN training on one GPU: a discriminator step, then a generator
-step.
+"""BigVGAN GAN training, on one GPU or data parallel: a discriminator
+step, then a generator step.
 
 Port of usdm_tpu/train/vocoder.py: LSGAN adversarial losses over MPD + MRD,
 feature matching (x2, inside feature_loss) and the full-band mel L1 (x45),
 AdamW(b1 0.8, b2 0.99, weight decay 0.01) with exponential decay for each
 side, f32 throughout.  usdm_tpu jits two data-parallel steps that donate
-the state; here each step is eager on one device and updates the
-parameters and moments in place.  The discriminator step runs the
+the state; here each step is eager and updates the parameters and moments
+in place, on one device or, given a core/mesh.py Mesh, on every rank with
+the state replicated and the batch split over data.  The discriminator step runs the
 generator without autograd; the generator step scores its output with the
 freshly updated discriminators, detached (so their gradients are never
 computed).  Every BigVGAN activation is K3 (ops/fused_act.py), whose
 backward recomputes the plain composition, as usdm_tpu's custom_vjp.
-Multi-GPU data parallelism waits for ROADMAP Queue 1 item 10.
+
+Data parallel: every loss term is a mean over equal-sized per-example
+blocks (the LSGAN terms, feature matching, the mel L1), and every rank
+holds the same number of rows (shard_batch), so the global mean is the mean
+of the ranks' means: each rank's loss is scaled by 1 / ranks, the
+gradients are all-reduced as sums, and the shown losses are all-reduced.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 
 from usdm_tpu_torch.audio.mel import mel_for_config
+from usdm_tpu_torch.core import mesh as MS
 from usdm_tpu_torch.core.config import BigVGANConfig, MelConfig, TrainConfig
 from usdm_tpu_torch.core.tree import tree_map
 from usdm_tpu_torch.models import bigvgan as BV
@@ -99,12 +106,24 @@ def _mel(wav_b1t: torch.Tensor, mc: MelConfig) -> torch.Tensor:
 
 def make_train_steps(cfg: BigVGANConfig, gopt: ClipAdamW, dopt: ClipAdamW,
                      mel_cfg: MelConfig = MelConfig(), resolutions=BV.DEFAULT_RESOLUTIONS,
-                     periods=BV.DEFAULT_PERIODS):
+                     periods=BV.DEFAULT_PERIODS, mesh: Optional["MS.Mesh"] = None):
     """-> (disc_step, gen_step), each (state, batch) -> metrics (device
     tensors, no synchronization), the state updated in place; call disc
     first, then gen (HiFi-GAN's order).  batch: "mel" [B, n_mels, F] and
     "wav" [B, 1, T] on the params' device; `mel_cfg` is the loss mel's
-    (fmax sr/2: data/mel_dataset.py::loss_mel_config)."""
+    (fmax sr/2: data/mel_dataset.py::loss_mel_config).  `mesh`: the batch
+    is this rank's rows; the metrics are the global batch's."""
+    ranks = 1 if mesh is None else mesh.batch_shards
+
+    def finish(loss, params, shown):
+        """Backward of this rank's share of the global mean, the gradients
+        summed over the ranks, the shown values (stacked) averaged."""
+        (loss / ranks).backward()
+        shown = torch.stack([v.detach() for v in shown])
+        if mesh is None:
+            return shown
+        MS.all_reduce_grads(params, mesh)
+        return MS.all_reduce(shown, mesh, mesh.batch_axes) / ranks
 
     def cropped(fake, batch):
         t = min(fake.shape[-1], batch["wav"].shape[-1])
@@ -116,9 +135,9 @@ def make_train_steps(cfg: BigVGANConfig, gopt: ClipAdamW, dopt: ClipAdamW,
         real, fake = cropped(fake, batch)
         y_r, y_g, _, _ = BV.discriminate(state.mpd, state.mrd, resolutions, real, fake, periods)
         loss, _, _ = BV.discriminator_loss(y_r, y_g)
-        loss.backward()
+        shown = finish(loss, state.discs, [loss])
         dopt.update(state.discs, state.disc_opt)
-        return {"disc_loss": loss.detach()}
+        return {"disc_loss": shown[0]}
 
     def gen_step(state: GanTrainState, batch: Dict[str, torch.Tensor]) -> dict:
         fake = BV.forward(state.gen_params, cfg, batch["mel"])
@@ -130,10 +149,9 @@ def make_train_steps(cfg: BigVGANConfig, gopt: ClipAdamW, dopt: ClipAdamW,
         fm = BV.feature_loss(f_r, f_g)
         mel_l1 = torch.mean(torch.abs(_mel(real, mel_cfg) - _mel(fake, mel_cfg)))
         loss = adv + fm + MEL_LOSS_WEIGHT * mel_l1
-        loss.backward()
+        shown = finish(loss, state.gen_params, [adv, fm, mel_l1, loss])
         gopt.update(state.gen_params, state.gen_opt)
         state.step += 1
-        return {"gen_adv": adv.detach(), "gen_fm": fm.detach(), "gen_mel_l1": mel_l1.detach(),
-                "gen_loss": loss.detach()}
+        return dict(zip(("gen_adv", "gen_fm", "gen_mel_l1", "gen_loss"), shown))
 
     return disc_step, gen_step
