@@ -15,7 +15,10 @@ Phases:
      with round_operands=True (P and dS rounded to bf16 where the kernels
      round them; K2 also at a mixed link's chunk rows, each with its own
      start, two fully padded), f32 on the tensor cores (3xTF32), held to
-     1e-4; K4's forward and its
+     1e-4 (K5 f32 at the small f32 train step's attention, the kernels
+     line's shape, at the full-width f32 CFM step's and at d 8, each timed
+     eagerly and from a CUDA graph beside its 3xTF32 bound, its plain
+     version and SDPA's backward); K4's forward and its
      backward kernel at the training shape (eager, from a CUDA graph, and
      the plain autograd backward beside them); K6 at the four 7B projection
      shapes and M 1 / 8 / 16, both routes, eager and from a CUDA graph,
@@ -83,8 +86,9 @@ Phases:
      turn as in phase 4, and one dense turn (use_paged=False) whose every
      decode step is one graph replay launching K6 224 times, its tokens
      the W8A8 paged turn's or each divergence a tie-flip;
-  6. train: one CFM train step of a small Voicebox on the card against the
-     CPU, then the trainer CLI (usdm_tpu_torch.cli.train_voicebox) runs ~10
+  6. train: one f32 CFM train step of a small Voicebox on the card against
+     the CPU (its K5 launches, all on the f32 route, are the kernels line's
+     K5 f32 counts), then the trainer CLI (usdm_tpu_torch.cli.train_voicebox) runs ~10
      full-width steps (VoiceboxConfig(), batch 8 of 16 s crops, bf16 over f32
      masters, per-layer remat) on synthetic noise clips; every kernel of that
      path must have launched (K4's backward kernel too), and 5 steps on one
@@ -232,9 +236,9 @@ Phases:
      weights and the W8A8 Voicebox (Chrome traces to --out-dir); (c) last,
      on an emptied card, K1 at b 32 (page 256, 6 pages a slot, bf16 and
      int8 pools), K6 at M 1 at Dout 6144, 28672 and 42003 (f32 bit for
-     bit), K2/K5 bf16 at GQA 8/2 d 128 T 8,192, K2 bf16 with ALiBi at the
-     estimator's shape and K5's f32 route at the small train step's, each
-     against its plain version with times, then exp_stream_qmv and
+     bit), K2/K5 bf16 at GQA 8/2 d 128 T 8,192 and K2 bf16 with ALiBi at
+     the estimator's shape, each against its plain version with times,
+     then exp_stream_qmv and
      validate_memory_budget's three train steps (measured peak against
      memory_budget).
  17. tp (tensor-parallel serving, engine/tp.py): (a) inside phases 4 and 5,
@@ -326,13 +330,19 @@ KERNELS = {
                     ":44)",
     },
     "flash_attention_bwd_dq": {
-        "source": "usdm_tpu_torch/csrc/flash_attention_bwd_dq_mma.cu (bf16), "
-                  "usdm_tpu_torch/csrc/flash_attention_bwd.cu (f32)",
+        "source": "usdm_tpu_torch/csrc/flash_attention_bwd_dq_mma.cu (bf16)",
         "replaces": "usdm_tpu/ops/flash_attention.py:287",
     },
     "flash_attention_bwd_dkv": {
-        "source": "usdm_tpu_torch/csrc/flash_attention_bwd_dkv_mma.cu (bf16), "
-                  "usdm_tpu_torch/csrc/flash_attention_bwd.cu (f32)",
+        "source": "usdm_tpu_torch/csrc/flash_attention_bwd_dkv_mma.cu (bf16)",
+        "replaces": "usdm_tpu/ops/flash_attention.py:367",
+    },
+    "flash_attention_bwd_dq_f32": {
+        "source": "usdm_tpu_torch/csrc/flash_attention_bwd_dq_tf32.cu (f32, 3xTF32)",
+        "replaces": "usdm_tpu/ops/flash_attention.py:287",
+    },
+    "flash_attention_bwd_dkv_f32": {
+        "source": "usdm_tpu_torch/csrc/flash_attention_bwd_dkv_tf32.cu (f32, 3xTF32)",
         "replaces": "usdm_tpu/ops/flash_attention.py:367",
     },
     "stream_qmv": {
@@ -416,18 +426,19 @@ def _counted() -> dict:
 
 def launch_counts() -> dict:
     """Every wrapper's launch count, by the names of KERNELS ("flash_attention"
-    counts both of K2's routes, "flash_attention_f32" the f32 one alone)."""
-    from usdm_tpu_torch.ops import flash_attention as FL
+    and "flash_attention_bwd_*" count both routes, the "*_f32" keys the f32
+    one alone)."""
     from usdm_tpu_torch.ops import paged_attention as PA
 
     return {**{k: fn.launches for k, fn in _counted().items()},
-            "flash_attention_f32": FL.flash_attention.tf32_launches,
+            **{f"{k}_f32": fn.tf32_launches for k, fn in _flash_wrappers().items()},
             "paged_decode_attention_int8": PA.paged_decode_attention.int8_launches}
 
 
 def _flash_wrappers() -> dict:
     """The three flash-attention wrappers, which also count the launches of
-    their bf16 tensor-core route in `.mma_launches`."""
+    their bf16 route in `.mma_launches` and of their f32 route (3xTF32) in
+    `.tf32_launches`."""
     return {k: fn for k, fn in _counted().items() if k.startswith("flash_attention")}
 
 
@@ -436,14 +447,12 @@ def mma_counts() -> dict:
 
 
 def reset_counts() -> None:
-    from usdm_tpu_torch.ops import flash_attention as FL
     from usdm_tpu_torch.ops import paged_attention as PA
 
     for fn in _counted().values():
         fn.launches = 0
     for fn in _flash_wrappers().values():
-        fn.mma_launches = 0
-    FL.flash_attention.tf32_launches = 0
+        fn.mma_launches = fn.tf32_launches = 0
     PA.paged_decode_attention.int8_launches = 0
 
 
@@ -1319,15 +1328,15 @@ def train_kernel_checks(dev) -> dict:
     log("K5 flash_attention_bwd_dq / flash_attention_bwd_dkv vs flash_attention_bwd_reference "
         "(dq, dk, dv; bf16, the tensor-core route, against the plain version with "
         "round_operands=True: bound 2^-7 * max|want| + 1e-4 per output, both multiply bf16 "
-        "operands, accumulate in f32 and round P and dS at the same places; f32, the CUDA-core "
-        "route: bound 1e-4), on the forward of K2, held against flash_attention_reference "
-        "first (output: same bounds; log-sum-exp 1e-4)")
+        "operands, accumulate in f32 and round P and dS at the same places; f32, 3xTF32 on "
+        "the tensor cores: bound 1e-4), on the forward of K2, held against "
+        "flash_attention_reference first (output: same bounds; log-sum-exp 1e-4)")
     b, t1, h, d = 8, 1379, 16, 64
     # rows as the estimator makes them: int32, contiguous, once per forward
     pos = torch.arange(t1, device=dev, dtype=torch.int32)[None].expand(b, t1).contiguous()
     lens = torch.tensor([1379, 900, 1379, 1200, 640, 1379, 1000, 1301], device=dev)
     seg = torch.where(pos < lens[:, None], 0, -1).to(torch.int32)
-    errs = {"dq": [], "dkv": [], "fwd": [], "fwd32": []}
+    errs = {"dq": [], "dkv": [], "fwd": [], "fwd32": [], "dq32": [], "dkv32": []}
     timing, k5_bounds, k5_ops, library, library_fwd = {}, {}, {}, None, None
 
     def bwd_case(case, q, k, v, do, segs, poss, causal, window, alibi, dtype):
@@ -1353,8 +1362,8 @@ def train_kernel_checks(dev) -> dict:
                 + ", ".join(f"{n} {max_err(gg, ee):.3e}"
                             for n, gg, ee in zip(("dq", "dk", "dv"), got, exact)))
             del exact
-        errs["dq"].append(out[0])
-        errs["dkv"].append(max(out[1:]))
+        errs["dq" if rounded else "dq32"].append(out[0])
+        errs["dkv" if rounded else "dkv32"].append(max(out[1:]))
         return o, lse, want
 
     for dtype in (torch.bfloat16, torch.float32):
@@ -1452,6 +1461,13 @@ def train_kernel_checks(dev) -> dict:
                                          "plain_ms": pm, **k5_bounds["dq"], "library_ms": library}
     results["flash_attention_bwd_dkv"] = {"max_abs_err": max(errs["dkv"]), "ms": km_dkv,
                                           "plain_ms": pm, **k5_bounds["dkv"], "library_ms": library}
+    # K5's f32 route at its cases (the small train step's shape on the
+    # kernels line): its errors join (a)'s f32 ones
+    k5_errs, k5_times = _k5_f32_case(dev, randn)
+    for key, err in (("flash_attention_bwd_dq_f32", max(errs["dq32"])),
+                     ("flash_attention_bwd_dkv_f32", max(errs["dkv32"]))):
+        results[key] = {**k5_times["small train step"][key],
+                        "max_abs_err": max(err, k5_errs[key])}
     # K2 at the training shapes, by route
     results["flash_attention_train_err"] = (max(errs["fwd"]), max(errs["fwd32"]))
     del q, k, v, do
@@ -2946,63 +2962,100 @@ def _flash_estimator_bf16_check(dev, randn) -> tuple:
     return err, times
 
 
+K5_F32_CASES = {  # name: (B, T+1, heads, d, valid rows of each batch row); ALiBi, non-causal
+    "small train step": (8, 400, 4, 32, (400, 301, 400, 251, 400, 400, 121, 400)),
+    "full-width CFM": (8, 1380, 16, 64, (1380, 900, 1380, 1200, 640, 1380, 1000, 1301)),
+    "d 8": (2, 174, 4, 8, (174, 116)),
+}
+
+
+def k5_f32_inputs(dev, randn, name: str) -> tuple:
+    """K5_F32_CASES[name]: (q, k, v, do, seg, pos), rows int32 and
+    contiguous, as the estimator makes them."""
+    import torch
+
+    b, t1, h, d, lens = K5_F32_CASES[name]
+    pos = torch.arange(t1, device=dev, dtype=torch.int32)[None].expand(b, t1).contiguous()
+    seg = torch.where(pos < torch.tensor(lens, device=dev)[:, None], 0, -1).to(torch.int32)
+    q, k, v, do = (randn(b, t1, h, d) for _ in range(4))
+    return q, k, v, do, seg, pos
+
+
 def _k5_f32_case(dev, randn) -> tuple:
-    """K5's f32 route (CUDA cores, csrc/flash_attention_bwd.cu) at the
-    small f32 train step's attention (B 8, T+1 400, 4 heads of d 32, ALiBi,
-    ragged rows) against its plain version (1e-4), with times, its bound
-    (f32 off the tensor cores) and SDPA's backward with the ALiBi + padding
-    bias -> ({dq, dkv} errors, the times)."""
+    """K5's f32 route (3xTF32 on the tensor cores,
+    csrc/flash_attention_bwd_dq_tf32.cu and _dkv_tf32.cu) at K5_F32_CASES: the small f32 train step's attention (the shape on the
+    kernels line), the full-width f32 CFM step's and the tiny models' d 8,
+    each on K2's f32 forward against its plain version (1e-4), with eager and
+    CUDA-graph times of dq, dk/dv and the whole backward, the plain
+    backward's, the bound (3xTF32 operations) and SDPA's backward with the
+    ALiBi + padding bias -> ({kernel: error}, {case: times})."""
     import torch
 
     from usdm_tpu_torch.ops import flash_attention as FL
 
-    b, t1, h, d = 8, 400, 4, 32
-    pos = torch.arange(t1, device=dev, dtype=torch.int32)[None].expand(b, t1).contiguous()
-    lens = torch.tensor([400, 301, 400, 251, 400, 400, 121, 400], device=dev)
-    seg = torch.where(pos < lens[:, None], 0, -1).to(torch.int32)
-    q, k, v, do = (randn(b, t1, h, d) for _ in range(4))
-    o, lse = FL.flash_attention(q, k, v, seg, seg, pos, pos, False, None, alibi=True,
-                                return_lse=True)
-    ref = (q, k, v, o, lse, do, seg, seg, pos, pos, False, None, None, True)
-    got, want = FL.flash_attention_bwd(*ref), FL.flash_attention_bwd_reference(*ref)
-    case = "f32 B=8 T+1=400 H=4 d=32 ALiBi (the small train step)"
-    out = [check("K5", f"{case} {n}", gg, ww, 1e-4)
-           for n, gg, ww in zip(("dq", "dk", "dv"), got, want)]
-    peaks = [ww.abs().max().item() for ww in want]
-    log(f"  K5 [{case}] the plain gradients' peaks (dq, dk, dv): {peaks}")
-    if not min(peaks) > 0:
-        raise AssertionError(f"K5 [{case}]: a zero gradient compares nothing: {peaks}")
-    valid = attn_mask(seg, seg, pos, pos, False, None)
-    pairs = h * int(valid.sum())
-    delta = (do * o).sum(-1).transpose(1, 2).contiguous()
-    args = (q, k, v, do, lse, delta, seg, seg, pos, pos, False, None, None, True)
-    slopes = FL.alibi_slopes_pow2(h).to(dev)[None, :, None, None]
-    dist = (pos[:, None, :, None] - pos[:, None, None, :]).abs().float()
-    bias = torch.where(valid[:, None], -slopes * dist * (pos[:, None, None, :] != 0),
-                       torch.finfo(torch.float32).min)
-    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-    ot = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias)
-    dot = do.transpose(1, 2)
-    ins = nbytes(q, k, v, do, lse, delta, seg, pos)
-    times = {"ms": cuda_ms(lambda: FL.flash_attention_bwd(*ref)),
-             "dq_ms": cuda_ms(lambda: FL.flash_attention_bwd_dq(*args)),
-             "dkv_ms": cuda_ms(lambda: FL.flash_attention_bwd_dkv(*args)),
-             "graph_ms": graph_ms(lambda: FL.flash_attention_bwd(*ref), dev),
-             "plain_ms": cuda_ms(lambda: FL.flash_attention_bwd_reference(*ref)),
-             **least_time(ins + nbytes(q, k, v), 14 * d * pairs, "f32"),
-             "library_ms": cuda_ms(lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,
-                                                               retain_graph=True))}
-    log(f"  K5 [{case}] times: " + json.dumps(times))
-    return {"dq": out[0], "dkv": max(out[1:])}, times
+    errs = {"flash_attention_bwd_dq_f32": 0.0, "flash_attention_bwd_dkv_f32": 0.0}
+    times = {}
+    for name in K5_F32_CASES:
+        q, k, v, do, seg, pos = k5_f32_inputs(dev, randn, name)
+        b, t1, h, d = q.shape
+        o, lse = FL.flash_attention(q, k, v, seg, seg, pos, pos, False, None, alibi=True,
+                                    return_lse=True)
+        ref = (q, k, v, o, lse, do, seg, seg, pos, pos, False, None, None, True)
+        got, want = FL.flash_attention_bwd(*ref), FL.flash_attention_bwd_reference(*ref)
+        case = f"f32 B={b} T+1={t1} H={h} d={d} ALiBi ({name})"
+        out = [check("K5", f"{case} {n}", gg, ww, 1e-4)
+               for n, gg, ww in zip(("dq", "dk", "dv"), got, want)]
+        errs["flash_attention_bwd_dq_f32"] = max(errs["flash_attention_bwd_dq_f32"], out[0])
+        errs["flash_attention_bwd_dkv_f32"] = max(errs["flash_attention_bwd_dkv_f32"],
+                                                  *out[1:])
+        peaks = [ww.abs().max().item() for ww in want]
+        log(f"  K5 [{case}] the plain gradients' peaks (dq, dk, dv): {peaks}")
+        if not min(peaks) > 0:
+            raise AssertionError(f"K5 [{case}]: a zero gradient compares nothing: {peaks}")
+        del got, want
+        valid = attn_mask(seg, seg, pos, pos, False, None)
+        pairs = h * int(valid.sum())
+        delta = (do * o).sum(-1).transpose(1, 2).contiguous()
+        args = (q, k, v, do, lse, delta, seg, seg, pos, pos, False, None, None, True)
+        slopes = FL.alibi_slopes_pow2(h).to(dev)[None, :, None, None]
+        dist = (pos[:, None, :, None] - pos[:, None, None, :]).abs().float()
+        bias = torch.where(valid[:, None], -slopes * dist * (pos[:, None, None, :] != 0),
+                           torch.finfo(torch.float32).min)
+        del dist
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        ot = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias)
+        dot = do.transpose(1, 2)
+        library = cuda_ms(lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True))
+        del qt, kt, vt, ot, bias
+        plain = cuda_ms(lambda: FL.flash_attention_bwd_reference(*ref))
+        ins = nbytes(q, k, v, do, lse, delta, seg, pos)
+        # dq: S = QK^T, dP = dO V^T, dQ = dS K; dk/dv: S, dP, dV = P^T dO,
+        # dK = dS^T Q -- 2 d operations a pair each, three TF32 products each
+        kernels = {"flash_attention_bwd_dq_f32": (FL.flash_attention_bwd_dq, nbytes(q), 6),
+                   "flash_attention_bwd_dkv_f32": (FL.flash_attention_bwd_dkv, nbytes(k, v), 8)}
+        times[name] = {
+            key: {"ms": cuda_ms(lambda fn=fn: fn(*args)),
+                  "graph_ms": graph_ms(lambda fn=fn: [fn(*args) for _ in range(10)], dev) / 10,
+                  "plain_ms": plain, **least_time(ins + outs, ops * d * pairs, "3xtf32"),
+                  "library_ms": library}
+            for key, (fn, outs, ops) in kernels.items()}
+        times[name]["backward"] = {
+            "ms": cuda_ms(lambda: FL.flash_attention_bwd(*ref)),
+            "graph_ms": graph_ms(lambda: [FL.flash_attention_bwd(*ref) for _ in range(10)],
+                                 dev) / 10,
+            **least_time(ins + nbytes(q, k, v), 14 * d * pairs, "3xtf32")}
+        log(f"  K5 [{case}] times (dq, dk/dv, the whole backward with delta; SDPA's backward "
+            f"with the ALiBi + padding bias as library_ms): " + json.dumps(times[name]))
+        del q, k, v, do, o, lse, delta
+    return errs, times
 
 
 def measure_tail_run(dev) -> dict:
     """Phase 16 (c), on an emptied card after phase 12: each kernel at the
     shapes the measuring scripts give it against its plain version (K1 at
     b 32, K6 at the fused and int8-head widths, K2/K5 at GQA 8/2 T 8,192,
-    K2 bf16 with ALiBi at the estimator's shape, K5's f32 route at the
-    small train step's), then exp_stream_qmv and validate_memory_budget as
-    a user runs them."""
+    K2 bf16 with ALiBi at the estimator's shape), then exp_stream_qmv and
+    validate_memory_budget as a user runs them."""
     import torch
 
     from usdm_tpu_torch.scripts import exp_stream_qmv, validate_memory_budget
@@ -3017,13 +3070,12 @@ def measure_tail_run(dev) -> dict:
     k6_err, k6_times = _k6_width_checks(dev)
     flash_errs, flash_times = _flash_gqa82_checks(dev, randn)
     est_err, est_times = _flash_estimator_bf16_check(dev, randn)
-    k5_errs, k5_times = _k5_f32_case(dev, randn)
     _free_device()
     errs = {"paged_decode_attention": k1_errs["bf16"],
             "paged_decode_attention_int8": k1_errs["int8"], "stream_qmv": k6_err,
             "flash_attention": max(flash_errs["fwd"], est_err),
-            "flash_attention_bwd_dq": max(flash_errs["dq"], k5_errs["dq"]),
-            "flash_attention_bwd_dkv": max(flash_errs["dkv"], k5_errs["dkv"])}
+            "flash_attention_bwd_dq": flash_errs["dq"],
+            "flash_attention_bwd_dkv": flash_errs["dkv"]}
     launches = {}
     esq = _measured("exp_stream_qmv", lambda: exp_stream_qmv.main([]), launches)
     _free_device()
@@ -3038,7 +3090,7 @@ def measure_tail_run(dev) -> dict:
     return {"max_abs_err": errs, "launches": launches, "exp_stream_qmv": esq,
             "validate_memory_budget": vmb,
             "times": {"k1_b32": k1_times, "k6_widths": k6_times, "k2_k5_gqa82": flash_times,
-                      "k2_estimator_bf16": est_times, "k5_f32": k5_times}}
+                      "k2_estimator_bf16": est_times}}
 
 
 def user_wav(tmp: str) -> str:
@@ -3649,16 +3701,18 @@ class _RecordGrads:
         return self.opt.update(adam)
 
 
-def small_train_check(dev) -> None:
+def small_train_check(dev) -> dict:
     """One f32 train step of a small Voicebox (H 128, 4 heads of d 32, T+1 =
     400, B 8: the flash and fused-LN gates open on the card, the plain paths
     run on the CPU) from the same init, batch, t and z on both sides: the
     loss, then each parameter's gradient before the optimizer, then the
-    updated parameters."""
+    updated parameters.  -> the card step's launches of K5's f32 route (every
+    K5 launch of the step must take it)."""
     import torch
 
     from usdm_tpu_torch.core.config import CfmTrainConfig, VoiceboxConfig
     from usdm_tpu_torch.core.tree import tree_leaves, tree_map
+    from usdm_tpu_torch.ops import flash_attention as FL
     from usdm_tpu_torch.train import cfm as C
 
     cfg = VoiceboxConfig.tiny().replace(n_tokens=32, n_feats=80, hidden_size=128,
@@ -3677,17 +3731,22 @@ def small_train_check(dev) -> None:
     tz = (rng.uniform(size=b).astype(np.float32),
           rng.standard_normal((b, cfg.n_feats, t)).astype(np.float32))
     counters = _train_counters()
+    bwd = {"flash_attention_bwd_dq_f32": FL.flash_attention_bwd_dq,
+           "flash_attention_bwd_dkv_f32": FL.flash_attention_bwd_dkv}
     out = {}
     for name, state, where in (("card", card, dev), ("cpu", cpu, "cpu")):
         for fn in counters.values():
             fn.launches = 0
+        for fn in bwd.values():
+            fn.tf32_launches = 0
         rec = _RecordGrads(opt)
         step = C.make_train_step(cfg, tc, rec, compute_dtype="float32")
         tb = {k: torch.from_numpy(np.asarray(v)).to(where) for k, v in batch.items()}
         m = step(state, tb, t=torch.from_numpy(tz[0]).to(where), z=torch.from_numpy(tz[1]).to(where))
         out[name] = ({k: float(v) for k, v in m.items()}, [g.cpu() for g in rec.grads],
-                     {k: fn.launches for k, fn in counters.items()})
-    (mc, g_card, counts), (mp, g_cpu, _) = out["card"], out["cpu"]
+                     {k: fn.launches for k, fn in counters.items()},
+                     {k: fn.tf32_launches for k, fn in bwd.items()})
+    (mc, g_card, counts, tf32), (mp, g_cpu, _, _) = out["card"], out["cpu"]
     loss_rel = abs(mc["loss"] - mp["loss"]) / abs(mp["loss"])
     # each leaf's gradient: within 1e-4 of each value plus 1e-4 of the leaf's
     # largest, plus 1e-6 of the largest in the tree for leaves that are zero
@@ -3707,11 +3766,16 @@ def small_train_check(dev) -> None:
     log(f"small train step, card vs CPU (f32): loss {mc['loss']:.6f} vs {mp['loss']:.6f} "
         f"(rel {loss_rel:.2e}, bound 1e-4); gradients of {len(g_cpu)} leaves before the "
         f"optimizer, largest error/bound {ratios[worst]:.3f} (leaf {worst}, must be <= 1); "
-        f"updated params max_abs_err={perr:.3e} (bound {pbound:.2e}), launches {counts}")
+        f"updated params max_abs_err={perr:.3e} (bound {pbound:.2e}), launches {counts}, "
+        f"K5 on the f32 route {tf32}")
     if loss_rel > 1e-4 or ratios[worst] > 1 or perr > pbound:
         raise AssertionError("the small train step differs on the card")
     if not all(counts.values()):
         raise AssertionError(f"a kernel did not run in the small train step: {counts}")
+    if [tf32[k + "_f32"] for k in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")] != [
+            counts["flash_attention_bwd_dq"], counts["flash_attention_bwd_dkv"]]:
+        raise AssertionError(f"K5 left the f32 route in the f32 train step: {tf32} of {counts}")
+    return tf32
 
 
 def _write_train_data(tmp: str, n_items: int = 16, seed: int = 0) -> str:
@@ -3748,7 +3812,7 @@ def train_run(dev, profile: bool, tmp: str, out_dir: str) -> dict:
     from usdm_tpu_torch.data.unit_mel import UnitMelCollate, UnitMelDataset
     from usdm_tpu_torch.train import cfm as C
 
-    small_train_check(dev)
+    small_f32 = small_train_check(dev)
     filelist = _write_train_data(tmp)
     out = os.path.join(tmp, "train_out")
     n_steps, seed = 10, 37
@@ -3777,7 +3841,8 @@ def train_run(dev, profile: bool, tmp: str, out_dir: str) -> dict:
     info = {"steps": len(steps), "wall_s": wall, "step_s": step_s, "median_step_s": med,
             "frames_per_s": frames / med, "loss": [r["train/loss"] for r in steps],
             "grad_norm": [r["train/grad_norm"] for r in steps],
-            "max_memory_allocated_gib": peak, "launches": counts, "mma_launches": mma}
+            "max_memory_allocated_gib": peak, "launches": counts, "mma_launches": mma,
+            "small_f32_launches": small_f32}
     log("full-width CFM training (VoiceboxConfig(), batch 8 x 16 s crops, bf16 over f32, "
         "remat): " + json.dumps(info))
     if len(steps) != n_steps or not np.isfinite(info["loss"]).all():
@@ -5906,9 +5971,11 @@ def _worker_kernels(dev) -> dict:
     """K2's f32 cases (b) and (c) beside one scaled_dot_product_attention
     call on the same f32 operands, K1 at its two timed cases over 32 layer
     regions, K6 at M 1 / 8 / 16 at the four 7B projection shapes, K4's
-    forward and autograd backward at the training shape and K3 at the six
-    BigVGAN stage shapes (f32), through the public wrappers (the same in
-    parent and change): eager and CUDA-graph ms."""
+    forward and autograd backward at the training shape, K3 at the six
+    BigVGAN stage shapes (f32) and K5's f32 route at the small f32 train
+    step's and the full-width f32 CFM step's attention (dq, dk/dv and the
+    whole backward), through the public wrappers (the same in parent and
+    change): eager and CUDA-graph ms."""
     import torch
 
     from usdm_tpu_torch.engine.paged_ops import quant_kv_token
@@ -6012,6 +6079,22 @@ def _worker_kernels(dev) -> dict:
         out[f"k3_{ch}x{tlen}"] = {"ms": cuda_ms(act),
                                   "graph_ms": graph_ms(lambda: [act() for _ in range(10)],
                                                        dev) / 10}
+    for key, name in (("small", "small train step"), ("full", "full-width CFM")):
+        q, k, v, do, seg, pos = k5_f32_inputs(
+            dev, lambda *shape: torch.randn(*shape, generator=gen, device=dev), name)
+        o, lse = FL.flash_attention(q, k, v, seg, seg, pos, pos, False, None, alibi=True,
+                                    return_lse=True)
+        ref = (q, k, v, o, lse, do, seg, seg, pos, pos, False, None, None, True)
+        delta = (do * o).sum(-1).transpose(1, 2).contiguous()
+        args = (q, k, v, do, lse, delta, seg, seg, pos, pos, False, None, None, True)
+        fns = {"dq": lambda: FL.flash_attention_bwd_dq(*args),
+               "dkv": lambda: FL.flash_attention_bwd_dkv(*args),
+               "bwd": lambda: FL.flash_attention_bwd(*ref)}
+        out[f"k5_f32_{key}"] = {
+            **{f"{n}_ms": cuda_ms(fn) for n, fn in fns.items()},
+            **{f"{n}_graph_ms": graph_ms(lambda fn=fn: [fn() for _ in range(10)], dev) / 10
+               for n, fn in fns.items()}}
+        del q, k, v, do, o, lse, delta
     torch.cuda.empty_cache()
     return out
 
@@ -7216,7 +7299,8 @@ def main() -> int:
         log(f"phase time: int8 serving {time.perf_counter() - t_phase:.1f} s")
         torch.distributed.destroy_process_group()  # phase 17 (a)'s one-rank NCCL group
         t_phase = time.perf_counter()
-        train = train_run(dev, args.profile, tmp, args.out_dir)["launches"]
+        train_info = train_run(dev, args.profile, tmp, args.out_dir)
+        train = {**train_info["launches"], **train_info["small_f32_launches"]}
         log(f"phase time: training {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     kres.update(probe_kernel_checks(dev))
@@ -7260,7 +7344,9 @@ def main() -> int:
     launches = {**{k: bf16[k] for k in ("paged_decode_attention", "flash_attention",
                                          "flash_attention_f32", "fused_activation1d")},
                 **{k: train[k] for k in ("add_mask_ln", "add_mask_ln_bwd",
-                                         "flash_attention_bwd_dq", "flash_attention_bwd_dkv")},
+                                         "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+                                         "flash_attention_bwd_dq_f32",
+                                         "flash_attention_bwd_dkv_f32")},
                 "stream_qmv": a["stream_qmv"] + b["stream_qmv"] + spec_k6,
                 "paged_decode_attention_int8": b["paged_decode_attention_int8"],
                 **{k: probes[k] for k in ("mv_io_bf16", "mv_io_i8", "qmv4", "stream_probe")}}

@@ -435,19 +435,17 @@ def test_flash_mma_fully_masked_rows(cuda):
 
 @pytest.mark.cuda
 def test_flash_routes_by_dtype_and_counts(cuda):
-    """bf16 calls count in launches and mma_launches; f32 calls in launches,
-    the forward's also in flash_attention.tf32_launches (its 3xTF32 route),
-    and still meet 1e-4 against the plain version."""
+    """bf16 calls count in launches and mma_launches; f32 calls in launches
+    and tf32_launches (the 3xTF32 route of the forward, dq and dk/dv), and
+    still meet 1e-4 against the plain version."""
     fns = (FL.flash_attention, FL.flash_attention_bwd_dq, FL.flash_attention_bwd_dkv)
     for dtype, mma in ((torch.bfloat16, 1), (torch.float32, 0)):
         q, k, v, do, rows, flags = _mma_case(cuda, "voicebox d64 alibi ragged", dtype)
-        before = [(f.launches, f.mma_launches) for f in fns]
-        tf32 = FL.flash_attention.tf32_launches
+        before = [(f.launches, f.mma_launches, f.tf32_launches) for f in fns]
         o, lse = FL.flash_attention(q, k, v, *rows, return_lse=True, **flags)
         got = FL.flash_attention_bwd(q, k, v, o, lse, do, *rows, False, None, None, True)
-        assert [(f.launches, f.mma_launches) for f in fns] == [(a + 1, b + mma)
-                                                               for a, b in before]
-        assert FL.flash_attention.tf32_launches == tf32 + (dtype == torch.float32)
+        assert [(f.launches, f.mma_launches, f.tf32_launches) for f in fns] == [
+            (a + 1, b + mma, c + 1 - mma) for a, b, c in before]
         if dtype == torch.float32:
             want_o, want_lse = FL.flash_attention_reference(q, k, v, *rows, **flags)
             want = FL.flash_attention_bwd_reference(q, k, v, o, lse, do, *rows, False, None,
@@ -513,6 +511,86 @@ def test_flash_tf32_fully_masked_rows(cuda):
     want, want_lse = FL.flash_attention_reference(q, k, v, *rows, **flags)
     assert (o - want).abs().max().item() <= 1e-4
     assert (lse - want_lse).abs().max().item() <= 1e-4
+
+
+# ---------------------------------------------------- K5 f32 route (3xTF32)
+def _tf32_bwd(q, k, v, do, rows, flags):
+    """The f32 plain forward's output and log-sum-exp, and the backward's
+    arguments on them."""
+    o, lse = FL.flash_attention_reference(q, k, v, *rows, **flags)
+    return (q, k, v, o, lse, do, *rows, flags["causal"], flags["sliding_window"], None,
+            flags["alibi"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(MMA_CASES))
+def test_flash_bwd_tf32_route_matches_plain(cuda, name):
+    """The f32 backward on the tensor cores (3xTF32) at head dims 8..128 (d 8
+    and 16 at width 32, d 80 at 96), ragged rows, GQA, window, packed
+    segments, ALiBi and a prefill chunk with Tq != Tk: dq, dk, dv within 1e-4
+    of the f32 plain backward and of the f64 one on the same saved forward;
+    one tf32 launch each."""
+    args = _tf32_bwd(*_mma_case(cuda, name, torch.float32))
+    fns = (FL.flash_attention_bwd_dq, FL.flash_attention_bwd_dkv)
+    before = [(f.tf32_launches, f.mma_launches) for f in fns]
+    got = FL.flash_attention_bwd(*args)
+    assert [(f.tf32_launches, f.mma_launches) for f in fns] == [(a + 1, b) for a, b in before]
+    want = FL.flash_attention_bwd_reference(*args)
+    exact = FL.flash_attention_bwd_reference(*[x.double() for x in args[:6]], *args[6:])
+    for gg, ww, ee in zip(got, want, exact):
+        assert gg.dtype == torch.float32 and torch.isfinite(gg).all()
+        assert (gg - ww).abs().max().item() <= 1e-4
+        assert (gg.double() - ee).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_flash_bwd_tf32_route_beats_one_tf32_product(cuda):
+    """Against the f64 plain backward, each of dq, dk and dv errs by at most
+    1/20 of what one TF32 product per product gives (its plain emulation,
+    which misses 1e-4), and the 3xTF32 emulation is within 1e-4: the kernels
+    do take three."""
+    args = _tf32_bwd(*_mma_case(cuda, "voicebox d64 alibi ragged", torch.float32))
+    got = FL.flash_attention_bwd(*args)
+    exact = FL.flash_attention_bwd_reference(*[x.double() for x in args[:6]], *args[6:])
+    one = FL.flash_attention_bwd_3xtf32_reference(*args, terms=1)
+    three = FL.flash_attention_bwd_3xtf32_reference(*args)
+    for gg, g1, g3, ee in zip(got, one, three, exact):
+        err, err1 = ((x.double() - ee).abs().max().item() for x in (gg, g1))
+        assert err1 > 1e-4 and err <= err1 / 20
+        assert (g3.double() - ee).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_flash_bwd_tf32_fully_masked_rows(cuda):
+    """f32: query rows with no valid key (padding, and valid rows of a
+    segment with no key) get zero dq; a whole key tile no query attends gets
+    zero dk and dv; the rest within 1e-4 of the plain backward."""
+    q, k, v, do, (qseg, kseg, qpos, kpos), flags = _mma_case(cuda, "voicebox d64 alibi ragged",
+                                                            torch.float32)
+    qseg = qseg.clone()
+    qseg[0, 10:20] = 7
+    kseg = kseg.clone()
+    kseg[0, 100:164] = 9
+    args = _tf32_bwd(q, k, v, do, (qseg, kseg, qpos, kpos), flags)
+    dq, dk, dv = got = FL.flash_attention_bwd(*args)
+    dead_q = torch.zeros_like(qseg, dtype=torch.bool)
+    dead_q[0, 10:20] = True
+    dead_q |= qseg < 0
+    assert dead_q[1].any() and (dq[dead_q] == 0).all()
+    assert (dk[0, 100:164] == 0).all() and (dv[0, 100:164] == 0).all()
+    assert (dk[kseg < 0] == 0).all() and (dv[kseg < 0] == 0).all()
+    want = FL.flash_attention_bwd_reference(*args)
+    assert all((gg - ww).abs().max().item() <= 1e-4 for gg, ww in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_flash_bwd_tf32_repeats_bit_for_bit(cuda):
+    """Two runs of the f32 backward give the same bits: dk and dv are
+    written once per block, with no atomics."""
+    args = _tf32_bwd(*_mma_case(cuda, "lm gqa d128 causal window segments", torch.float32))
+    first = FL.flash_attention_bwd(*args)
+    again = FL.flash_attention_bwd(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 @pytest.mark.cuda

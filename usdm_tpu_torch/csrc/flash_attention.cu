@@ -63,107 +63,16 @@
 //     shape (chip_smoke.py case (c)) against 0.54-0.55 ms.
 // Head dims (multiples of 8) that are not 32, 64, 96 or 128 run at the next
 // of those widths with zero-filled columns (XLS-R's d 80 at 96, the tiny
-// models' d 8 and 16 at 32), as the bf16 route does.
+// models' d 8 and 16 at 32), as the bf16 route does.  The splits, the
+// products, the swizzles and the tile loader are in csrc/tf32.cuh, shared
+// with the f32 backward.
 
-#include "mma.cuh"
+#include "tf32.cuh"
 
 namespace usdm {
 namespace {
 
 using namespace mma;
-
-// cvt.rna.tf32.f32's result in two integer operations: half a TF32 ulp added
-// to the magnitude bits, the 13 bits below TF32's mantissa cleared (round to
-// nearest, ties away from zero; finite x)
-static __device__ __forceinline__ uint32_t tf32_rna(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x = big + small to ~2^-22 of |x|; x - big is exact in f32
-static __device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
-  big = tf32_rna(x);
-  small = tf32_rna(x - __uint_as_float(big));
-}
-
-// an A operand (16 x 8) in its big and small halves
-struct SplitA {
-  uint32_t big[4], small[4];
-  __device__ __forceinline__ SplitA(float a0, float a1, float a2, float a3) {
-    split_tf32(a0, big[0], small[0]);
-    split_tf32(a1, big[1], small[1]);
-    split_tf32(a2, big[2], small[2]);
-    split_tf32(a3, big[3], small[3]);
-  }
-};
-
-// c (16 x 8, f32) += a (16 x 8, row-major) . b (8 x 8, column-major), tf32
-static __device__ __forceinline__ void mma_1688(float (&c)[4], const uint32_t (&a)[4],
-                                                uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a . b in 3xTF32, the small terms first; b's two f32 elements are
-// split here
-static __device__ __forceinline__ void mma_3xtf32(float (&c)[4], const SplitA& a, float b0,
-                                                  float b1) {
-  uint32_t bb0, bs0, bb1, bs1;
-  split_tf32(b0, bb0, bs0);
-  split_tf32(b1, bb1, bs1);
-  mma_1688(c, a.small, bb0, bb1);
-  mma_1688(c, a.big, bs0, bs1);
-  mma_1688(c, a.big, bb0, bb1);
-}
-
-// the 16-byte chunk of row r that holds chunk c of the row, in the K tile
-// (SWZ 0) and the V tile (SWZ 1); both stay inside c's group of 8 chunks
-template <int SWZ>
-static __device__ __forceinline__ int swizzle(int c, int r) {
-  return SWZ == 0 ? c ^ ((r & 1) << 2) : c ^ (r & 6);
-}
-
-// Loads 64-row tiles of one strided [B, T, H, d] f32 operand into unpadded,
-// swizzled [64][D] shared-memory tiles by 16-byte cp.async, as mma.cuh's
-// TileLoader does for bf16: a row has kSlots 4-float slots (the power of two
-// at or above D / 4; those past D / 4 idle), thread i takes slot i % kSlots of
-// rows i / kSlots + j * kRowsPerPass.  Rows past t_len and columns past d are
-// zero-filled.  The caller commits the group.
-template <int D, int SWZ>
-struct F32Loader {
-  static constexpr int kSlots = D <= 32 ? 8 : D <= 64 ? 16 : 32;
-  static constexpr int kRowsPerPass = kThreads / kSlots;
-  static constexpr int kPasses = kTile / kRowsPerPass;
-
-  const float* base;   // a valid address for the copies that read nothing
-  const float* first;  // this thread's slot in row (i / kSlots) of the operand's row 0
-  long long stride_t;
-  int row, slot;
-  bool col_ok;
-
-  __device__ __forceinline__ F32Loader(const float* src, long long stride, int d)
-      : base(src), stride_t(stride) {
-    slot = threadIdx.x % kSlots;
-    row = threadIdx.x / kSlots;
-    col_ok = slot * 4 < d;
-    first = src + row * stride + slot * 4;
-  }
-
-  __device__ __forceinline__ void load(uint32_t tile, int t0, int t_len) const {
-    if (slot * 4 >= D) return;  // an idle slot (D 96: 8 of 32)
-    const float* p = first + t0 * stride_t;
-    const int rows_left = t_len - t0 - row;
-#pragma unroll
-    for (int j = 0; j < kPasses; ++j) {
-      const int r = row + j * kRowsPerPass;
-      const bool ok = col_ok && j * kRowsPerPass < rows_left;
-      cp_async16(tile + (uint32_t)(r * D + swizzle<SWZ>(slot, r) * 4) * 4, ok ? p : base, ok);
-      p += kRowsPerPass * stride_t;
-    }
-  }
-};
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)

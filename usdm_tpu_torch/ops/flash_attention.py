@@ -22,13 +22,13 @@ The kernels have one route per dtype, chosen inside the C entry points:
   them, as the Pallas kernels do; `round_operands=True` makes the plain
   versions round at the same places.  Launches of this route are also
   counted in `.mma_launches`.
-- f32: the forward on the tensor cores in 3xTF32 (csrc/flash_attention.cu):
+- f32: the tensor cores in 3xTF32, forward (csrc/flash_attention.cu) and
+  backward (csrc/flash_attention_bwd.cu, both built from csrc/tf32.cuh):
   each f32 operand splits into two TF32 values (`tf32_round`) and a product
   is three TF32 products, within ~2^-22 of the f32 product, as the Pallas
-  kernel's Precision.HIGHEST asks; `flash_attention_3xtf32_reference`
-  emulates it.  Its launches are also counted in `flash_attention.tf32_launches`.
-  The backward stays on the CUDA cores (csrc/flash_attention_bwd.cu) with
-  full f32 products.
+  kernels' Precision.HIGHEST asks; `flash_attention_3xtf32_reference` and
+  `flash_attention_bwd_3xtf32_reference` emulate the two.  Launches of this
+  route are also counted in `.tf32_launches`.
 
 The tensor-core kernels load operands by 16-byte cp.async, so every row
 must start on a 16-byte boundary; a view that does not is copied first.
@@ -191,47 +191,86 @@ def flash_attention_bwd_reference(
     """Plain backward with the kernels' semantics -> (dq, dk, dv) in the
     layouts and dtypes of q, k, v.  Port of usdm_tpu's `_bwd_reference`:
     recompute P = exp(S - lse) per block of BWD_BLOCK_K keys,
-    dS = P * (dP - rowsum(dO * O)) * scale, f32 math throughout; with
-    `round_operands` (and operands narrower than f32) P is rounded to the
-    operands' dtype before P^T.dO and dS before dS.K and dS^T.Q, as the
-    Pallas kernels and the tensor-core route do (dS itself is made from the
-    unrounded P)."""
+    dS = P * (dP - rowsum(dO * O)) * scale, f32 math throughout (f64 for f64
+    operands); with `round_operands` (and operands narrower than f32) P is
+    rounded to the operands' dtype before P^T.dO and dS before dS.K and
+    dS^T.Q, as the Pallas kernels and the tensor-core route do (dS itself is
+    made from the unrounded P)."""
+    return _backward(q, k, v, o, lse, do, q_segment_ids, kv_segment_ids, q_positions,
+                     kv_positions, causal, sliding_window, scale, alibi, round_operands,
+                     torch.einsum)
+
+
+def _backward(q, k, v, o, lse, do, q_segment_ids, kv_segment_ids, q_positions, kv_positions,
+              causal, sliding_window, scale, alibi, round_operands, product):
+    """The plain backward, its five products (S, dP, dQ, dK, dV) taken by
+    product(eq, a, b)."""
+    ct = torch.float64 if q.dtype == torch.float64 else torch.float32
     b, tq, h, d = q.shape
     tk, hkv = k.shape[1], k.shape[2]
     g = h // hkv
     scale = d**-0.5 if scale is None else scale
-    qf = q.float().reshape(b, tq, hkv, g, d)
-    go = do.float().reshape(b, tq, hkv, g, d)
-    delta = (go * o.float().reshape(b, tq, hkv, g, d)).sum(-1).permute(0, 2, 3, 1)
-    lse_g = lse.float().reshape(b, hkv, g, tq)[..., None]
+    qf = q.to(ct).reshape(b, tq, hkv, g, d)
+    go = do.to(ct).reshape(b, tq, hkv, g, d)
+    delta = (go * o.to(ct).reshape(b, tq, hkv, g, d)).sum(-1).permute(0, 2, 3, 1)
+    lse_g = lse.to(ct).reshape(b, hkv, g, tq)[..., None]
     qp = q_positions.long()[:, None, None, :, None]
     qs = q_segment_ids.long()[:, None, None, :, None]
-    slope = alibi_slopes_pow2(h).to(q.device).reshape(1, hkv, g, 1, 1)
+    slope = alibi_slopes_pow2(h).to(q.device, ct).reshape(1, hkv, g, 1, 1)
     dq = torch.zeros_like(qf)
     dks, dvs = [], []
     for k0 in range(0, tk, BWD_BLOCK_K):
         blk = slice(k0, k0 + BWD_BLOCK_K)
-        ks, vs = k[:, blk].float(), v[:, blk].float()
+        ks, vs = k[:, blk].to(ct), v[:, blk].to(ct)
         kp = kv_positions[:, blk].long()[:, None, None, None, :]
         ksg = kv_segment_ids[:, blk].long()[:, None, None, None, :]
-        s = torch.einsum("bqhgd,bkhd->bhgqk", qf, ks) * scale
+        s = product("bqhgd,bkhd->bhgqk", qf, ks) * scale
         if alibi:
-            s = s - slope * (qp - kp).abs().float() * (kp != 0).float()
+            s = s - slope * (qp - kp).abs().to(ct) * (kp != 0).to(ct)
         mask = (qs == ksg) & (qs >= 0)
         if causal:
             mask = mask & (qp >= kp)
         if sliding_window is not None:
             mask = mask & (qp - kp <= sliding_window)
         p = torch.where(mask, torch.exp(s - lse_g), 0.0)
-        dp = torch.einsum("bqhgd,bkhd->bhgqk", go, vs)
+        dp = product("bqhgd,bkhd->bhgqk", go, vs)
         ds = p * (dp - delta[..., None]) * scale
         if round_operands and q.dtype != torch.float32:
             p, ds = p.to(q.dtype).float(), ds.to(q.dtype).float()
-        dq += torch.einsum("bhgqk,bkhd->bqhgd", ds, ks)
-        dks.append(torch.einsum("bhgqk,bqhgd->bkhd", ds, qf))
-        dvs.append(torch.einsum("bhgqk,bqhgd->bkhd", p, go))
+        dq += product("bhgqk,bkhd->bqhgd", ds, ks)
+        dks.append(product("bhgqk,bqhgd->bkhd", ds, qf))
+        dvs.append(product("bhgqk,bqhgd->bkhd", p, go))
     return (dq.reshape(b, tq, h, d).to(q.dtype), torch.cat(dks, 1).to(k.dtype),
             torch.cat(dvs, 1).to(v.dtype))
+
+
+def flash_attention_bwd_3xtf32_reference(
+    q: torch.Tensor,  # [B, Tq, H, d] f32
+    k: torch.Tensor,  # [B, Tk, Hkv, d]
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    q_segment_ids: torch.Tensor,
+    kv_segment_ids: torch.Tensor,
+    q_positions: torch.Tensor,
+    kv_positions: torch.Tensor,
+    causal: bool = True,
+    sliding_window: Optional[int] = None,
+    scale: Optional[float] = None,
+    alibi: bool = False,
+    terms: int = 3,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The f32 backward route's arithmetic in plain PyTorch, for the tests
+    (no path calls it): `flash_attention_bwd_reference` with its five
+    products taken from TF32 operands, `terms` 3 as the kernels do (3xTF32),
+    1 as a single TF32 product would; P and dS are split after they are
+    formed in f32, where the kernels split them."""
+    if terms not in (1, 3):
+        raise ValueError(f"terms must be 1 or 3, got {terms}")
+    return _backward(q, k, v, o, lse, do, q_segment_ids, kv_segment_ids, q_positions,
+                     kv_positions, causal, sliding_window, scale, alibi, False,
+                     lambda eq, a, b: _tf32_product(eq, a, b, terms))
 
 
 class _Flash(torch.autograd.Function):
@@ -354,6 +393,8 @@ def _count(fn, dtype) -> None:
     fn.launches += 1
     if dtype == torch.bfloat16:
         fn.mma_launches += 1
+    else:
+        fn.tf32_launches += 1
 
 
 def _rows(q_seg, kv_seg, q_pos, kv_pos, b, tq, tk):
@@ -383,8 +424,6 @@ def _launch(q, k, v, q_seg, kv_seg, q_pos, kv_pos, causal, window, scale, alibi)
              _build.DTYPE_CODES[q.dtype], _build.stream_ptr(q.device))
     _build.check(err, name)
     _count(flash_attention, q.dtype)
-    if q.dtype == torch.float32:
-        flash_attention.tf32_launches += 1
     return o, lse
 
 
@@ -438,6 +477,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, q_seg, kv_seg, q_pos, kv_pos
 
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dq.mma_launches = 0
+flash_attention_bwd_dq.tf32_launches = 0
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, q_seg, kv_seg, q_pos, kv_pos,
@@ -466,6 +506,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, q_seg, kv_seg, q_pos, kv_po
 
 flash_attention_bwd_dkv.launches = 0
 flash_attention_bwd_dkv.mma_launches = 0
+flash_attention_bwd_dkv.tf32_launches = 0
 
 
 def mma_tile_products(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
